@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — serving as a task farm — on ``cuda:0`` and
-holds every hand-written kernel of that path against its plain PyTorch
-version.  Phases, in order; any failure raises and exits non-zero:
+Drives the port's main paths — serving as a task farm, and training in
+sync and in farm mode — on ``cuda:0`` and holds every hand-written kernel
+of those paths against its plain PyTorch version.  Phases, in order; any
+failure raises and exits non-zero:
 
 1. build the CUDA kernels from this checkout's sources (one ``nvcc`` per
    source, all started together) and print the card's name and power limit;
@@ -21,18 +22,35 @@ version.  Phases, in order; any failure raises and exits non-zero:
    counts are zeroed just before and read just after;
 4. one prefill and one decode step at full width through the kernels and
    through the plain versions, with the same weights, on several prompt
-   batches.
+   batches;
+5. the flash-backward kernels (dq, then dk/dv) against the plain
+   backward at the training shapes (B=4, H=16, K=8, D=128, S=512) and at
+   a ragged S=13, in bf16 and fp32; dk/dv determinism; each kernel, the
+   plain backward and PyTorch's SDPA backward timed at the training
+   shapes in bf16;
+6. sync training of full-width, full-depth qwen3-1.7B (``Trainer``, 4
+   AdamW steps on MarkovDataset batches of 4 x 512, fp32 moments), the
+   launch counts zeroed just before and read just after, one profiled
+   step, and a checkpoint saved and restored into a fresh state;
+7. one full-width training step's loss and gradients through the
+   kernels and through the plain versions, same weights, same batch, in
+   bf16 (the trained weights) and in fp32 (fresh fp32 weights);
+8. farm-mode training (``LocalSGDTrainer``) at full width with depth cut
+   to 8 layers on the 2 services: one round of 4 tasks, then one more with
+   a service failing after one task.
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event
 times on this card, averaged over repeated launches without flushing the
-50 MB L2 cache (the serve path finds its inputs freshly written).
+50 MB L2 cache (the serve and training paths find their inputs freshly
+written).
 """
 
 from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -67,6 +85,27 @@ RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
 FULL_WIDTH_BATCHES = 8
 FULL_WIDTH_MAX_ERR = 0.09
 FULL_WIDTH_MEAN_ERR = 0.0125
+# Backward kernels vs the plain backward, element by element:
+# |got - ref| <= BWD_ATOL + rtol * |ref|, rtol as above.  Each gradient
+# element is an fp32 sum of up to S * G = 1024 products whose terms reach
+# ~10 (dp = dO.V over D=128 unit-variance pairs), summed in another order
+# than the plain version's einsums: a random walk of 1024 roundings of
+# 2^-24 * 10 is ~2e-5, so fp32 outputs agree to BWD_ATOL = 1e-4; a bf16
+# output may round the other way, one ulp, as for the forward.
+BWD_ATOL = 1e-4
+# Training path (phases 6-8)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 4
+FARM_LAYERS, FARM_SHARDS, FARM_INNER, FARM_BATCH = 8, 4, 2, 2
+# Full-width training step, kernels vs plain versions (phase 7): |dloss|
+# and, per parameter group, ||g_kernels - g_plain|| / ||g_plain||, in
+# bf16 (the trained config) and in fp32 (the same config with fp32
+# weights and activations, where only summation order differs).  bf16:
+# from the first reading on an H100, |dloss| 5.4e-4 and a largest
+# relative difference of 2.0e-2 (one-ulp flips of bf16 activations and
+# gradients through 28 layers; see PERF.md).  fp32, from the first
+# reading: |dloss| 0 and at most 5.3e-6, which shows the bf16 gap is
+# rounding, not the kernels.
+TRAIN_LIMITS = {torch.bfloat16: (1e-3, 3e-2), torch.float32: (1e-5, 1e-5)}
 
 
 def say(*a):
@@ -93,14 +132,14 @@ def randn(shape, dtype, seed):
     return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
 
-def check(name, got, ref, rtol) -> float:
+def check(name, got, ref, rtol, atol=ATOL) -> float:
     """Holds ``got`` to ``ref`` element by element; returns the largest
     absolute difference."""
     diff = (got.float() - ref.float()).abs()
-    lim = ATOL + rtol * ref.float().abs()
+    lim = atol + rtol * ref.float().abs()
     err = diff.max().item()
     worst = (diff / lim).max().item()
-    say(f"  {name}: max_abs_err {err:.3e}, largest |err| / ({ATOL:g} + "
+    say(f"  {name}: max_abs_err {err:.3e}, largest |err| / ({atol:g} + "
         f"{rtol:g} |ref|) {worst:.3f} (limit 1)")
     if not worst <= 1.0:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
@@ -137,6 +176,11 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def causal_pairs(B, H, Sq, Skv) -> int:
+    """Visible (q, k) pairs under the top-left causal mask."""
+    return B * H * sum(min(i + 1, Skv) for i in range(Sq))
+
+
 def kernel_phase(flash, decode):
     """Phase 2: kernels vs plain versions; times at the serve shapes."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
@@ -171,15 +215,15 @@ def kernel_phase(flash, decode):
 
     q, k, v, qd, kc, vc, ci = serve_inputs
     qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
-    causal_pairs = B * H * sum(min(i + 1, k.shape[1]) for i in range(q.shape[1]))
     out = torch.empty_like(q)
     lse = torch.empty((B, H, q.shape[1]), device="cuda")
     fl = dict(
         ms=cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, causal=True)),
         plain_ms=cuda_ms(lambda: flash.flash_attention_plain(q, k, v, causal=True)),
         library_ms=cuda_ms(lambda: sdpa(qT, kT, vT, is_causal=True, enable_gqa=True)))
-    fl["bound_ms"], fl["bound_by"] = bound(4 * D * causal_pairs,
-                                           nbytes(q, k, v, out, lse), q.dtype)
+    fl["bound_ms"], fl["bound_by"] = bound(
+        4 * D * causal_pairs(B, H, q.shape[1], k.shape[1]),
+        nbytes(q, k, v, out, lse), q.dtype)
     n = ci + 1
     mask = (torch.arange(kc.shape[1], device="cuda") <= ci).view(1, 1, 1, -1)
     qdT, kcT, vcT = (t.transpose(1, 2) for t in (qd, kc, vc))
@@ -265,6 +309,218 @@ def full_width_phase(api, params, cfg, dev, plain_ops):
             if not (err <= FULL_WIDTH_MAX_ERR and mean <= FULL_WIDTH_MEAN_ERR):
                 raise AssertionError(f"batch {i} {name}: full-width logits "
                                      "through the kernels disagree")
+
+
+def backward_phase(flash):
+    """Phase 5: the backward kernels vs the plain backward; times at the
+    training shapes."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    errs = {"dq": 0.0, "dkv": 0.0}
+    B, H, K, D = TRAIN_BATCH, 16, 8, 128
+    for label, S in (("train", TRAIN_SEQ), ("ragged", 13)):
+        for dt in (torch.bfloat16, torch.float32):
+            q = randn((B, S, H, D), dt, 21)
+            k = randn((B, S, K, D), dt, 22)
+            v = randn((B, S, K, D), dt, 23)
+            g = randn((B, S, H, D), dt, 24)
+            out, lse = flash.flash_attention_fwd(q, k, v, causal=True)
+            got = flash.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+            ref = flash.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=True)
+            tag = f"{label} {str(dt)[6:]} S={S}"
+            for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+                key = "dq" if name == "dq" else "dkv"
+                errs[key] = max(errs[key], check(f"{name} {tag}", a, b, RTOL[dt],
+                                                 BWD_ATOL))
+            again = flash.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            say(f"  dq, dk, dv {tag}: two launches bit-identical: {same}")
+            if not same:
+                raise AssertionError(f"{tag}: the backward is not deterministic")
+            if (label, dt) == ("train", torch.bfloat16):
+                inputs = (q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+
+    q, k, v, out, lse, g = inputs
+    dq, dvec = flash.bwd_dq_launch(q, k, v, out, lse, g, causal=True)
+    dk, dv = flash.bwd_dkv_launch(q, k, v, g, lse, dvec, causal=True)
+    plain_ms = cuda_ms(lambda: flash.flash_attention_bwd_plain(
+        q, k, v, out, lse, g, causal=True))
+    qT, kT, vT = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    gT = g.transpose(1, 2)
+
+    def lib_fwd():  # with grad-enabled inputs: the backend autograd uses
+        sdpa(qT, kT, vT, is_causal=True, enable_gqa=True)
+
+    def lib_fwd_bwd():
+        o = sdpa(qT, kT, vT, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(o, (qT, kT, vT), gT)
+
+    library_ms = max(cuda_ms(lib_fwd_bwd) - cuda_ms(lib_fwd), 0.0)
+    pairs = causal_pairs(B, H, TRAIN_SEQ, TRAIN_SEQ)
+    rows = {
+        "dq": dict(ms=cuda_ms(lambda: flash.bwd_dq_launch(
+            q, k, v, out, lse, g, causal=True)), plain_ms=plain_ms,
+            library_ms=library_ms),
+        "dkv": dict(ms=cuda_ms(lambda: flash.bwd_dkv_launch(
+            q, k, v, g, lse, dvec, causal=True)), plain_ms=plain_ms,
+            library_ms=library_ms)}
+    rows["dq"]["bound_ms"], rows["dq"]["bound_by"] = bound(
+        6 * D * pairs, nbytes(q, k, v, out, g, lse, dq, dvec), q.dtype)
+    rows["dkv"]["bound_ms"], rows["dkv"]["bound_by"] = bound(
+        8 * D * pairs, nbytes(q, k, v, g, lse, dvec, dk, dv), q.dtype)
+    for name, r in rows.items():
+        say(f"  {name} at training shapes: kernel {r['ms']:.4f} ms, plain "
+            f"backward (dq, dk, dv) {r['plain_ms']:.4f} ms, library backward "
+            f"(SDPA fwd+bwd - fwd) {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return errs, rows
+
+
+def group_of(name: str) -> str:
+    """Parameter group: the name without its layer index."""
+    parts = name.split(".")
+    return ".".join(parts[2:]) if parts[0] == "blocks" else name
+
+
+def sync_training_phase(api, params, dev, kernels):
+    """Phase 6: full-width sync training; returns (launches, state)."""
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.data import MarkovDataset
+    from repro_torch.runtime.train_loop import (TrainConfig, Trainer,
+                                                make_train_state)
+
+    cfg = api.cfg
+    tc = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=100, seed=SEED)
+    ds = MarkovDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    state = make_train_state(api, tc, params=params)
+    trainer = Trainer(api, tc, ds, state=state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    logs = trainer.run(TRAIN_STEPS)
+    launches = {kern.name: kern.launches for kern in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_s = [m["step_time_s"] for m in logs]
+    med = float(np.median(step_s))
+    say(f"  {cfg.name}: {cfg.n_layers} layers, {TRAIN_STEPS} AdamW steps "
+        f"({cfg.opt_state_dtype} moments) on batches of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens")
+    losses = ", ".join(f"{m['loss']:.4f}" for m in logs)
+    norms = ", ".join(f"{m['grad_norm']:.3f}" for m in logs)
+    say(f"  losses {losses}; grad norms {norms}")
+    steps = ", ".join(f"{t * 1e3:.1f}" for t in step_s)
+    say(f"  step time median {med * 1e3:.1f} ms (steps {steps}), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / med:.0f} tok/s; peak memory {peak:.2f} GB")
+    say(f"  launches on the training path: {launches}")
+    if not all(np.isfinite(m["loss"]) for m in logs):
+        raise AssertionError("non-finite training loss")
+    for name in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[name] < cfg.n_layers * TRAIN_STEPS:
+            raise AssertionError(f"{name}: {launches[name]} launches, fewer "
+                                 "than training needs")
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(99).items()}
+    profile_window("training step", lambda i: trainer.train_step(state, batch), 1)
+
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    save(str(ckpt), TRAIN_STEPS, state)
+    t_save = time.perf_counter() - t0
+    fresh = make_train_state(api, TrainConfig(seed=SEED + 1), device=dev)
+    t0 = time.perf_counter()
+    restore(str(ckpt), TRAIN_STEPS, fresh)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file()) / 1e9
+    same = all(torch.equal(a, b) for a, b in zip(state["params"].parameters(),
+                                                 fresh["params"].parameters()))
+    same_opt = all(torch.equal(state["opt"][m][k], fresh["opt"][m][k])
+                   for m in ("m", "v") for k in state["opt"][m])
+    say(f"  checkpoint: {size:.2f} GB saved in {t_save:.1f} s, restored into a "
+        f"fresh state in {t_restore:.1f} s; parameters bit-identical: {same}, "
+        f"moments bit-identical: {same_opt}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if not (same and same_opt):
+        raise AssertionError("checkpoint restore is not bit-identical")
+    del fresh
+    return launches, state
+
+
+def train_step_agreement(api, model, dev, plain_ops):
+    """One training step's loss and gradients, kernels vs plain versions,
+    held to ``TRAIN_LIMITS`` for the model's dtype."""
+    from repro_torch.data import MarkovDataset
+    from repro_torch.runtime.train_loop import loss_and_grads
+
+    loss_lim, grad_lim = TRAIN_LIMITS[api.cfg.dtype]
+    ds = MarkovDataset(api.cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED + 7)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(0).items()}
+    loss_k, _, g_k = loss_and_grads(api, model, batch)
+    loss_p, _, g_p = loss_and_grads(api, model, batch, ops=plain_ops)
+    dloss = abs(loss_k.item() - loss_p.item())
+    say(f"  {api.cfg.compute_dtype}: loss through the kernels "
+        f"{loss_k.item():.6f}, through the plain versions {loss_p.item():.6f}: "
+        f"|dloss| {dloss:.3e} (limit {loss_lim:g})")
+    num: dict = {}
+    den: dict = {}
+    for name in g_k:
+        grp = group_of(name)
+        d = (g_k[name].float() - g_p[name].float()).square().sum()
+        num[grp] = num.get(grp, 0.0) + d
+        den[grp] = den.get(grp, 0.0) + g_p[name].float().square().sum()
+    worst = 0.0
+    for grp in num:
+        rel = (num[grp].sqrt() / den[grp].sqrt().clamp_min(1e-30)).item()
+        worst = max(worst, rel)
+        say(f"    {grp}: ||g_kernels - g_plain|| / ||g_plain|| {rel:.3e}")
+    say(f"  largest relative gradient difference {worst:.3e} (limit "
+        f"{grad_lim:g})")
+    if not (dloss <= loss_lim and worst <= grad_lim):
+        raise AssertionError("training step through the kernels disagrees "
+                             "with the plain versions")
+
+
+def farm_phase(cfg, dev, lookup, services, kernels):
+    """Phase 8: farm-mode training, depth cut to FARM_LAYERS."""
+    from repro_torch.models import build
+    from repro_torch.runtime.local_sgd import LocalSGDConfig, LocalSGDTrainer
+    from repro_torch.runtime.train_loop import TrainConfig
+
+    cut = cfg.replace(n_layers=FARM_LAYERS)
+    say(f"  depth cut: {cfg.n_layers} -> {FARM_LAYERS} layers at full width "
+        f"(at {cfg.n_layers} layers each in-flight task holds ~35 GB: a weight "
+        "copy, its AdamW moments, grads, activations and an fp32 delta; two "
+        "do not fit beside the client's weights, velocity and deltas)")
+    api = build(cut)
+    tc = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=100, seed=SEED)
+    ls = LocalSGDConfig(inner_steps=FARM_INNER, n_shards=FARM_SHARDS,
+                        batch_per_shard=FARM_BATCH, seq_len=TRAIN_SEQ)
+    tr = LocalSGDTrainer(api, tc, ls, lookup=lookup, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    for r in range(2):
+        if r == 1:
+            services[0].fail_after(1)
+        t0 = time.perf_counter()
+        loss = tr.run_round(timeout=600.0)
+        wall = time.perf_counter() - t0
+        st = tr.farm_stats[-1]
+        say(f"  round {r}{' (one service fails after one task)' if r else ''}: "
+            f"loss {loss:.4f}, {st['done']} of {FARM_SHARDS} tasks done, "
+            f"{st['reschedules']} reschedules, per service {st['per_service']}, "
+            f"{wall:.2f} s")
+        if not (np.isfinite(loss) and st["done"] == FARM_SHARDS):
+            raise AssertionError(f"farm round {r} did not complete")
+    launches = {kern.name: kern.launches for kern in kernels.KERNELS}
+    say(f"  launches in the farm rounds: {launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if launches["flash_bwd_dkv"] < 2 * FARM_SHARDS * FARM_INNER * FARM_LAYERS:
+        raise AssertionError("farm training launched fewer backward kernels "
+                             "than it needs")
 
 
 def main() -> int:
@@ -375,15 +631,42 @@ def main() -> int:
     say("phase 4: full width, kernels vs plain versions")
     full_width_phase(api, params, cfg, dev, kernels.PLAIN)
 
+    say("phase 5: backward kernels vs the plain backward")
+    bwd_errs, bwd = backward_phase(flash)
+
+    say("phase 6: sync training at full width")
+    train_launches, state = sync_training_phase(api, params, dev, kernels)
+
+    say("phase 7: full-width training step, kernels vs plain versions")
+    train_step_agreement(api, state["params"], dev, kernels.PLAIN)
+    del state, params
+    torch.cuda.empty_cache()
+    api32 = build(cfg.replace(param_dtype="float32", compute_dtype="float32"))
+    model32 = api32.init(torch.Generator(device=dev).manual_seed(SEED))
+    model32.requires_grad_(True)
+    model32.head().drop_f32()
+    train_step_agreement(api32, model32, dev, kernels.PLAIN)
+    del model32
+    torch.cuda.empty_cache()
+
+    say("phase 8: farm-mode training")
+    farm_phase(cfg, dev, lookup, services, kernels)
+
     rows = []
-    for name, kern, r, err, replaces in (
+    flash_py = "src/repro/kernels/flash_attention/flash_attention.py"
+    for name, kern, r, err, replaces, count in (
             ("flash_attention_fwd", flash.KERNEL, fl, errs["flash"],
-             "src/repro/kernels/flash_attention/flash_attention.py:127"),
+             f"{flash_py}:127", launches),
             ("decode_attention_fwd", decode.KERNEL, de, errs["decode"],
-             "src/repro/kernels/decode_attention/decode_attention.py:116")):
+             "src/repro/kernels/decode_attention/decode_attention.py:116",
+             launches),
+            ("flash_attention_bwd_dq", flash.DQ_KERNEL, bwd["dq"],
+             bwd_errs["dq"], f"{flash_py}:280", train_launches),
+            ("flash_attention_bwd_dkv", flash.DKV_KERNEL, bwd["dkv"],
+             bwd_errs["dkv"], f"{flash_py}:307", train_launches)):
         rows.append({"name": name, "route": "cuda",
                      "source": str(kern.source.relative_to(ROOT)),
-                     "replaces": replaces, "launches": launches[kern.name],
+                     "replaces": replaces, "launches": count[kern.name],
                      "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})

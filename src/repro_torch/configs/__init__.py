@@ -51,5 +51,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         vocab_size=512,
         param_dtype="float32",
         compute_dtype="float32",
+        remat=False,
+        opt_state_dtype="float32",
     )
     return cfg.replace(**kw)

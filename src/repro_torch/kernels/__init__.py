@@ -5,11 +5,13 @@ There is no tuning cache yet: block sizes are fixed in the kernels.  A
 windowed call has no kernel in this package: on CUDA it raises, on the
 CPU it runs the model's chunked reference (only jamba has a window).
 
-A model's attention layers call one :class:`AttentionOps` pair, passed
-down from the model's entry points.  ``DISPATCH`` (the default, and the
-only pair the serving path uses) is the dispatch above; ``PLAIN`` runs
-the plain versions on any device, so a caller can hold a whole model's
-kernels against them on the card, with the same weights, in one call.
+A model's attention layers call one :class:`AttentionOps`, passed down
+from the model's entry points.  ``DISPATCH`` (the default, and the only
+one the serving and training paths use) is the dispatch above; ``PLAIN``
+runs the plain versions on any device, so a caller can hold a whole
+model's kernels against them on the card, with the same weights, in one
+call.  Its ``train`` member is differentiable: the forward kernel, then
+the dq and dk/dv kernels in the backward.
 """
 
 from __future__ import annotations
@@ -19,14 +21,17 @@ from typing import Callable, NamedTuple
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 
-KERNELS = (_flash.KERNEL, _decode.KERNEL)
+KERNELS = (_flash.KERNEL, _decode.KERNEL, _flash.DQ_KERNEL, _flash.DKV_KERNEL)
 
 
 class AttentionOps(NamedTuple):
-    """``prefill(q, k, v, *, causal, window)`` and
-    ``decode(q, k_cache, v_cache, *, cache_index, window)``."""
+    """``prefill(q, k, v, *, causal, window)``,
+    ``decode(q, k_cache, v_cache, *, cache_index, window)`` and the
+    differentiable ``train(q, k, v, *, causal, window)`` (None: the ops
+    serve only)."""
     prefill: Callable
     decode: Callable
+    train: Callable | None = None
 
 
 def _no_window_kernel(x) -> None:
@@ -57,6 +62,16 @@ def decode_attention_dispatch(q, k_cache, v_cache, *, cache_index, window=None):
                                         cache_index=cache_index)
 
 
+def flash_attention_train_dispatch(q, k, v, *, causal=True, window=None):
+    """Differentiable (B,Sq,H,D) x (B,Skv,K,D) -> (B,Sq,H,Dv)."""
+    if window is not None:
+        _no_window_kernel(q)
+        from repro_torch.models.attention import chunked_attention
+
+        return chunked_attention(q, k, v, causal=causal, window=window)
+    return _flash.flash_attention(q, k, v, causal=causal)
+
+
 def _no_window(window) -> None:
     if window is not None:
         raise NotImplementedError("the plain kernel versions take no window")
@@ -73,5 +88,11 @@ def _plain_decode(q, k_cache, v_cache, *, cache_index, window=None):
                                           cache_index=cache_index)
 
 
-DISPATCH = AttentionOps(flash_attention_dispatch, decode_attention_dispatch)
-PLAIN = AttentionOps(_plain_prefill, _plain_decode)
+def _plain_train(q, k, v, *, causal=True, window=None):
+    _no_window(window)
+    return _flash.flash_attention_plain_train(q, k, v, causal=causal)
+
+
+DISPATCH = AttentionOps(flash_attention_dispatch, decode_attention_dispatch,
+                        flash_attention_train_dispatch)
+PLAIN = AttentionOps(_plain_prefill, _plain_decode, _plain_train)

@@ -1,2 +1,5 @@
-from .flash_attention import (KERNEL, flash_attention_fwd,  # noqa: F401
-                              flash_attention_plain)
+from .flash_attention import (DKV_KERNEL, DQ_KERNEL, KERNEL,  # noqa: F401
+                              bwd_dkv_launch, bwd_dq_launch,
+                              flash_attention_bwd, flash_attention_bwd_plain,
+                              flash_attention_fwd, flash_attention_plain)
+from .ops import flash_attention, flash_attention_plain_train  # noqa: F401

@@ -1,4 +1,5 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention, forward and backward: the CUDA kernels' wrappers and
+their plain versions.
 
 ``flash_attention_fwd`` launches ``csrc/flash_attention.cu`` for CUDA
 tensors and runs ``flash_attention_plain`` for CPU tensors.  Both compute
@@ -6,6 +7,13 @@ the reference package's Pallas ``flash_attention_fwd``: GQA attention
 (q-head h reads kv-head h*K//H) with scale D^-0.5, fp32 softmax, the
 top-left causal mask ``k_pos <= q_pos``, and ``(out, lse)`` with
 ``lse = m + log(max(l, 1e-37))``.
+
+``flash_attention_bwd`` launches ``csrc/flash_bwd_dq.cu`` then
+``csrc/flash_bwd_dkv.cu`` for CUDA tensors and runs
+``flash_attention_bwd_plain`` for CPU tensors.  Both compute the
+reference's Pallas ``flash_attention_bwd``: p recomputed from the
+forward's lse, ``Dvec = rowsum(dO * O)``, ``ds = p (dO V^T - Dvec) D^-0.5``,
+``dq = ds K``, ``dk = ds^T Q``, ``dv = p^T dO``, all in fp32.
 """
 
 from __future__ import annotations
@@ -23,6 +31,12 @@ _p, _i = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "flash_attention.cu", "repro_flash_attention_fwd",
     [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p])
+DQ_KERNEL = CudaKernel(
+    "flash_bwd_dq.cu", "repro_flash_bwd_dq",
+    [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p])
+DKV_KERNEL = CudaKernel(
+    "flash_bwd_dkv.cu", "repro_flash_bwd_dkv",
+    [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -48,19 +62,38 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
     return out.reshape(B, Sq, H, Dv).to(q.dtype), lse
 
 
-def _check(q, k, v):
+def _check(q, k, v, name="flash_attention_fwd"):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention_fwd: q, k, v must be 4-D "
-                         "(B,S,heads,head_dim)")
+        raise ValueError(f"{name}: q, k, v must be 4-D (B,S,heads,head_dim)")
     B, Sq, H, D = q.shape
     if k.shape[0] != B or k.shape[3] != D or v.shape[:3] != k.shape[:3]:
-        raise ValueError(f"flash_attention_fwd: shapes q {tuple(q.shape)}, "
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if H % k.shape[2]:
-        raise ValueError(f"flash_attention_fwd: {H} q-heads not a multiple "
+        raise ValueError(f"{name}: {H} q-heads not a multiple "
                          f"of {k.shape[2]} kv-heads")
     if Sq == 0 or k.shape[1] == 0:
-        raise ValueError("flash_attention_fwd: empty sequence")
+        raise ValueError(f"{name}: empty sequence")
+
+
+def _check_cuda(name, q, k, v, *more):
+    """What the kernels take: one CUDA device, one dtype (fp32 or bf16),
+    D == Dv in HEAD_DIMS, contiguous tensors."""
+    ts = (q, k, v) + more
+    if q.device.type != "cuda" or any(t.device != q.device for t in ts):
+        raise ValueError(f"{name}: inputs on "
+                         f"{', '.join(str(t.device) for t in ts)}; need one "
+                         "CUDA device")
+    if any(t.dtype != q.dtype for t in ts) or q.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtypes "
+                        f"{', '.join(str(t.dtype) for t in ts)}; the kernel "
+                        "takes one of float32, bfloat16")
+    D, Dv = q.shape[3], v.shape[3]
+    if D not in HEAD_DIMS or Dv != D:
+        raise ValueError(f"{name}: head dims D={D}, Dv={Dv}; the "
+                         f"kernel takes D == Dv in {HEAD_DIMS}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: inputs must be contiguous")
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True):
@@ -71,19 +104,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention_fwd: q, k, v on {q.device}, "
-                         f"{k.device}, {v.device}; need one CUDA device")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attention_fwd: dtypes {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}; the kernel takes one of float32, bfloat16")
+    _check_cuda("flash_attention_fwd", q, k, v)
     B, Sq, H, D = q.shape
     _, Skv, K, Dv = v.shape
-    if D not in HEAD_DIMS or Dv != D:
-        raise ValueError(f"flash_attention_fwd: head dims D={D}, Dv={Dv}; the "
-                         f"kernel takes D == Dv in {HEAD_DIMS}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_fwd: inputs must be contiguous")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -92,3 +115,90 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
                       lse.data_ptr(), B, Sq, Skv, H, K, D, int(causal),
                       _DTYPES[q.dtype], stream)
     return out, lse
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, g, *, causal: bool = True):
+    """The backward recurrence with materialised scores, in fp32: p is
+    recomputed from ``lse`` (not taken from autograd of the forward).
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    B, Sq, H, D = q.shape
+    Skv, K, Dv = v.shape[1], k.shape[2], v.shape[3]
+    G = H // K
+    scale = D ** -0.5
+    qg = q.float().reshape(B, Sq, K, G, D)
+    gg = g.float().reshape(B, Sq, K, G, Dv)
+    kf, vf = k.float(), v.float()
+    dvec = (g.float() * out.float()).sum(-1)  # (B,Sq,H)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * scale
+    if causal:
+        kpos = torch.arange(Skv, device=q.device)
+        qpos = torch.arange(Sq, device=q.device)
+        s = torch.where(kpos[None, :] <= qpos[:, None], s, NEG_INF)
+    p = torch.exp(s - lse.reshape(B, K, G, Sq)[..., None])
+    dp = torch.einsum("bqkgv,bskv->bkgqs", gg, vf)
+    dvec = dvec.permute(0, 2, 1).reshape(B, K, G, Sq)[..., None]
+    ds = p * (dp - dvec) * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(B, Sq, H, D)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg)
+    dv = torch.einsum("bkgqs,bqkgv->bskv", p, gg)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True):
+    """Gradients of ``flash_attention_fwd``'s out, given ``g`` = dL/dout
+    and the forward's (out, lse).  Returns (dq, dk, dv) in the dtypes of
+    q, k, v.
+
+    CPU tensors go to the plain version; CUDA tensors to the dq kernel
+    (which also writes Dvec) and then the dk/dv kernel, on the current
+    stream."""
+    _check(q, k, v, "flash_attention_bwd")
+    B, Sq, H, D = q.shape
+    _, Skv, K, Dv = v.shape
+    if (tuple(out.shape) != (B, Sq, H, Dv) or g.shape != out.shape
+            or tuple(lse.shape) != (B, H, Sq)):
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, g "
+                         f"{tuple(g.shape)}, lse {tuple(lse.shape)} do not fit "
+                         f"q {tuple(q.shape)}, v {tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal)
+    _check_cuda("flash_attention_bwd", q, k, v, out, g)
+    if lse.dtype != torch.float32 or lse.device != q.device \
+            or not lse.is_contiguous():
+        raise TypeError("flash_attention_bwd: lse must be contiguous float32 "
+                        "on q's device")
+    dq, dvec = bwd_dq_launch(q, k, v, out, lse, g, causal=causal)
+    dk, dv = bwd_dkv_launch(q, k, v, g, lse, dvec, causal=causal)
+    return dq, dk, dv
+
+
+def _bwd_args(q, v, causal):
+    B, Sq, H, D = q.shape
+    _, Skv, K, _ = v.shape
+    return B, Sq, Skv, H, K, D, int(causal), _DTYPES[q.dtype]
+
+
+def bwd_dq_launch(q, k, v, out, lse, g, *, causal: bool = True):
+    """The dq kernel alone on inputs ``flash_attention_bwd`` has checked:
+    returns (dq, Dvec (B,H,Sq) fp32)."""
+    dq = torch.empty_like(q)
+    dvec = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        DQ_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                         dvec.data_ptr(), dq.data_ptr(), *_bwd_args(q, v, causal),
+                         torch.cuda.current_stream(q.device).cuda_stream)
+    return dq, dvec
+
+
+def bwd_dkv_launch(q, k, v, g, lse, dvec, *, causal: bool = True):
+    """The dk/dv kernel alone, after ``bwd_dq_launch`` wrote ``dvec`` on
+    the same stream: returns (dk, dv)."""
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        DKV_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          g.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+                          dk.data_ptr(), dv.data_ptr(), *_bwd_args(q, v, causal),
+                          torch.cuda.current_stream(q.device).cuda_stream)
+    return dk, dv

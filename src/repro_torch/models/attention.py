@@ -1,4 +1,5 @@
-"""GQA attention: prefill and cached decode, plus the plain references.
+"""GQA attention: training, prefill and cached decode, plus the plain
+references.
 
 The attention products themselves go through the ``AttentionOps`` pair
 the model's entry points pass down, by default the dispatch of
@@ -129,6 +130,13 @@ class Attention(nn.Module):
     def _out(self, o):
         B, S = o.shape[:2]
         return o.reshape(B, S, -1) @ self.wo.to(self.cfg.dtype)
+
+    def forward_train(self, x, *, window, ops: AttentionOps):
+        """Differentiable causal self-attention over the whole sequence
+        (the reference's ``apply_attention_train``)."""
+        positions = torch.arange(x.shape[1], device=x.device)
+        q, k, v = self._project_qkv(x, positions)
+        return self._out(ops.train(q, k, v, causal=True, window=window))
 
     def prefill(self, x, *, window, ops: AttentionOps):
         """Causal attention over the prompt; also returns its (k, v)."""

@@ -27,6 +27,14 @@ class Block(nn.Module):
         self.mlp = SwiGLU(cfg, g)
         self.window = spec.window
 
+    def forward_train(self, x, *, ops: AttentionOps):
+        """Differentiable; returns (x, aux loss): aux is 0 for dense blocks
+        (the reference's ``apply_block_train``)."""
+        x = x + self.attn.forward_train(self.mixer_norm(x), window=self.window,
+                                        ops=ops)
+        x = x + self.mlp(self.mlp_norm(x))
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
     def prefill(self, x, *, seq_budget: int, ops: AttentionOps):
         """Returns (x, cache); the cache is zero-padded to ``seq_budget``
         positions, leaving slots for the decoded tokens."""

@@ -42,9 +42,11 @@ class ModelConfig:
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
 
-    # numerics: names of torch dtypes
+    # numerics: names of torch dtypes; training policy
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
+    remat: bool = False  # carried from the reference; True is not ported
+    opt_state_dtype: str = "float32"  # AdamW moments: float32 | bfloat16 | int8
 
     def __post_init__(self) -> None:
         if self.head_dim == 0:

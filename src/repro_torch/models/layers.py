@@ -105,7 +105,9 @@ class Embedding(nn.Module):
     """Token table (vocab, d_model).  ``unembed`` returns fp32 logits from
     an fp32 copy of the table, made once and reused while the table is
     unchanged: casting a 151936 x 2048 table on every decode step would
-    allocate 1.24 GB per step."""
+    allocate 1.24 GB per step.  The copy is detached: training reads the
+    live ``table`` (``models/loss.py``), and a copy of the module (deepcopy,
+    pickle) leaves the fp32 copy behind, to be made again on first use."""
 
     def __init__(self, cfg: ModelConfig, g: torch.Generator):
         super().__init__()
@@ -124,6 +126,13 @@ class Embedding(nn.Module):
             cached = (*key, t.detach().float())
             self._table_f32 = cached
         return cached[2]
+
+    def drop_f32(self) -> None:
+        """Free the fp32 copy (training changes the table every step)."""
+        self._table_f32 = None
+
+    def __getstate__(self):
+        return {**self.__dict__, "_table_f32": None}
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         """fp32 logits, x.float() @ table.T in fp32."""

@@ -1,12 +1,15 @@
-"""Decoder-only LM built from the block stack: prefill and decode.
+"""Decoder-only LM built from the block stack: training, prefill and
+decode.
 
 ``LM`` is the port's parameter tree: an ``nn.Module`` whose weights live
 on one device.  Its entry points take and return the reference
 package's shapes:
-  prefill  -> (last-token logits (B,V) fp32, caches)
-  decode   -> (logits (B,V) fp32, caches)   [caches updated in place]
-Both take ``ops``, the attention functions every layer calls: the
-kernels' dispatch by default (see ``repro_torch.kernels``).
+  train_loss -> (scalar loss fp32, {"ce_loss", "aux_loss"})  [differentiable]
+  prefill    -> (last-token logits (B,V) fp32, caches)
+  decode     -> (logits (B,V) fp32, caches)   [caches updated in place]
+All take ``ops``, the attention functions every layer calls: the
+kernels' dispatch by default (see ``repro_torch.kernels``).  Weights are
+created with ``requires_grad=False``; a trainer turns it on.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from .attention import make_empty_cache
 from .blocks import make_blocks
 from .common import ModelConfig
 from .layers import Embedding, RMSNorm
+from .loss import fused_cross_entropy
 
 
 class LM(nn.Module):
@@ -43,6 +47,26 @@ class LM(nn.Module):
         """Make the fp32 unembedding copy now, on the caller's stream,
         so services never race to build it.  Call after changing weights."""
         self.head().table_f32()
+
+    def train_loss(self, batch, *, ops: AttentionOps = DISPATCH):
+        """batch: tokens (B,S) int, targets (B,S) int [, loss_mask (B,S)].
+        Returns (loss + aux, {"ce_loss", "aux_loss"}), fp32 scalars; the
+        reference's ``forward_train``."""
+        if self.cfg.remat:
+            raise NotImplementedError(
+                f"{self.cfg.name}: remat=True is not ported (activations "
+                "are kept for the backward)")
+        if ops.train is None:
+            raise ValueError("train_loss needs AttentionOps with a train member")
+        x = self.embed(batch["tokens"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk in self.blocks:
+            x, a = blk.forward_train(x, ops=ops)
+            aux = aux + a
+        x = self.final_norm(x)
+        loss = fused_cross_entropy(x, self.head().table, batch["targets"],
+                                   batch.get("loss_mask"))
+        return loss + aux, {"ce_loss": loss, "aux_loss": aux}
 
     @torch.no_grad()
     def prefill(self, batch, *, seq_budget: int | None = None,

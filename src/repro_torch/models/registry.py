@@ -3,8 +3,8 @@ port's modules.
 
 ``build(cfg)`` returns a ``ModelAPI``.  ``init(generator)`` makes the
 parameters (an :class:`~repro_torch.models.lm.LM`) on the generator's
-device; ``prefill``/``decode`` take those parameters first, as in the
-reference.  Only dense GQA decoders are ported.
+device; ``train_loss``/``prefill``/``decode`` take those parameters
+first, as in the reference.  Only dense GQA decoders are ported.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from .lm import LM
 class ModelAPI:
     cfg: ModelConfig
     init: Callable[[torch.Generator], LM]
+    train_loss: Callable[..., Any]
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
     make_caches: Callable[..., Any]
@@ -34,6 +35,7 @@ def build(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
         init=lambda g: LM(cfg, g),
+        train_loss=lambda p, b, **kw: p.train_loss(b, **kw),
         prefill=lambda p, b, **kw: p.prefill(b, **kw),
         decode=lambda p, b, c, **kw: p.decode(
             b, c, cache_index=int(b["cache_index"]), **kw),

@@ -7,7 +7,10 @@ kernels at first use) and skip elsewhere.  Run them on the GPU machine:
 
 Tolerances: 2e-5 in float32 (both sides accumulate in fp32; only the
 summation order differs) and 2e-2 / 3e-2 in bfloat16 for flash / decode
-(the outputs round to bf16, one ulp of which is 2^-8 relative).
+(the outputs round to bf16, one ulp of which is 2^-8 relative).  The
+backward kernels' gradients are sums of up to S products of O(1) terms
+in another order: 1e-4 absolute plus 1e-4 relative in float32, and one
+bf16 ulp of the largest |grad| (2^-7 relative) in bfloat16.
 """
 
 import pytest
@@ -17,7 +20,10 @@ from repro_torch import kernels
 from repro_torch.kernels.decode_attention import (KERNEL as DECODE,
                                                   decode_attention_fwd,
                                                   decode_attention_plain)
-from repro_torch.kernels.flash_attention import (KERNEL as FLASH,
+from repro_torch.kernels.flash_attention import (DKV_KERNEL, DQ_KERNEL,
+                                                 KERNEL as FLASH,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_plain,
                                                  flash_attention_fwd,
                                                  flash_attention_plain)
 
@@ -47,6 +53,21 @@ DECODE_CASES = [
     (2, 24, 16, 8, 128, 11, torch.float32),
     (2, 24, 16, 8, 128, 11, torch.bfloat16),
     (1, 24, 4, 2, 128, 0, torch.float32),
+]
+
+
+BWD_CASES = [
+    # (B, Sq, Skv, H, K, D, causal, dtype)
+    (4, 512, 512, 16, 8, 128, True, torch.bfloat16),
+    (4, 512, 512, 16, 8, 128, True, torch.float32),
+    (2, 13, 13, 16, 8, 128, True, torch.float32),
+    (2, 24, 24, 16, 8, 128, True, torch.bfloat16),
+    (2, 128, 128, 4, 2, 64, True, torch.float32),
+    (1, 256, 256, 8, 8, 32, True, torch.bfloat16),
+    (2, 128, 256, 4, 1, 64, False, torch.float32),
+    (1, 100, 37, 4, 2, 64, False, torch.float32),
+    (1, 64, 128, 4, 2, 32, True, torch.float32),
+    (1, 130, 70, 4, 4, 128, True, torch.float32),
 ]
 
 
@@ -124,3 +145,60 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(device):
         flash_attention_fwd(q, q.transpose(1, 2).contiguous().transpose(1, 2), q)
     with pytest.raises(NotImplementedError):
         kernels.flash_attention_dispatch(q, q, q, window=4)
+
+
+def _bwd_inputs(case, device):
+    B, Sq, Skv, H, K, D, causal, dt = case
+    q = _randn((B, Sq, H, D), dt, device, 10)
+    k = _randn((B, Skv, K, D), dt, device, 11)
+    v = _randn((B, Skv, K, D), dt, device, 12)
+    g = _randn((B, Sq, H, D), dt, device, 13)
+    out, lse = flash_attention_plain(q, k, v, causal=causal)
+    return q, k, v, out.contiguous(), lse, g
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_bwd_kernels_match_plain(case, device):
+    causal, dt = case[6], case[7]
+    q, k, v, out, lse, g = _bwd_inputs(case, device)
+    dq_before, dkv_before = DQ_KERNEL.launches, DKV_KERNEL.launches
+    got = flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    assert DQ_KERNEL.launches == dq_before + 1
+    assert DKV_KERNEL.launches == dkv_before + 1
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dt and a.shape == b.shape
+        if dt == torch.float32:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg=name)
+        else:
+            atol = 2.0 ** -7 * b.float().abs().max().item()
+            torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                       rtol=2.0 ** -7, msg=name)
+
+
+def test_flash_dkv_kernel_is_deterministic(device):
+    case = (4, 512, 512, 16, 8, 128, True, torch.bfloat16)
+    q, k, v, out, lse, g = _bwd_inputs(case, device)
+    first = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    second = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_train_attention_grads_through_the_kernels(device):
+    """The autograd rule of ``DISPATCH.train`` launches the forward and
+    both backward kernels and agrees with ``PLAIN.train``."""
+    case = (2, 96, 96, 8, 4, 64, True, torch.float32)
+    q, k, v, _, _, g = _bwd_inputs(case, device)
+    before = (FLASH.launches, DQ_KERNEL.launches, DKV_KERNEL.launches)
+    grads = {}
+    for name, ops in (("kernels", kernels.DISPATCH), ("plain", kernels.PLAIN)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = ops.train(*leaves, causal=True, window=None)
+        grads[name] = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (FLASH.launches, DQ_KERNEL.launches, DKV_KERNEL.launches) == \
+        tuple(n + 1 for n in before)
+    for a, b in zip(grads["kernels"], grads["plain"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
