@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths — serving as a task farm, and training in
-sync and in farm mode — on ``cuda:0`` and holds every hand-written kernel
-of those paths against its plain PyTorch version.  Phases, in order; any
+Drives the port's main paths on ``cuda:0`` — serving as a task farm, and
+training in sync and in farm mode, of qwen3-1.7B; serving and sync
+training of falcon-mamba-7b — and holds every hand-written kernel of
+those paths against its plain PyTorch version.  Phases, in order; any
 failure raises and exits non-zero:
 
 1. build the CUDA kernels from this checkout's sources (one ``nvcc`` per
@@ -37,7 +38,22 @@ failure raises and exits non-zero:
    bf16 (the trained weights) and in fp32 (fresh fp32 weights);
 8. farm-mode training (``LocalSGDTrainer``) at full width with depth cut
    to 8 layers on the 2 services: one round of 4 tasks, then one more with
-   a service failing after one task.
+   a service failing after one task;
+9. (qwen3's state freed) the selective-scan kernel against the plain
+   chunked scan in fp32 at the serve shape (b=4, s=512, d_inner=8192,
+   n=16), at a ragged (2, 13, 96, 16), with h0 (two halves chained
+   against one whole scan) and with strided x, B and C; kernel and plain
+   timed at the serve shape beside the bound's bytes, exponential and
+   flop terms;
+10. serve full-width, full-depth falcon-mamba-7b (64 layers, bf16, seeded
+    weights) through ``BasicClient`` on the 2 services: 8 requests, prompt
+    512, 32 new tokens, 4 requests per task, asserting exactly one scan
+    launch per layer per task; one task timed alone and profiled;
+11. falcon-mamba-7b prefill and decode logits through the kernels and
+    through the plain versions, same weights, on several prompt batches;
+12. sync training of falcon-mamba-7b at full width, depth cut to 8
+    layers (4 AdamW steps on batches of 2 x 512), asserting one scan launch
+    per layer per step, and one profiled step.
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event
@@ -48,6 +64,7 @@ written).
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import shutil
@@ -106,10 +123,50 @@ FARM_LAYERS, FARM_SHARDS, FARM_INNER, FARM_BATCH = 8, 4, 2, 2
 # reading: |dloss| 0 and at most 5.3e-6, which shows the bf16 gap is
 # rounding, not the kernels.
 TRAIN_LIMITS = {torch.bfloat16: (1e-3, 3e-2), torch.float32: (1e-5, 1e-5)}
+# Mamba path (phases 9-12): falcon-mamba-7b at full width and depth.
+MAMBA_ARCH = "falcon_mamba_7b"
+MAMBA_REQUESTS, MAMBA_NEW = 8, 32
+MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_BATCH = 8, 2
+# Scan kernel vs plain chunked scan, element by element (phase 9):
+# |got - ref| <= SCAN_TOL + SCAN_TOL |ref|, the reference suite's own scan
+# tolerance (tests/test_kernels_mamba.py).  Both sides compute in fp32; the
+# kernel steps through time, the plain version scans log-depth inside
+# chunks of 256, so they differ in rounding only.
+SCAN_TOL = 1e-4
+# Full-width falcon-mamba logits, kernels vs plain versions (phase 11),
+# limits on the largest and the mean |difference| of each batch's logits,
+# from this script's readings on an H100 (see PERF.md).  bf16 (the served
+# weights): largest 0.289 to 0.358, mean 0.0512 to 0.0551 over 4 batches,
+# prefill and decode, in three runs.  The scan's fp32 outputs differ from the
+# plain version's by ~1e-5, which flips the bf16 rounding of a few elements
+# of each layer's output, and 64 layers of random weights amplify the flips
+# (on the CPU, a deep bf16 model whose plain scan only changes summation
+# order moves its logits far more at 64 layers than at 8).  fp32 (fresh
+# fp32 weights, same config), where only summation order differs: largest
+# 7.5e-5 to 9.9e-5, mean 1.3e-5 to 1.6e-5, which shows the bf16 gap is
+# rounding, not the kernel.
+MAMBA_FULL_WIDTH_BATCHES = 4
+MAMBA_FULL_WIDTH_LIMITS = {torch.bfloat16: (0.45, 0.07), torch.float32: (2e-4, 3e-5)}
+# the scan's exponentials run on the multi-function unit: 16 a clock per SM
+# (NVIDIA's CUDA C++ programming guide, arithmetic instruction throughput,
+# compute capability 9.0); the card has 132 SMs
+MUFU_PER_CLOCK_SM, SMS = 16, 132
+SCAN_FLOP_PER_ELEMENT = 6  # dt*A, h*dA, dx*B, +, C*h, + per (b, s, d, n)
 
 
 def say(*a):
     print(*a, flush=True)
+
+
+def free(services):
+    """Release a finished phase's device memory: the services' cached
+    programs (their closures hold weights), then whatever the collector
+    finds (a trainer and its programs hold each other), then the
+    allocator's cache."""
+    for svc in services:
+        svc.drop_programs()
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def cuda_ms(fn, iters=20, warmup=3) -> float:
@@ -153,9 +210,12 @@ def say_registers(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function .*?([a-z_]+_kernel)I"
                       r"(13__nv_bfloat16|f)Li(\d+)E", line)
+        g = re.search(r"Compiling entry function .*?(scan_kernel)ILi(\d+)E", line)
         if m:
             dtype = "bf16" if m.group(2) != "f" else "f32"
             name = f"{m.group(1)}<{dtype}, {m.group(3)}>"
+        elif g:
+            name = f"{g.group(1)}<{g.group(2)} lanes a channel>"
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line and name:
@@ -269,9 +329,9 @@ def profile_window(label, fn, reps):
         say(f"    {ms:.4f} ms  {name[:100]}")
 
 
-def profile_task(api, params, tokens):
+def profile_task(api, params, tokens, new):
     """Profile one prefill and one decode step of one task alone."""
-    budget = PROMPT + NEW
+    budget = PROMPT + new
     profile_window("prefill of one task", lambda i: api.prefill(
         params, {"tokens": tokens}, seq_budget=budget), 2)
     _, caches = api.prefill(params, {"tokens": tokens}, seq_budget=budget)
@@ -280,12 +340,49 @@ def profile_task(api, params, tokens):
         params, {"tokens": nxt, "cache_index": PROMPT + i}, caches), 4)
 
 
-def full_width_phase(api, params, cfg, dev, plain_ops):
-    """Phase 4: one prefill and one decode step of each of
-    ``FULL_WIDTH_BATCHES`` prompt batches, through the kernels (the
-    serving dispatch) and through the plain versions."""
+def time_one_task(api, params, tokens, new):
+    """Prefill ms and decode ms per step of one task alone on the card,
+    CUDA events, median of TIMED_ROUNDS rounds after one untimed round
+    (the path is host-bound and the host is shared: one round can read
+    several times the others); then one profiled prefill and decode step."""
+    times = []
+    for r in range(TIMED_ROUNDS + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        logits, caches = api.prefill(params, {"tokens": tokens},
+                                     seq_budget=PROMPT + new)
+        ev[1].record()
+        for i in range(new):
+            nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            logits, caches = api.decode(
+                params, {"tokens": nxt, "cache_index": PROMPT + i}, caches)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if not torch.isfinite(logits).all():
+            raise AssertionError("non-finite logits")
+        if r:
+            times.append((ev[0].elapsed_time(ev[1]),
+                          ev[1].elapsed_time(ev[2]) / new))
+    prefill_ms = [t[0] for t in times]
+    decode_ms = [t[1] for t in times]
+    say(f"  one task alone on the card, median of {TIMED_ROUNDS} rounds: "
+        f"prefill {np.median(prefill_ms):.3f} ms (B={tokens.shape[0]}, "
+        f"{tokens.shape[1]} tokens; rounds "
+        f"{', '.join(f'{t:.3f}' for t in prefill_ms)}), decode "
+        f"{np.median(decode_ms):.3f} ms per step (rounds "
+        f"{', '.join(f'{t:.3f}' for t in decode_ms)})")
+    profile_task(api, params, tokens, new)
+
+
+def full_width_phase(api, params, cfg, dev, plain_ops, batches=FULL_WIDTH_BATCHES,
+                     limits=(FULL_WIDTH_MAX_ERR, FULL_WIDTH_MEAN_ERR)):
+    """Phases 4 and 11: one prefill and one decode step of each of
+    ``batches`` prompt batches, through the kernels (the serving dispatch)
+    and through the plain versions; |logits difference| held to
+    ``limits`` (largest, mean)."""
     budget = PROMPT + NEW
-    for i in range(FULL_WIDTH_BATCHES):
+    max_lim, mean_lim = limits
+    for i in range(batches):
         tokens = torch.as_tensor(np.random.default_rng(SEED + 1 + i).integers(
             0, cfg.vocab_size, (PER_TASK, PROMPT))).to(dev)
         lg_k, c_k = api.prefill(params, {"tokens": tokens}, seq_budget=budget)
@@ -302,11 +399,11 @@ def full_width_phase(api, params, cfg, dev, plain_ops):
             err, mean = diff.max().item(), diff.mean().item()
             agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
             say(f"  batch {i} {name} logits: max |diff| {err:.3e} (limit "
-                f"{FULL_WIDTH_MAX_ERR:g}), mean |diff| {mean:.3e} (limit "
-                f"{FULL_WIDTH_MEAN_ERR:g}), max |logit| "
+                f"{max_lim:g}), mean |diff| {mean:.3e} (limit "
+                f"{mean_lim:g}), max |logit| "
                 f"{b.abs().max().item():.3f}, greedy tokens agree on "
                 f"{agree:.2f} of rows")
-            if not (err <= FULL_WIDTH_MAX_ERR and mean <= FULL_WIDTH_MEAN_ERR):
+            if not (err <= max_lim and mean <= mean_lim):
                 raise AssertionError(f"batch {i} {name}: full-width logits "
                                      "through the kernels disagree")
 
@@ -523,6 +620,176 @@ def farm_phase(cfg, dev, lookup, services, kernels):
                              "than it needs")
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, read from ``nvidia-smi``."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def scan_inputs(b, s, d, n, seed):
+    x = randn((b, s, d), torch.float32, seed)
+    dt = torch.nn.functional.softplus(randn((b, s, d), torch.float32, seed + 1))
+    A = -torch.exp(randn((d, n), torch.float32, seed + 2) * 0.5)
+    B = randn((b, s, n), torch.float32, seed + 3)
+    C = randn((b, s, n), torch.float32, seed + 4)
+    return x, dt, A, B, C
+
+
+def scan_phase(scan, b, s, d, n):
+    """Phase 9: the scan kernel vs the plain chunked scan at the serve
+    shape (b, s, d, n), a ragged one, with h0 (two halves chained against
+    one whole scan) and with strided views; then kernel and plain timed at
+    the serve shape beside the bound's three terms."""
+    err = 0.0
+
+    def both(tag, *args):
+        nonlocal err
+        got = scan.mamba_scan_fwd(*args)
+        ref = scan.mamba_scan_plain(*args)
+        for name, a, r in zip(("y", "h_final"), got, ref):
+            err = max(err, check(f"{tag} {name}", a, r, SCAN_TOL, SCAN_TOL))
+        return got
+
+    serve = scan_inputs(b, s, d, n, 31)
+    y, h = both(f"scan serve ({b}, {s}, {d}, {n})", *serve)
+    both("scan ragged (2, 13, 96, 16)", *scan_inputs(2, 13, 96, 16, 41))
+    x, dt, A, B, C = serve
+    half = s // 2
+    y1, h1 = both("scan first half", x[:, :half], dt[:, :half], A, B[:, :half],
+                  C[:, :half])
+    y2, h2 = both("scan second half from h0", x[:, half:], dt[:, half:], A,
+                  B[:, half:], C[:, half:], h1)
+    err = max(err, check("scan halves chained vs whole: y", torch.cat([y1, y2], 1),
+                         y, SCAN_TOL, SCAN_TOL),
+              check("scan halves chained vs whole: h_final", h2, h, SCAN_TOL,
+                    SCAN_TOL))
+    xz = torch.cat([x, torch.zeros_like(x)], -1)
+    proj = torch.cat([B.new_zeros(b, s, 3), B, C], -1)
+    xv, Bv, Cv = xz[..., :d], proj[..., 3:3 + n], proj[..., 3 + n:]
+    assert not (xv.is_contiguous() or Bv.is_contiguous() or Cv.is_contiguous())
+    both("scan strided x, B, C", xv, dt, A, Bv, Cv)
+    torch.cuda.synchronize()
+
+    row = dict(ms=cuda_ms(lambda: scan.mamba_scan_fwd(*serve)),
+               plain_ms=cuda_ms(lambda: scan.mamba_scan_plain(*serve), iters=5),
+               library_ms=None)
+    elements = b * s * d * n
+    t_bytes = nbytes(*serve, y, h) / PEAK_BYTES_S * 1e3
+    t_exp = elements / (MUFU_PER_CLOCK_SM * SMS * sm_clock_hz()) * 1e3
+    t_flop = SCAN_FLOP_PER_ELEMENT * elements / PEAK_FLOP_S[torch.float32] * 1e3
+    row["bound_ms"] = max(t_bytes, t_exp, t_flop)
+    row["bound_by"] = "bytes" if t_bytes >= max(t_exp, t_flop) else "operations"
+    say(f"  scan at the serve shape ({b}, {s}, {d}, {n}): kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, no library call; bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}): bytes "
+        f"{nbytes(*serve, y, h) / 1e6:.1f} MB in {t_bytes:.4f} ms, "
+        f"{elements / 1e6:.1f} M exponentials in {t_exp:.4f} ms, "
+        f"{SCAN_FLOP_PER_ELEMENT * elements / 1e9:.2f} GFLOP fp32 in {t_flop:.4f} ms")
+    return err, row
+
+
+def mamba_serve_phase(cfg, dev, lookup, kernels):
+    """Phase 10: serve full-width, full-depth falcon-mamba-7b; returns
+    (api, params, launches)."""
+    from repro_torch.models import build
+    from repro_torch.runtime.serve_loop import ServeConfig, serve_requests
+
+    api = build(cfg)
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    say(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_inner "
+        f"{cfg.d_inner}, {sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
+        f"params in {cfg.param_dtype} on {dev}, initialised in "
+        f"{time.perf_counter() - t0:.2f} s; fp32 unembedding copy "
+        f"{params.head().table_f32().numel() * 4 / 1e9:.3f} GB")
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                   (MAMBA_REQUESTS, PROMPT))
+    sc = ServeConfig(max_new_tokens=MAMBA_NEW, prompt_len=PROMPT,
+                     batch_per_task=PER_TASK)
+    serve_requests(api, params, prompts[:PER_TASK],
+                   ServeConfig(max_new_tokens=2, prompt_len=PROMPT,
+                               batch_per_task=PER_TASK), lookup=lookup)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 1e9
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    gen, stats = serve_requests(api, params, prompts, sc, lookup=lookup)
+    wall = time.perf_counter() - t0
+    launches = {kern.name: kern.launches for kern in kernels.KERNELS}
+    n_tasks = MAMBA_REQUESTS // PER_TASK
+    say(f"  allocated before the run: {resident:.2f} GB")
+    say(f"  served {tuple(gen.shape)} tokens in {wall:.3f} s: "
+        f"{gen.numel() / wall:.1f} tok/s across {SERVICES} services; "
+        f"{stats['done']} tasks, {stats['reschedules']} reschedules; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    say(f"  launches on the main path: {launches}")
+    if tuple(gen.shape) != (MAMBA_REQUESTS, MAMBA_NEW):
+        raise AssertionError(f"generated shape {tuple(gen.shape)}")
+    if not (int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size):
+        raise AssertionError("generated token ids out of range")
+    # one scan per layer per task, in prefill; decode has no kernel
+    if launches["mamba_scan"] != n_tasks * cfg.n_layers:
+        raise AssertionError(f"scan kernel launched {launches['mamba_scan']} "
+                             f"times, not {n_tasks} tasks x {cfg.n_layers} layers")
+    time_one_task(api, params, torch.as_tensor(prompts[:PER_TASK]).to(dev),
+                  MAMBA_NEW)
+    return api, params, launches
+
+
+def mamba_train_phase(cfg, dev, kernels, full_params):
+    """Phase 12: sync training of falcon-mamba-7b at full width, depth cut
+    to MAMBA_TRAIN_LAYERS; ``full_params`` is the full-depth model's
+    parameter count."""
+    from repro_torch.data import MarkovDataset
+    from repro_torch.models import build
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer
+
+    cut = cfg.replace(n_layers=MAMBA_TRAIN_LAYERS)
+    say(f"  depth cut: {cfg.n_layers} -> {MAMBA_TRAIN_LAYERS} layers at full "
+        f"width (at {cfg.n_layers} layers the fp32 AdamW moments alone take "
+        f"{8 * full_params / 1e9:.1f} GB beside {2 * full_params / 1e9:.1f} GB "
+        f"of bf16 weights and as much again of gradients)")
+    api = build(cut)
+    tc = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=100, seed=SEED)
+    ds = MarkovDataset(cut.vocab_size, TRAIN_SEQ, MAMBA_TRAIN_BATCH, seed=SEED)
+    trainer = Trainer(api, tc, ds, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    logs = trainer.run(TRAIN_STEPS)
+    launches = {kern.name: kern.launches for kern in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_s = [m["step_time_s"] for m in logs]
+    med = float(np.median(step_s))
+    say(f"  {cut.name}: {cut.n_layers} layers, "
+        f"{sum(p.numel() for p in trainer.state['params'].parameters()) / 1e9:.3f} B "
+        f"params, {TRAIN_STEPS} AdamW steps ({cut.opt_state_dtype} moments) on "
+        f"batches of {MAMBA_TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+    losses = ", ".join(f"{m['loss']:.4f}" for m in logs)
+    norms = ", ".join(f"{m['grad_norm']:.3f}" for m in logs)
+    steps = ", ".join(f"{t * 1e3:.1f}" for t in step_s)
+    say(f"  losses {losses}; grad norms {norms}")
+    say(f"  step time median {med * 1e3:.1f} ms (steps {steps}), "
+        f"{MAMBA_TRAIN_BATCH * TRAIN_SEQ / med:.0f} tok/s; peak memory {peak:.2f} GB")
+    say(f"  launches on the training path: {launches}")
+    if not all(np.isfinite(m["loss"]) for m in logs):
+        raise AssertionError("non-finite training loss")
+    # one scan per layer per step, in the forward; the backward recomputes
+    # through the plain chunked scan and launches no kernel
+    if launches["mamba_scan"] != TRAIN_STEPS * MAMBA_TRAIN_LAYERS:
+        raise AssertionError(f"scan kernel launched {launches['mamba_scan']} "
+                             f"times in training, not {TRAIN_STEPS} steps x "
+                             f"{MAMBA_TRAIN_LAYERS} layers")
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(99).items()}
+    profile_window("training step", lambda i: trainer.train_step(
+        trainer.state, batch), 1)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -534,6 +801,7 @@ def main() -> int:
     from repro_torch.core import LookupService, Service
     from repro_torch.kernels import decode_attention as decode
     from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import mamba_scan as scan
     from repro_torch.kernels.build import build_all
     from repro_torch.models import build
     from repro_torch.runtime.serve_loop import ServeConfig, serve_requests
@@ -598,35 +866,7 @@ def main() -> int:
     if launches["decode_attention"] < n_tasks * cfg.n_layers * NEW:
         raise AssertionError("decode kernel launched fewer times than decode needs")
 
-    tokens = torch.as_tensor(prompts[:PER_TASK]).to(dev)
-    # the path is host-bound, and the host is shared: one round can read
-    # several times the others, so report the median of TIMED_ROUNDS
-    times = []
-    for r in range(TIMED_ROUNDS + 1):  # round 0 warms up, untimed
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        ev[0].record()
-        logits, caches = api.prefill(params, {"tokens": tokens},
-                                     seq_budget=PROMPT + NEW)
-        ev[1].record()
-        for i in range(NEW):
-            nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
-            logits, caches = api.decode(
-                params, {"tokens": nxt, "cache_index": PROMPT + i}, caches)
-        ev[2].record()
-        torch.cuda.synchronize()
-        if not torch.isfinite(logits).all():
-            raise AssertionError("non-finite logits")
-        if r:
-            times.append((ev[0].elapsed_time(ev[1]),
-                          ev[1].elapsed_time(ev[2]) / NEW))
-    prefill_ms = [t[0] for t in times]
-    decode_ms = [t[1] for t in times]
-    say(f"  one task alone on the card, median of {TIMED_ROUNDS} rounds: "
-        f"prefill {np.median(prefill_ms):.3f} ms (B={PER_TASK}, {PROMPT} "
-        f"tokens; rounds {', '.join(f'{t:.3f}' for t in prefill_ms)}), decode "
-        f"{np.median(decode_ms):.3f} ms per step (rounds "
-        f"{', '.join(f'{t:.3f}' for t in decode_ms)})")
-    profile_task(api, params, tokens)
+    time_one_task(api, params, torch.as_tensor(prompts[:PER_TASK]).to(dev), NEW)
 
     say("phase 4: full width, kernels vs plain versions")
     full_width_phase(api, params, cfg, dev, kernels.PLAIN)
@@ -651,6 +891,39 @@ def main() -> int:
 
     say("phase 8: farm-mode training")
     farm_phase(cfg, dev, lookup, services, kernels)
+    del api
+    free(services)  # their cached programs hold qwen3's weights
+    say(f"  qwen3 state freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "still allocated")
+
+    say("phase 9: scan kernel vs plain")
+    mcfg = cfgs.get(MAMBA_ARCH)
+    scan_err, scan_row = scan_phase(scan, PER_TASK, PROMPT, mcfg.d_inner,
+                                    mcfg.ssm.state_dim)
+
+    say("phase 10: serve falcon-mamba-7b")
+    for svc in services:  # phase 8 failed one on purpose
+        svc.revive()
+    mapi, mparams, mamba_launches = mamba_serve_phase(mcfg, dev, lookup, kernels)
+
+    say("phase 11: falcon-mamba-7b full width, kernels vs plain versions")
+    full_width_phase(mapi, mparams, mcfg, dev, kernels.PLAIN,
+                     MAMBA_FULL_WIDTH_BATCHES,
+                     MAMBA_FULL_WIDTH_LIMITS[torch.bfloat16])
+    full_params = sum(p.numel() for p in mparams.parameters())
+    del mapi, mparams
+    free(services)
+    say("  the same in fp32 (fresh fp32 weights)")
+    cfg32 = mcfg.replace(param_dtype="float32", compute_dtype="float32")
+    api32 = build(cfg32)
+    model32 = api32.init(torch.Generator(device=dev).manual_seed(SEED))
+    full_width_phase(api32, model32, cfg32, dev, kernels.PLAIN, 2,
+                     MAMBA_FULL_WIDTH_LIMITS[torch.float32])
+    del api32, model32
+    free(services)
+
+    say("phase 12: falcon-mamba-7b sync training, depth cut")
+    mamba_train_phase(mcfg, dev, kernels, full_params)
 
     rows = []
     flash_py = "src/repro/kernels/flash_attention/flash_attention.py"
@@ -663,7 +936,9 @@ def main() -> int:
             ("flash_attention_bwd_dq", flash.DQ_KERNEL, bwd["dq"],
              bwd_errs["dq"], f"{flash_py}:280", train_launches),
             ("flash_attention_bwd_dkv", flash.DKV_KERNEL, bwd["dkv"],
-             bwd_errs["dkv"], f"{flash_py}:307", train_launches)):
+             bwd_errs["dkv"], f"{flash_py}:307", train_launches),
+            ("mamba_scan_fwd", scan.KERNEL, scan_row, scan_err,
+             "src/repro/kernels/mamba_scan/mamba_scan.py:83", mamba_launches)):
         rows.append({"name": name, "route": "cuda",
                      "source": str(kern.source.relative_to(ROOT)),
                      "replaces": replaces, "launches": count[kern.name],

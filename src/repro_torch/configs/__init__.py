@@ -2,23 +2,26 @@
 
 Each module defines ``CONFIG``, the full-scale config, identical to the
 reference package's.  ``reduced(cfg)`` derives the same small config the
-reference's CPU tests use.  Only the dense GQA decoders are ported.
+reference's CPU tests use.  Ported: the dense GQA decoders and the
+Mamba-1 SSM (falcon-mamba).
 """
 
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, SSMConfig
 
 ARCH_IDS = [
     "qwen3_1p7b",
     "llama3p2_1b",
+    "falcon_mamba_7b",
 ]
 
 _ALIASES = {
     "qwen3-1.7b": "qwen3_1p7b",
     "llama3.2-1b": "llama3p2_1b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 
@@ -54,4 +57,6 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         remat=False,
         opt_state_dtype="float32",
     )
+    if cfg.ssm is not None:
+        kw["ssm"] = SSMConfig(state_dim=4, conv_width=4, expand=2, dt_rank=8)
     return cfg.replace(**kw)

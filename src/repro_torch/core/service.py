@@ -114,6 +114,14 @@ class Service:
             if program.uid not in self._prepared:
                 self._prepared[program.uid] = program.prepare(self.device)
 
+    def drop_programs(self) -> None:
+        """Forget every prepared program.  A model program closes over its
+        weights, so a long-lived service that moves on to another model
+        drops the old programs to free the device memory they hold."""
+        with self._lock:
+            self._compiled.clear()
+            self._prepared.clear()
+
     def _get_compiled(self, program: Program, payload,
                       batch_size: int | None) -> Callable:
         """Shape-keyed program-cache lookup.  ``batch_size=None`` is the

@@ -7,6 +7,8 @@ those weights.  Both packages keep projections as ``(d_in, d_out)``
 matrices, so nothing is transposed; the reference stacks each pattern
 position's parameters along a leading ``n_repeats`` axis, which is
 unstacked here (layer ``r * len(pattern) + i`` is ``blocks/b{i}[r]``).
+Each weight keeps the port's dtype: a Mamba layer's ``A_log`` and ``D``
+stay fp32 in every config, as in the reference.
 """
 
 from __future__ import annotations
@@ -49,13 +51,19 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device=None) -> LM:
             _assign(param, a[r], f"blocks/b{i}/{'/'.join(path)}[{r}]")
 
         put(blk.mixer_norm.scale, "mixer_norm", "scale")
-        for w in ("wq", "wk", "wv", "wo"):
-            put(getattr(blk.attn, w), "attn", w)
-        if cfg.qk_norm:
-            put(blk.attn.q_norm, "attn", "q_norm")
-            put(blk.attn.k_norm, "attn", "k_norm")
-        put(blk.mlp_norm.scale, "mlp_norm", "scale")
-        for w in ("wi", "wg", "wo"):
-            put(getattr(blk.mlp, w), "mlp", w)
+        if blk.spec.mixer == "mamba":
+            for w in ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj_w",
+                      "dt_proj_b", "A_log", "D", "out_proj"):
+                put(getattr(blk.mamba, w), "mamba", w)
+        else:
+            for w in ("wq", "wk", "wv", "wo"):
+                put(getattr(blk.attn, w), "attn", w)
+            if cfg.qk_norm:
+                put(blk.attn.q_norm, "attn", "q_norm")
+                put(blk.attn.k_norm, "attn", "k_norm")
+        if blk.spec.mlp == "dense":
+            put(blk.mlp_norm.scale, "mlp_norm", "scale")
+            for w in ("wi", "wg", "wo"):
+                put(getattr(blk.mlp, w), "mlp", w)
     model.refresh()
     return model

@@ -1,17 +1,23 @@
-"""Attention dispatch: hand-written CUDA kernels for CUDA tensors, their
-plain PyTorch versions for CPU tensors.
+"""Kernel dispatch: hand-written CUDA kernels for CUDA tensors, their
+plain PyTorch versions for CPU tensors.  The kernels: flash attention
+(prefill and training forward), flash decode, the flash backward's dq and
+dk/dv passes, and the Mamba-1 selective scan.
 
 There is no tuning cache yet: block sizes are fixed in the kernels.  A
-windowed call has no kernel in this package: on CUDA it raises, on the
-CPU it runs the model's chunked reference (only jamba has a window).
+windowed attention call has no kernel in this package: on CUDA it
+raises, on the CPU it runs the model's chunked reference (only jamba has
+a window).
 
-A model's attention layers call one :class:`AttentionOps`, passed down
-from the model's entry points.  ``DISPATCH`` (the default, and the only
-one the serving and training paths use) is the dispatch above; ``PLAIN``
-runs the plain versions on any device, so a caller can hold a whole
-model's kernels against them on the card, with the same weights, in one
-call.  Its ``train`` member is differentiable: the forward kernel, then
-the dq and dk/dv kernels in the backward.
+A model's layers call one :class:`AttentionOps`, passed down from the
+model's entry points: its attention members, and ``scan`` for Mamba
+layers.  ``DISPATCH`` (the default, and the only one the serving and
+training paths use) is the dispatch above; ``PLAIN`` runs the plain
+versions on any device, so a caller can hold a whole model's kernels
+against them on the card, with the same weights, in one call.  The
+``train`` and ``scan`` members are differentiable: ``train`` through the
+forward kernel, then the dq and dk/dv kernels in the backward; ``scan``
+through the scan kernel, then autograd through the plain chunked scan in
+the backward, as the reference's VJP does.
 """
 
 from __future__ import annotations
@@ -20,18 +26,23 @@ from typing import Callable, NamedTuple
 
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import mamba_scan as _scan
 
-KERNELS = (_flash.KERNEL, _decode.KERNEL, _flash.DQ_KERNEL, _flash.DKV_KERNEL)
+KERNELS = (_flash.KERNEL, _decode.KERNEL, _flash.DQ_KERNEL, _flash.DKV_KERNEL,
+           _scan.KERNEL)
 
 
 class AttentionOps(NamedTuple):
     """``prefill(q, k, v, *, causal, window)``,
-    ``decode(q, k_cache, v_cache, *, cache_index, window)`` and the
+    ``decode(q, k_cache, v_cache, *, cache_index, window)``, the
     differentiable ``train(q, k, v, *, causal, window)`` (None: the ops
-    serve only)."""
+    serve only) and the differentiable selective scan
+    ``scan(x, dt, A, B, C, h0=None) -> (y, h_final)`` (None: the ops run
+    no Mamba layer)."""
     prefill: Callable
     decode: Callable
     train: Callable | None = None
+    scan: Callable | None = None
 
 
 def _no_window_kernel(x) -> None:
@@ -93,6 +104,13 @@ def _plain_train(q, k, v, *, causal=True, window=None):
     return _flash.flash_attention_plain_train(q, k, v, causal=causal)
 
 
+def mamba_scan_dispatch(x, dt, A, B, C, h0=None):
+    """x, dt (b,s,d); A (d,n); B, C (b,s,n) -> (y (b,s,d), h_final
+    (b,d,n)), fp32, differentiable."""
+    return _scan.mamba_scan(x, dt, A, B, C, h0)
+
+
 DISPATCH = AttentionOps(flash_attention_dispatch, decode_attention_dispatch,
-                        flash_attention_train_dispatch)
-PLAIN = AttentionOps(_plain_prefill, _plain_decode, _plain_train)
+                        flash_attention_train_dispatch, mamba_scan_dispatch)
+PLAIN = AttentionOps(_plain_prefill, _plain_decode, _plain_train,
+                     _scan.mamba_scan_plain)

@@ -1,10 +1,11 @@
-"""Model configuration for the dense GQA decoders of the port.
+"""Model configuration for the families the port runs: dense GQA
+decoders and Mamba-1 SSMs.
 
 A model is a *block pattern* (a short tuple of ``BlockSpec``) repeated
 ``n_repeats`` times, as in the reference package; the port runs the
-layers as a loop over an ``nn.ModuleList``.  Only dense GQA decoders
-(attention mixer, RMSNorm, SwiGLU MLP) are ported so far: blocks of any
-other pattern are rejected.
+layers as a loop over an ``nn.ModuleList``.  Ported blocks: attention +
+SwiGLU MLP (qwen3, llama) and mamba with no MLP (falcon-mamba); blocks
+of any other pattern are rejected when the model is built.
 """
 
 from __future__ import annotations
@@ -16,11 +17,24 @@ import torch
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-1 selective state space block."""
+
+    state_dim: int = 16
+    conv_width: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
+
+    def resolved_dt_rank(self, d_model: int) -> int:
+        return self.dt_rank if self.dt_rank > 0 else -(-d_model // 16)
+
+
+@dataclass(frozen=True)
 class BlockSpec:
     """One layer's shape: a mixer plus an MLP."""
 
-    mixer: str = "attn"  # "attn" (the only mixer ported)
-    mlp: str = "dense"  # "dense" (the only MLP ported)
+    mixer: str = "attn"  # "attn" | "mamba"
+    mlp: str = "dense"  # "dense" | "none"
     # sliding window for this block's attention (None = full/causal).
     window: int | None = None
 
@@ -28,7 +42,7 @@ class BlockSpec:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense
+    family: str  # dense | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -38,9 +52,12 @@ class ModelConfig:
     head_dim: int = 0  # 0 -> d_model // n_heads
     pattern: tuple[BlockSpec, ...] = ()
 
+    attention: str = "gqa"  # "gqa" | "none"
     qk_norm: bool = False
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
+
+    ssm: SSMConfig | None = None
 
     # numerics: names of torch dtypes; training policy
     param_dtype: str = "bfloat16"
@@ -52,7 +69,8 @@ class ModelConfig:
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if not self.pattern:
-            object.__setattr__(self, "pattern", (BlockSpec(),))
+            mixer = "mamba" if self.family == "ssm" else "attn"
+            object.__setattr__(self, "pattern", (BlockSpec(mixer=mixer),))
         if self.n_layers % len(self.pattern) != 0:
             raise ValueError(
                 f"{self.name}: n_layers={self.n_layers} not divisible by "
@@ -61,6 +79,12 @@ class ModelConfig:
     @property
     def n_repeats(self) -> int:
         return self.n_layers // len(self.pattern)
+
+    @property
+    def d_inner(self) -> int:
+        if self.ssm is None:
+            raise ValueError(f"{self.name}: d_inner needs an SSM config")
+        return self.ssm.expand * self.d_model
 
     @property
     def dtype(self) -> torch.dtype:

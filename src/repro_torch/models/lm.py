@@ -7,8 +7,9 @@ package's shapes:
   train_loss -> (scalar loss fp32, {"ce_loss", "aux_loss"})  [differentiable]
   prefill    -> (last-token logits (B,V) fp32, caches)
   decode     -> (logits (B,V) fp32, caches)   [caches updated in place]
-All take ``ops``, the attention functions every layer calls: the
-kernels' dispatch by default (see ``repro_torch.kernels``).  Weights are
+All take ``ops``, the attention and scan functions every layer calls:
+the kernels' dispatch by default (see ``repro_torch.kernels``).  A
+layer's cache is a KV cache (attention) or a Mamba state.  Weights are
 created with ``requires_grad=False``; a trainer turns it on.
 """
 
@@ -18,7 +19,6 @@ import torch
 from torch import nn
 
 from ..kernels import DISPATCH, AttentionOps
-from .attention import make_empty_cache
 from .blocks import make_blocks
 from .common import ModelConfig
 from .layers import Embedding, RMSNorm
@@ -94,5 +94,5 @@ class LM(nn.Module):
         return self.head().unembed(x)[:, 0], caches
 
     def make_caches(self, batch: int, seq_len: int):
-        return [make_empty_cache(self.cfg, batch, seq_len, self.device)
-                for _ in self.blocks]
+        """Each layer's empty cache: KV slots or a Mamba state."""
+        return [blk.make_cache(batch, seq_len) for blk in self.blocks]

@@ -4,7 +4,8 @@ port's modules.
 ``build(cfg)`` returns a ``ModelAPI``.  ``init(generator)`` makes the
 parameters (an :class:`~repro_torch.models.lm.LM`) on the generator's
 device; ``train_loss``/``prefill``/``decode`` take those parameters
-first, as in the reference.  Only dense GQA decoders are ported.
+first, as in the reference.  Ported families: ``dense`` (GQA decoders)
+and ``ssm`` (Mamba-1, falcon-mamba).
 """
 
 from __future__ import annotations
@@ -29,9 +30,9 @@ class ModelAPI:
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA decoders are ported")
+            f"{cfg.name}: only dense GQA decoders and Mamba SSMs are ported")
     return ModelAPI(
         cfg=cfg,
         init=lambda g: LM(cfg, g),

@@ -135,3 +135,27 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         Service(None)
     assert resolve_device("cpu") == torch.device("cpu")
     assert Service(None, device="cpu").device == torch.device("cpu")
+
+
+def test_drop_programs_frees_the_weights_they_close_over():
+    """A served program holds its weights through its closure, in the
+    service's program cache; ``drop_programs`` lets them go."""
+    import gc
+    import weakref
+
+    weights = torch.ones(6)
+    ref = weakref.ref(weights)
+    prog = Program(lambda p, w=weights: {"y": p["x"] * w}, name="scaled")
+    del weights
+    lookup = LookupService()
+    svc = Service(lookup, device="cpu")
+    svc.start()
+    out = []
+    BasicClient(prog, None, _tasks(2), out, lookup=lookup).compute(timeout=60)
+    assert len(out) == 2
+    del prog, out
+    gc.collect()
+    assert ref() is not None  # cached by the service
+    svc.drop_programs()
+    gc.collect()
+    assert ref() is None

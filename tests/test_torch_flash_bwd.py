@@ -24,7 +24,11 @@ from repro_torch.kernels.flash_attention import (DKV_KERNEL, DQ_KERNEL,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_plain)
 
-torch.set_num_threads(2)
+# One intra-op thread: on the CPUs these tests run on, torch's second
+# thread has been seen under load to compute exp on its half of a tensor
+# with errors far above an ulp, which breaks the tight tolerances here at
+# random; with one thread it has not.
+torch.set_num_threads(1)
 
 F32, BF16 = "float32", "bfloat16"
 _JNP = {F32: jnp.float32, BF16: jnp.bfloat16}

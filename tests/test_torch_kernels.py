@@ -19,7 +19,11 @@ from repro_torch.kernels import decode_attention, flash_attention
 from repro_torch.kernels.decode_attention import decode_attention_fwd
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 
-torch.set_num_threads(2)
+# One intra-op thread: on the CPUs these tests run on, torch's second
+# thread has been seen under load to compute exp on its half of a tensor
+# with errors far above an ulp, which breaks the tight tolerances here at
+# random; with one thread it has not.
+torch.set_num_threads(1)
 
 F32, BF16 = "float32", "bfloat16"
 _JNP = {F32: jnp.float32, BF16: jnp.bfloat16}

@@ -26,7 +26,11 @@ from repro_torch.interop import params_from_jax
 from repro_torch.models import build as tbuild
 from repro_torch.models.attention import chunked_attention, decode_attention_xla
 
-torch.set_num_threads(2)
+# One intra-op thread: on the CPUs these tests run on, torch's second
+# thread has been seen under load to compute exp on its half of a tensor
+# with errors far above an ulp, which breaks the tight tolerances here at
+# random; with one thread it has not.
+torch.set_num_threads(1)
 
 ARCHS = ["qwen3_1p7b", "llama3p2_1b"]
 TOL = 2e-3

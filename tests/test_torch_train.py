@@ -52,7 +52,11 @@ from repro_torch.runtime.local_sgd import (LocalSGDConfig, LocalSGDTrainer,
 from repro_torch.runtime.train_loop import (TrainConfig, Trainer,
                                             make_train_state)
 
-torch.set_num_threads(2)
+# One intra-op thread: on the CPUs these tests run on, torch's second
+# thread has been seen under load to compute exp on its half of a tensor
+# with errors far above an ulp, which breaks the tight tolerances here at
+# random; with one thread it has not.
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["qwen3_1p7b", "llama3p2_1b"]
