@@ -10,17 +10,26 @@ those paths against its plain PyTorch version.  Phases, in order; any
 failure raises and exits non-zero:
 
 1. build the CUDA kernels from this checkout's sources (one ``nvcc`` per
-   source, all started together) and print the card's name and power limit;
+   source, all started together), print each kernel's registers and
+   spills, count the tensor-core (``HGMMA``) and TMA (``UTMALDG``)
+   instructions in the bf16 flash library's SASS (failing if either is
+   0), and print the card's name and power limit;
 2. each kernel against its plain version on the card, at the serve shapes
    (B=4, H=16, K=8, D=128, Sq = Skv = 512, a 576-slot cache: many query
    and key tiles) and at a ragged size (Sq = Skv = 13, a 24-slot cache
-   with ``cache_index`` mid-cache), each in bf16 and fp32, then the
-   kernel, its plain version and one PyTorch library call, timed at the
-   serve shapes in bf16;
+   with ``cache_index`` mid-cache), each in bf16 and fp32 (bf16 flash
+   goes to the Hopper kernel, fp32 flash to the CUDA-core one), then each
+   kernel, its plain version and PyTorch's SDPA timed at the serve shapes
+   (flash in bf16 and in fp32, decode in bf16); SDPA runs with K and V
+   expanded to H heads outside the timed region, under each of its flash,
+   memory-efficient and cuDNN backends that takes the inputs, and the
+   fastest is kept with its backend's name.  The host cost of the bf16
+   kernel's three TMA descriptors is timed too;
 3. serve full-width qwen3-1.7B (bf16, weights from a seeded generator on
    the card) through ``BasicClient`` on 2 in-process services: 16 requests,
    prompt 512, 64 new tokens, 4 requests per task.  The kernels' launch
-   counts are zeroed just before and read just after;
+   counts are zeroed just before and read just after: every prefill layer
+   goes through the bf16 flash kernel, none through the fp32 one;
 4. one prefill and one decode step at full width through the kernels and
    through the plain versions, with the same weights, on several prompt
    batches;
@@ -28,14 +37,20 @@ failure raises and exits non-zero:
    backward at the training shapes (B=4, H=16, K=8, D=128, S=512) and at
    a ragged S=13, in bf16 and fp32; dk/dv determinism; each kernel, the
    plain backward and PyTorch's SDPA backward timed at the training
-   shapes in bf16;
+   shapes in bf16: the backward alone (one forward with grad-enabled
+   inputs, then ``autograd.grad`` timed), K and V expanded, each backend
+   as in phase 2; beside it the older reading, (forward + backward) -
+   forward with ``enable_gqa`` and no backend named;
 6. sync training of full-width, full-depth qwen3-1.7B (``Trainer``, 4
    AdamW steps on MarkovDataset batches of 4 x 512, fp32 moments), the
-   launch counts zeroed just before and read just after, one profiled
+   launch counts zeroed just before and read just after (the bf16 flash
+   kernel once per layer per step, the fp32 one never), one profiled
    step, and a checkpoint saved and restored into a fresh state;
 7. one full-width training step's loss and gradients through the
    kernels and through the plain versions, same weights, same batch, in
-   bf16 (the trained weights) and in fp32 (fresh fp32 weights);
+   bf16 (the trained weights) and in fp32 (fresh fp32 weights; the launch
+   counts zeroed just before and read just after: this is the fp32 flash
+   kernel's path, once per layer);
 8. farm-mode training (``LocalSGDTrainer``) at full width with depth cut
    to 8 layers on the 2 services: one round of 4 tasks, then one more with
    a service failing after one task;
@@ -55,15 +70,20 @@ failure raises and exits non-zero:
     layers (4 AdamW steps on batches of 2 x 512), asserting one scan launch
     per layer per step, and one profiled step.
 
-The line before the last is a JSON object with each kernel's numbers; the
-last line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event
-times on this card, averaged over repeated launches without flushing the
-50 MB L2 cache (the serve and training paths find their inputs freshly
-written).
+The line before the last is a JSON object with each kernel's numbers, one
+row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
+(``flash_attention_fwd_fp32``), decode, dq, dk/dv and the scan; the last
+line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event times on
+this card without flushing the 50 MB L2 cache (the serve and training
+paths find their inputs freshly written): for the attention kernels, their
+plain versions and SDPA, of CUDA-graph replays of repeated calls (device
+time: a wrapper's host time exceeds the faster kernels' own); for the
+scan, of back-to-back calls.
 """
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import re
@@ -71,6 +91,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -184,6 +205,37 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=10, reps=5, stream=None) -> float:
+    """Device ms of one call of ``fn``: ``iters`` calls captured in a CUDA
+    graph on ``stream`` (a new one by default), replayed ``reps`` times
+    between CUDA events.  What each call costs the host (Python, checks,
+    allocation, the launch) is left out: the kernels' wrappers take ~30 us
+    of host time a call, so back-to-back calls of a faster kernel would
+    time the host, not the card."""
+    stream = stream or torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * iters)
+
+
 def randn(shape, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -211,17 +263,137 @@ def say_registers(log):
         m = re.search(r"Compiling entry function .*?([a-z_]+_kernel)I"
                       r"(13__nv_bfloat16|f)Li(\d+)E", line)
         g = re.search(r"Compiling entry function .*?(scan_kernel)ILi(\d+)E", line)
+        d = re.search(r"Compiling entry function .*?([a-z_]+(?:_sm90)?_kernel)"
+                      r"ILi(\d+)E(?:Li(\d+)E)?", line)
         if m:
             dtype = "bf16" if m.group(2) != "f" else "f32"
             name = f"{m.group(1)}<{dtype}, {m.group(3)}>"
         elif g:
             name = f"{g.group(1)}<{g.group(2)} lanes a channel>"
+        elif d:
+            name = f"{d.group(1)}<{', '.join(x for x in d.groups()[1:] if x)}>"
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line and name:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             say(f"  {name}: {regs} registers; {spill}")
             name = None
+
+
+def say_sass(kern, ops=("HGMMA", "UTMALDG")):
+    """Counts ``ops`` in the SASS of ``kern``'s library (``cuobjdump``,
+    shipped with the toolkit beside ``nvcc``); fails if any is absent."""
+    from repro_torch.kernels.build import find_nvcc
+
+    cuobjdump = Path(find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(kern.library_path())],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
+    say(f"  {kern.source.name} SASS: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
+    if not all(counts.values()):
+        raise AssertionError(f"{kern.source.name}: no {' or '.join(ops)} in its SASS")
+
+
+def fmt_ms(ms) -> str:
+    return "none ran" if ms is None else f"{ms:.4f} ms"
+
+
+def sdpa_backends():
+    from torch.nn.attention import SDPBackend
+
+    return (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+            SDPBackend.CUDNN_ATTENTION)
+
+
+def sdpa_heads(q, k, v):
+    """(B,S,heads,D) -> SDPA's (B,H,S,D) views, K and V expanded to q's H
+    heads (copied here, outside any timed region)."""
+    G = q.shape[2] // k.shape[2]
+    return tuple(t.transpose(1, 2) for t in (q, k.repeat_interleave(G, 2),
+                                              v.repeat_interleave(G, 2)))
+
+
+def sdpa_library_ms(q, k, v, **kw):
+    """One SDPA forward on (B,S,heads,D) inputs, graph-timed under each
+    backend that takes them: (fastest ms, its backend's name), or (None,
+    None)."""
+    from torch.nn.attention import sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    qT, kT, vT = sdpa_heads(q, k, v)
+    best = (None, None)
+    for backend in sdpa_backends():
+        with warnings.catch_warnings(), sdpa_kernel(backend):
+            warnings.simplefilter("ignore")
+            try:
+                sdpa(qT, kT, vT, **kw)
+            except (RuntimeError, ValueError):  # the backend does not take these inputs
+                continue
+            ms = graph_ms(lambda: sdpa(qT, kT, vT, **kw))
+        say(f"    SDPA {backend.name} {str(q.dtype)[6:]}: {ms:.4f} ms")
+        if best[0] is None or ms < best[0]:
+            best = (ms, backend.name)
+    return best
+
+
+def sdpa_backward_ms(q, k, v, g):
+    """SDPA's backward alone, causal, on (B,S,heads,D) inputs: one forward
+    with grad-enabled inputs under each backend that takes them, then
+    ``autograd.grad`` graph-timed (the forward runs on the capture stream,
+    where autograd puts its backward); (fastest ms, its backend's name)."""
+    from torch.nn.attention import sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    leaves = tuple(t.detach().requires_grad_() for t in sdpa_heads(q, k, v))
+    gT = g.transpose(1, 2)
+    best = (None, None)
+    for backend in sdpa_backends():
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with warnings.catch_warnings(), sdpa_kernel(backend):
+            warnings.simplefilter("ignore")
+            try:
+                with torch.cuda.stream(stream):
+                    o = sdpa(*leaves, is_causal=True)
+            except (RuntimeError, ValueError):  # the backend does not take these inputs
+                continue
+            ms = graph_ms(lambda: torch.autograd.grad(o, leaves, gT, retain_graph=True),
+                          stream=stream)
+        say(f"    SDPA {backend.name} backward: {ms:.4f} ms")
+        if best[0] is None or ms < best[0]:
+            best = (ms, backend.name)
+    return best
+
+
+def describe_us(flash, q, k, v, reps=2000) -> float:
+    """Host microseconds to make the bf16 flash kernel's three TMA
+    descriptors for one call (the library's describe entry, no launch)."""
+    lib = ctypes.CDLL(str(flash.SM90_KERNEL.library_path()))
+    fn = lib.repro_flash_sm90_describe
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+    fn.restype = ctypes.c_int
+    B, Sq, H, D = q.shape
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, k.shape[1], H,
+            k.shape[2], D)
+    t0 = time.perf_counter()
+    err = fn(*args, reps)
+    us = (time.perf_counter() - t0) / reps * 1e6
+    if err:
+        raise AssertionError(f"repro_flash_sm90_describe failed: CUDA error {err}")
+    return us
+
+
+def host_us(fn, calls=50) -> float:
+    """Host microseconds per call of ``fn``, enqueued back to back (fewer
+    than the launch queue holds), the card not waited for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def bound(flops, nbytes, dtype):
@@ -243,24 +415,28 @@ def causal_pairs(B, H, Sq, Skv) -> int:
 
 def kernel_phase(flash, decode):
     """Phase 2: kernels vs plain versions; times at the serve shapes."""
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
-    errs = {"flash": 0.0, "decode": 0.0}
+    errs = {"flash": 0.0, "flash_fp32": 0.0, "decode": 0.0}
     B, H, K, D = PER_TASK, 16, 8, 128
     S = PROMPT + NEW
     cases = [(label, dt, sq, s_cache, ci)
              for label, sq, s_cache, ci in (("serve", PROMPT, S, PROMPT + 31),
                                             ("ragged", 13, 24, 11))
              for dt in (torch.bfloat16, torch.float32)]
+    flash_inputs = {}
     for label, dt, sq, s_cache, ci in cases:
         q = randn((B, sq, H, D), dt, 1)
         k = randn((B, sq, K, D), dt, 2)
         v = randn((B, sq, K, D), dt, 3)
+        kern = flash.forward_kernel(dt)
+        before = kern.launches
         out, lse = flash.flash_attention_fwd(q, k, v, causal=True)
+        if kern.launches != before + 1:
+            raise AssertionError(f"flash {str(dt)[6:]} did not launch {kern.name}")
         ref, ref_lse = flash.flash_attention_plain(q, k, v, causal=True)
-        tag = f"flash {label} {str(dt)[6:]} Sq=Skv={sq}"
-        errs["flash"] = max(errs["flash"], check(tag + " out", out, ref, RTOL[dt]),
-                            check(tag + " lse", lse, ref_lse, 0.0))
+        tag = f"flash ({kern.name}) {label} {str(dt)[6:]} Sq=Skv={sq}"
+        key = "flash" if dt == torch.bfloat16 else "flash_fp32"
+        errs[key] = max(errs[key], check(tag + " out", out, ref, RTOL[dt]),
+                        check(tag + " lse", lse, ref_lse, 0.0))
         qd = randn((B, 1, H, D), dt, 4)
         kc = randn((B, s_cache, K, D), dt, 5)
         vc = randn((B, s_cache, K, D), dt, 6)
@@ -269,36 +445,48 @@ def kernel_phase(flash, decode):
         errs["decode"] = max(errs["decode"], check(
             f"decode {label} {str(dt)[6:]} S={s_cache} cache_index={ci}",
             got, ref, RTOL[dt]))
-        if (label, dt) == ("serve", torch.bfloat16):
-            serve_inputs = (q, k, v, qd, kc, vc, ci)
+        if label == "serve":
+            flash_inputs[dt] = (q, k, v)
+            if dt == torch.bfloat16:
+                decode_inputs = (qd, kc, vc, ci)
     torch.cuda.synchronize()
 
-    q, k, v, qd, kc, vc, ci = serve_inputs
-    qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, q.shape[1]), device="cuda")
-    fl = dict(
-        ms=cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, causal=True)),
-        plain_ms=cuda_ms(lambda: flash.flash_attention_plain(q, k, v, causal=True)),
-        library_ms=cuda_ms(lambda: sdpa(qT, kT, vT, is_causal=True, enable_gqa=True)))
-    fl["bound_ms"], fl["bound_by"] = bound(
-        4 * D * causal_pairs(B, H, q.shape[1], k.shape[1]),
-        nbytes(q, k, v, out, lse), q.dtype)
+    rows = {}
+    for dt, key in ((torch.bfloat16, "flash"), (torch.float32, "flash_fp32")):
+        q, k, v = flash_inputs[dt]
+        out = torch.empty_like(q)
+        lse = torch.empty((B, H, q.shape[1]), device="cuda")
+        r = dict(ms=graph_ms(lambda: flash.flash_attention_fwd(q, k, v, causal=True)),
+                 plain_ms=graph_ms(lambda: flash.flash_attention_plain(q, k, v, causal=True)),
+                 call_ms=cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, causal=True)))
+        r["library_ms"], r["library"] = sdpa_library_ms(q, k, v, is_causal=True)
+        r["bound_ms"], r["bound_by"] = bound(
+            4 * D * causal_pairs(B, H, q.shape[1], k.shape[1]),
+            nbytes(q, k, v, out, lse), q.dtype)
+        r["host_us"] = host_us(lambda: flash.flash_attention_fwd(q, k, v, causal=True))
+        rows[key] = r
+    q, k, v = flash_inputs[torch.bfloat16]
+    say(f"  bf16 flash kernel's three TMA descriptors: {describe_us(flash, q, k, v):.2f} "
+        "us of host time a call")
+    qd, kc, vc, ci = decode_inputs
     n = ci + 1
     mask = (torch.arange(kc.shape[1], device="cuda") <= ci).view(1, 1, 1, -1)
-    qdT, kcT, vcT = (t.transpose(1, 2) for t in (qd, kc, vc))
     de = dict(
-        ms=cuda_ms(lambda: decode.decode_attention_fwd(qd, kc, vc, cache_index=ci)),
-        plain_ms=cuda_ms(lambda: decode.decode_attention_plain(qd, kc, vc, cache_index=ci)),
-        library_ms=cuda_ms(lambda: sdpa(qdT, kcT, vcT, attn_mask=mask, enable_gqa=True)))
+        ms=graph_ms(lambda: decode.decode_attention_fwd(qd, kc, vc, cache_index=ci)),
+        plain_ms=graph_ms(lambda: decode.decode_attention_plain(qd, kc, vc, cache_index=ci)),
+        call_ms=cuda_ms(lambda: decode.decode_attention_fwd(qd, kc, vc, cache_index=ci)))
+    de["library_ms"], de["library"] = sdpa_library_ms(qd, kc, vc, attn_mask=mask)
     kv_read = 2 * B * n * K * D * kc.element_size()
     de["bound_ms"], de["bound_by"] = bound(4 * D * B * H * n,
                                            kv_read + 2 * nbytes(qd), qd.dtype)
-    for name, r in (("flash", fl), ("decode", de)):
-        say(f"  {name} at serve shapes: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-    return errs, fl, de
+    for name, r in (("flash bf16", rows["flash"]), ("flash fp32", rows["flash_fp32"]),
+                    ("decode", de)):
+        host = f", host {r['host_us']:.1f} us a call" if "host_us" in r else ""
+        say(f"  {name} at serve shapes (graph-timed): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {fmt_ms(r['library_ms'])} (SDPA "
+            f"{r['library']}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+            f"back-to-back calls of the wrapper {r['call_ms']:.4f} ms{host}")
+    return errs, rows["flash"], rows["flash_fp32"], de
 
 
 def profile_window(label, fn, reps):
@@ -441,7 +629,7 @@ def backward_phase(flash):
     q, k, v, out, lse, g = inputs
     dq, dvec = flash.bwd_dq_launch(q, k, v, out, lse, g, causal=True)
     dk, dv = flash.bwd_dkv_launch(q, k, v, g, lse, dvec, causal=True)
-    plain_ms = cuda_ms(lambda: flash.flash_attention_bwd_plain(
+    plain_ms = graph_ms(lambda: flash.flash_attention_bwd_plain(
         q, k, v, out, lse, g, causal=True))
     qT, kT, vT = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     gT = g.transpose(1, 2)
@@ -453,23 +641,26 @@ def backward_phase(flash):
         o = sdpa(qT, kT, vT, is_causal=True, enable_gqa=True)
         torch.autograd.grad(o, (qT, kT, vT), gT)
 
-    library_ms = max(cuda_ms(lib_fwd_bwd) - cuda_ms(lib_fwd), 0.0)
+    old_ms = max(cuda_ms(lib_fwd_bwd) - cuda_ms(lib_fwd), 0.0)  # back to back, as it was
+    say(f"  SDPA backward, the older reading ((fwd + bwd) - fwd, enable_gqa, no "
+        f"backend named): {old_ms:.4f} ms")
+    library_ms, library = sdpa_backward_ms(q, k, v, g)
     pairs = causal_pairs(B, H, TRAIN_SEQ, TRAIN_SEQ)
     rows = {
-        "dq": dict(ms=cuda_ms(lambda: flash.bwd_dq_launch(
+        "dq": dict(ms=graph_ms(lambda: flash.bwd_dq_launch(
             q, k, v, out, lse, g, causal=True)), plain_ms=plain_ms,
-            library_ms=library_ms),
-        "dkv": dict(ms=cuda_ms(lambda: flash.bwd_dkv_launch(
+            library_ms=library_ms, library=library),
+        "dkv": dict(ms=graph_ms(lambda: flash.bwd_dkv_launch(
             q, k, v, g, lse, dvec, causal=True)), plain_ms=plain_ms,
-            library_ms=library_ms)}
+            library_ms=library_ms, library=library)}
     rows["dq"]["bound_ms"], rows["dq"]["bound_by"] = bound(
         6 * D * pairs, nbytes(q, k, v, out, g, lse, dq, dvec), q.dtype)
     rows["dkv"]["bound_ms"], rows["dkv"]["bound_by"] = bound(
         8 * D * pairs, nbytes(q, k, v, g, lse, dvec, dk, dv), q.dtype)
     for name, r in rows.items():
-        say(f"  {name} at training shapes: kernel {r['ms']:.4f} ms, plain "
+        say(f"  {name} at training shapes (graph-timed): kernel {r['ms']:.4f} ms, plain "
             f"backward (dq, dk, dv) {r['plain_ms']:.4f} ms, library backward "
-            f"(SDPA fwd+bwd - fwd) {r['library_ms']:.4f} ms, bound "
+            f"(SDPA {r['library']}, dq, dk, dv together) {fmt_ms(r['library_ms'])}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return errs, rows
 
@@ -513,10 +704,12 @@ def sync_training_phase(api, params, dev, kernels):
     say(f"  launches on the training path: {launches}")
     if not all(np.isfinite(m["loss"]) for m in logs):
         raise AssertionError("non-finite training loss")
-    for name in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_attention_sm90", "flash_bwd_dq", "flash_bwd_dkv"):
         if launches[name] < cfg.n_layers * TRAIN_STEPS:
             raise AssertionError(f"{name}: {launches[name]} launches, fewer "
                                  "than training needs")
+    if launches["flash_attention"]:
+        raise AssertionError("the fp32 flash kernel ran on the bf16 training path")
     batch = {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(99).items()}
     profile_window("training step", lambda i: trainer.train_step(state, batch), 1)
 
@@ -814,13 +1007,14 @@ def main() -> int:
         f"({', '.join(sorted(logs)) or 'already built'})")
     for log in logs.values():
         say_registers(log)
+    say_sass(flash.SM90_KERNEL)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     say(smi)
 
     say("phase 2: kernels vs plain versions")
-    errs, fl, de = kernel_phase(flash, decode)
+    errs, fl, fl32, de = kernel_phase(flash, decode)
 
     say("phase 3: serve")
     cfg = cfgs.get(ARCH)
@@ -861,8 +1055,10 @@ def main() -> int:
         raise AssertionError(f"generated shape {tuple(gen.shape)}")
     if not (int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size):
         raise AssertionError("generated token ids out of range")
-    if launches["flash_attention"] < n_tasks * cfg.n_layers:
+    if launches["flash_attention_sm90"] < n_tasks * cfg.n_layers:
         raise AssertionError("flash kernel launched fewer times than prefill needs")
+    if launches["flash_attention"]:
+        raise AssertionError("the fp32 flash kernel ran on the bf16 serve path")
     if launches["decode_attention"] < n_tasks * cfg.n_layers * NEW:
         raise AssertionError("decode kernel launched fewer times than decode needs")
 
@@ -885,7 +1081,14 @@ def main() -> int:
     model32 = api32.init(torch.Generator(device=dev).manual_seed(SEED))
     model32.requires_grad_(True)
     model32.head().drop_f32()
+    for kern in kernels.KERNELS:
+        kern.launches = 0
     train_step_agreement(api32, model32, dev, kernels.PLAIN)
+    fp32_launches = {kern.name: kern.launches for kern in kernels.KERNELS}
+    say(f"  launches on the fp32 training step: {fp32_launches}")
+    if fp32_launches["flash_attention"] < cfg.n_layers or fp32_launches["flash_attention_sm90"]:
+        raise AssertionError("the fp32 training step did not go through the fp32 "
+                             "flash kernel once per layer")
     del model32
     torch.cuda.empty_cache()
 
@@ -928,8 +1131,10 @@ def main() -> int:
     rows = []
     flash_py = "src/repro/kernels/flash_attention/flash_attention.py"
     for name, kern, r, err, replaces, count in (
-            ("flash_attention_fwd", flash.KERNEL, fl, errs["flash"],
+            ("flash_attention_fwd", flash.SM90_KERNEL, fl, errs["flash"],
              f"{flash_py}:127", launches),
+            ("flash_attention_fwd_fp32", flash.KERNEL, fl32, errs["flash_fp32"],
+             f"{flash_py}:127", fp32_launches),
             ("decode_attention_fwd", decode.KERNEL, de, errs["decode"],
              "src/repro/kernels/decode_attention/decode_attention.py:116",
              launches),
@@ -944,7 +1149,7 @@ def main() -> int:
                      "replaces": replaces, "launches": count[kern.name],
                      "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+                     "library_ms": r["library_ms"], "library": r.get("library")})
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

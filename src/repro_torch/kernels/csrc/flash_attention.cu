@@ -1,26 +1,23 @@
-// Flash-attention forward (prefill) for Hopper, sm_90a.
+// Flash-attention forward (prefill) for Hopper, sm_90a: the fp32 kernel.
+// bf16 inputs go to flash_attention_sm90.cu (tensor cores, TMA).
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` reached through
-// `flash_attention_fwd` in src/repro/kernels/flash_attention/flash_attention.py.
-// Same function: causal or non-causal GQA attention with an online softmax,
-// fp32 accumulation, q-head h reading kv-head h*K/H, scale D^-0.5, the
-// top-left causal mask k_pos <= q_pos (both from 0), kv tiles wholly above
-// the diagonal skipped, l clamped at 1e-37, outputs out (in q's dtype) and
-// lse = m + log(l) in fp32.
+// `flash_attention_fwd` in src/repro/kernels/flash_attention/flash_attention.py,
+// for fp32 inputs.  Same function: causal or non-causal GQA attention with
+// an online softmax, fp32 accumulation, q-head h reading kv-head h*K/H,
+// scale D^-0.5, the top-left causal mask k_pos <= q_pos (both from 0), kv
+// tiles wholly above the diagonal skipped, l clamped at 1e-37, outputs out
+// and lse = m + log(l), both fp32.
 //
-// What bounds it on an H100 (published SXM peaks at its 700 W limit:
-// 3.35 TB/s, 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32 CUDA cores):
-// at the serve shapes (B=4, H=16, Sq=Skv=512, K=8, D=128, bf16) one call
-// needs ~4.3 GFLOP (the causal half of QK^T and PV) and moves ~25 MB of
-// inputs and outputs: ~170 FLOP/byte, below the ~295 FLOP/byte ridge of
-// the bf16 tensor cores, so the roofline floor is the bytes (~7.5 us).
-// This first version does its products in fp32 on the CUDA cores, where
-// the same work needs at least ~64 us: it is bounded by operations, and
-// exact to the reference's fp32 numerics.  Moving the products to the
-// tensor cores (wgmma, TMA, a producer/consumer pipeline) is later work.
+// What bounds it on an H100 (published SXM peak at its 700 W limit: 67
+// TFLOP/s fp32 on the CUDA cores): at the serve shape in fp32 (B=4, H=16,
+// Sq=Skv=512, K=8, D=128) one call needs ~4.3 GFLOP (the causal half of
+// QK^T and PV), at least ~64 us, against ~50 MB of inputs and outputs
+// (~15 us at 3.35 TB/s): it is bounded by operations, and exact to the
+// reference's fp32 numerics.
 //
 // Design: one block of 256 threads (a 16 x 16 grid) per (64-row query tile,
-// q-head, batch).  The query tile is staged once in shared memory as fp32;
+// q-head, batch).  The query tile is staged once in shared memory;
 // the block then walks 32-key tiles of K and V through shared memory.  Each
 // thread owns 4 query rows (ty + 16 i) and, for the score tile, 2 key
 // columns (tx + 16 j); for the output, D/16 columns (tx + 16 c).  The row
@@ -50,10 +47,10 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (BQ * (D + 4) + BK * (D + 4) + BK * D + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int Sq, int Skv, int H, int K,
                  float scale, int causal) {
   constexpr int DC = D / 16;  // output columns per thread
@@ -76,8 +73,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D, qp = q0 + r;
-    Qs[r * QS + d] =
-        qp < Sq ? repro::to_f(q[((static_cast<size_t>(b) * Sq + qp) * H + h) * D + d]) : 0.f;
+    Qs[r * QS + d] = qp < Sq ? q[((static_cast<size_t>(b) * Sq + qp) * H + h) * D + d] : 0.f;
   }
 
   float m[TR], l[TR], acc[TR][DC];
@@ -98,8 +94,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kf = 0.f, vf = 0.f;
       if (kp < Skv) {
         const size_t off = ((static_cast<size_t>(b) * Skv + kp) * K + kh) * D + d;
-        kf = repro::to_f(k[off]);
-        vf = repro::to_f(v[off]);
+        kf = k[off];
+        vf = v[off];
       }
       Ks[c * KS + d] = kf;
       Vs[c * D + d] = vf;
@@ -184,14 +180,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + ty + 16 * i;
     if (qp >= Sq) continue;
     const float ll = fmaxf(l[i], 1e-37f);
-    T* orow = out + ((static_cast<size_t>(b) * Sq + qp) * H + h) * D;
+    float* orow = out + ((static_cast<size_t>(b) * Sq + qp) * H + h) * D;
 #pragma unroll
-    for (int cc = 0; cc < DC; ++cc) orow[tx + 16 * cc] = repro::from_f<T>(acc[i][cc] / ll);
+    for (int cc = 0; cc < DC; ++cc) orow[tx + 16 * cc] = acc[i][cc] / ll;
     if (tx == 0) lse[(static_cast<size_t>(b) * H + h) * Sq + qp] = m[i] + logf(ll);
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* lse,
                    int B, int Sq, int Skv, int H, int K, int causal,
                    cudaStream_t stream) {
@@ -199,44 +195,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, void*
   static bool configured = false;  // once per instantiation (a repeat is harmless)
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), Sq, Skv, H, K,
-      1.0f / sqrtf(static_cast<float>(D)), causal);
+  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse),
+      Sq, Skv, H, K, 1.0f / sqrtf(static_cast<float>(D)), causal);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, void* lse,
-                       int B, int Sq, int Skv, int H, int K, int D, int causal,
-                       cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// q (B,Sq,H,D), k/v (B,Skv,K,D) contiguous; out (B,Sq,H,D) in q's dtype,
-// lse (B,H,Sq) fp32.  dtype: 0 = float32, 1 = bfloat16.  Returns the
-// cudaError_t of the launch.
+// q (B,Sq,H,D), k/v (B,Skv,K,D) contiguous float32; out (B,Sq,H,D) float32,
+// lse (B,H,Sq) float32.  Returns the cudaError_t of the launch.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
                                          void* out, void* lse, int B, int Sq, int Skv,
-                                         int H, int K, int D, int causal, int dtype,
-                                         void* stream) {
+                                         int H, int K, int D, int causal, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, out, lse, B, Sq, Skv, H, K, D, causal, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, lse, B, Sq, Skv, H, K, D, causal, st);
-  return cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return launch<32>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
+    case 64: return launch<64>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
+    case 128: return launch<128>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -1,0 +1,582 @@
+// Flash-attention forward for Hopper (sm_90a), bfloat16: both products on
+// the tensor cores (wgmma), K and V tiles brought in by TMA.
+//
+// Replaces the Pallas TPU kernel `_fwd_kernel` reached through
+// `flash_attention_fwd` (the `pl.pallas_call` at l.127) in
+// src/repro/kernels/flash_attention/flash_attention.py, for bf16 inputs; the
+// fp32 inputs go to flash_attention.cu.  Same function: causal or non-causal
+// GQA attention with an online softmax in fp32, q-head h reading kv-head
+// h*K/H (no head expansion), scale D^-0.5, the top-left causal mask
+// k_pos <= q_pos (both from 0, so Sq != Skv keeps the reference's meaning),
+// kv tiles wholly above the diagonal skipped, l clamped at 1e-37, outputs
+// out (B,Sq,H,D) in bf16 and lse = m + log(l) (B,H,Sq) in fp32, natural log.
+// Inputs: q (B,Sq,H,D), k and v (B,Skv,K,D), contiguous bf16, D in
+// {32, 64, 128}, any Sq and Skv.
+//
+// Bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16 dense): at the serve
+// shape (B=4, H=16, K=8, D=128, Sq=Skv=512, causal) the function moves
+// 25.3 MB (q, k, v read once, out and lse written once): 7.55 us; its 4.30
+// GFLOP of products (4*D a visible pair) take 4.3 us.  Bytes bound it.
+//
+// Why P is split.  The reference keeps p in fp32 for the PV product (q, k, v
+// are cast to fp32 and p.astype(v.dtype) stays fp32).  Against the plain
+// version's element check |err| <= 2e-5 + 2^-7 |ref|, a CPU model of this
+// kernel's arithmetic (tests/test_torch_flash_sm90.py, at B=1, S=512, H=4,
+// K=2, D=128, causal, bf16 inputs) shows: QK^T from bf16 operands with fp32
+// sums loses nothing (products of bf16 values are exact in fp32); p rounded
+// once to bf16 puts 24,639 of 262,144 outputs beyond the check, the worst at
+// 51x the limit; p split into p_hi = bf16(p) and p_lo = bf16(p - p_hi), two
+// PV products into one fp32 accumulator, puts none beyond it (worst 0.975
+// of the limit: the one-ulp flip of a bf16 output that an fp32 kernel shows
+// too).  The split costs 6*D flops a visible pair instead of 4*D: 6.45
+// GFLOP at the serve shape, 6.5 us on the tensor cores, still under the
+// byte bound.
+// l is summed from the fp32 p, not from p_hi + p_lo.
+//
+// Design, constraint by constraint:
+// - Tensor cores: a consumer warpgroup (128 threads) owns 64 query rows of
+//   one q-head.
+//   S = Q K^T is m64n64k16 wgmmas with A (the Q tile) and B (the K tile)
+//   both read from shared memory, fp32 accumulators in registers.  O += P V
+//   is m64nDk16 wgmmas in the RS form: A is P from registers, issued twice
+//   (p_hi, then p_lo) into the same fp32 O; B is the V tile, whose
+//   reduction axis (keys) is not contiguous in memory, so it is read
+//   MN-major through the transpose-B immediate.  The S accumulator's
+//   layout, converted pairwise to bf16, is the A-fragment layout of the RS
+//   wgmma, so P never leaves registers.
+// - Memory: q, k and v are 4-D tensor maps (D, heads, S, B), made on the
+//   host for every call (the pointers change; phase 2 of chip_smoke.py
+//   times that cost) and passed as __grid_constant__ parameters.  Thread 0
+//   brings the Q tiles in once and K/V tiles into a ring of 2 stages, each
+//   signalled by an mbarrier carrying the transaction bytes; tile j+1 is in
+//   flight while tile j's products run.  When H/K is even, a block holds
+//   two warpgroups for two q-heads of one kv-head, same rows: every K/V
+//   tile is brought in once for both, halving the block's traffic from L2
+//   to shared memory.  TMA zero-fills rows past Sq or
+//   Skv; a key >= Skv still gets score -inf in registers, since a zero key
+//   would score 0, not be masked.
+// - Shared-memory layout: what TMA writes is what the wgmma descriptors
+//   read.  A bf16 row of D=128 is 256 bytes, split into two 64-column atoms
+//   with the 128-byte swizzle; D=64 is one such atom; D=32 (64-byte rows)
+//   uses the 64-byte swizzle.  Every atom starts on a 1024-byte boundary.
+// - Softmax in the accumulator's layout: each thread holds two rows of its
+//   warp's 16 (lane/4 and lane/4 + 8); row max and row sum reduce over the
+//   4 threads of a quad with shuffles; O is rescaled by corr every tile.
+//   Scores are pre-scaled by D^-0.5 log2(e) so p = exp2(s - m); lse is
+//   returned as m ln2 + log(l).
+// - Registers: S (32), O (D/2) and the bf16 halves of P (32) per thread.
+//   Two-warpgroup blocks are held to 128 registers so that two blocks share
+//   an SM (phase 1 of chip_smoke.py prints ptxas -v, spills included).
+// - Grid: (q-head groups, batch, 64-row query tiles), the query tile on z
+//   and reversed: blocks are dispatched x fastest, so the longest causal
+//   tiles go first.  The causal work is triangular, and the serve shape has
+//   256 blocks of 2 warpgroups for 132 SMs.
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+using repro::NEG_INF;
+
+constexpr int BQ = 64;     // query rows of a warpgroup
+constexpr int BK = 64;     // keys per tile
+constexpr int STAGES = 2;  // K/V ring
+constexpr int WG = 128;    // threads of a warpgroup
+constexpr float LN2 = 0.6931471805599453f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared-memory geometry for head dim D: each tile is NATOM column atoms of
+// rows x SW bytes (SW = the swizzle span: 64 bf16 columns, or 32 for D=32).
+// A block holds its warpgroups' Q tiles, then the K/V ring.
+template <int D>
+struct Geo {
+  static constexpr int SW = D * 2 >= 128 ? 128 : D * 2;
+  static constexpr int ATOM = SW / 2;
+  static constexpr int NATOM = D / ATOM;
+  static constexpr int Q_ATOM = BQ * SW;   // bytes of one Q atom
+  static constexpr int KV_ATOM = BK * SW;  // bytes of one K or V atom
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma: 128B or 64B swizzle
+  static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
+      SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for the barrier's phase of the given parity to complete.  A wait
+// that lasts over ~2^31 clocks (about a second) traps: a lost transfer
+// fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 31)) __trap();
+  }
+}
+
+// One box of a 4-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0,
+                                         int c1, int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle mode in bits 62-63.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                         uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pins registers that an asynchronous wgmma reads or writes, so the
+// compiler neither moves their other uses across the wait nor reuses them
+// while the wgmma is in flight.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// D = A B (+ D when scale_d), m64nNk16, fp32 += bf16 x bf16.  wgmma_ss: A
+// and B from shared memory, both K-major.  wgmma_rs: A from registers (four
+// bf16x2 per thread), B from shared memory MN-major (transpose-B).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Tile j of K and V into ring stage j % STAGES (K at skv + 2 s KV_BYTES, V
+// after it), completing on that stage's barrier (fbar + 8 s).
+template <int D>
+__device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap* tv,
+                                        uint32_t skv, uint32_t fbar, int kh, int b, int j) {
+  using G = Geo<D>;
+  const int s = j % STAGES;
+  const uint32_t k_dst = skv + 2 * s * G::KV_BYTES, v_dst = k_dst + G::KV_BYTES;
+  const uint32_t bar = fbar + 8 * s;
+  mbar_expect_tx(bar, 2 * G::KV_BYTES);
+#pragma unroll
+  for (int c = 0; c < G::NATOM; ++c) {
+    tma_load(k_dst + c * G::KV_ATOM, tk, c * G::ATOM, kh, j * BK, b, bar);
+    tma_load(v_dst + c * G::KV_ATOM, tv, c * G::ATOM, kh, j * BK, b, bar);
+  }
+}
+
+// NWG warpgroups a block, each with its own q-head of the same kv-head and
+// the same 64 rows: they share every K/V tile.  Grid (H/NWG, B, q tiles).
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * WG, 2)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Sq,
+                      int Skv, int H, int K, float scale_log2, int causal) {
+  using G = Geo<D>;
+  constexpr int KSTEPS = D / 16;   // k16 slices of QK^T
+  constexpr int PSTEPS = BK / 16;  // k16 slices of PV
+  constexpr int OREG = D / 2;      // O accumulator registers per thread
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + STAGES];
+
+  const uint32_t sq0 = (smem_u32(smem_raw) + 1023u) & ~1023u;  // warpgroup w's Q tile
+  const uint32_t skv = sq0 + NWG * G::Q_BYTES;  // stage s: K at skv + 2 s KV_BYTES, V after it
+  const uint32_t qbar = smem_u32(&bars[0]);
+  const uint32_t fbar = smem_u32(&bars[1]);  // stage s: fbar + 8 s
+
+  const int tid = threadIdx.x;
+  const int wg = tid / WG, warp = tid / 32 % 4, lane = tid % 32;
+  // blocks are dispatched x fastest, z slowest: the longest causal q tiles
+  // (the last) go first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int h0 = blockIdx.x * NWG, h = h0 + wg, b = blockIdx.y;
+  const int kh = h0 * K / H;  // the same for the block's NWG heads
+  const uint32_t sq = sq0 + wg * G::Q_BYTES;
+  // causal: keys past the tile's last row are masked for every row
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) mbar_init(fbar + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(qbar, NWG * G::Q_BYTES);
+#pragma unroll
+    for (int w = 0; w < NWG; ++w)
+#pragma unroll
+      for (int c = 0; c < G::NATOM; ++c)
+        tma_load(sq0 + w * G::Q_BYTES + c * G::Q_ATOM, &tq, c * G::ATOM, h0 + w, q0, b, qbar);
+    load_kv<D>(&tk, &tv, skv, fbar, kh, b, 0);
+  }
+
+  // this thread's two rows and its first column in every 8-column chunk
+  const int r0 = q0 + 16 * warp + lane / 4, r1 = r0 + 8;
+  const int c0 = 2 * (lane % 4);
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[OREG];
+#pragma unroll
+  for (int i = 0; i < OREG; ++i) o[i] = 0.f;
+
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % STAGES;
+    const int k0 = j * BK;
+    // every warp of the block is past tile j-1's products: its stage may be
+    // refilled
+    __syncthreads();
+    if (tid == 0 && j + 1 < n_tiles) load_kv<D>(&tk, &tv, skv, fbar, kh, b, j + 1);
+    mbar_wait(fbar + 8 * s, (j / STAGES) & 1);
+    const uint32_t k_tile = skv + 2 * s * G::KV_BYTES, v_tile = k_tile + G::KV_BYTES;
+
+    // S = Q K^T: K-major A and B, k16 slices walk the row inside an atom
+    float sc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;  // overwritten: the first slice has scale_d 0
+    pin(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const int atom = kk * 16 / G::ATOM;
+      const uint32_t off = (kk * 16 % G::ATOM) * 2;
+      wgmma_ss(sc, desc(sq + atom * G::Q_ATOM + off, 16, 8 * G::SW, G::LAYOUT),
+               desc(k_tile + atom * G::KV_ATOM + off, 16, 8 * G::SW, G::LAYOUT), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(sc);
+
+    // online softmax in the accumulator's layout: sc[4i + e] is row (e < 2 ?
+    // r0 : r1), column 8i + c0 + (e & 1)
+    const bool mask = k0 + BK > Skv || (causal && k0 + BK - 1 > q0);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      float x = sc[i] * scale_log2;
+      if (mask) {
+        const int kp = k0 + 8 * (i / 4) + c0 + (i & 1);
+        const int qp = (i & 2) ? r1 : r0;
+        if (kp >= Skv || (causal && kp > qp)) x = NEG_INF;
+      }
+      sc[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // key 0 is visible to every row, so m is finite from the first tile
+      // on and a masked score gives exp2(NEG_INF - m) = 0
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const float p = exp2f(sc[i] - m[(i >> 1) & 1]);
+      sc[i] = p;
+      ps[(i >> 1) & 1] += p;
+    }
+    l[0] = l[0] * corr[0] + ps[0];
+    l[1] = l[1] * corr[1] + ps[1];
+#pragma unroll
+    for (int i = 0; i < OREG; ++i) o[i] *= corr[(i >> 1) & 1];
+
+    // P as two bf16 terms, in the A-fragment layout of the RS wgmma: slice
+    // kk's four registers are sc[8kk .. 8kk+7] taken pairwise
+    uint32_t p_hi[PSTEPS][4], p_lo[PSTEPS][4];
+#pragma unroll
+    for (int kk = 0; kk < PSTEPS; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sc[8 * kk + 2 * e], y = sc[8 * kk + 2 * e + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
+        const float2 hf = __bfloat1622float2(hi);
+        p_hi[kk][e] = *reinterpret_cast<const uint32_t*>(&hi);
+        p_lo[kk][e] = pack_bf16(x - hf.x, y - hf.y);
+      }
+
+    // O += P V: V MN-major; a k16 slice is 16 key rows, 2 swizzle groups of
+    // 8; the column atoms of D=128 lie KV_ATOM bytes apart
+    pin(o);
+    pin(p_hi);
+    pin(p_lo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < PSTEPS; ++kk)
+      wgmma_rs(o, p_hi[kk], desc(v_tile + kk * 16 * G::SW, G::KV_ATOM, 8 * G::SW, G::LAYOUT));
+#pragma unroll
+    for (int kk = 0; kk < PSTEPS; ++kk)
+      wgmma_rs(o, p_lo[kk], desc(v_tile + kk * 16 * G::SW, G::KV_ATOM, 8 * G::SW, G::LAYOUT));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(o);
+    pin(p_hi);
+    pin(p_lo);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-37f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = r ? r1 : r0;
+    if (qp >= Sq) continue;
+    __nv_bfloat16* orow = out + ((static_cast<size_t>(b) * Sq + qp) * H + h) * D + c0;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<uint32_t*>(orow + 8 * i) =
+          pack_bf16(o[4 * i + 2 * r] / l[r], o[4 * i + 2 * r + 1] / l[r]);
+    if (lane % 4 == 0)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + qp] = m[r] * LN2 + logf(l[r]);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime: no link to
+// libcuda at build time.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (B, S, heads, D) bf16 as a 4-D map (D, heads, S, B), box (ATOM, 1, rows, 1).
+template <int D>
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int rows) {
+  using G = Geo<D>;
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(heads) * D * 2,
+                                 static_cast<cuuint64_t>(S) * heads * D * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(G::ATOM), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, G::TMA_SWIZZLE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+bool make_maps(CUtensorMap* maps, const void* q, const void* k, const void* v, int B,
+               int Sq, int Skv, int H, int K) {
+  return make_map<D>(&maps[0], q, B, Sq, H, BQ) && make_map<D>(&maps[1], k, B, Skv, K, BK) &&
+         make_map<D>(&maps[2], v, B, Skv, K, BK);
+}
+
+template <int D, int NWG>
+cudaError_t launch_nwg(const CUtensorMap* maps, void* out, void* lse, int B, int Sq, int Skv,
+                       int H, int K, int causal, cudaStream_t stream) {
+  // NWG Q tiles, the K/V ring, and room to align them to 1024 bytes
+  constexpr int smem = NWG * Geo<D>::Q_BYTES + STAGES * 2 * Geo<D>::KV_BYTES + 1024;
+  static bool configured = false;  // once per instantiation (a repeat is harmless)
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_sm90_kernel<D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid(H / NWG, B, (Sq + BQ - 1) / BQ);
+  flash_fwd_sm90_kernel<D, NWG><<<grid, NWG * WG, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
+      Sq, Skv, H, K, LOG2E / sqrtf(static_cast<float>(D)), causal);
+  return cudaGetLastError();
+}
+
+// Two q-heads a block when they share a kv-head (H/K even), else one.
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* lse, int B,
+                   int Sq, int Skv, int H, int K, int causal, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  if (!make_maps<D>(maps, q, k, v, B, Sq, Skv, H, K)) return cudaErrorInvalidValue;
+  if ((H / K) % 2 == 0)
+    return launch_nwg<D, 2>(maps, out, lse, B, Sq, Skv, H, K, causal, stream);
+  return launch_nwg<D, 1>(maps, out, lse, B, Sq, Skv, H, K, causal, stream);
+}
+
+}  // namespace
+
+// q (B,Sq,H,D), k/v (B,Skv,K,D) contiguous bf16 with 16-byte aligned
+// pointers; out (B,Sq,H,D) bf16, lse (B,H,Sq) fp32.  Returns the
+// cudaError_t of the launch (cudaErrorInvalidValue when a tensor map cannot
+// be made or D is not 32, 64 or 128).
+extern "C" int repro_flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
+                                              void* out, void* lse, int B, int Sq, int Skv,
+                                              int H, int K, int D, int causal,
+                                              void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch<32>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
+    case 64: return launch<64>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
+    case 128: return launch<128>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Makes the three tensor maps of one call `reps` times and launches
+// nothing: what a call spends on its descriptors, timed by the caller.
+// Returns 0, or cudaErrorInvalidValue when a map cannot be made.
+extern "C" int repro_flash_sm90_describe(const void* q, const void* k, const void* v, int B,
+                                         int Sq, int Skv, int H, int K, int D, int reps) {
+  CUtensorMap maps[3];
+  for (int i = 0; i < reps; ++i) {
+    const bool ok =
+        D == 32    ? make_maps<32>(maps, q, k, v, B, Sq, Skv, H, K)
+        : D == 64  ? make_maps<64>(maps, q, k, v, B, Sq, Skv, H, K)
+        : D == 128 ? make_maps<128>(maps, q, k, v, B, Sq, Skv, H, K)
+                   : false;
+    if (!ok) return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
+}

@@ -1,5 +1,6 @@
 from .flash_attention import (DKV_KERNEL, DQ_KERNEL, KERNEL,  # noqa: F401
-                              bwd_dkv_launch, bwd_dq_launch,
+                              SM90_KERNEL, bwd_dkv_launch, bwd_dq_launch,
                               flash_attention_bwd, flash_attention_bwd_plain,
-                              flash_attention_fwd, flash_attention_plain)
+                              flash_attention_fwd, flash_attention_plain,
+                              forward_kernel)
 from .ops import flash_attention, flash_attention_plain_train  # noqa: F401

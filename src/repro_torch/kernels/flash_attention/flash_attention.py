@@ -1,11 +1,12 @@
 """Flash attention, forward and backward: the CUDA kernels' wrappers and
 their plain versions.
 
-``flash_attention_fwd`` launches ``csrc/flash_attention.cu`` for CUDA
-tensors and runs ``flash_attention_plain`` for CPU tensors.  Both compute
-the reference package's Pallas ``flash_attention_fwd``: GQA attention
-(q-head h reads kv-head h*K//H) with scale D^-0.5, fp32 softmax, the
-top-left causal mask ``k_pos <= q_pos``, and ``(out, lse)`` with
+``flash_attention_fwd`` launches ``csrc/flash_attention_sm90.cu`` (tensor
+cores, TMA) for CUDA bf16 tensors, ``csrc/flash_attention.cu`` for CUDA
+fp32 tensors, and runs ``flash_attention_plain`` for CPU tensors.  All
+compute the reference package's Pallas ``flash_attention_fwd``: GQA
+attention (q-head h reads kv-head h*K//H) with scale D^-0.5, fp32 softmax,
+the top-left causal mask ``k_pos <= q_pos``, and ``(out, lse)`` with
 ``lse = m + log(max(l, 1e-37))``.
 
 ``flash_attention_bwd`` launches ``csrc/flash_bwd_dq.cu`` then
@@ -30,7 +31,10 @@ HEAD_DIMS = (32, 64, 128)
 _p, _i = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "flash_attention.cu", "repro_flash_attention_fwd",
-    [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p])
+    [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _p])
+SM90_KERNEL = CudaKernel(
+    "flash_attention_sm90.cu", "repro_flash_attention_fwd_sm90",
+    [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _p])
 DQ_KERNEL = CudaKernel(
     "flash_bwd_dq.cu", "repro_flash_bwd_dq",
     [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p])
@@ -96,24 +100,34 @@ def _check_cuda(name, q, k, v, *more):
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def forward_kernel(dtype) -> CudaKernel:
+    """The forward kernel a CUDA call of ``dtype`` launches: the Hopper
+    tensor-core kernel for bf16, the fp32 kernel for fp32."""
+    return SM90_KERNEL if dtype == torch.bfloat16 else KERNEL
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True):
     """Returns (out (B,Sq,H,Dv) in q's dtype, lse (B,H,Sq) fp32).
 
-    CPU tensors go to the plain version; CUDA tensors to the kernel,
-    which raises on what it does not take."""
+    CPU tensors go to the plain version; CUDA tensors to the kernel of
+    their dtype (``forward_kernel``), which raises on what it does not
+    take."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     _check_cuda("flash_attention_fwd", q, k, v)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_fwd: bf16 inputs must start on "
+                         "16-byte boundaries (the kernel reads them by TMA)")
     B, Sq, H, D = q.shape
     _, Skv, K, Dv = v.shape
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                      lse.data_ptr(), B, Sq, Skv, H, K, D, int(causal),
-                      _DTYPES[q.dtype], stream)
+        forward_kernel(q.dtype).launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, Sq, Skv, H, K, D, int(causal), stream)
     return out, lse
 
 
