@@ -12,8 +12,9 @@ failure raises and exits non-zero:
 1. build the CUDA kernels from this checkout's sources (one ``nvcc`` per
    source, all started together), print each kernel's registers and
    spills, count the tensor-core (``HGMMA``) and TMA (``UTMALDG``)
-   instructions in the bf16 flash library's SASS (failing if either is
-   0), and print the card's name and power limit;
+   instructions in the SASS of the three bf16 attention libraries (flash
+   forward, backward dq, backward dk/dv; failing if either is 0), and
+   print the card's name and power limit;
 2. each kernel against its plain version on the card, at the serve shapes
    (B=4, H=16, K=8, D=128, Sq = Skv = 512, a 576-slot cache: many query
    and key tiles) and at a ragged size (Sq = Skv = 13, a 24-slot cache
@@ -35,25 +36,28 @@ failure raises and exits non-zero:
    batches;
 5. the flash-backward kernels (dq, then dk/dv) against the plain
    backward at the training shapes (B=4, H=16, K=8, D=128, S=512) and at
-   a ragged S=13, in bf16 and fp32; dk/dv determinism; each kernel, the
-   plain backward and PyTorch's SDPA backward timed at the training
-   shapes in bf16: the backward alone (one forward with grad-enabled
-   inputs, then ``autograd.grad`` timed), K and V expanded, each backend
-   as in phase 2; beside it the older reading, (forward + backward) -
-   forward with ``enable_gqa`` and no backend named;
+   a ragged S=13, in bf16 (the Hopper pair) and fp32 (the CUDA-core
+   pair); a second launch bit-identical; each kernel, the whole backward
+   (dq + dk/dv in one call), the plain backward and PyTorch's SDPA
+   backward timed at the training shapes in each dtype: SDPA's backward
+   alone (one forward with grad-enabled inputs, then ``autograd.grad``
+   timed), K and V expanded, each backend as in phase 2;
 6. sync training of full-width, full-depth qwen3-1.7B (``Trainer``, 4
    AdamW steps on MarkovDataset batches of 4 x 512, fp32 moments), the
-   launch counts zeroed just before and read just after (the bf16 flash
-   kernel once per layer per step, the fp32 one never), one profiled
-   step, and a checkpoint saved and restored into a fresh state;
+   launch counts zeroed just before and read just after (the bf16
+   forward, dq and dk/dv kernels each at least once per layer per step,
+   the fp32 ones never), one profiled step, and a checkpoint saved and
+   restored into a fresh state;
 7. one full-width training step's loss and gradients through the
    kernels and through the plain versions, same weights, same batch, in
    bf16 (the trained weights) and in fp32 (fresh fp32 weights; the launch
-   counts zeroed just before and read just after: this is the fp32 flash
-   kernel's path, once per layer);
+   counts zeroed just before and read just after: this is the fp32
+   forward, dq and dk/dv kernels' path, once per layer, and no bf16
+   kernel's);
 8. farm-mode training (``LocalSGDTrainer``) at full width with depth cut
    to 8 layers on the 2 services: one round of 4 tasks, then one more with
-   a service failing after one task;
+   a service failing after one task (the bf16 kernels launched, the fp32
+   ones not);
 9. (qwen3's state freed) the selective-scan kernel against the plain
    chunked scan in fp32 at the serve shape (b=4, s=512, d_inner=8192,
    n=16), at a ragged (2, 13, 96, 16), with h0 (two halves chained
@@ -72,7 +76,8 @@ failure raises and exits non-zero:
 
 The line before the last is a JSON object with each kernel's numbers, one
 row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
-(``flash_attention_fwd_fp32``), decode, dq, dk/dv and the scan; the last
+(``flash_attention_fwd_fp32``), decode, dq and dk/dv in bf16 and in fp32
+(``..._fp32``), and the scan; the last
 line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event times on
 this card without flushing the 50 MB L2 cache (the serve and training
 paths find their inputs freshly written): for the attention kernels, their
@@ -129,10 +134,18 @@ FULL_WIDTH_MEAN_ERR = 0.0125
 # ~10 (dp = dO.V over D=128 unit-variance pairs), summed in another order
 # than the plain version's einsums: a random walk of 1024 roundings of
 # 2^-24 * 10 is ~2e-5, so fp32 outputs agree to BWD_ATOL = 1e-4; a bf16
-# output may round the other way, one ulp, as for the forward.
+# output may round the other way, one ulp, as for the forward.  The bf16
+# pair multiplies bf16 operands on the tensor cores with fp32 sums and
+# splits P and dS into two bf16 terms, which a CPU model of its
+# arithmetic keeps within this check (tests/test_torch_flash_bwd_sm90.py;
+# rounding either once does not).
 BWD_ATOL = 1e-4
 # Training path (phases 6-8)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 4
+# the attention kernels a training step launches in bf16 (the Hopper
+# kernels) and in fp32 (the CUDA-core ones): forward, dq, dk/dv
+BF16_TRAIN_KERNELS = ("flash_attention_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
+FP32_TRAIN_KERNELS = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv")
 FARM_LAYERS, FARM_SHARDS, FARM_INNER, FARM_BATCH = 8, 4, 2, 2
 # Full-width training step, kernels vs plain versions (phase 7): |dloss|
 # and, per parameter group, ||g_kernels - g_plain|| / ||g_plain||, in
@@ -597,12 +610,12 @@ def full_width_phase(api, params, cfg, dev, plain_ops, batches=FULL_WIDTH_BATCHE
 
 
 def backward_phase(flash):
-    """Phase 5: the backward kernels vs the plain backward; times at the
+    """Phase 5: the backward kernels vs the plain backward, each dtype's
+    pair (bf16: the Hopper pair; fp32: the CUDA-core pair); times at the
     training shapes."""
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
-    errs = {"dq": 0.0, "dkv": 0.0}
+    errs = {dt: {"dq": 0.0, "dkv": 0.0} for dt in (torch.bfloat16, torch.float32)}
     B, H, K, D = TRAIN_BATCH, 16, 8, 128
+    inputs = {}
     for label, S in (("train", TRAIN_SEQ), ("ragged", 13)):
         for dt in (torch.bfloat16, torch.float32):
             q = randn((B, S, H, D), dt, 21)
@@ -610,58 +623,57 @@ def backward_phase(flash):
             v = randn((B, S, K, D), dt, 23)
             g = randn((B, S, H, D), dt, 24)
             out, lse = flash.flash_attention_fwd(q, k, v, causal=True)
+            pair = flash.backward_kernels(dt)
+            before = [kern.launches for kern in pair]
             got = flash.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+            if [kern.launches for kern in pair] != [n + 1 for n in before]:
+                raise AssertionError(f"{str(dt)[6:]} backward did not launch "
+                                     f"{pair[0].name} and {pair[1].name}")
             ref = flash.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=True)
-            tag = f"{label} {str(dt)[6:]} S={S}"
+            tag = f"{label} {str(dt)[6:]} S={S} ({pair[0].name}, {pair[1].name})"
             for name, a, b in zip(("dq", "dk", "dv"), got, ref):
                 key = "dq" if name == "dq" else "dkv"
-                errs[key] = max(errs[key], check(f"{name} {tag}", a, b, RTOL[dt],
-                                                 BWD_ATOL))
+                errs[dt][key] = max(errs[dt][key], check(f"{name} {tag}", a, b, RTOL[dt],
+                                                         BWD_ATOL))
             again = flash.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             say(f"  dq, dk, dv {tag}: two launches bit-identical: {same}")
             if not same:
                 raise AssertionError(f"{tag}: the backward is not deterministic")
-            if (label, dt) == ("train", torch.bfloat16):
-                inputs = (q, k, v, out, lse, g)
+            if label == "train":
+                inputs[dt] = (q, k, v, out, lse, g)
     torch.cuda.synchronize()
 
-    q, k, v, out, lse, g = inputs
-    dq, dvec = flash.bwd_dq_launch(q, k, v, out, lse, g, causal=True)
-    dk, dv = flash.bwd_dkv_launch(q, k, v, g, lse, dvec, causal=True)
-    plain_ms = graph_ms(lambda: flash.flash_attention_bwd_plain(
-        q, k, v, out, lse, g, causal=True))
-    qT, kT, vT = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    gT = g.transpose(1, 2)
-
-    def lib_fwd():  # with grad-enabled inputs: the backend autograd uses
-        sdpa(qT, kT, vT, is_causal=True, enable_gqa=True)
-
-    def lib_fwd_bwd():
-        o = sdpa(qT, kT, vT, is_causal=True, enable_gqa=True)
-        torch.autograd.grad(o, (qT, kT, vT), gT)
-
-    old_ms = max(cuda_ms(lib_fwd_bwd) - cuda_ms(lib_fwd), 0.0)  # back to back, as it was
-    say(f"  SDPA backward, the older reading ((fwd + bwd) - fwd, enable_gqa, no "
-        f"backend named): {old_ms:.4f} ms")
-    library_ms, library = sdpa_backward_ms(q, k, v, g)
     pairs = causal_pairs(B, H, TRAIN_SEQ, TRAIN_SEQ)
-    rows = {
-        "dq": dict(ms=graph_ms(lambda: flash.bwd_dq_launch(
-            q, k, v, out, lse, g, causal=True)), plain_ms=plain_ms,
-            library_ms=library_ms, library=library),
-        "dkv": dict(ms=graph_ms(lambda: flash.bwd_dkv_launch(
-            q, k, v, g, lse, dvec, causal=True)), plain_ms=plain_ms,
-            library_ms=library_ms, library=library)}
-    rows["dq"]["bound_ms"], rows["dq"]["bound_by"] = bound(
-        6 * D * pairs, nbytes(q, k, v, out, g, lse, dq, dvec), q.dtype)
-    rows["dkv"]["bound_ms"], rows["dkv"]["bound_by"] = bound(
-        8 * D * pairs, nbytes(q, k, v, g, lse, dvec, dk, dv), q.dtype)
-    for name, r in rows.items():
-        say(f"  {name} at training shapes (graph-timed): kernel {r['ms']:.4f} ms, plain "
-            f"backward (dq, dk, dv) {r['plain_ms']:.4f} ms, library backward "
-            f"(SDPA {r['library']}, dq, dk, dv together) {fmt_ms(r['library_ms'])}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    rows = {}
+    for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
+        q, k, v, out, lse, g = inputs[dt]
+        dq, dvec = flash.bwd_dq_launch(q, k, v, out, lse, g, causal=True)
+        dk, dv = flash.bwd_dkv_launch(q, k, v, g, lse, dvec, causal=True)
+        plain_ms = graph_ms(lambda: flash.flash_attention_bwd_plain(
+            q, k, v, out, lse, g, causal=True))
+        both_ms = graph_ms(lambda: flash.flash_attention_bwd(q, k, v, out, lse, g, causal=True))
+        library_ms, library = sdpa_backward_ms(q, k, v, g)
+        lib = dict(plain_ms=plain_ms, library_ms=library_ms, library=library)
+        rows["dq" + sfx] = dict(ms=graph_ms(lambda: flash.bwd_dq_launch(
+            q, k, v, out, lse, g, causal=True)), **lib)
+        rows["dkv" + sfx] = dict(ms=graph_ms(lambda: flash.bwd_dkv_launch(
+            q, k, v, g, lse, dvec, causal=True)), **lib)
+        rows["dq" + sfx]["bound_ms"], rows["dq" + sfx]["bound_by"] = bound(
+            6 * D * pairs, nbytes(q, k, v, out, g, lse, dq, dvec), dt)
+        rows["dkv" + sfx]["bound_ms"], rows["dkv" + sfx]["bound_by"] = bound(
+            8 * D * pairs, nbytes(q, k, v, g, lse, dvec, dk, dv), dt)
+        for name in ("dq" + sfx, "dkv" + sfx):
+            r = rows[name]
+            say(f"  {name} at training shapes (graph-timed): kernel {r['ms']:.4f} ms, plain "
+                f"backward (dq, dk, dv) {r['plain_ms']:.4f} ms, library backward "
+                f"(SDPA {r['library']}, dq, dk, dv together) {fmt_ms(r['library_ms'])}, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        ratio = "" if library_ms is None else f" ({both_ms / library_ms:.2f}x)"
+        say(f"  {str(dt)[6:]} backward, dq + dk/dv in one call (graph-timed) {both_ms:.4f} ms "
+            f"(the two kernels timed alone: {rows['dq' + sfx]['ms'] + rows['dkv' + sfx]['ms']:.4f}"
+            f" ms) beside SDPA's whole backward (SDPA {library}) "
+            f"{fmt_ms(library_ms)}{ratio}")
     return errs, rows
 
 
@@ -699,17 +711,19 @@ def sync_training_phase(api, params, dev, kernels):
     norms = ", ".join(f"{m['grad_norm']:.3f}" for m in logs)
     say(f"  losses {losses}; grad norms {norms}")
     steps = ", ".join(f"{t * 1e3:.1f}" for t in step_s)
-    say(f"  step time median {med * 1e3:.1f} ms (steps {steps}), "
-        f"{TRAIN_BATCH * TRAIN_SEQ / med:.0f} tok/s; peak memory {peak:.2f} GB")
+    say(f"  step time median {med * 1e3:.1f} ms (steps {steps}; after the first "
+        f"{np.median(step_s[1:]) * 1e3:.1f} ms), {TRAIN_BATCH * TRAIN_SEQ / med:.0f} "
+        f"tok/s; peak memory {peak:.2f} GB")
     say(f"  launches on the training path: {launches}")
     if not all(np.isfinite(m["loss"]) for m in logs):
         raise AssertionError("non-finite training loss")
-    for name in ("flash_attention_sm90", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name in BF16_TRAIN_KERNELS:
         if launches[name] < cfg.n_layers * TRAIN_STEPS:
             raise AssertionError(f"{name}: {launches[name]} launches, fewer "
                                  "than training needs")
-    if launches["flash_attention"]:
-        raise AssertionError("the fp32 flash kernel ran on the bf16 training path")
+    for name in FP32_TRAIN_KERNELS:
+        if launches[name]:
+            raise AssertionError(f"the fp32 kernel {name} ran on the bf16 training path")
     batch = {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(99).items()}
     profile_window("training step", lambda i: trainer.train_step(state, batch), 1)
 
@@ -808,9 +822,13 @@ def farm_phase(cfg, dev, lookup, services, kernels):
     launches = {kern.name: kern.launches for kern in kernels.KERNELS}
     say(f"  launches in the farm rounds: {launches}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    if launches["flash_bwd_dkv"] < 2 * FARM_SHARDS * FARM_INNER * FARM_LAYERS:
-        raise AssertionError("farm training launched fewer backward kernels "
-                             "than it needs")
+    for name in BF16_TRAIN_KERNELS:
+        if launches[name] < 2 * FARM_SHARDS * FARM_INNER * FARM_LAYERS:
+            raise AssertionError(f"farm training launched {name} fewer times "
+                                 "than it needs")
+    for name in FP32_TRAIN_KERNELS:
+        if launches[name]:
+            raise AssertionError(f"the fp32 kernel {name} ran on the bf16 farm path")
 
 
 def sm_clock_hz() -> float:
@@ -967,8 +985,9 @@ def mamba_train_phase(cfg, dev, kernels, full_params):
     norms = ", ".join(f"{m['grad_norm']:.3f}" for m in logs)
     steps = ", ".join(f"{t * 1e3:.1f}" for t in step_s)
     say(f"  losses {losses}; grad norms {norms}")
-    say(f"  step time median {med * 1e3:.1f} ms (steps {steps}), "
-        f"{MAMBA_TRAIN_BATCH * TRAIN_SEQ / med:.0f} tok/s; peak memory {peak:.2f} GB")
+    say(f"  step time median {med * 1e3:.1f} ms (steps {steps}; after the first "
+        f"{np.median(step_s[1:]) * 1e3:.1f} ms), {MAMBA_TRAIN_BATCH * TRAIN_SEQ / med:.0f} "
+        f"tok/s; peak memory {peak:.2f} GB")
     say(f"  launches on the training path: {launches}")
     if not all(np.isfinite(m["loss"]) for m in logs):
         raise AssertionError("non-finite training loss")
@@ -1007,7 +1026,8 @@ def main() -> int:
         f"({', '.join(sorted(logs)) or 'already built'})")
     for log in logs.values():
         say_registers(log)
-    say_sass(flash.SM90_KERNEL)
+    for kern in (flash.SM90_KERNEL, flash.DQ_SM90_KERNEL, flash.DKV_SM90_KERNEL):
+        say_sass(kern)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -1086,9 +1106,11 @@ def main() -> int:
     train_step_agreement(api32, model32, dev, kernels.PLAIN)
     fp32_launches = {kern.name: kern.launches for kern in kernels.KERNELS}
     say(f"  launches on the fp32 training step: {fp32_launches}")
-    if fp32_launches["flash_attention"] < cfg.n_layers or fp32_launches["flash_attention_sm90"]:
+    if (any(fp32_launches[name] < cfg.n_layers for name in FP32_TRAIN_KERNELS)
+            or any(fp32_launches[name] for name in BF16_TRAIN_KERNELS)):
         raise AssertionError("the fp32 training step did not go through the fp32 "
-                             "flash kernel once per layer")
+                             "flash kernels (forward, dq, dk/dv) once per layer, "
+                             "and only through them")
     del model32
     torch.cuda.empty_cache()
 
@@ -1138,10 +1160,14 @@ def main() -> int:
             ("decode_attention_fwd", decode.KERNEL, de, errs["decode"],
              "src/repro/kernels/decode_attention/decode_attention.py:116",
              launches),
-            ("flash_attention_bwd_dq", flash.DQ_KERNEL, bwd["dq"],
-             bwd_errs["dq"], f"{flash_py}:280", train_launches),
-            ("flash_attention_bwd_dkv", flash.DKV_KERNEL, bwd["dkv"],
-             bwd_errs["dkv"], f"{flash_py}:307", train_launches),
+            ("flash_attention_bwd_dq", flash.DQ_SM90_KERNEL, bwd["dq"],
+             bwd_errs[torch.bfloat16]["dq"], f"{flash_py}:280", train_launches),
+            ("flash_attention_bwd_dkv", flash.DKV_SM90_KERNEL, bwd["dkv"],
+             bwd_errs[torch.bfloat16]["dkv"], f"{flash_py}:307", train_launches),
+            ("flash_attention_bwd_dq_fp32", flash.DQ_KERNEL, bwd["dq_fp32"],
+             bwd_errs[torch.float32]["dq"], f"{flash_py}:280", fp32_launches),
+            ("flash_attention_bwd_dkv_fp32", flash.DKV_KERNEL, bwd["dkv_fp32"],
+             bwd_errs[torch.float32]["dkv"], f"{flash_py}:307", fp32_launches),
             ("mamba_scan_fwd", scan.KERNEL, scan_row, scan_err,
              "src/repro/kernels/mamba_scan/mamba_scan.py:83", mamba_launches)):
         rows.append({"name": name, "route": "cuda",

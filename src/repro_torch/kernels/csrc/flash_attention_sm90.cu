@@ -55,7 +55,8 @@
 //   to shared memory.  TMA zero-fills rows past Sq or
 //   Skv; a key >= Skv still gets score -inf in registers, since a zero key
 //   would score 0, not be masked.
-// - Shared-memory layout: what TMA writes is what the wgmma descriptors
+// - Shared-memory layout (sm90.cuh's Geo, desc_k, desc_mn, shared with the
+//   backward's kernels): what TMA writes is what the wgmma descriptors
 //   read.  A bf16 row of D=128 is 256 bytes, split into two 64-column atoms
 //   with the 128-byte swizzle; D=64 is one such atom; D=32 (64-byte rows)
 //   uses the 64-byte swizzle.  Every atom starts on a 1024-byte boundary.
@@ -72,7 +73,7 @@
 //   tiles go first.  The causal work is triangular, and the serve shape has
 //   256 blocks of 2 warpgroups for 132 SMs.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -80,209 +81,26 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
+using namespace sm90;
 using repro::NEG_INF;
 
 constexpr int BQ = 64;     // query rows of a warpgroup
 constexpr int BK = 64;     // keys per tile
 constexpr int STAGES = 2;  // K/V ring
-constexpr int WG = 128;    // threads of a warpgroup
-constexpr float LN2 = 0.6931471805599453f;
-constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared-memory geometry for head dim D: each tile is NATOM column atoms of
-// rows x SW bytes (SW = the swizzle span: 64 bf16 columns, or 32 for D=32).
-// A block holds its warpgroups' Q tiles, then the K/V ring.
-template <int D>
-struct Geo {
-  static constexpr int SW = D * 2 >= 128 ? 128 : D * 2;
-  static constexpr int ATOM = SW / 2;
-  static constexpr int NATOM = D / ATOM;
-  static constexpr int Q_ATOM = BQ * SW;   // bytes of one Q atom
-  static constexpr int KV_ATOM = BK * SW;  // bytes of one K or V atom
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma: 128B or 64B swizzle
-  static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
-      SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits for the barrier's phase of the given parity to complete.  A wait
-// that lasts over ~2^31 clocks (about a second) traps: a lost transfer
-// fails the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long start = clock64();
-  uint32_t done = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > (1ll << 31)) __trap();
-  }
-}
-
-// One box of a 4-D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0,
-                                         int c1, int c2, int c3, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units) and the swizzle mode in bits 62-63.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                         uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pins registers that an asynchronous wgmma reads or writes, so the
-// compiler neither moves their other uses across the wait nor reuses them
-// while the wgmma is in flight.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// D = A B (+ D when scale_d), m64nNk16, fp32 += bf16 x bf16.  wgmma_ss: A
-// and B from shared memory, both K-major.  wgmma_rs: A from registers (four
-// bf16x2 per thread), B from shared memory MN-major (transpose-B).
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Tile j of K and V into ring stage j % STAGES (K at skv + 2 s KV_BYTES, V
-// after it), completing on that stage's barrier (fbar + 8 s).
+// Tile j of K and V into ring stage j % STAGES (K at skv + 2 s tile_bytes(BK),
+// V after it), completing on that stage's barrier (fbar + 8 s).
 template <int D>
 __device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap* tv,
                                         uint32_t skv, uint32_t fbar, int kh, int b, int j) {
-  using G = Geo<D>;
   const int s = j % STAGES;
-  const uint32_t k_dst = skv + 2 * s * G::KV_BYTES, v_dst = k_dst + G::KV_BYTES;
-  const uint32_t bar = fbar + 8 * s;
-  mbar_expect_tx(bar, 2 * G::KV_BYTES);
-#pragma unroll
-  for (int c = 0; c < G::NATOM; ++c) {
-    tma_load(k_dst + c * G::KV_ATOM, tk, c * G::ATOM, kh, j * BK, b, bar);
-    tma_load(v_dst + c * G::KV_ATOM, tv, c * G::ATOM, kh, j * BK, b, bar);
-  }
+  const uint32_t k_dst = skv + 2 * s * Geo<D>::tile_bytes(BK);
+  tma_load_pair<D>(tk, tv, k_dst, k_dst + Geo<D>::tile_bytes(BK), kh, j * BK, b, BK,
+                   fbar + 8 * s);
 }
 
 // NWG warpgroups a block, each with its own q-head of the same kv-head and
@@ -302,7 +120,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   __shared__ __align__(8) uint64_t bars[1 + STAGES];
 
   const uint32_t sq0 = (smem_u32(smem_raw) + 1023u) & ~1023u;  // warpgroup w's Q tile
-  const uint32_t skv = sq0 + NWG * G::Q_BYTES;  // stage s: K at skv + 2 s KV_BYTES, V after it
+  // stage s: K at skv + 2 s tile_bytes(BK), V after it
+  const uint32_t skv = sq0 + NWG * G::tile_bytes(BQ);
   const uint32_t qbar = smem_u32(&bars[0]);
   const uint32_t fbar = smem_u32(&bars[1]);  // stage s: fbar + 8 s
 
@@ -313,7 +132,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
   const int h0 = blockIdx.x * NWG, h = h0 + wg, b = blockIdx.y;
   const int kh = h0 * K / H;  // the same for the block's NWG heads
-  const uint32_t sq = sq0 + wg * G::Q_BYTES;
+  const uint32_t sq = sq0 + wg * G::tile_bytes(BQ);
   // causal: keys past the tile's last row are masked for every row
   const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
   const int n_tiles = (kv_end + BK - 1) / BK;
@@ -326,12 +145,13 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(qbar, NWG * G::Q_BYTES);
+    mbar_expect_tx(qbar, NWG * G::tile_bytes(BQ));
 #pragma unroll
     for (int w = 0; w < NWG; ++w)
 #pragma unroll
       for (int c = 0; c < G::NATOM; ++c)
-        tma_load(sq0 + w * G::Q_BYTES + c * G::Q_ATOM, &tq, c * G::ATOM, h0 + w, q0, b, qbar);
+        tma_load(sq0 + w * G::tile_bytes(BQ) + c * G::atom_bytes(BQ), &tq, c * G::ATOM,
+                 h0 + w, q0, b, qbar);
     load_kv<D>(&tk, &tv, skv, fbar, kh, b, 0);
   }
 
@@ -352,7 +172,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     __syncthreads();
     if (tid == 0 && j + 1 < n_tiles) load_kv<D>(&tk, &tv, skv, fbar, kh, b, j + 1);
     mbar_wait(fbar + 8 * s, (j / STAGES) & 1);
-    const uint32_t k_tile = skv + 2 * s * G::KV_BYTES, v_tile = k_tile + G::KV_BYTES;
+    const uint32_t k_tile = skv + 2 * s * G::tile_bytes(BK), v_tile = k_tile + G::tile_bytes(BK);
 
     // S = Q K^T: K-major A and B, k16 slices walk the row inside an atom
     float sc[BK / 2];
@@ -361,12 +181,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     pin(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      const int atom = kk * 16 / G::ATOM;
-      const uint32_t off = (kk * 16 % G::ATOM) * 2;
-      wgmma_ss(sc, desc(sq + atom * G::Q_ATOM + off, 16, 8 * G::SW, G::LAYOUT),
-               desc(k_tile + atom * G::KV_ATOM + off, 16, 8 * G::SW, G::LAYOUT), kk > 0);
-    }
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      wgmma_ss(sc, desc_k<D>(sq, BQ, kk), desc_k<D>(k_tile, BK, kk), kk > 0);
     wgmma_commit();
     wgmma_wait_all();
     pin(sc);
@@ -415,26 +231,21 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < PSTEPS; ++kk)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = sc[8 * kk + 2 * e], y = sc[8 * kk + 2 * e + 1];
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
-        const float2 hf = __bfloat1622float2(hi);
-        p_hi[kk][e] = *reinterpret_cast<const uint32_t*>(&hi);
-        p_lo[kk][e] = pack_bf16(x - hf.x, y - hf.y);
-      }
+      for (int e = 0; e < 4; ++e)
+        split_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1], p_hi[kk][e], p_lo[kk][e]);
 
     // O += P V: V MN-major; a k16 slice is 16 key rows, 2 swizzle groups of
-    // 8; the column atoms of D=128 lie KV_ATOM bytes apart
+    // 8; the column atoms of D=128 lie atom_bytes(BK) bytes apart
     pin(o);
     pin(p_hi);
     pin(p_lo);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < PSTEPS; ++kk)
-      wgmma_rs(o, p_hi[kk], desc(v_tile + kk * 16 * G::SW, G::KV_ATOM, 8 * G::SW, G::LAYOUT));
+      wgmma_rs(o, p_hi[kk], desc_mn<D>(v_tile, BK, kk));
 #pragma unroll
     for (int kk = 0; kk < PSTEPS; ++kk)
-      wgmma_rs(o, p_lo[kk], desc(v_tile + kk * 16 * G::SW, G::KV_ATOM, 8 * G::SW, G::LAYOUT));
+      wgmma_rs(o, p_lo[kk], desc_mn<D>(v_tile, BK, kk));
     wgmma_commit();
     wgmma_wait_all();
     pin(o);
@@ -462,52 +273,6 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime: no link to
-// libcuda at build time.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (B, S, heads, D) bf16 as a 4-D map (D, heads, S, B), box (ATOM, 1, rows, 1).
-template <int D>
-bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int rows) {
-  using G = Geo<D>;
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(heads) * D * 2,
-                                 static_cast<cuuint64_t>(S) * heads * D * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(G::ATOM), 1,
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, G::TMA_SWIZZLE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 bool make_maps(CUtensorMap* maps, const void* q, const void* k, const void* v, int B,
                int Sq, int Skv, int H, int K) {
@@ -519,7 +284,7 @@ template <int D, int NWG>
 cudaError_t launch_nwg(const CUtensorMap* maps, void* out, void* lse, int B, int Sq, int Skv,
                        int H, int K, int causal, cudaStream_t stream) {
   // NWG Q tiles, the K/V ring, and room to align them to 1024 bytes
-  constexpr int smem = NWG * Geo<D>::Q_BYTES + STAGES * 2 * Geo<D>::KV_BYTES + 1024;
+  constexpr int smem = NWG * Geo<D>::tile_bytes(BQ) + STAGES * 2 * Geo<D>::tile_bytes(BK) + 1024;
   static bool configured = false;  // once per instantiation (a repeat is harmless)
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -1,25 +1,23 @@
-// Flash-attention backward, dk/dv pass, for Hopper, sm_90a.
+// Flash-attention backward, dk/dv pass, for Hopper, sm_90a: the fp32
+// kernel.  bf16 inputs go to flash_bwd_dkv_sm90.cu (tensor cores, TMA).
 //
 // Replaces the Pallas TPU kernel `_bwd_dkv_kernel`, launched from
-// `flash_attention_bwd` in src/repro/kernels/flash_attention/flash_attention.py.
-// Same function: for each key row of kv-head kh, loop over the query rows
-// and over the G = H/K q-heads that read kh, recompute p = exp(s - lse)
-// (s = q.k * D^-0.5, top-left causal mask k_pos <= q_pos) and
-// ds = p * (dO.V^T - Dvec) * D^-0.5, and accumulate dv += p^T.dO and
+// `flash_attention_bwd` in src/repro/kernels/flash_attention/flash_attention.py,
+// for fp32 inputs.  Same function: for each key row of kv-head kh, loop
+// over the query rows and over the G = H/K q-heads that read kh, recompute
+// p = exp(s - lse) (s = q.k * D^-0.5, top-left causal mask k_pos <= q_pos)
+// and ds = p * (dO.V^T - Dvec) * D^-0.5, and accumulate dv += p^T.dO and
 // dk += ds^T.Q in fp32.  Dvec = rowsum(dO * O) comes from the dq pass
 // (csrc/flash_bwd_dq.cu), launched before this one on the same stream.
 // Like the reference it uses no atomics: every dk/dv element is summed by
 // one thread in a fixed order, so two runs give bit-identical results.
 //
-// What bounds it on an H100 (published SXM peaks at its 700 W limit:
-// 3.35 TB/s, 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32 CUDA cores):
-// at the training shapes (B=4, H=16, K=8, S=512, D=128, causal, bf16) one
-// call does 8 D flop for each of the 8.4 M visible (q, k) pairs, 8.6 GFLOP,
-// and must move ~34 MB (q, k, v, dO, lse, Dvec in; dk, dv out): ~250
-// FLOP/byte, below the bf16 ridge, so the floor is the bytes (~10 us).  This
-// first version does its products in fp32 on the CUDA cores, where the same
-// work needs at least ~128 us: it is bounded by operations.  Tensor-core
-// products (wgmma, TMA) are later work.
+// What bounds it on an H100 (published SXM peak at its 700 W limit: 67
+// TFLOP/s fp32 on the CUDA cores): at the training shape in fp32 (B=4,
+// H=16, K=8, S=512, D=128, causal) one call does 8 D flop for each of the
+// 8.4 M visible (q, k) pairs, 8.6 GFLOP, at least ~128 us, against ~67 MB
+// of inputs and outputs (~20 us at 3.35 TB/s): it is bounded by
+// operations.
 //
 // Design: one block of 256 threads (a 16 x 16 grid) per (64-key tile,
 // kv-head, batch).  The K and V tiles are staged once in shared memory as
@@ -52,12 +50,12 @@ constexpr size_t smem_bytes() {
          (2 * BKV * (D + 4) + 2 * BQ * (D + 4) + 2 * BKV * (BQ + 1) + 2 * BQ);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ g,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ g,
                      const float* __restrict__ lse, const float* __restrict__ dvec,
-                     T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int H,
+                     float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv, int H,
                      int K, float scale, int causal) {
   constexpr int DC = D / 16;  // dk/dv columns per thread
   constexpr int RS = D + 4;   // padded row stride (16-byte aligned rows)
@@ -85,8 +83,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float kf = 0.f, vf = 0.f;
     if (kp < Skv) {
       const size_t off = ((static_cast<size_t>(b) * Skv + kp) * K + kh) * D + d;
-      kf = repro::to_f(k[off]);
-      vf = repro::to_f(v[off]);
+      kf = k[off];
+      vf = v[off];
     }
     Ks[r * RS + d] = kf;
     Vs[r * RS + d] = vf;
@@ -112,8 +110,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float qf = 0.f, gf = 0.f;
         if (qp < Sq) {
           const size_t off = ((static_cast<size_t>(b) * Sq + qp) * H + h) * D + d;
-          qf = repro::to_f(q[off]);
-          gf = repro::to_f(g[off]);
+          qf = q[off];
+          gf = g[off];
         }
         Qs[r * RS + d] = qf;
         Gs[r * RS + d] = gf;
@@ -208,13 +206,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t off = ((static_cast<size_t>(b) * Skv + kp) * K + kh) * D;
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc) {
-      dk[off + tx + 16 * cc] = repro::from_f<T>(acc_k[i][cc]);
-      dv[off + tx + 16 * cc] = repro::from_f<T>(acc_v[i][cc]);
+      dk[off + tx + 16 * cc] = acc_k[i][cc];
+      dv[off + tx + 16 * cc] = acc_v[i][cc];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
                    const void* lse, const void* dvec, void* dk, void* dv, int B, int Sq,
                    int Skv, int H, int K, int causal, cudaStream_t stream) {
@@ -222,51 +220,34 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
   static bool configured = false;  // once per instantiation (a repeat is harmless)
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid((Skv + BKV - 1) / BKV, K, B);
-  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(dvec), static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv,
-      H, K, 1.0f / sqrtf(static_cast<float>(D)), causal);
+  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(dvec), static_cast<float*>(dk),
+      static_cast<float*>(dv), Sq, Skv, H, K, 1.0f / sqrtf(static_cast<float>(D)), causal);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* g,
-                       const void* lse, const void* dvec, void* dk, void* dv, int B,
-                       int Sq, int Skv, int H, int K, int D, int causal,
-                       cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// q, g (B,Sq,H,D), k/v (B,Skv,K,D) contiguous, lse and dvec (B,H,Sq) fp32;
-// writes dk, dv (B,Skv,K,D) in k's dtype.  dtype: 0 = float32,
-// 1 = bfloat16.  Returns the cudaError_t of the launch.
+// q, g (B,Sq,H,D), k/v (B,Skv,K,D) contiguous fp32, lse and dvec (B,H,Sq)
+// fp32; writes dk, dv (B,Skv,K,D) fp32.  Returns the cudaError_t of the
+// launch (cudaErrorInvalidValue when D is not 32, 64 or 128).
 extern "C" int repro_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                    const void* g, const void* lse, const void* dvec,
                                    void* dk, void* dv, int B, int Sq, int Skv, int H,
-                                   int K, int D, int causal, int dtype, void* stream) {
+                                   int K, int D, int causal, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, D, causal, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, D,
-                                     causal, st);
-  return cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return launch<32>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, st);
+    case 64: return launch<64>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, st);
+    case 128: return launch<128>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, st);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -1,28 +1,27 @@
-// Flash-attention backward, dq pass, for Hopper, sm_90a.
+// Flash-attention backward, dq pass, for Hopper, sm_90a: the fp32 kernel.
+// bf16 inputs go to flash_bwd_dq_sm90.cu (tensor cores, TMA).
 //
 // Replaces the Pallas TPU kernel `_bwd_dq_kernel`, launched from
-// `flash_attention_bwd` in src/repro/kernels/flash_attention/flash_attention.py.
-// Same function: for each query row, recompute p = exp(s - lse) from the
-// forward's lse (s = q.k * D^-0.5, top-left causal mask k_pos <= q_pos),
-// dp = dO.V^T, ds = p * (dp - Dvec) * D^-0.5 and dq = ds.K, all in fp32,
-// with q-head h reading kv-head h*K/H.  Dvec = rowsum(dO * O), a `jnp`
-// expression before the reference's launch, is this kernel's prologue: each
-// block computes it for its own rows and writes it out for the dk/dv pass
-// (csrc/flash_bwd_dkv.cu), which runs after this one on the same stream.
+// `flash_attention_bwd` in src/repro/kernels/flash_attention/flash_attention.py,
+// for fp32 inputs.  Same function: for each query row, recompute p =
+// exp(s - lse) from the forward's lse (s = q.k * D^-0.5, top-left causal
+// mask k_pos <= q_pos), dp = dO.V^T, ds = p * (dp - Dvec) * D^-0.5 and dq =
+// ds.K, all in fp32, with q-head h reading kv-head h*K/H.  Dvec =
+// rowsum(dO * O), a `jnp` expression before the reference's launch, is this
+// kernel's prologue: each block computes it for its own rows and writes it
+// out for the dk/dv pass (csrc/flash_bwd_dkv.cu), which runs after this one
+// on the same stream.
 //
-// What bounds it on an H100 (published SXM peaks at its 700 W limit:
-// 3.35 TB/s, 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32 CUDA cores):
-// at the training shapes (B=4, H=16, K=8, S=512, D=128, causal, bf16) one
-// call does 6 D flop for each of the 8.4 M visible (q, k) pairs, 6.5 GFLOP,
-// and must move ~34 MB (q, k, v, O, dO, lse in; dq, Dvec out): ~190
-// FLOP/byte, below the bf16 ridge, so the floor is the bytes (~10 us).  This
-// first version does its products in fp32 on the CUDA cores, where the same
-// work needs at least ~96 us: it is bounded by operations.  Tensor-core
-// products (wgmma, TMA) are later work.
+// What bounds it on an H100 (published SXM peak at its 700 W limit: 67
+// TFLOP/s fp32 on the CUDA cores): at the training shape in fp32 (B=4,
+// H=16, K=8, S=512, D=128, causal) one call does 6 D flop for each of the
+// 8.4 M visible (q, k) pairs, 6.45 GFLOP, at least ~96 us, against ~84 MB
+// of inputs and outputs (~25 us at 3.35 TB/s): it is bounded by
+// operations, and exact to the reference's fp32 numerics.
 //
 // Design: one block of 256 threads (a 16 x 16 grid) per (64-row query tile,
 // q-head, batch), like the forward.  The query and dO tiles are staged once
-// in shared memory as fp32; the block then walks 32-key tiles of K and V up
+// in shared memory; the block then walks 32-key tiles of K and V up
 // to the causal edge, and keeps dq (64 x D fp32) in registers: each thread
 // owns 4 query rows (ty + 16 i) and D/16 columns (tx + 16 c).  For a key
 // tile each thread computes s and dp for its 4 rows and 2 key columns
@@ -49,12 +48,12 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * BQ * (D + 4) + 2 * BK * (D + 4) + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ out,
-                    const T* __restrict__ g, const float* __restrict__ lse,
-                    float* __restrict__ dvec, T* __restrict__ dq, int Sq, int Skv,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ out,
+                    const float* __restrict__ g, const float* __restrict__ lse,
+                    float* __restrict__ dvec, float* __restrict__ dq, int Sq, int Skv,
                     int H, int K, float scale, int causal) {
   constexpr int DC = D / 16;  // dq columns per thread
   constexpr int RS = D + 4;   // padded row stride (16-byte aligned rows)
@@ -79,8 +78,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float qf = 0.f, gf = 0.f;
     if (qp < Sq) {
       const size_t off = ((static_cast<size_t>(b) * Sq + qp) * H + h) * D + d;
-      qf = repro::to_f(q[off]);
-      gf = repro::to_f(g[off]);
+      qf = q[off];
+      gf = g[off];
     }
     Qs[r * RS + d] = qf;
     Gs[r * RS + d] = gf;
@@ -95,10 +94,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = ty + 16 * i, qp = q0 + r;
     float part = 0.f;
     if (qp < Sq) {
-      const T* orow = out + ((static_cast<size_t>(b) * Sq + qp) * H + h) * D;
+      const float* orow = out + ((static_cast<size_t>(b) * Sq + qp) * H + h) * D;
 #pragma unroll
       for (int c = 0; c < DC; ++c)
-        part = fmaf(Gs[r * RS + tx + 16 * c], repro::to_f(orow[tx + 16 * c]), part);
+        part = fmaf(Gs[r * RS + tx + 16 * c], orow[tx + 16 * c], part);
     }
     part = repro::half_warp_sum(part);
     dvec_r[i] = part;
@@ -122,8 +121,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kf = 0.f, vf = 0.f;
       if (kp < Skv) {
         const size_t off = ((static_cast<size_t>(b) * Skv + kp) * K + kh) * D + d;
-        kf = repro::to_f(k[off]);
-        vf = repro::to_f(v[off]);
+        kf = k[off];
+        vf = v[off];
       }
       Ks[c * RS + d] = kf;
       Vs[c * RS + d] = vf;
@@ -200,13 +199,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < TR; ++i) {
     const int qp = q0 + ty + 16 * i;
     if (qp >= Sq) continue;
-    T* row = dq + ((static_cast<size_t>(b) * Sq + qp) * H + h) * D;
+    float* row = dq + ((static_cast<size_t>(b) * Sq + qp) * H + h) * D;
 #pragma unroll
-    for (int cc = 0; cc < DC; ++cc) row[tx + 16 * cc] = repro::from_f<T>(acc[i][cc]);
+    for (int cc = 0; cc < DC; ++cc) row[tx + 16 * cc] = acc[i][cc];
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
                    const void* g, const void* lse, void* dvec, void* dq, int B, int Sq,
                    int Skv, int H, int K, int causal, cudaStream_t stream) {
@@ -214,51 +213,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
   static bool configured = false;  // once per instantiation (a repeat is harmless)
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(out), static_cast<const T*>(g),
-      static_cast<const float*>(lse), static_cast<float*>(dvec), static_cast<T*>(dq),
-      Sq, Skv, H, K, 1.0f / sqrtf(static_cast<float>(D)), causal);
+  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(out),
+      static_cast<const float*>(g), static_cast<const float*>(lse), static_cast<float*>(dvec),
+      static_cast<float*>(dq), Sq, Skv, H, K, 1.0f / sqrtf(static_cast<float>(D)), causal);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* out,
-                       const void* g, const void* lse, void* dvec, void* dq, int B,
-                       int Sq, int Skv, int H, int K, int D, int causal,
-                       cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// q, out, g (B,Sq,H,D), k/v (B,Skv,K,D) contiguous, lse (B,H,Sq) fp32 from
-// the forward; writes dq (B,Sq,H,D) in q's dtype and dvec (B,H,Sq) fp32.
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
+// q, out, g (B,Sq,H,D), k/v (B,Skv,K,D) contiguous fp32, lse (B,H,Sq) fp32
+// from the forward; writes dq (B,Sq,H,D) and dvec (B,H,Sq), fp32.  Returns
+// the cudaError_t of the launch (cudaErrorInvalidValue when D is not 32, 64
+// or 128).
 extern "C" int repro_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* out, const void* g, const void* lse,
                                   void* dvec, void* dq, int B, int Sq, int Skv, int H,
-                                  int K, int D, int causal, int dtype, void* stream) {
+                                  int K, int D, int causal, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, D, causal, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, D,
-                                     causal, st);
-  return cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return launch<32>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
+    case 64: return launch<64>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
+    case 128: return launch<128>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -9,12 +9,15 @@ attention (q-head h reads kv-head h*K//H) with scale D^-0.5, fp32 softmax,
 the top-left causal mask ``k_pos <= q_pos``, and ``(out, lse)`` with
 ``lse = m + log(max(l, 1e-37))``.
 
-``flash_attention_bwd`` launches ``csrc/flash_bwd_dq.cu`` then
-``csrc/flash_bwd_dkv.cu`` for CUDA tensors and runs
-``flash_attention_bwd_plain`` for CPU tensors.  Both compute the
-reference's Pallas ``flash_attention_bwd``: p recomputed from the
+``flash_attention_bwd`` launches ``csrc/flash_bwd_dq_sm90.cu`` then
+``csrc/flash_bwd_dkv_sm90.cu`` (tensor cores, TMA) for CUDA bf16 tensors,
+``csrc/flash_bwd_dq.cu`` then ``csrc/flash_bwd_dkv.cu`` for CUDA fp32
+tensors, and runs ``flash_attention_bwd_plain`` for CPU tensors.  All
+compute the reference's Pallas ``flash_attention_bwd``: p recomputed from the
 forward's lse, ``Dvec = rowsum(dO * O)``, ``ds = p (dO V^T - Dvec) D^-0.5``,
-``dq = ds K``, ``dk = ds^T Q``, ``dv = p^T dO``, all in fp32.
+``dq = ds K``, ``dk = ds^T Q``, ``dv = p^T dO``, all in fp32 (the bf16
+kernels' products take bf16 operands, with p and ds split into two bf16
+terms each, and sum in fp32).
 """
 
 from __future__ import annotations
@@ -35,13 +38,16 @@ KERNEL = CudaKernel(
 SM90_KERNEL = CudaKernel(
     "flash_attention_sm90.cu", "repro_flash_attention_fwd_sm90",
     [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _p])
-DQ_KERNEL = CudaKernel(
-    "flash_bwd_dq.cu", "repro_flash_bwd_dq",
-    [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p])
-DKV_KERNEL = CudaKernel(
-    "flash_bwd_dkv.cu", "repro_flash_bwd_dkv",
-    [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p])
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward kernels all take (8 pointers, B, Sq, Skv, H, K, D, causal,
+# stream)
+_BWD_ARGS = [_p] * 8 + [_i] * 7 + [_p]
+DQ_KERNEL = CudaKernel("flash_bwd_dq.cu", "repro_flash_bwd_dq", _BWD_ARGS)
+DKV_KERNEL = CudaKernel("flash_bwd_dkv.cu", "repro_flash_bwd_dkv", _BWD_ARGS)
+DQ_SM90_KERNEL = CudaKernel("flash_bwd_dq_sm90.cu", "repro_flash_bwd_dq_sm90",
+                            _BWD_ARGS)
+DKV_SM90_KERNEL = CudaKernel("flash_bwd_dkv_sm90.cu",
+                             "repro_flash_bwd_dkv_sm90", _BWD_ARGS)
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True):
@@ -106,6 +112,21 @@ def forward_kernel(dtype) -> CudaKernel:
     return SM90_KERNEL if dtype == torch.bfloat16 else KERNEL
 
 
+def backward_kernels(dtype) -> tuple[CudaKernel, CudaKernel]:
+    """The (dq, dk/dv) kernels a CUDA backward of ``dtype`` launches: the
+    Hopper tensor-core pair for bf16, the fp32 pair for fp32."""
+    if dtype == torch.bfloat16:
+        return DQ_SM90_KERNEL, DKV_SM90_KERNEL
+    return DQ_KERNEL, DKV_KERNEL
+
+
+def _check_tma(name, *ts):
+    """The bf16 kernels read their inputs by TMA, from 16-byte boundaries."""
+    if ts[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: bf16 inputs must start on 16-byte "
+                         "boundaries (the kernel reads them by TMA)")
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True):
     """Returns (out (B,Sq,H,Dv) in q's dtype, lse (B,H,Sq) fp32).
 
@@ -116,9 +137,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     _check_cuda("flash_attention_fwd", q, k, v)
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention_fwd: bf16 inputs must start on "
-                         "16-byte boundaries (the kernel reads them by TMA)")
+    _check_tma("flash_attention_fwd", q, k, v)
     B, Sq, H, D = q.shape
     _, Skv, K, Dv = v.shape
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
@@ -164,8 +183,9 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True):
     q, k, v.
 
     CPU tensors go to the plain version; CUDA tensors to the dq kernel
-    (which also writes Dvec) and then the dk/dv kernel, on the current
-    stream."""
+    of their dtype (which also writes Dvec) and then its dk/dv kernel
+    (``backward_kernels``), on the current stream; they raise on what the
+    kernels do not take."""
     _check(q, k, v, "flash_attention_bwd")
     B, Sq, H, D = q.shape
     _, Skv, K, Dv = v.shape
@@ -181,6 +201,7 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True):
             or not lse.is_contiguous():
         raise TypeError("flash_attention_bwd: lse must be contiguous float32 "
                         "on q's device")
+    _check_tma("flash_attention_bwd", q, k, v, out, g)
     dq, dvec = bwd_dq_launch(q, k, v, out, lse, g, causal=causal)
     dk, dv = bwd_dkv_launch(q, k, v, g, lse, dvec, causal=causal)
     return dq, dk, dv
@@ -189,30 +210,32 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True):
 def _bwd_args(q, v, causal):
     B, Sq, H, D = q.shape
     _, Skv, K, _ = v.shape
-    return B, Sq, Skv, H, K, D, int(causal), _DTYPES[q.dtype]
+    return B, Sq, Skv, H, K, D, int(causal)
 
 
 def bwd_dq_launch(q, k, v, out, lse, g, *, causal: bool = True):
-    """The dq kernel alone on inputs ``flash_attention_bwd`` has checked:
-    returns (dq, Dvec (B,H,Sq) fp32)."""
+    """The dq kernel of q's dtype alone, on inputs ``flash_attention_bwd``
+    has checked: returns (dq, Dvec (B,H,Sq) fp32)."""
     dq = torch.empty_like(q)
     dvec = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        DQ_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), g.data_ptr(), lse.data_ptr(),
-                         dvec.data_ptr(), dq.data_ptr(), *_bwd_args(q, v, causal),
-                         torch.cuda.current_stream(q.device).cuda_stream)
+        backward_kernels(q.dtype)[0].launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+            *_bwd_args(q, v, causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
     return dq, dvec
 
 
 def bwd_dkv_launch(q, k, v, g, lse, dvec, *, causal: bool = True):
-    """The dk/dv kernel alone, after ``bwd_dq_launch`` wrote ``dvec`` on
-    the same stream: returns (dk, dv)."""
+    """The dk/dv kernel of q's dtype alone, after ``bwd_dq_launch`` wrote
+    ``dvec`` on the same stream: returns (dk, dv)."""
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
-        DKV_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          g.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
-                          dk.data_ptr(), dv.data_ptr(), *_bwd_args(q, v, causal),
-                          torch.cuda.current_stream(q.device).cuda_stream)
+        backward_kernels(q.dtype)[1].launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_bwd_args(q, v, causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
     return dk, dv

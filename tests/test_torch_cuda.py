@@ -12,9 +12,11 @@ chip_smoke.py: its products run on the tensor cores from bf16 operands
 with fp32 sums and P split into two bf16 terms, so it differs from the
 plain version by summation order and the one-ulp flip of a bf16 output.
 Decode in bfloat16: 3e-2 (one bf16 ulp is 2^-8 relative).  The
-backward kernels' gradients are sums of up to S products of O(1) terms
-in another order: 1e-4 absolute plus 1e-4 relative in float32, and one
-bf16 ulp of the largest |grad| (2^-7 relative) in bfloat16.
+backward kernels' gradients are sums of up to S G products of O(1) terms
+in another order: 1e-4 absolute plus 1e-4 relative in float32; in
+bfloat16 (the Hopper pair: bf16 operands, fp32 sums, P and dS split into
+two bf16 terms) element by element 1e-4 + 2^-7 |ref|, chip_smoke.py's
+check.
 """
 
 import pytest
@@ -26,6 +28,7 @@ from repro_torch.kernels.decode_attention import (KERNEL as DECODE,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (DKV_KERNEL, DQ_KERNEL,
                                                  KERNEL as FLASH,
+                                                 backward_kernels,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_fwd,
@@ -65,19 +68,25 @@ DECODE_CASES = [
 ]
 
 
-BWD_CASES = [
-    # (B, Sq, Skv, H, K, D, causal, dtype)
-    (4, 512, 512, 16, 8, 128, True, torch.bfloat16),
-    (4, 512, 512, 16, 8, 128, True, torch.float32),
-    (2, 13, 13, 16, 8, 128, True, torch.float32),
-    (2, 24, 24, 16, 8, 128, True, torch.bfloat16),
-    (2, 128, 128, 4, 2, 64, True, torch.float32),
-    (1, 256, 256, 8, 8, 32, True, torch.bfloat16),
-    (2, 128, 256, 4, 1, 64, False, torch.float32),
-    (1, 100, 37, 4, 2, 64, False, torch.float32),
-    (1, 64, 128, 4, 2, 32, True, torch.float32),
-    (1, 130, 70, 4, 4, 128, True, torch.float32),
+BWD_SHAPES = [
+    # (B, Sq, Skv, H, K, D, causal)
+    (4, 512, 512, 16, 8, 128, True),
+    (2, 13, 13, 16, 8, 128, True),
+    (2, 24, 24, 16, 8, 128, True),
+    (2, 128, 128, 4, 2, 64, True),
+    (1, 256, 256, 8, 8, 32, True),
+    (2, 128, 256, 4, 1, 64, False),
+    (1, 100, 37, 4, 2, 64, False),
+    (1, 64, 128, 4, 2, 32, True),
+    (1, 130, 70, 4, 4, 128, True),
+    (2, 70, 70, 8, 2, 32, True),
+    (1, 100, 100, 6, 2, 64, True),
+    (1, 37, 130, 4, 1, 128, True),
 ]
+# every shape in both dtypes: bf16 goes to the Hopper pair, fp32 to the
+# CUDA-core pair
+BWD_CASES = [shape + (dt,) for shape in BWD_SHAPES
+             for dt in (torch.float32, torch.bfloat16)]
 
 
 @pytest.fixture
@@ -201,29 +210,62 @@ def _bwd_inputs(case, device):
 def test_flash_bwd_kernels_match_plain(case, device):
     causal, dt = case[6], case[7]
     q, k, v, out, lse, g = _bwd_inputs(case, device)
-    dq_before, dkv_before = DQ_KERNEL.launches, DKV_KERNEL.launches
+    other = torch.float32 if dt == torch.bfloat16 else torch.bfloat16
+    kerns = backward_kernels(dt) + backward_kernels(other)
+    before = [kern.launches for kern in kerns]
     got = flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
     torch.cuda.synchronize()
-    assert DQ_KERNEL.launches == dq_before + 1
-    assert DKV_KERNEL.launches == dkv_before + 1
+    assert [kern.launches for kern in kerns] == [n + (i < 2) for i, n in enumerate(before)]
     ref = flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
-        assert a.dtype == dt and a.shape == b.shape
+        assert a.dtype == dt and a.shape == b.shape, name
         if dt == torch.float32:
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg=name)
         else:
-            atol = 2.0 ** -7 * b.float().abs().max().item()
-            torch.testing.assert_close(a.float(), b.float(), atol=atol,
-                                       rtol=2.0 ** -7, msg=name)
+            _assert_elementwise(a, b, 2.0 ** -7, atol=1e-4)
 
 
-def test_flash_dkv_kernel_is_deterministic(device):
-    case = (4, 512, 512, 16, 8, 128, True, torch.bfloat16)
+@pytest.mark.parametrize("case", [(4, 512, 512, 16, 8, 128, True, torch.bfloat16),
+                                  (1, 100, 100, 6, 2, 64, True, torch.bfloat16),
+                                  (4, 512, 512, 16, 8, 128, True, torch.float32)])
+def test_flash_dkv_kernel_is_deterministic(case, device):
+    """No atomics: two launches of the dtype's pair give the same bits."""
     q, k, v, out, lse, g = _bwd_inputs(case, device)
+    kerns = backward_kernels(case[-1])
+    before = [kern.launches for kern in kerns]
     first = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
     second = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    assert [kern.launches for kern in kerns] == [n + 2 for n in before]
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def test_bf16_bwd_raises_on_a_head_dim_it_does_not_take(device):
+    q = _randn((1, 8, 4, 96), torch.bfloat16, device, 9)
+    kv = _randn((1, 8, 2, 96), torch.bfloat16, device, 10)
+    lse = torch.zeros((1, 4, 8), device=device)
+    before = [kern.launches for kern in backward_kernels(torch.bfloat16)]
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_bwd(q, kv, kv, q, lse, q)
+    assert [kern.launches for kern in backward_kernels(torch.bfloat16)] == before
+
+
+@pytest.mark.parametrize("which", range(5))
+def test_bf16_bwd_raises_on_inputs_tma_cannot_read(which, device):
+    """q, k, v, out or dO as a contiguous view 2 bytes into its storage."""
+    case = (1, 8, 8, 4, 2, 64, True, torch.bfloat16)
+    args = list(_bwd_inputs(case, device))  # q, k, v, out, lse, g
+    slot = (0, 1, 2, 3, 5)[which]
+    t = args[slot]
+    shifted = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)[1:].view(t.shape)
+    shifted.copy_(t)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    args[slot] = shifted
+    kerns = backward_kernels(torch.bfloat16) + backward_kernels(torch.float32)
+    before = [kern.launches for kern in kerns]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd(*args, causal=True)
+    assert [kern.launches for kern in kerns] == before
 
 
 def test_train_attention_grads_through_the_kernels(device):
