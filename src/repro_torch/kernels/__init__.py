@@ -1,9 +1,9 @@
 """Kernel dispatch: hand-written CUDA kernels for CUDA tensors, their
 plain PyTorch versions for CPU tensors.  The kernels: flash attention
-(prefill and training forward: a tensor-core kernel for bf16, a CUDA-core
-one for fp32), flash decode, the flash backward's dq and dk/dv passes
-(tensor-core kernels for bf16, CUDA-core ones for fp32), and the Mamba-1
-selective scan.
+(prefill and training forward: a tensor-core kernel for bf16 and one for
+fp32, whose products are three tf32 products each), flash decode, the
+flash backward's dq and dk/dv passes (tensor-core kernels for bf16,
+CUDA-core ones for fp32), and the Mamba-1 selective scan.
 
 There is no tuning cache yet: block sizes are fixed in the kernels.  A
 windowed attention call has no kernel in this package: on CUDA it
@@ -30,7 +30,7 @@ from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import mamba_scan as _scan
 
-KERNELS = (_flash.SM90_KERNEL, _flash.KERNEL, _decode.KERNEL,
+KERNELS = (_flash.SM90_KERNEL, _flash.SM90_FP32_KERNEL, _decode.KERNEL,
            _flash.DQ_SM90_KERNEL, _flash.DKV_SM90_KERNEL, _flash.DQ_KERNEL,
            _flash.DKV_KERNEL, _scan.KERNEL)
 

@@ -4,9 +4,9 @@
 // Replaces the Pallas TPU kernel `_fwd_kernel` reached through
 // `flash_attention_fwd` (the `pl.pallas_call` at l.127) in
 // src/repro/kernels/flash_attention/flash_attention.py, for bf16 inputs; the
-// fp32 inputs go to flash_attention.cu.  Same function: causal or non-causal
-// GQA attention with an online softmax in fp32, q-head h reading kv-head
-// h*K/H (no head expansion), scale D^-0.5, the top-left causal mask
+// fp32 inputs go to flash_attention_sm90_fp32.cu.  Same function: causal or
+// non-causal GQA attention with an online softmax in fp32, q-head h reading
+// kv-head h*K/H (no head expansion), scale D^-0.5, the top-left causal mask
 // k_pos <= q_pos (both from 0, so Sq != Skv keeps the reference's meaning),
 // kv tiles wholly above the diagonal skipped, l clamped at 1e-37, outputs
 // out (B,Sq,H,D) in bf16 and lse = m + log(l) (B,H,Sq) in fp32, natural log.

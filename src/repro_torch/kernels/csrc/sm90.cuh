@@ -1,9 +1,10 @@
-// Hopper (sm_90a) machinery shared by the bf16 attention kernels
-// (flash_attention_sm90.cu, flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu):
-// on the device, shared-memory addresses, mbarriers, TMA tile loads, wgmma
-// descriptors and the wgmma forms the kernels issue; on the host, the
-// tensor-map encoder fetched at run time and the maps of a (B, S, heads, D)
-// bf16 tensor.
+// Hopper (sm_90a) machinery shared by the attention kernels
+// (flash_attention_sm90.cu, flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu in
+// bf16; flash_attention_sm90_fp32.cu in fp32): on the device, shared-memory
+// addresses, mbarriers, TMA tile loads, wgmma descriptors and the wgmma
+// forms the kernels issue, bf16 and tf32, and the split of fp32 values into
+// two bf16 or two tf32 terms; on the host, the tensor-map encoder fetched
+// at run time and the maps of a (B, S, heads, D) bf16 or fp32 tensor.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -18,19 +19,20 @@ constexpr int WG = 128;  // threads of a warpgroup
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared-memory geometry of a bf16 tile with head dim D: a tile of `rows`
-// rows is NATOM column atoms of rows x SW bytes (SW = the swizzle span: 64
-// bf16 columns, or 32 for D=32), each starting on a 1024-byte boundary.
-template <int D>
+// Shared-memory geometry of a tile with D columns of E-byte elements (E = 2:
+// bf16, E = 4: fp32): a tile of `rows` rows is NATOM column atoms of rows x
+// SW bytes (SW = the swizzle span: 64 bf16 columns, or 32 for bf16 D=32; 32
+// fp32 columns), each starting on a 1024-byte boundary.
+template <int D, int E = 2>
 struct Geo {
-  static constexpr int SW = D * 2 >= 128 ? 128 : D * 2;
-  static constexpr int ATOM = SW / 2;
+  static constexpr int SW = D * E >= 128 ? 128 : D * E;
+  static constexpr int ATOM = SW / E;
   static constexpr int NATOM = D / ATOM;
   static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma: 128B or 64B swizzle
   static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
       SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   __host__ __device__ static constexpr int atom_bytes(int rows) { return rows * SW; }
-  __host__ __device__ static constexpr int tile_bytes(int rows) { return rows * D * 2; }
+  __host__ __device__ static constexpr int tile_bytes(int rows) { return rows * D * E; }
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -78,12 +80,13 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
 }
 
 // Tiles of `rows` rows of one head from two maps of the same shape (K and
-// V, or Q and dO) into dst_a and dst_b, completing on `bar`.
-template <int D>
+// V, or Q and dO) of E-byte elements into dst_a and dst_b, completing on
+// `bar`.
+template <int D, int E = 2>
 __device__ __forceinline__ void tma_load_pair(const CUtensorMap* ma, const CUtensorMap* mb,
                                               uint32_t dst_a, uint32_t dst_b, int head,
                                               int row, int b, int rows, uint32_t bar) {
-  using G = Geo<D>;
+  using G = Geo<D, E>;
   mbar_expect_tx(bar, 2 * G::tile_bytes(rows));
 #pragma unroll
   for (int c = 0; c < G::NATOM; ++c) {
@@ -117,6 +120,24 @@ template <int D>
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int kk) {
   using G = Geo<D>;
   return desc(tile + kk * 16 * G::SW, G::atom_bytes(rows), 8 * G::SW, G::LAYOUT);
+}
+
+// The same for an fp32 tile of D columns read as tf32, K-major only (tf32
+// wgmma has no transpose): the k8 slice kk of D, 32 bytes inside a 128-byte
+// atom as a bf16 k16 slice is.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k_tf32(uint32_t tile, int rows, int kk) {
+  using G = Geo<D, 4>;
+  const int atom = kk * 8 / G::ATOM;
+  const uint32_t off = (kk * 8 % G::ATOM) * 4;
+  return desc(tile + atom * G::atom_bytes(rows) + off, 16, 8 * G::SW, G::LAYOUT);
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy accesses (wgmma operand reads, TMA writes) that a barrier
+// orders after them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -233,6 +254,58 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D = A B (+ D when scale_d), m64nNk8, fp32 += tf32 x tf32 (the operands'
+// low 13 mantissa bits are cleared by the caller: split_tf32), N = 2 x the
+// accumulator registers a thread holds; the forms of
+// SM90_64xNx8_F32TF32TF32_{SS,RS}_TN in CUTLASS's cute/arch/mma_sm90_gmma.hpp.
+// Both operands K-major (tf32 takes no transpose immediate).  wgmma_ss_tf32:
+// A and B from shared memory.  wgmma_rs_tf32: A from registers, D
+// accumulated; a thread's four registers hold A's rows lane/4 (a[0], a[2])
+// and lane/4 + 8 (a[1], a[3]) of its warp's 16, at k = lane % 4 (a[0],
+// a[1]) and lane % 4 + 4 (a[2], a[3]).
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -270,6 +343,60 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ dst,
   }
 }
 
+// x as two tf32 terms, as bit patterns: hi = x with its low 13 mantissa bits
+// cleared, lo = the same of x - hi (exact).  hi + lo holds x's top 22 or so
+// significant bits; hi_a hi_b + hi_a lo_b + lo_a hi_b, each product exact in
+// fp32, is a product of fp32 values to about 2^-21 relative.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32(float4 x, float4& hi, float4& lo) {
+  uint32_t h[4], l[4];
+  split_tf32(x.x, h[0], l[0]);
+  split_tf32(x.y, h[1], l[1]);
+  split_tf32(x.z, h[2], l[2]);
+  split_tf32(x.w, h[3], l[3]);
+  hi = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                   __uint_as_float(h[3]));
+  lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                   __uint_as_float(l[3]));
+}
+
+// Splits an fp32 tile of `bytes` bytes at `tile`, as TMA wrote it, into its
+// tf32 terms: hi in place, lo at the same offset from `lo`.  The two share
+// the tile's layout, so the swizzle never needs decoding.  Every thread of
+// the block takes part; the caller fences and synchronises before a wgmma
+// reads either.
+__device__ __forceinline__ void split_tile_tf32(uint8_t* tile, uint8_t* lo, int bytes) {
+  for (int i = threadIdx.x * 16; i < bytes; i += blockDim.x * 16) {
+    float4 h, l;
+    split_tf32(*reinterpret_cast<const float4*>(tile + i), h, l);
+    *reinterpret_cast<float4*>(tile + i) = h;
+    *reinterpret_cast<float4*>(lo + i) = l;
+  }
+}
+
+// Writes a warpgroup's m64nD fp32 accumulator `acc` as fp32 rows of a
+// (B, S, heads, D) tensor, as store_rows does in bf16.
+template <int D>
+__device__ __forceinline__ void store_rows_f32(float* __restrict__ dst,
+                                               const float (&acc)[D / 2], int row0, int S,
+                                               int heads, int head, int b) {
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int c0 = 2 * (lane % 4);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 16 * warp + lane / 4 + 8 * r;
+    if (row >= S) continue;
+    float* p = dst + ((static_cast<size_t>(b) * S + row) * heads + head) * D + c0;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<float2*>(p + 8 * i) =
+          make_float2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+  }
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave,
@@ -296,22 +423,24 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// (B, S, heads, D) bf16 as a 4-D map (D, heads, S, B), box (ATOM, 1, rows, 1).
-// Rows past S are zero-filled.
-template <int D>
+// (B, S, heads, D) of E-byte elements (E = 2: bf16, 4: fp32) as a 4-D map
+// (D, heads, S, B), box (ATOM, 1, rows, 1).  Rows past S are zero-filled.
+template <int D, int E = 2>
 bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int rows) {
-  using G = Geo<D>;
+  using G = Geo<D, E>;
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(heads) * D * 2,
-                                 static_cast<cuuint64_t>(S) * heads * D * 2};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * E,
+                                 static_cast<cuuint64_t>(heads) * D * E,
+                                 static_cast<cuuint64_t>(S) * heads * D * E};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(G::ATOM), 1,
                              static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+  const CUtensorMapDataType type =
+      E == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 4, const_cast<void*>(ptr), dims,
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, G::TMA_SWIZZLE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -1,10 +1,11 @@
 """Flash attention, forward and backward: the CUDA kernels' wrappers and
 their plain versions.
 
-``flash_attention_fwd`` launches ``csrc/flash_attention_sm90.cu`` (tensor
-cores, TMA) for CUDA bf16 tensors, ``csrc/flash_attention.cu`` for CUDA
-fp32 tensors, and runs ``flash_attention_plain`` for CPU tensors.  All
-compute the reference package's Pallas ``flash_attention_fwd``: GQA
+``flash_attention_fwd`` launches ``csrc/flash_attention_sm90.cu`` for CUDA
+bf16 tensors and ``csrc/flash_attention_sm90_fp32.cu`` for CUDA fp32 tensors
+(both tensor cores and TMA; fp32 products as three tf32 products each), and
+runs ``flash_attention_plain`` for CPU tensors.  All compute the reference
+package's Pallas ``flash_attention_fwd``: GQA
 attention (q-head h reads kv-head h*K//H) with scale D^-0.5, fp32 softmax,
 the top-left causal mask ``k_pos <= q_pos``, and ``(out, lse)`` with
 ``lse = m + log(max(l, 1e-37))``.
@@ -32,12 +33,13 @@ NEG_INF = -2.0e38
 HEAD_DIMS = (32, 64, 128)
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
-KERNEL = CudaKernel(
-    "flash_attention.cu", "repro_flash_attention_fwd",
-    [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _p])
-SM90_KERNEL = CudaKernel(
-    "flash_attention_sm90.cu", "repro_flash_attention_fwd_sm90",
-    [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _p])
+# the forward kernels take (q, k, v, out, lse, B, Sq, Skv, H, K, D, causal,
+# stream)
+_FWD_ARGS = [_p] * 5 + [_i] * 7 + [_p]
+SM90_KERNEL = CudaKernel("flash_attention_sm90.cu",
+                         "repro_flash_attention_fwd_sm90", _FWD_ARGS)
+SM90_FP32_KERNEL = CudaKernel("flash_attention_sm90_fp32.cu",
+                              "repro_flash_attention_fwd_sm90_fp32", _FWD_ARGS)
 # the backward kernels all take (8 pointers, B, Sq, Skv, H, K, D, causal,
 # stream)
 _BWD_ARGS = [_p] * 8 + [_i] * 7 + [_p]
@@ -108,8 +110,8 @@ def _check_cuda(name, q, k, v, *more):
 
 def forward_kernel(dtype) -> CudaKernel:
     """The forward kernel a CUDA call of ``dtype`` launches: the Hopper
-    tensor-core kernel for bf16, the fp32 kernel for fp32."""
-    return SM90_KERNEL if dtype == torch.bfloat16 else KERNEL
+    tensor-core kernel of bf16 or of fp32."""
+    return SM90_KERNEL if dtype == torch.bfloat16 else SM90_FP32_KERNEL
 
 
 def backward_kernels(dtype) -> tuple[CudaKernel, CudaKernel]:
@@ -121,10 +123,12 @@ def backward_kernels(dtype) -> tuple[CudaKernel, CudaKernel]:
 
 
 def _check_tma(name, *ts):
-    """The bf16 kernels read their inputs by TMA, from 16-byte boundaries."""
-    if ts[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in ts):
-        raise ValueError(f"{name}: bf16 inputs must start on 16-byte "
-                         "boundaries (the kernel reads them by TMA)")
+    """The Hopper kernels read their inputs by TMA, from 16-byte
+    boundaries."""
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: {str(ts[0].dtype)[6:]} inputs must start "
+                         "on 16-byte boundaries (the kernel reads them by "
+                         "TMA)")
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True):
@@ -201,7 +205,8 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True):
             or not lse.is_contiguous():
         raise TypeError("flash_attention_bwd: lse must be contiguous float32 "
                         "on q's device")
-    _check_tma("flash_attention_bwd", q, k, v, out, g)
+    if q.dtype == torch.bfloat16:  # the fp32 pair reads no TMA tile
+        _check_tma("flash_attention_bwd", q, k, v, out, g)
     dq, dvec = bwd_dq_launch(q, k, v, out, lse, g, causal=causal)
     dk, dv = bwd_dkv_launch(q, k, v, g, lse, dvec, causal=causal)
     return dq, dk, dv

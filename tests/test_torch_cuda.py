@@ -6,7 +6,10 @@ kernels at first use) and skip elsewhere.  Run them on the GPU machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: 2e-5 in float32 (both sides accumulate in fp32; only the
-summation order differs).  The bf16 flash forward is held element by
+summation order differs; the fp32 flash forward multiplies on the tensor
+cores as three tf32 products, which a CPU model of its arithmetic keeps
+far inside 2e-5, tests/test_torch_flash_fp32_sm90.py).  The bf16 flash
+forward is held element by
 element to 2e-5 + 2^-7 |ref| (out) and 2e-5 (lse), the check of
 chip_smoke.py: its products run on the tensor cores from bf16 operands
 with fp32 sums and P split into two bf16 terms, so it differs from the
@@ -27,7 +30,7 @@ from repro_torch.kernels.decode_attention import (KERNEL as DECODE,
                                                   decode_attention_fwd,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (DKV_KERNEL, DQ_KERNEL,
-                                                 KERNEL as FLASH,
+                                                 SM90_FP32_KERNEL as FLASH,
                                                  backward_kernels,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
@@ -37,7 +40,17 @@ from repro_torch.kernels.flash_attention import (DKV_KERNEL, DQ_KERNEL,
 
 pytestmark = pytest.mark.cuda
 
-torch.set_num_threads(2)
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Two intra-op threads for each test of this file, the previous count
+    afterwards (set per test, not at import: every xdist worker imports
+    every test file)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
 
 FLASH_SHAPES = [
     # (B, Sq, Skv, H, K, D, causal)
@@ -51,8 +64,8 @@ FLASH_SHAPES = [
     (1, 130, 70, 4, 4, 128, True),
     (1, 1, 1, 2, 1, 64, True),
 ]
-# every shape in both dtypes: bf16 goes to the Hopper kernel, fp32 to the
-# CUDA-core one
+# every shape in both dtypes: bf16 goes to the Hopper bf16 kernel, fp32 to
+# the Hopper fp32 one
 FLASH_CASES = [shape + (dt,) for shape in FLASH_SHAPES
                for dt in (torch.float32, torch.bfloat16)]
 
@@ -194,6 +207,52 @@ def test_bf16_flash_raises_on_inputs_tma_cannot_read(device):
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention_fwd(q, k, k)
     assert forward_kernel(torch.bfloat16).launches == before
+
+
+def _tf32(x):
+    """x with its low 13 mantissa bits cleared: what tf32 keeps."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def test_fp32_flash_keeps_what_lies_below_tf32(device):
+    """Inputs that differ only below tf32's mantissa (x and its tf32 part)
+    give outputs that differ far beyond 2e-5; the kernel holds each to the
+    plain version, so it drops no lo term and reads no raw fp32 bits as
+    other than its split."""
+    B, S, H, K, D = 1, 256, 4, 2, 128
+    full = [_randn(shape, torch.float32, device, seed) for shape, seed in
+            (((B, S, H, D), 14), ((B, S, K, D), 15), ((B, S, K, D), 16))]
+    hi = [_tf32(x) for x in full]
+    refs = [flash_attention_plain(*inputs, causal=True) for inputs in (full, hi)]
+    assert ((refs[0][0] - refs[1][0]).abs() > 2e-5).sum().item() > 10_000
+    before = FLASH.launches
+    for inputs, (ref, ref_lse) in zip((full, hi), refs):
+        out, lse = flash_attention_fwd(*inputs, causal=True)
+        torch.cuda.synchronize()
+        _assert_elementwise(out, ref, 0.0)
+        _assert_elementwise(lse, ref_lse, 0.0)
+    assert FLASH.launches == before + 2
+
+
+def test_fp32_flash_raises_on_a_head_dim_it_does_not_take(device):
+    q = _randn((1, 8, 4, 96), torch.float32, device, 9)
+    before = FLASH.launches
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_fwd(q, q, q)
+    assert FLASH.launches == before
+
+
+def test_fp32_flash_raises_on_inputs_tma_cannot_read(device):
+    """A contiguous view that starts 4 bytes into its storage."""
+    q = _randn((1 + 8 * 4 * 64,), torch.float32, device, 9)[1:].view(1, 8, 4, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    k = _randn((1, 8, 4, 64), torch.float32, device, 10)
+    before = FLASH.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_fwd(q, k, k)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_fwd(k, k, q)
+    assert FLASH.launches == before
 
 
 def _bwd_inputs(case, device):

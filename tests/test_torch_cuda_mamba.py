@@ -28,7 +28,17 @@ scan_mod_impl = sys.modules["repro_torch.kernels.mamba_scan.mamba_scan"]
 
 pytestmark = pytest.mark.cuda
 
-torch.set_num_threads(2)
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Two intra-op threads for each test of this file, the previous count
+    afterwards (set per test, not at import: every xdist worker imports
+    every test file)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
 
 TOL = 1e-4
 

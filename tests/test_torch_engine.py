@@ -15,7 +15,16 @@ from repro_torch.core.batching import (pad_stacked, payload_signature,
 from repro_torch.device import resolve_device
 from repro_torch.obs.schema import STATS_SCHEMA, validate_engine_stats
 
-torch.set_num_threads(2)
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Two intra-op threads for each test of this file, the previous count
+    afterwards (set per test, not at import: every xdist worker imports
+    every test file)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def _affine(p):
@@ -159,3 +168,9 @@ def test_drop_programs_frees_the_weights_they_close_over():
     svc.drop_programs()
     gc.collect()
     assert ref() is None
+
+
+def test_each_test_here_runs_on_two_intra_op_threads():
+    """The file's fixture sets two threads for each of its tests, whatever
+    a test of another file set before it in the same worker."""
+    assert torch.get_num_threads() == 2

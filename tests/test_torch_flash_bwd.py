@@ -24,11 +24,20 @@ from repro_torch.kernels.flash_attention import (DKV_KERNEL, DQ_KERNEL,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_plain)
 
-# One intra-op thread: on the CPUs these tests run on, torch's second
-# thread has been seen under load to compute exp on its half of a tensor
-# with errors far above an ulp, which breaks the tight tolerances here at
-# random; with one thread it has not.
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """One intra-op thread for each test of this file, the previous count
+    afterwards (set per test, not at import: every xdist worker imports
+    every test file).  On the CPUs these tests run on, torch's second
+    thread has been seen under load to compute exp on its half of a
+    tensor with errors far above an ulp, which breaks the tight
+    tolerances here at random; with one thread it has not."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 F32, BF16 = "float32", "bfloat16"
 _JNP = {F32: jnp.float32, BF16: jnp.bfloat16}

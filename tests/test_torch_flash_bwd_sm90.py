@@ -34,9 +34,16 @@ from repro_torch.kernels.flash_attention import (DKV_KERNEL, DKV_SM90_KERNEL,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_plain)
 
-# One intra-op thread, as in the other tight-tolerance port tests: under
-# load, torch's second thread has computed exp far off an ulp here.
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """One intra-op thread for each test of this file, as in the other
+    tight-tolerance port tests; the previous count afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 DQ_BK = 64     # dq: keys per tile
 DKV_BQ = 32    # dk/dv: queries per step

@@ -21,13 +21,20 @@ import torch
 
 from repro.kernels.flash_attention.flash_attention import \
     flash_attention_fwd as jax_flash
-from repro_torch.kernels.flash_attention import (KERNEL, SM90_KERNEL,
+from repro_torch.kernels.flash_attention import (SM90_FP32_KERNEL, SM90_KERNEL,
                                                  flash_attention_plain,
                                                  forward_kernel)
 
-# One intra-op thread, as in the other tight-tolerance port tests: under
-# load, torch's second thread has computed exp far off an ulp here.
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """One intra-op thread for each test of this file, as in the other
+    tight-tolerance port tests; the previous count afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 BK = 64  # keys per tile, as in the kernel
 ATOL, RTOL_BF16 = 2e-5, 2.0 ** -7
@@ -135,15 +142,15 @@ def test_model_matches_pallas_reference(case):
 
 
 @pytest.mark.parametrize("dtype, kernel", [(torch.bfloat16, SM90_KERNEL),
-                                           (torch.float32, KERNEL)])
+                                           (torch.float32, SM90_FP32_KERNEL)])
 def test_routing_picks_the_kernel_of_the_dtype(dtype, kernel):
-    before = (SM90_KERNEL.launches, KERNEL.launches)
+    before = (SM90_KERNEL.launches, SM90_FP32_KERNEL.launches)
     assert forward_kernel(dtype) is kernel
-    assert (SM90_KERNEL.launches, KERNEL.launches) == before
+    assert (SM90_KERNEL.launches, SM90_FP32_KERNEL.launches) == before
 
 
 def test_the_two_forward_kernels_have_their_own_sources():
     assert SM90_KERNEL.source.name == "flash_attention_sm90.cu"
-    assert KERNEL.source.name == "flash_attention.cu"
-    assert SM90_KERNEL.source.is_file() and KERNEL.source.is_file()
-    assert SM90_KERNEL.symbol != KERNEL.symbol
+    assert SM90_FP32_KERNEL.source.name == "flash_attention_sm90_fp32.cu"
+    assert SM90_KERNEL.source.is_file() and SM90_FP32_KERNEL.source.is_file()
+    assert SM90_KERNEL.symbol != SM90_FP32_KERNEL.symbol

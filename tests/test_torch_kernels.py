@@ -19,11 +19,20 @@ from repro_torch.kernels import decode_attention, flash_attention
 from repro_torch.kernels.decode_attention import decode_attention_fwd
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 
-# One intra-op thread: on the CPUs these tests run on, torch's second
-# thread has been seen under load to compute exp on its half of a tensor
-# with errors far above an ulp, which breaks the tight tolerances here at
-# random; with one thread it has not.
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """One intra-op thread for each test of this file, the previous count
+    afterwards (set per test, not at import: every xdist worker imports
+    every test file).  On the CPUs these tests run on, torch's second
+    thread has been seen under load to compute exp on its half of a
+    tensor with errors far above an ulp, which breaks the tight
+    tolerances here at random; with one thread it has not."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 F32, BF16 = "float32", "bfloat16"
 _JNP = {F32: jnp.float32, BF16: jnp.bfloat16}
@@ -128,9 +137,9 @@ def test_wrappers_validate_inputs():
 def test_cpu_calls_never_build_or_count_a_kernel():
     """The kernel modules import without nvcc and CPU tensors take the
     plain version: no library is loaded and no launch is counted."""
-    for kernel in (flash_attention.KERNEL, decode_attention.KERNEL):
+    for kernel in (flash_attention.SM90_FP32_KERNEL, decode_attention.KERNEL):
         before = kernel.launches
-        if kernel is flash_attention.KERNEL:
+        if kernel is flash_attention.SM90_FP32_KERNEL:
             flash_attention_fwd(torch.ones(1, 3, 2, 32), torch.ones(1, 3, 2, 32),
                                 torch.ones(1, 3, 2, 32))
         else:
@@ -149,3 +158,41 @@ def test_kernels_build_inside_the_checkout():
 
     root = Path(__file__).resolve().parents[1]
     assert build.BUILD_DIR == root / "build" / "repro_torch_kernels"
+
+
+def test_each_test_here_runs_on_one_intra_op_thread():
+    """The file's fixture sets one thread for each of its tests, whatever a
+    test of another file set before it in the same worker (a count set at
+    import held only for the file imported last)."""
+    assert torch.get_num_threads() == 1
+
+
+if __name__ == "__main__":
+    # The reproduction of the suspect that the thread pins answer: case 0 of
+    # FLASH_CASES through the plain version at THREADS intra-op threads,
+    # RUNS times, each run held bit for bit to one thread (out, lse and a
+    # 2^20-element torch.exp) and to the Pallas kernel at 2e-5.  Run several
+    # at once for load:  python tests/test_torch_kernels.py RUNS THREADS
+    import sys
+
+    runs, threads = int(sys.argv[1]), int(sys.argv[2])
+    B, Sq, Skv, H, K, D, causal, _ = FLASH_CASES[0]
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal(s, np.float32)
+               for s in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D)))
+    out_j, lse_j = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal, interpret=True, return_lse=True)
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    grid = torch.linspace(-30.0, 5.0, 1 << 20)
+    torch.set_num_threads(1)
+    one = flash_attention_fwd(qt, kt, vt, causal=causal) + (torch.exp(grid),)
+    torch.set_num_threads(threads)
+    differ = beyond = 0
+    for _ in range(runs):
+        got = flash_attention_fwd(qt, kt, vt, causal=causal) + (torch.exp(grid),)
+        differ += not all(torch.equal(a, b) for a, b in zip(got, one))
+        beyond += not (np.allclose(got[0].numpy(), np.asarray(out_j), atol=2e-5, rtol=2e-5)
+                       and np.allclose(got[1].numpy(), np.asarray(lse_j), atol=2e-5,
+                                       rtol=2e-5))
+    print(f"torch {torch.__version__}, {threads} threads, {runs} runs: {differ} differ "
+          f"from one thread, {beyond} beyond 2e-5 of the Pallas kernel")

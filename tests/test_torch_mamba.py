@@ -42,11 +42,20 @@ from repro_torch.kernels.mamba_scan import (mamba_scan, mamba_scan_fwd,
 from repro_torch.models import build as tbuild
 from repro_torch.runtime.serve_loop import ServeConfig, serve_requests
 
-# One intra-op thread: on the CPUs these tests run on, torch's second
-# thread has been seen under load to compute exp on its half of a tensor
-# with errors far above an ulp, which breaks the tight tolerances here at
-# random; with one thread it has not.
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """One intra-op thread for each test of this file, the previous count
+    afterwards (set per test, not at import: every xdist worker imports
+    every test file).  On the CPUs these tests run on, torch's second
+    thread has been seen under load to compute exp on its half of a
+    tensor with errors far above an ulp, which breaks the tight
+    tolerances here at random; with one thread it has not."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "falcon_mamba_7b"

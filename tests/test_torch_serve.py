@@ -16,6 +16,7 @@ from pathlib import Path
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 import repro.configs as jcfgs
@@ -31,11 +32,20 @@ from repro_torch.interop import params_from_jax
 from repro_torch.models import build as tbuild
 from repro_torch.runtime.serve_loop import ServeConfig, serve_requests
 
-# One intra-op thread: on the CPUs these tests run on, torch's second
-# thread has been seen under load to compute exp on its half of a tensor
-# with errors far above an ulp, which breaks the tight tolerances here at
-# random; with one thread it has not.
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """One intra-op thread for each test of this file, the previous count
+    afterwards (set per test, not at import: every xdist worker imports
+    every test file).  On the CPUs these tests run on, torch's second
+    thread has been seen under load to compute exp on its half of a
+    tensor with errors far above an ulp, which breaks the tight
+    tolerances here at random; with one thread it has not."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 LOGIT_TOL = 2e-3

@@ -52,11 +52,20 @@ from repro_torch.runtime.local_sgd import (LocalSGDConfig, LocalSGDTrainer,
 from repro_torch.runtime.train_loop import (TrainConfig, Trainer,
                                             make_train_state)
 
-# One intra-op thread: on the CPUs these tests run on, torch's second
-# thread has been seen under load to compute exp on its half of a tensor
-# with errors far above an ulp, which breaks the tight tolerances here at
-# random; with one thread it has not.
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """One intra-op thread for each test of this file, the previous count
+    afterwards (set per test, not at import: every xdist worker imports
+    every test file).  On the CPUs these tests run on, torch's second
+    thread has been seen under load to compute exp on its half of a
+    tensor with errors far above an ulp, which breaks the tight
+    tolerances here at random; with one thread it has not."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["qwen3_1p7b", "llama3p2_1b"]
