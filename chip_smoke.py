@@ -12,9 +12,10 @@ failure raises and exits non-zero:
 1. build the CUDA kernels from this checkout's sources (one ``nvcc`` per
    source, all started together), print each kernel's registers and
    spills, count the tensor-core (``HGMMA``) and TMA (``UTMALDG``)
-   instructions in the SASS of the four Hopper attention libraries (flash
-   forward in bf16 and in fp32, backward dq and dk/dv in bf16; failing if
-   either is 0), and print the card's name and power limit;
+   instructions in the SASS of the six Hopper attention libraries (flash
+   forward, backward dq and dk/dv, each in bf16 and in fp32; failing if
+   either is 0), print the fp32 backward pair's shared memory a block, and
+   print the card's name and power limit;
 2. each kernel against its plain version on the card, at the serve shapes
    (B=4, H=16, K=8, D=128, Sq = Skv = 512, a 576-slot cache: many query
    and key tiles) and at a ragged size (Sq = Skv = 13, a 24-slot cache
@@ -37,8 +38,9 @@ failure raises and exits non-zero:
    batches;
 5. the flash-backward kernels (dq, then dk/dv) against the plain
    backward at the training shapes (B=4, H=16, K=8, D=128, S=512) and at
-   a ragged S=13, in bf16 (the Hopper pair) and fp32 (the CUDA-core
-   pair); a second launch bit-identical; each kernel, the whole backward
+   a ragged S=13, in bf16 (the Hopper bf16 pair) and fp32 (the Hopper
+   fp32 pair: three tf32 products for each product); a second launch
+   bit-identical; each kernel, the whole backward
    (dq + dk/dv in one call), the plain backward and PyTorch's SDPA
    backward timed at the training shapes in each dtype: SDPA's backward
    alone (one forward with grad-enabled inputs, then ``autograd.grad``
@@ -147,15 +149,19 @@ FULL_WIDTH_MEAN_ERR = 0.0125
 # pair multiplies bf16 operands on the tensor cores with fp32 sums and
 # splits P and dS into two bf16 terms, which a CPU model of its
 # arithmetic keeps within this check (tests/test_torch_flash_bwd_sm90.py;
-# rounding either once does not).
+# rounding either once does not).  The fp32 pair issues each product as
+# three tf32 products, which a CPU model of its arithmetic keeps within
+# BWD_ATOL and within 1.3e-6 of the plain gradients' norm
+# (tests/test_torch_flash_bwd_fp32_sm90.py; two terms in any product do
+# not).
 BWD_ATOL = 1e-4
 # Training path (phases 6-8)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 4
-# the attention kernels a training step launches in bf16 (the Hopper
-# kernels) and in fp32 (the Hopper forward, the CUDA-core dq and dk/dv):
-# forward, dq, dk/dv
+# the attention kernels a training step launches in bf16 and in fp32 (the
+# Hopper kernels of each): forward, dq, dk/dv
 BF16_TRAIN_KERNELS = ("flash_attention_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
-FP32_TRAIN_KERNELS = ("flash_attention_sm90_fp32", "flash_bwd_dq", "flash_bwd_dkv")
+FP32_TRAIN_KERNELS = ("flash_attention_sm90_fp32", "flash_bwd_dq_sm90_fp32",
+                      "flash_bwd_dkv_sm90_fp32")
 FARM_LAYERS, FARM_SHARDS, FARM_INNER, FARM_BATCH = 8, 4, 2, 2
 # Full-width training step, kernels vs plain versions (phase 7): |dloss|
 # and, per parameter group, ||g_kernels - g_plain|| / ||g_plain||, in
@@ -315,6 +321,17 @@ def say_sass(kern, ops=("HGMMA", "UTMALDG")):
     say(f"  {kern.source.name} SASS: " + ", ".join(f"{n} {op}" for op, n in counts.items()))
     if not all(counts.values()):
         raise AssertionError(f"{kern.source.name}: no {' or '.join(ops)} in its SASS")
+
+
+def say_smem(kern):
+    """The dynamic shared memory a block of ``kern`` takes at each head dim
+    (its library's ``<symbol>_smem`` entry), beside the 227 KB a block may
+    have."""
+    lib = ctypes.CDLL(str(kern.library_path()))
+    fn = getattr(lib, kern.symbol + "_smem")
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    say(f"  {kern.source.name} shared memory a block: " + ", ".join(
+        f"D={d} {fn(d):,} B" for d in (32, 64, 128)) + " (at most 232,448 B)")
 
 
 def fmt_ms(ms) -> str:
@@ -627,8 +644,7 @@ def full_width_phase(api, params, cfg, dev, plain_ops, batches=FULL_WIDTH_BATCHE
 
 def backward_phase(flash):
     """Phase 5: the backward kernels vs the plain backward, each dtype's
-    pair (bf16: the Hopper pair; fp32: the CUDA-core pair); times at the
-    training shapes."""
+    Hopper pair; times at the training shapes."""
     errs = {dt: {"dq": 0.0, "dkv": 0.0} for dt in (torch.bfloat16, torch.float32)}
     B, H, K, D = TRAIN_BATCH, 16, 8, 128
     inputs = {}
@@ -1043,8 +1059,11 @@ def main() -> int:
     for log in logs.values():
         say_registers(log)
     for kern in (flash.SM90_KERNEL, flash.SM90_FP32_KERNEL, flash.DQ_SM90_KERNEL,
-                 flash.DKV_SM90_KERNEL):
+                 flash.DKV_SM90_KERNEL, flash.DQ_SM90_FP32_KERNEL,
+                 flash.DKV_SM90_FP32_KERNEL):
         say_sass(kern)
+    for kern in (flash.DQ_SM90_FP32_KERNEL, flash.DKV_SM90_FP32_KERNEL):
+        say_smem(kern)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -1181,9 +1200,9 @@ def main() -> int:
              bwd_errs[torch.bfloat16]["dq"], f"{flash_py}:280", train_launches),
             ("flash_attention_bwd_dkv", flash.DKV_SM90_KERNEL, bwd["dkv"],
              bwd_errs[torch.bfloat16]["dkv"], f"{flash_py}:307", train_launches),
-            ("flash_attention_bwd_dq_fp32", flash.DQ_KERNEL, bwd["dq_fp32"],
+            ("flash_attention_bwd_dq_fp32", flash.DQ_SM90_FP32_KERNEL, bwd["dq_fp32"],
              bwd_errs[torch.float32]["dq"], f"{flash_py}:280", fp32_launches),
-            ("flash_attention_bwd_dkv_fp32", flash.DKV_KERNEL, bwd["dkv_fp32"],
+            ("flash_attention_bwd_dkv_fp32", flash.DKV_SM90_FP32_KERNEL, bwd["dkv_fp32"],
              bwd_errs[torch.float32]["dkv"], f"{flash_py}:307", fp32_launches),
             ("mamba_scan_fwd", scan.KERNEL, scan_row, scan_err,
              "src/repro/kernels/mamba_scan/mamba_scan.py:83", mamba_launches)):

@@ -2,8 +2,9 @@
 plain PyTorch versions for CPU tensors.  The kernels: flash attention
 (prefill and training forward: a tensor-core kernel for bf16 and one for
 fp32, whose products are three tf32 products each), flash decode, the
-flash backward's dq and dk/dv passes (tensor-core kernels for bf16,
-CUDA-core ones for fp32), and the Mamba-1 selective scan.
+flash backward's dq and dk/dv passes (tensor-core kernels for bf16 and for
+fp32, the fp32 ones' products three tf32 products each), and the Mamba-1
+selective scan.
 
 There is no tuning cache yet: block sizes are fixed in the kernels.  A
 windowed attention call has no kernel in this package: on CUDA it
@@ -31,8 +32,9 @@ from . import flash_attention as _flash
 from . import mamba_scan as _scan
 
 KERNELS = (_flash.SM90_KERNEL, _flash.SM90_FP32_KERNEL, _decode.KERNEL,
-           _flash.DQ_SM90_KERNEL, _flash.DKV_SM90_KERNEL, _flash.DQ_KERNEL,
-           _flash.DKV_KERNEL, _scan.KERNEL)
+           _flash.DQ_SM90_KERNEL, _flash.DKV_SM90_KERNEL,
+           _flash.DQ_SM90_FP32_KERNEL, _flash.DKV_SM90_FP32_KERNEL,
+           _scan.KERNEL)
 
 
 class AttentionOps(NamedTuple):

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) machinery shared by the attention kernels
 // (flash_attention_sm90.cu, flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu in
-// bf16; flash_attention_sm90_fp32.cu in fp32): on the device, shared-memory
+// bf16; flash_attention_sm90_fp32.cu, flash_bwd_dq_sm90_fp32.cu,
+// flash_bwd_dkv_sm90_fp32.cu in fp32): on the device, shared-memory
 // addresses, mbarriers, TMA tile loads, wgmma descriptors and the wgmma
-// forms the kernels issue, bf16 and tf32, and the split of fp32 values into
-// two bf16 or two tf32 terms; on the host, the tensor-map encoder fetched
-// at run time and the maps of a (B, S, heads, D) bf16 or fp32 tensor.
+// forms the kernels issue, bf16 and tf32, the split of fp32 values into two
+// bf16 or two tf32 terms, and the split transpose of an fp32 tile; on the
+// host, the tensor-map encoder fetched at run time and the maps of a (B, S,
+// heads, D) bf16 or fp32 tensor.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -124,7 +126,9 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int kk) {
 
 // The same for an fp32 tile of D columns read as tf32, K-major only (tf32
 // wgmma has no transpose): the k8 slice kk of D, 32 bytes inside a 128-byte
-// atom as a bf16 k16 slice is.
+// atom as a bf16 k16 slice is.  A tile of 16 columns (64-byte rows, as
+// transpose_split_tf32 writes them for 16 rows) takes Geo<16, 4>'s 64-byte
+// swizzle: one atom, its two k8 slices 32 bytes apart.
 template <int D>
 __device__ __forceinline__ uint64_t desc_k_tf32(uint32_t tile, int rows, int kk) {
   using G = Geo<D, 4>;
@@ -263,6 +267,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 // accumulated; a thread's four registers hold A's rows lane/4 (a[0], a[2])
 // and lane/4 + 8 (a[1], a[3]) of its warp's 16, at k = lane % 4 (a[0],
 // a[1]) and lane % 4 + 4 (a[2], a[3]).
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[8], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t da, uint64_t db,
                                               int scale_d) {
   asm volatile(
@@ -274,6 +289,17 @@ __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t da, uint6
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[8], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[16], const uint32_t (&a)[4],
@@ -377,11 +403,94 @@ __device__ __forceinline__ void split_tile_tf32(uint8_t* tile, uint8_t* lo, int 
   }
 }
 
-// Writes a warpgroup's m64nD fp32 accumulator `acc` as fp32 rows of a
-// (B, S, heads, D) tensor, as store_rows does in bf16.
-template <int D>
+// An accumulator of K 8-column groups (x[4i + e]: row r, column 8i + 2t +
+// (e & 1) for e < 2, row r + 8 for e >= 2, t = lane % 4) as two tf32 terms
+// in the A-fragment layout of an RS wgmma: slice i's registers (row r slot
+// t, r + 8 slot t, r slot t + 4, r + 8 slot t + 4) are columns 2t, 2t,
+// 2t + 1, 2t + 1 of group i: x[4i + 0, 2, 1, 3].  The B operand's k slots
+// are permuted to match (transpose_split_tf32).
+template <int K>
+__device__ __forceinline__ void tf32_fragments(const float (&x)[4 * K], uint32_t (&hi)[K][4],
+                                               uint32_t (&lo)[K][4]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    split_tf32(x[4 * i + 0], hi[i][0], lo[i][0]);
+    split_tf32(x[4 * i + 2], hi[i][1], lo[i][1]);
+    split_tf32(x[4 * i + 1], hi[i][2], lo[i][2]);
+    split_tf32(x[4 * i + 3], hi[i][3], lo[i][3]);
+  }
+}
+
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(addr) : "memory");
+  return x;
+}
+__device__ __forceinline__ void sts_u32(uint32_t addr, uint32_t x) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(x) : "memory");
+}
+__device__ __forceinline__ void sts_v4(uint32_t addr, const uint32_t (&x)[4]) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(x[0]),
+               "r"(x[1]), "r"(x[2]), "r"(x[3])
+               : "memory");
+}
+
+// An fp32 tile of ROWS rows (16 or 32) by D columns at shared address
+// `src`, as TMA wrote it (Geo<D, 4>), split into its tf32 terms twice over:
+// as it lies, hi at `hi` (which may be `src`: in place) and lo at `lo`, in
+// src's layout; and transposed, D rows of ROWS values in Geo<ROWS, 4>'s
+// layout (one atom row: 128 bytes with the 128-byte swizzle at ROWS = 32,
+// 64 bytes with the 64-byte swizzle at ROWS = 16), hi at `t_hi` and lo at
+// `t_lo`.  Each 8-row group is permuted on the way: row 8g + 2i + e goes to
+// k slot 8g + 4e + i, so that an RS wgmma's A fragment taken pairwise from
+// an accumulator's registers meets its own rows (flash_attention_sm90_fp32.cu's
+// V^T).  A warp takes 32 columns (a lane each) of 4 rows of one parity a
+// step: its reads and in-layout writes cover a row of an atom, its 16-byte
+// transposed writes 32 rows, conflict-free all.  Each element is read and
+// written by one thread, so hi may overwrite src.  Every warp of the block
+// takes part; the caller fences and synchronises before a wgmma reads any
+// of the four.  The lane passes through an empty asm, so the compiler makes
+// the offsets at each call rather than holding them in registers between
+// calls.
+template <int D, int ROWS>
+__device__ __forceinline__ void transpose_split_tf32(uint32_t src, uint32_t hi, uint32_t lo,
+                                                     uint32_t t_hi, uint32_t t_lo) {
+  constexpr int RB = ROWS * 4;  // bytes of a transposed row
+  int lane = threadIdx.x % 32;
+  asm volatile("" : "+r"(lane));
+  const int warps = blockDim.x / 32;
+#pragma unroll 1
+  for (int u = threadIdx.x / 32; u < D * ROWS / 128; u += warps) {
+    const int atom = u / (ROWS / 4), g = u % (ROWS / 4) / 2, e = u % 2;
+    const int col = atom * Geo<D, 4>::atom_bytes(ROWS) + (lane % 4) * 4;
+    uint32_t off[4], h[4], l[4];
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // the four loads first: one wait, not four
+      const int row = 8 * g + 2 * i + e;
+      off[i] = col + row * 128 + ((lane / 4) ^ (row % 8)) * 16;
+      x[i] = lds_f32(src + off[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      split_tf32(x[i], h[i], l[i]);
+      sts_u32(hi + off[i], h[i]);
+      sts_u32(lo + off[i], l[i]);
+    }
+    const int d = 32 * atom + lane;
+    const uint32_t toff = d * RB + ((2 * g + e) ^ ((d * RB >> 7) & (RB / 16 - 1))) * 16;
+    sts_v4(t_hi + toff, h);
+    sts_v4(t_lo + toff, l);
+  }
+}
+
+// Writes a warpgroup's m64nN fp32 accumulator `acc` as fp32 rows of a
+// (B, S, heads, D) tensor, as store_rows does in bf16: N columns from
+// `dst` (N = D: the whole row; a caller that owns columns c.. of the row
+// passes dst + c).
+template <int D, int N = D>
 __device__ __forceinline__ void store_rows_f32(float* __restrict__ dst,
-                                               const float (&acc)[D / 2], int row0, int S,
+                                               const float (&acc)[N / 2], int row0, int S,
                                                int heads, int head, int b) {
   const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
   const int c0 = 2 * (lane % 4);
@@ -391,7 +500,7 @@ __device__ __forceinline__ void store_rows_f32(float* __restrict__ dst,
     if (row >= S) continue;
     float* p = dst + ((static_cast<size_t>(b) * S + row) * heads + head) * D + c0;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < N / 8; ++i)
       *reinterpret_cast<float2*>(p + 8 * i) =
           make_float2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
   }
@@ -430,6 +539,15 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int ro
   using G = Geo<D, E>;
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
+  // The driver's encoder fails without a current context, and a thread
+  // whose first CUDA call this is (a fresh autograd worker, whose tensors
+  // came from the caching allocator) has none until a runtime call binds
+  // the device's primary context: cudaFree(nullptr) does, once a thread.
+  static thread_local bool bound = false;
+  if (!bound) {
+    if (cudaFree(nullptr) != cudaSuccess) return false;
+    bound = true;
+  }
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * E,

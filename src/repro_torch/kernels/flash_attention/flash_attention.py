@@ -11,14 +11,15 @@ the top-left causal mask ``k_pos <= q_pos``, and ``(out, lse)`` with
 ``lse = m + log(max(l, 1e-37))``.
 
 ``flash_attention_bwd`` launches ``csrc/flash_bwd_dq_sm90.cu`` then
-``csrc/flash_bwd_dkv_sm90.cu`` (tensor cores, TMA) for CUDA bf16 tensors,
-``csrc/flash_bwd_dq.cu`` then ``csrc/flash_bwd_dkv.cu`` for CUDA fp32
-tensors, and runs ``flash_attention_bwd_plain`` for CPU tensors.  All
-compute the reference's Pallas ``flash_attention_bwd``: p recomputed from the
-forward's lse, ``Dvec = rowsum(dO * O)``, ``ds = p (dO V^T - Dvec) D^-0.5``,
-``dq = ds K``, ``dk = ds^T Q``, ``dv = p^T dO``, all in fp32 (the bf16
-kernels' products take bf16 operands, with p and ds split into two bf16
-terms each, and sum in fp32).
+``csrc/flash_bwd_dkv_sm90.cu`` for CUDA bf16 tensors,
+``csrc/flash_bwd_dq_sm90_fp32.cu`` then ``csrc/flash_bwd_dkv_sm90_fp32.cu``
+for CUDA fp32 tensors (all four tensor cores and TMA), and runs
+``flash_attention_bwd_plain`` for CPU tensors.  All compute the reference's
+Pallas ``flash_attention_bwd``: p recomputed from the forward's lse,
+``Dvec = rowsum(dO * O)``, ``ds = p (dO V^T - Dvec) D^-0.5``, ``dq = ds K``,
+``dk = ds^T Q``, ``dv = p^T dO``, all in fp32 (the bf16 kernels' products
+take bf16 operands, with p and ds split into two bf16 terms each, and sum
+in fp32; the fp32 kernels' products are three tf32 products each).
 """
 
 from __future__ import annotations
@@ -43,12 +44,14 @@ SM90_FP32_KERNEL = CudaKernel("flash_attention_sm90_fp32.cu",
 # the backward kernels all take (8 pointers, B, Sq, Skv, H, K, D, causal,
 # stream)
 _BWD_ARGS = [_p] * 8 + [_i] * 7 + [_p]
-DQ_KERNEL = CudaKernel("flash_bwd_dq.cu", "repro_flash_bwd_dq", _BWD_ARGS)
-DKV_KERNEL = CudaKernel("flash_bwd_dkv.cu", "repro_flash_bwd_dkv", _BWD_ARGS)
 DQ_SM90_KERNEL = CudaKernel("flash_bwd_dq_sm90.cu", "repro_flash_bwd_dq_sm90",
                             _BWD_ARGS)
 DKV_SM90_KERNEL = CudaKernel("flash_bwd_dkv_sm90.cu",
                              "repro_flash_bwd_dkv_sm90", _BWD_ARGS)
+DQ_SM90_FP32_KERNEL = CudaKernel("flash_bwd_dq_sm90_fp32.cu",
+                                 "repro_flash_bwd_dq_sm90_fp32", _BWD_ARGS)
+DKV_SM90_FP32_KERNEL = CudaKernel("flash_bwd_dkv_sm90_fp32.cu",
+                                  "repro_flash_bwd_dkv_sm90_fp32", _BWD_ARGS)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -116,10 +119,10 @@ def forward_kernel(dtype) -> CudaKernel:
 
 def backward_kernels(dtype) -> tuple[CudaKernel, CudaKernel]:
     """The (dq, dk/dv) kernels a CUDA backward of ``dtype`` launches: the
-    Hopper tensor-core pair for bf16, the fp32 pair for fp32."""
+    Hopper tensor-core pair of bf16 or of fp32."""
     if dtype == torch.bfloat16:
         return DQ_SM90_KERNEL, DKV_SM90_KERNEL
-    return DQ_KERNEL, DKV_KERNEL
+    return DQ_SM90_FP32_KERNEL, DKV_SM90_FP32_KERNEL
 
 
 def _check_tma(name, *ts):
@@ -205,8 +208,7 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True):
             or not lse.is_contiguous():
         raise TypeError("flash_attention_bwd: lse must be contiguous float32 "
                         "on q's device")
-    if q.dtype == torch.bfloat16:  # the fp32 pair reads no TMA tile
-        _check_tma("flash_attention_bwd", q, k, v, out, g)
+    _check_tma("flash_attention_bwd", q, k, v, out, g)
     dq, dvec = bwd_dq_launch(q, k, v, out, lse, g, causal=causal)
     dk, dv = bwd_dkv_launch(q, k, v, g, lse, dvec, causal=causal)
     return dq, dk, dv

@@ -16,11 +16,15 @@ with fp32 sums and P split into two bf16 terms, so it differs from the
 plain version by summation order and the one-ulp flip of a bf16 output.
 Decode in bfloat16: 3e-2 (one bf16 ulp is 2^-8 relative).  The
 backward kernels' gradients are sums of up to S G products of O(1) terms
-in another order: 1e-4 absolute plus 1e-4 relative in float32; in
-bfloat16 (the Hopper pair: bf16 operands, fp32 sums, P and dS split into
+in another order: 1e-4 absolute plus 1e-4 relative in float32 (the
+Hopper fp32 pair multiplies as three tf32 products, which a CPU model of
+its arithmetic keeps far inside 1e-4, tests/test_torch_flash_bwd_fp32_sm90.py);
+in bfloat16 (the Hopper pair: bf16 operands, fp32 sums, P and dS split into
 two bf16 terms) element by element 1e-4 + 2^-7 |ref|, chip_smoke.py's
 check.
 """
+
+import threading
 
 import pytest
 import torch
@@ -29,9 +33,11 @@ from repro_torch import kernels
 from repro_torch.kernels.decode_attention import (KERNEL as DECODE,
                                                   decode_attention_fwd,
                                                   decode_attention_plain)
-from repro_torch.kernels.flash_attention import (DKV_KERNEL, DQ_KERNEL,
+from repro_torch.kernels.flash_attention import (DKV_SM90_FP32_KERNEL,
+                                                 DQ_SM90_FP32_KERNEL,
                                                  SM90_FP32_KERNEL as FLASH,
                                                  backward_kernels,
+                                                 bwd_dq_launch,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_fwd,
@@ -96,8 +102,8 @@ BWD_SHAPES = [
     (1, 100, 100, 6, 2, 64, True),
     (1, 37, 130, 4, 1, 128, True),
 ]
-# every shape in both dtypes: bf16 goes to the Hopper pair, fp32 to the
-# CUDA-core pair
+# every shape in both dtypes: bf16 goes to the Hopper bf16 pair, fp32 to
+# the Hopper fp32 one
 BWD_CASES = [shape + (dt,) for shape in BWD_SHAPES
              for dt in (torch.float32, torch.bfloat16)]
 
@@ -234,6 +240,27 @@ def test_fp32_flash_keeps_what_lies_below_tf32(device):
     assert FLASH.launches == before + 2
 
 
+def test_fp32_bwd_keeps_what_lies_below_tf32(device):
+    """The same for the fp32 backward pair: inputs that differ only below
+    tf32's mantissa give gradients that differ far beyond 1e-4; the pair
+    holds each to the plain backward, so no product drops a lo term."""
+    case = (1, 256, 256, 4, 2, 128, True, torch.float32)
+    full = list(_bwd_inputs(case, device))  # q, k, v, out, lse, g
+    hi = [_tf32(t) for t in full[:3]] + [None, None, _tf32(full[5])]
+    hi[3], hi[4] = flash_attention_plain(*hi[:3], causal=True)
+    hi[3] = hi[3].contiguous()
+    refs = [flash_attention_bwd_plain(*inputs, causal=True) for inputs in (full, hi)]
+    assert all(((a - b).abs() > 1e-4).sum().item() > 1000 for a, b in zip(*refs))
+    pair = backward_kernels(torch.float32)
+    before = [kern.launches for kern in pair]
+    for inputs, ref in zip((full, hi), refs):
+        got = flash_attention_bwd(*inputs, causal=True)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            _assert_elementwise(a, b, 0.0, atol=1e-4)
+    assert [kern.launches for kern in pair] == [n + 2 for n in before]
+
+
 def test_fp32_flash_raises_on_a_head_dim_it_does_not_take(device):
     q = _randn((1, 8, 4, 96), torch.float32, device, 9)
     before = FLASH.launches
@@ -299,6 +326,22 @@ def test_flash_dkv_kernel_is_deterministic(case, device):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("case", [(4, 512, 512, 16, 8, 128, True, torch.float32),
+                                  (1, 100, 100, 6, 2, 64, True, torch.float32),
+                                  (4, 512, 512, 16, 8, 128, True, torch.bfloat16)])
+def test_flash_dq_kernel_is_deterministic(case, device):
+    """No atomics: two launches of the dtype's dq kernel alone give the
+    same dq and Dvec bits."""
+    q, k, v, out, lse, g = _bwd_inputs(case, device)
+    kern = backward_kernels(case[-1])[0]
+    before = kern.launches
+    first = bwd_dq_launch(q, k, v, out, lse, g, causal=True)
+    second = bwd_dq_launch(q, k, v, out, lse, g, causal=True)
+    assert kern.launches == before + 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_bf16_bwd_raises_on_a_head_dim_it_does_not_take(device):
     q = _randn((1, 8, 4, 96), torch.bfloat16, device, 9)
     kv = _randn((1, 8, 2, 96), torch.bfloat16, device, 10)
@@ -327,19 +370,76 @@ def test_bf16_bwd_raises_on_inputs_tma_cannot_read(which, device):
     assert [kern.launches for kern in kerns] == before
 
 
+@pytest.mark.parametrize("which", range(5))
+def test_fp32_bwd_raises_on_inputs_tma_cannot_read(which, device):
+    """q, k, v, out or dO as a contiguous fp32 view 4 bytes into its
+    storage: the fp32 pair reads them by TMA too."""
+    case = (1, 8, 8, 4, 2, 64, True, torch.float32)
+    args = list(_bwd_inputs(case, device))  # q, k, v, out, lse, g
+    slot = (0, 1, 2, 3, 5)[which]
+    t = args[slot]
+    shifted = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)[1:].view(t.shape)
+    shifted.copy_(t)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    args[slot] = shifted
+    kerns = backward_kernels(torch.bfloat16) + backward_kernels(torch.float32)
+    before = [kern.launches for kern in kerns]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd(*args, causal=True)
+    assert [kern.launches for kern in kerns] == before
+
+
 def test_train_attention_grads_through_the_kernels(device):
     """The autograd rule of ``DISPATCH.train`` launches the forward and
     both backward kernels and agrees with ``PLAIN.train``."""
     case = (2, 96, 96, 8, 4, 64, True, torch.float32)
     q, k, v, _, _, g = _bwd_inputs(case, device)
-    before = (FLASH.launches, DQ_KERNEL.launches, DKV_KERNEL.launches)
+    pair = (DQ_SM90_FP32_KERNEL, DKV_SM90_FP32_KERNEL)
+    before = (FLASH.launches,) + tuple(kern.launches for kern in pair)
     grads = {}
     for name, ops in (("kernels", kernels.DISPATCH), ("plain", kernels.PLAIN)):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         out = ops.train(*leaves, causal=True, window=None)
         grads[name] = torch.autograd.grad(out, leaves, g)
     torch.cuda.synchronize()
-    assert (FLASH.launches, DQ_KERNEL.launches, DKV_KERNEL.launches) == \
+    assert (FLASH.launches,) + tuple(kern.launches for kern in pair) == \
         tuple(n + 1 for n in before)
     for a, b in zip(grads["kernels"], grads["plain"]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_tma_kernels_launch_as_a_fresh_threads_first_cuda_call(dt, device):
+    """A thread whose first CUDA call is a kernel's launch (an autograd
+    worker, whose tensors come from the caching allocator) has no current
+    context until a runtime call binds one; the kernels' tensor maps are
+    made all the same (sm90.cuh's make_map binds it), so the forward and
+    the backward pair launch there and agree with the plain versions."""
+    case = (2, 96, 96, 8, 4, 64, True, dt)
+    q, k, v, _, _, g = _bwd_inputs(case, device)
+    got = {}
+
+    def run():
+        try:
+            out, lse = flash_attention_fwd(q, k, v, causal=True)
+            got["fwd"] = (out, lse)
+            got["bwd"] = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - handed to the test's thread
+            got["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(timeout=300)
+    assert not thread.is_alive()
+    assert "error" not in got, got.get("error")
+    out, lse = got["fwd"]
+    ref_out, ref_lse = flash_attention_plain(q, k, v, causal=True)
+    _assert_elementwise(out, ref_out, _tol(dt, 2.0 ** -7))
+    _assert_elementwise(lse, ref_lse, 0.0)
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, g, causal=True)
+    for a, b in zip(got["bwd"], ref):
+        if dt == torch.float32:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        else:
+            _assert_elementwise(a, b, 2.0 ** -7, atol=1e-4)

@@ -19,7 +19,8 @@ from repro.kernels.flash_attention.flash_attention import \
     flash_attention_fwd as jax_fwd
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro_torch.kernels import DISPATCH, PLAIN
-from repro_torch.kernels.flash_attention import (DKV_KERNEL, DQ_KERNEL,
+from repro_torch.kernels.flash_attention import (DKV_SM90_FP32_KERNEL,
+                                                 DQ_SM90_FP32_KERNEL,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_plain)
@@ -147,11 +148,11 @@ def test_bwd_wrapper_validates_and_never_launches_on_cpu():
     q = torch.zeros(1, 5, 4, 32)
     kv = torch.zeros(1, 5, 2, 32)
     out, lse = flash_attention_plain(q, kv, kv)
-    before = (DQ_KERNEL.launches, DKV_KERNEL.launches)
+    before = (DQ_SM90_FP32_KERNEL.launches, DKV_SM90_FP32_KERNEL.launches)
     flash_attention_bwd(q, kv, kv, out, lse, out)
-    assert (DQ_KERNEL.launches, DKV_KERNEL.launches) == before
-    assert DQ_KERNEL._fn is None and DKV_KERNEL._fn is None
-    assert DQ_KERNEL.name != DKV_KERNEL.name
+    assert (DQ_SM90_FP32_KERNEL.launches, DKV_SM90_FP32_KERNEL.launches) == before
+    assert DQ_SM90_FP32_KERNEL._fn is None and DKV_SM90_FP32_KERNEL._fn is None
+    assert DQ_SM90_FP32_KERNEL.name != DKV_SM90_FP32_KERNEL.name
     with pytest.raises(ValueError, match="do not fit"):
         flash_attention_bwd(q, kv, kv, out, lse[:, :, :3], out)
     with pytest.raises(ValueError, match="multiple"):

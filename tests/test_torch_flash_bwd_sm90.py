@@ -27,8 +27,10 @@ from repro.kernels.flash_attention.flash_attention import \
     flash_attention_bwd as jax_bwd
 from repro.kernels.flash_attention.flash_attention import \
     flash_attention_fwd as jax_fwd
-from repro_torch.kernels.flash_attention import (DKV_KERNEL, DKV_SM90_KERNEL,
-                                                 DQ_KERNEL, DQ_SM90_KERNEL,
+from repro_torch.kernels.flash_attention import (DKV_SM90_FP32_KERNEL,
+                                                 DKV_SM90_KERNEL,
+                                                 DQ_SM90_FP32_KERNEL,
+                                                 DQ_SM90_KERNEL,
                                                  backward_kernels,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
@@ -200,11 +202,12 @@ def test_model_matches_pallas_reference(case):
 
 @pytest.mark.parametrize("dtype, pair", [
     (torch.bfloat16, (DQ_SM90_KERNEL, DKV_SM90_KERNEL)),
-    (torch.float32, (DQ_KERNEL, DKV_KERNEL)),
+    (torch.float32, (DQ_SM90_FP32_KERNEL, DKV_SM90_FP32_KERNEL)),
 ])
 def test_routing_picks_the_backward_pair_of_the_dtype(dtype, pair):
     assert backward_kernels(dtype) == pair
-    kerns = (DQ_SM90_KERNEL, DKV_SM90_KERNEL, DQ_KERNEL, DKV_KERNEL)
+    kerns = (DQ_SM90_KERNEL, DKV_SM90_KERNEL, DQ_SM90_FP32_KERNEL,
+             DKV_SM90_FP32_KERNEL)
     before = tuple(kern.launches for kern in kerns)
     q = torch.zeros(1, 5, 4, 32, dtype=dtype)
     kv = torch.zeros(1, 5, 2, 32, dtype=dtype)
@@ -216,9 +219,10 @@ def test_routing_picks_the_backward_pair_of_the_dtype(dtype, pair):
 
 
 def test_the_four_backward_kernels_have_their_own_sources():
-    kerns = (DQ_SM90_KERNEL, DKV_SM90_KERNEL, DQ_KERNEL, DKV_KERNEL)
+    kerns = (DQ_SM90_KERNEL, DKV_SM90_KERNEL, DQ_SM90_FP32_KERNEL,
+             DKV_SM90_FP32_KERNEL)
     assert [kern.source.name for kern in kerns] == [
-        "flash_bwd_dq_sm90.cu", "flash_bwd_dkv_sm90.cu", "flash_bwd_dq.cu",
-        "flash_bwd_dkv.cu"]
+        "flash_bwd_dq_sm90.cu", "flash_bwd_dkv_sm90.cu",
+        "flash_bwd_dq_sm90_fp32.cu", "flash_bwd_dkv_sm90_fp32.cu"]
     assert all(kern.source.is_file() for kern in kerns)
     assert len({kern.symbol for kern in kerns}) == 4
