@@ -10,12 +10,14 @@ those paths against its plain PyTorch version.  Phases, in order; any
 failure raises and exits non-zero:
 
 1. build the CUDA kernels from this checkout's sources (one ``nvcc`` per
-   source, all started together), print each kernel's registers and
-   spills, count the tensor-core (``HGMMA``) and TMA (``UTMALDG``)
-   instructions in the SASS of the six Hopper attention libraries (flash
-   forward, backward dq and dk/dv, each in bf16 and in fp32; failing if
-   either is 0), print the fp32 backward pair's shared memory a block, and
-   print the card's name and power limit;
+   source, all started together), print each kernel's registers, spills
+   and static shared memory, count the tensor-core (``HGMMA``) and TMA
+   (``UTMALDG``) instructions in the SASS of the six Hopper attention
+   libraries (flash forward, backward dq and dk/dv, each in bf16 and in
+   fp32; failing if either is 0) and the asynchronous-copy (``LDGSTS``)
+   instructions in the decode and scan libraries (failing if 0), print the
+   fp32 backward pair's, decode's and the scan's dynamic shared memory a
+   block, and print the card's name and power limit;
 2. each kernel against its plain version on the card, at the serve shapes
    (B=4, H=16, K=8, D=128, Sq = Skv = 512, a 576-slot cache: many query
    and key tiles) and at a ragged size (Sq = Skv = 13, a 24-slot cache
@@ -23,7 +25,8 @@ failure raises and exits non-zero:
    the Hopper kernel of its dtype: fp32 products as three tf32 products
    each), then each
    kernel, its plain version and PyTorch's SDPA timed at the serve shapes
-   (flash in bf16 and in fp32, decode in bf16); SDPA runs with K and V
+   (flash in bf16 and in fp32, decode in bf16, and again at B=1 with the
+   number of KV splits it launched); SDPA runs with K and V
    expanded to H heads outside the timed region, under each of its flash,
    memory-efficient and cuDNN backends that takes the inputs, and the
    fastest is kept with its backend's name.  The host cost of the bf16
@@ -64,9 +67,9 @@ failure raises and exits non-zero:
 9. (qwen3's state freed) the selective-scan kernel against the plain
    chunked scan in fp32 at the serve shape (b=4, s=512, d_inner=8192,
    n=16), at a ragged (2, 13, 96, 16), with h0 (two halves chained
-   against one whole scan) and with strided x, B and C; kernel and plain
-   timed at the serve shape beside the bound's bytes, exponential and
-   flop terms;
+   against one whole scan) and with strided x, B and C; kernel (graph-timed
+   and back to back) and plain timed at the serve shape beside the bound's bytes,
+   exponential and flop terms;
 10. serve full-width, full-depth falcon-mamba-7b (64 layers, bf16, seeded
     weights) through ``BasicClient`` on the 2 services: 8 requests, prompt
     512, 32 new tokens, 4 requests per task, asserting exactly one scan
@@ -83,10 +86,10 @@ row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
 (``..._fp32``), and the scan; the last
 line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event times on
 this card without flushing the 50 MB L2 cache (the serve and training
-paths find their inputs freshly written): for the attention kernels, their
-plain versions and SDPA, of CUDA-graph replays of repeated calls (device
-time: a wrapper's host time exceeds the faster kernels' own); for the
-scan, of back-to-back calls.
+paths find their inputs freshly written): for every kernel, its library
+call (SDPA) and the plain attention versions, of CUDA-graph replays of
+repeated calls (device time: a wrapper's host time exceeds the faster
+kernels' own); for the plain scan, of back-to-back calls.
 """
 
 from __future__ import annotations
@@ -285,27 +288,28 @@ def check(name, got, ref, rtol, atol=ATOL) -> float:
 
 
 def say_registers(log):
-    """One line per kernel instantiation from ``ptxas -v``: registers and
-    spills, under a short name such as ``flash_fwd_kernel<bf16, 128>``."""
+    """One line per kernel instantiation from ``ptxas -v``: registers,
+    spills and static shared memory, under a short name such as
+    ``decode_sm90_kernel<bf16, 128, 2>`` (dtype, then the integer template
+    arguments) or ``scan_sm90_kernel<1, 16>``."""
     name, spill = None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function .*?([a-z_]+_kernel)I"
-                      r"(13__nv_bfloat16|f)Li(\d+)E", line)
-        g = re.search(r"Compiling entry function .*?(scan_kernel)ILi(\d+)E", line)
+        m = re.search(r"Compiling entry function .*?([a-z][a-z_]*(?:_sm90)?_kernel)I"
+                      r"(13__nv_bfloat16|f)((?:Li\d+E)+)", line)
         d = re.search(r"Compiling entry function .*?([a-z_]+(?:_sm90)?(?:_fp32)?_kernel)"
-                      r"ILi(\d+)E(?:Li(\d+)E)?", line)
+                      r"I((?:Li\d+E)+)", line)
         if m:
             dtype = "bf16" if m.group(2) != "f" else "f32"
-            name = f"{m.group(1)}<{dtype}, {m.group(3)}>"
-        elif g:
-            name = f"{g.group(1)}<{g.group(2)} lanes a channel>"
+            name = f"{m.group(1)}<{', '.join([dtype] + re.findall(r'Li(\d+)E', m.group(3)))}>"
         elif d:
-            name = f"{d.group(1)}<{', '.join(x for x in d.groups()[1:] if x)}>"
+            name = f"{d.group(1)}<{', '.join(re.findall(r'Li(\d+)E', d.group(2)))}>"
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line and name:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            say(f"  {name}: {regs} registers; {spill}")
+            smem = re.search(r"(\d+) bytes smem", line)
+            smem = f"; {smem.group(1)} bytes static shared memory" if smem else ""
+            say(f"  {name}: {regs} registers; {spill}{smem}")
             name = None
 
 
@@ -323,13 +327,31 @@ def say_sass(kern, ops=("HGMMA", "UTMALDG")):
         raise AssertionError(f"{kern.source.name}: no {' or '.join(ops)} in its SASS")
 
 
+def kernel_entry(kern, suffix, nargs):
+    """A plain-int entry ``<symbol><suffix>`` of ``kern``'s library."""
+    fn = getattr(ctypes.CDLL(str(kern.library_path())), kern.symbol + suffix)
+    fn.argtypes, fn.restype = [ctypes.c_int] * nargs, ctypes.c_int
+    return fn
+
+
+def say_async_smem(decode, scan):
+    """The dynamic shared memory a block of the decode kernel (its K/V
+    ring, by head dim and dtype) and of the scan (its tile ring, by state
+    size) takes."""
+    ring = kernel_entry(decode.KERNEL, "_smem", 2)
+    say(f"  {decode.KERNEL.source.name} K/V ring a block: " + ", ".join(
+        f"D={d} {name} {ring(d, code):,} B" for d in (32, 64, 128)
+        for name, code in (("f32", 0), ("bf16", 1))))
+    tiles = kernel_entry(scan.KERNEL, "_smem", 1)
+    say(f"  {scan.KERNEL.source.name} tile ring a block: " + ", ".join(
+        f"n={n} {tiles(n):,} B" for n in (4, 8, 16, 32)))
+
+
 def say_smem(kern):
     """The dynamic shared memory a block of ``kern`` takes at each head dim
     (its library's ``<symbol>_smem`` entry), beside the 227 KB a block may
     have."""
-    lib = ctypes.CDLL(str(kern.library_path()))
-    fn = getattr(lib, kern.symbol + "_smem")
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    fn = kernel_entry(kern, "_smem", 1)
     say(f"  {kern.source.name} shared memory a block: " + ", ".join(
         f"D={d} {fn(d):,} B" for d in (32, 64, 128)) + " (at most 232,448 B)")
 
@@ -517,14 +539,29 @@ def kernel_phase(flash, decode):
     qd, kc, vc, ci = decode_inputs
     n = ci + 1
     mask = (torch.arange(kc.shape[1], device="cuda") <= ci).view(1, 1, 1, -1)
-    de = dict(
-        ms=graph_ms(lambda: decode.decode_attention_fwd(qd, kc, vc, cache_index=ci)),
-        plain_ms=graph_ms(lambda: decode.decode_attention_plain(qd, kc, vc, cache_index=ci)),
-        call_ms=cuda_ms(lambda: decode.decode_attention_fwd(qd, kc, vc, cache_index=ci)))
-    de["library_ms"], de["library"] = sdpa_library_ms(qd, kc, vc, attn_mask=mask)
-    kv_read = 2 * B * n * K * D * kc.element_size()
-    de["bound_ms"], de["bound_by"] = bound(4 * D * B * H * n,
-                                           kv_read + 2 * nbytes(qd), qd.dtype)
+    splits = kernel_entry(decode.KERNEL, "_splits", 4)
+    de = None
+    for b in (B, 1):  # the serve batch, then one request alone
+        q1, k1, v1 = qd[:b], kc[:b], vc[:b]
+        got = decode.decode_attention_fwd(q1, k1, v1, cache_index=ci)
+        if b != B:
+            errs["decode"] = max(errs["decode"], check(
+                f"decode serve bf16 B={b} cache_index={ci}", got,
+                decode.decode_attention_plain(q1, k1, v1, cache_index=ci), RTOL[qd.dtype]))
+        r = dict(
+            ms=graph_ms(lambda: decode.decode_attention_fwd(q1, k1, v1, cache_index=ci)),
+            plain_ms=graph_ms(lambda: decode.decode_attention_plain(q1, k1, v1,
+                                                                    cache_index=ci)),
+            call_ms=cuda_ms(lambda: decode.decode_attention_fwd(q1, k1, v1, cache_index=ci)))
+        r["library_ms"], r["library"] = sdpa_library_ms(q1, k1, v1, attn_mask=mask)
+        kv_read = 2 * b * n * K * D * kc.element_size()
+        r["bound_ms"], r["bound_by"] = bound(4 * D * b * H * n,
+                                             kv_read + 2 * nbytes(q1), qd.dtype)
+        s = splits(b, H, K, ci)
+        say(f"  decode B={b}: {s} KV splits a cluster, {s * b * K} blocks; kernel "
+            f"{r['ms']:.4f} ms, library {fmt_ms(r['library_ms'])} (SDPA {r['library']}), "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        de = de or r
     for name, r in (("flash bf16", rows["flash"]), ("flash fp32", rows["flash_fp32"]),
                     ("decode", de)):
         host = f", host {r['host_us']:.1f} us a call" if "host_us" in r else ""
@@ -915,7 +952,8 @@ def scan_phase(scan, b, s, d, n):
     both("scan strided x, B, C", xv, dt, A, Bv, Cv)
     torch.cuda.synchronize()
 
-    row = dict(ms=cuda_ms(lambda: scan.mamba_scan_fwd(*serve)),
+    row = dict(ms=graph_ms(lambda: scan.mamba_scan_fwd(*serve)),
+               call_ms=cuda_ms(lambda: scan.mamba_scan_fwd(*serve)),
                plain_ms=cuda_ms(lambda: scan.mamba_scan_plain(*serve), iters=5),
                library_ms=None)
     elements = b * s * d * n
@@ -924,8 +962,9 @@ def scan_phase(scan, b, s, d, n):
     t_flop = SCAN_FLOP_PER_ELEMENT * elements / PEAK_FLOP_S[torch.float32] * 1e3
     row["bound_ms"] = max(t_bytes, t_exp, t_flop)
     row["bound_by"] = "bytes" if t_bytes >= max(t_exp, t_flop) else "operations"
-    say(f"  scan at the serve shape ({b}, {s}, {d}, {n}): kernel {row['ms']:.4f} ms, "
-        f"plain {row['plain_ms']:.4f} ms, no library call; bound "
+    say(f"  scan at the serve shape ({b}, {s}, {d}, {n}): kernel {row['ms']:.4f} ms "
+        f"graph-timed ({row['call_ms']:.4f} ms back to back), plain "
+        f"{row['plain_ms']:.4f} ms, no library call; bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}): bytes "
         f"{nbytes(*serve, y, h) / 1e6:.1f} MB in {t_bytes:.4f} ms, "
         f"{elements / 1e6:.1f} M exponentials in {t_exp:.4f} ms, "
@@ -936,6 +975,7 @@ def scan_phase(scan, b, s, d, n):
 def mamba_serve_phase(cfg, dev, lookup, kernels):
     """Phase 10: serve full-width, full-depth falcon-mamba-7b; returns
     (api, params, launches)."""
+    from repro_torch.kernels.mamba_scan import KERNEL as SCAN
     from repro_torch.models import build
     from repro_torch.runtime.serve_loop import ServeConfig, serve_requests
 
@@ -975,8 +1015,8 @@ def mamba_serve_phase(cfg, dev, lookup, kernels):
     if not (int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size):
         raise AssertionError("generated token ids out of range")
     # one scan per layer per task, in prefill; decode has no kernel
-    if launches["mamba_scan"] != n_tasks * cfg.n_layers:
-        raise AssertionError(f"scan kernel launched {launches['mamba_scan']} "
+    if launches[SCAN.name] != n_tasks * cfg.n_layers:
+        raise AssertionError(f"scan kernel launched {launches[SCAN.name]} "
                              f"times, not {n_tasks} tasks x {cfg.n_layers} layers")
     time_one_task(api, params, torch.as_tensor(prompts[:PER_TASK]).to(dev),
                   MAMBA_NEW)
@@ -988,6 +1028,7 @@ def mamba_train_phase(cfg, dev, kernels, full_params):
     to MAMBA_TRAIN_LAYERS; ``full_params`` is the full-depth model's
     parameter count."""
     from repro_torch.data import MarkovDataset
+    from repro_torch.kernels.mamba_scan import KERNEL as SCAN
     from repro_torch.models import build
     from repro_torch.runtime.train_loop import TrainConfig, Trainer
 
@@ -1025,8 +1066,8 @@ def mamba_train_phase(cfg, dev, kernels, full_params):
         raise AssertionError("non-finite training loss")
     # one scan per layer per step, in the forward; the backward recomputes
     # through the plain chunked scan and launches no kernel
-    if launches["mamba_scan"] != TRAIN_STEPS * MAMBA_TRAIN_LAYERS:
-        raise AssertionError(f"scan kernel launched {launches['mamba_scan']} "
+    if launches[SCAN.name] != TRAIN_STEPS * MAMBA_TRAIN_LAYERS:
+        raise AssertionError(f"scan kernel launched {launches[SCAN.name]} "
                              f"times in training, not {TRAIN_STEPS} steps x "
                              f"{MAMBA_TRAIN_LAYERS} layers")
     batch = {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(99).items()}
@@ -1062,8 +1103,11 @@ def main() -> int:
                  flash.DKV_SM90_KERNEL, flash.DQ_SM90_FP32_KERNEL,
                  flash.DKV_SM90_FP32_KERNEL):
         say_sass(kern)
+    for kern in (decode.KERNEL, scan.KERNEL):
+        say_sass(kern, ("LDGSTS",))
     for kern in (flash.DQ_SM90_FP32_KERNEL, flash.DKV_SM90_FP32_KERNEL):
         say_smem(kern)
+    say_async_smem(decode, scan)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -1115,7 +1159,7 @@ def main() -> int:
         raise AssertionError("flash kernel launched fewer times than prefill needs")
     if launches["flash_attention_sm90_fp32"]:
         raise AssertionError("the fp32 flash kernel ran on the bf16 serve path")
-    if launches["decode_attention"] < n_tasks * cfg.n_layers * NEW:
+    if launches[decode.KERNEL.name] < n_tasks * cfg.n_layers * NEW:
         raise AssertionError("decode kernel launched fewer times than decode needs")
 
     time_one_task(api, params, torch.as_tensor(prompts[:PER_TASK]).to(dev), NEW)

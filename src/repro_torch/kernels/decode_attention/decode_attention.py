@@ -1,7 +1,7 @@
 """Flash-decode: the CUDA kernel's wrapper and its plain version.
 
-``decode_attention_fwd`` launches ``csrc/decode_attention.cu`` for CUDA
-tensors and runs ``decode_attention_plain`` for CPU tensors.  Both compute
+``decode_attention_fwd`` launches ``csrc/decode_attention_sm90.cu`` for
+CUDA tensors and runs ``decode_attention_plain`` for CPU tensors.  Both compute
 the reference package's Pallas ``decode_attention_fwd``: one query token
 per (batch, q-head) against the cache, positions past ``cache_index``
 (inclusive, one scalar for the batch) masked, GQA via h*K//H, fp32
@@ -21,7 +21,7 @@ HEAD_DIMS = (32, 64, 128)
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
-    "decode_attention.cu", "repro_decode_attention_fwd",
+    "decode_attention_sm90.cu", "repro_decode_attention_fwd",
     [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -88,6 +88,9 @@ def decode_attention_fwd(q, k_cache, v_cache, *, cache_index: int):
     if not (q.is_contiguous() and k_cache.is_contiguous()
             and v_cache.is_contiguous()):
         raise ValueError("decode_attention_fwd: inputs must be contiguous")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("decode_attention_fwd: the caches must start on a "
+                         "16-byte boundary (the kernel copies 16 bytes at a time)")
     out = torch.empty((B, 1, H, Dv), dtype=v_cache.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

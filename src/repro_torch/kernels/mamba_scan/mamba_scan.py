@@ -1,8 +1,8 @@
 """Mamba-1 selective scan: the CUDA kernel's wrapper and its plain
 versions.
 
-``mamba_scan_fwd`` launches ``csrc/mamba_scan.cu`` for CUDA tensors and
-runs ``mamba_scan_plain`` for CPU tensors.  Both compute the reference
+``mamba_scan_fwd`` launches ``csrc/mamba_scan_sm90.cu`` for CUDA tensors
+and runs ``mamba_scan_plain`` for CPU tensors.  Both compute the reference
 package's Pallas ``mamba_scan_pallas``: per batch b, channel d and state n,
 
     h_t = exp(dt_t * A) * h_{t-1} + dt_t * x_t * B_t
@@ -29,11 +29,11 @@ import torch
 
 from ..build import CudaKernel
 
-MAX_STATE = 32  # the kernel's limit on n: 8 lanes of 4 states per channel
+MAX_STATE = 32  # the kernel's limit on n: 2 lanes of 16 states a channel
 
 _p, _i, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = CudaKernel(
-    "mamba_scan.cu", "repro_mamba_scan_fwd",
+    "mamba_scan_sm90.cu", "repro_mamba_scan_fwd",
     [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
      _l, _l, _l, _l, _l, _l, _l, _l, _p])
 
@@ -145,11 +145,20 @@ def _check(x, dt, A, B, C, h0):
                          f"A {tuple(A.shape)}")
 
 
-def _rows(t):
+def _rows(t, *, align=False):
     """``t`` as fp32 with unit stride along its last axis (a view where it
-    has one already: the kernel takes the other strides as given)."""
+    has one already: the kernel takes the batch and time strides as
+    given).  With ``align``, a view whose start or batch or time stride is
+    off a 16-byte boundary is copied too, where the copy's rows are 16-byte
+    aligned (a row width that is a multiple of 4 floats): the kernel copies
+    such rows 16 bytes at a time, other rows 4 bytes at a time."""
     t = t.float()
-    return t if t.stride(-1) == 1 else t.contiguous()
+    if t.stride(-1) != 1:
+        return t.contiguous()
+    if align and t.shape[-1] % 4 == 0 and (
+            t.data_ptr() % 16 or any(st % 4 for st in t.stride()[:-1])):
+        return t.clone(memory_format=torch.contiguous_format)  # a fresh, aligned block
+    return t
 
 
 def mamba_scan_fwd(x, dt, A, B, C, h0=None):
@@ -175,7 +184,8 @@ def mamba_scan_fwd(x, dt, A, B, C, h0=None):
                          f"at most {MAX_STATE}")
     if b > 65535:
         raise ValueError(f"mamba_scan_fwd: batch {b} exceeds the grid's 65535")
-    x, dt, B, C = (_rows(t) for t in (x, dt, B, C))
+    x, dt = (_rows(t, align=True) for t in (x, dt))
+    B, C = _rows(B), _rows(C)
     A = A.float().contiguous()
     h0 = None if h0 is None else h0.float().contiguous()
     y = torch.empty((b, s, d), dtype=torch.float32, device=x.device)

@@ -84,6 +84,20 @@ DECODE_CASES = [
     (2, 24, 16, 8, 128, 11, torch.float32),
     (2, 24, 16, 8, 128, 11, torch.bfloat16),
     (1, 24, 4, 2, 128, 0, torch.float32),
+    # the Hopper kernel's KV splits over a cluster: B = 1 and B = 4 at the
+    # serve shape, cache_index 0 (one split) and S - 1, every head dim, G = 1,
+    # 3 (a padded head in the block) and 16 (two blocks a kv-head)
+    (1, 576, 16, 8, 128, 543, torch.bfloat16),
+    (1, 576, 16, 8, 128, 543, torch.float32),
+    (4, 576, 16, 8, 128, 543, torch.float32),
+    (4, 576, 16, 8, 128, 0, torch.bfloat16),
+    (4, 576, 16, 8, 128, 575, torch.bfloat16),
+    (1, 96, 4, 2, 32, 95, torch.bfloat16),
+    (2, 300, 8, 2, 64, 0, torch.float32),
+    (2, 300, 8, 2, 64, 299, torch.bfloat16),
+    (1, 2048, 8, 8, 32, 2047, torch.float32),
+    (1, 64, 12, 4, 64, 40, torch.float32),
+    (1, 130, 16, 1, 64, 129, torch.bfloat16),
 ]
 
 
@@ -180,6 +194,76 @@ def test_decode_kernel_never_reads_past_cache_index(device):
     vc[:, ci + 1:] = float("nan")
     dirty = decode_attention_fwd(q, kc, vc, cache_index=ci)
     torch.testing.assert_close(dirty, clean, atol=0.0, rtol=0.0)
+
+
+def _decode_inputs(B, S, H, K, D, dt, device, seed=0):
+    return (_randn((B, 1, H, D), dt, device, seed),
+            _randn((B, S, K, D), dt, device, seed + 1),
+            _randn((B, S, K, D), dt, device, seed + 2))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_decode_kernel_is_deterministic(dt, device):
+    """The splits merge rank by rank in a fixed order, with no atomics: a
+    second launch gives the same bits."""
+    q, kc, vc = _decode_inputs(4, 576, 16, 8, 128, dt, device, 20)
+    first = decode_attention_fwd(q, kc, vc, cache_index=543)
+    again = decode_attention_fwd(q, kc, vc, cache_index=543)
+    assert torch.equal(first, again)
+
+
+def test_decode_kernel_on_two_streams_at_once(device):
+    """Two services decode on their own streams at once: the kernel keeps
+    nothing in global memory between blocks, so each stream's results equal
+    the same calls made one after the other."""
+    calls = [_decode_inputs(4, 576, 16, 8, 128, torch.bfloat16, device, 30 + 3 * i)
+             for i in range(2)]
+    want = [decode_attention_fwd(*c, cache_index=543 - 100 * i)
+            for i, c in enumerate(calls)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in calls]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(20):
+        for i, (s, c) in enumerate(zip(streams, calls)):
+            with torch.cuda.stream(s):
+                got[i].append(decode_attention_fwd(*c, cache_index=543 - 100 * i))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(g, want[i]) for g in got[i])
+
+
+def test_decode_kernel_refuses_a_misaligned_cache(device):
+    q, kc, vc = _decode_inputs(1, 32, 4, 2, 64, torch.float32, device, 40)
+    flat = torch.empty(kc.numel() + 1, device=device)
+    shifted = flat[1:].view(kc.shape)  # contiguous, 4 bytes past a boundary
+    shifted.copy_(kc)
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attention_fwd(q, shifted, vc, cache_index=20)
+
+
+def _kernel_splits(B, H, K, cache_index, sms):
+    """The split rule of csrc/decode_attention_sm90.cu on a card of ``sms``
+    SMs (modelled and tested on the CPU in tests/test_torch_decode_sm90.py)."""
+    G = H // K
+    per_block = 1 if G <= 1 else 2 if G <= 2 else 4 if G <= 4 else 8
+    splits = min(-(-2 * sms // (B * K * -(-G // per_block))), 8, (cache_index + 1) // 32)
+    return max(splits, 1)
+
+
+def test_decode_kernel_splits_follow_the_rule(device):
+    import ctypes
+
+    decode_attention_fwd(*_decode_inputs(1, 8, 2, 1, 32, torch.float32, device),
+                         cache_index=3)  # builds and loads the library
+    fn = ctypes.CDLL(str(DECODE.library_path())).repro_decode_attention_fwd_splits
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for B, H, K in ((1, 16, 8), (4, 16, 8), (2, 32, 8), (3, 12, 4), (1, 16, 1)):
+        for ci in range(0, 1200, 13):
+            assert fn(B, H, K, ci) == _kernel_splits(B, H, K, ci, sms), (B, H, K, ci)
+    assert fn(4, 16, 8, 543) == 8
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(device):

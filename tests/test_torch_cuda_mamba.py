@@ -52,6 +52,15 @@ CASES = [
     (3, 1, 40, 3, True),
     (1, 300, 200, 32, True),
     (2, 77, 130, 1, False),
+    # the Hopper kernel's edges: one step at full width, a ragged last time
+    # tile (16 steps a tile) and channel block (128 channels a block, 64 with
+    # two lanes a channel), every state-size class
+    (1, 1, 8192, 16, False),
+    (4, 77, 8192, 16, True),
+    (2, 50, 200, 4, False),
+    (2, 33, 130, 32, True),
+    (1, 17, 65, 9, True),
+    (2, 16, 129, 1, True),
 ]
 
 
@@ -113,6 +122,44 @@ def test_kernel_reads_strided_views(device):
     xt = x.transpose(1, 2).contiguous().transpose(1, 2)
     assert xt.stride(-1) != 1
     for a, r in zip(mamba_scan_fwd(xt, dt, A, B, C, h0), ref):
+        assert torch.equal(a, r)
+
+
+def test_kernel_reads_misaligned_views(device):
+    """Views whose start or time stride is off a 16-byte boundary (the
+    kernel's 16-byte copies need aligned rows): x and dt are copied by the
+    wrapper, B and C read 4 bytes at a time; the results equal those of
+    contiguous inputs bit for bit.  Rows of a width that is not a multiple
+    of 4 floats take the kernel's 4-byte copies."""
+    for d in (96, 37):
+        b, s, n = 2, 45, 16
+        x, dt, A, B, C, h0 = _inputs(b, s, d, n, device, seed=6)
+        ref = mamba_scan_fwd(x, dt, A, B, C, h0)
+
+        def shifted(t):
+            flat = torch.empty(t.numel() + 1, device=device)
+            out = flat[1:].view(t.shape)
+            out.copy_(t)
+            return out
+
+        def odd_stride(t):
+            wide = torch.zeros(*t.shape[:-1], t.shape[-1] + 1, device=device)
+            wide[..., 1:] = t
+            return wide[..., 1:]
+
+        for make in (shifted, odd_stride):
+            views = [make(t) for t in (x, dt, B, C)]
+            assert all(v.data_ptr() % 16 for v in views)
+            got = mamba_scan_fwd(views[0], views[1], A, views[2], views[3], h0)
+            for a, r in zip(got, ref):
+                assert torch.equal(a, r), (d, make.__name__)
+
+
+def test_kernel_is_deterministic(device):
+    x, dt, A, B, C, h0 = _inputs(4, 512, 8192, 16, device, seed=7)
+    first = mamba_scan_fwd(x, dt, A, B, C, h0)
+    again = mamba_scan_fwd(x, dt, A, B, C, h0)
+    for a, r in zip(first, again):
         assert torch.equal(a, r)
 
 
