@@ -78,7 +78,23 @@ failure raises and exits non-zero:
     through the plain versions, same weights, on several prompt batches;
 12. sync training of falcon-mamba-7b at full width, depth cut to 8
     layers (4 AdamW steps on batches of 2 x 512), asserting one scan launch
-    per layer per step, and one profiled step.
+    per layer per step, and one profiled step;
+13. (everything freed) serve phase 3's load — the same 16 prompts, 64 new
+    tokens, 4 requests a task — through ``BasicClient`` on a ``NowPool``
+    of 2 ``proc://`` worker processes on ``cuda:0``, each a fresh
+    interpreter with its own CUDA context.  The program ships by
+    reference (``chip_smoke.WorkerGenerate``: arch, seed, ``ServeConfig``)
+    and builds the weights at its first call on each worker from phase 3's
+    seeded generator.  Round 1 is cold (worker start-up, weight builds),
+    round 2 warm, with each worker's launch counts zeroed just before and
+    read just after by a second shipped program (``WorkerLaunches``):
+    summed over the workers, 28 bf16 flash launches and 1,792 decode
+    launches a task, no other kernel's.  In round 3 worker 0 is SIGKILLed
+    (``NowPool.kill``) after its first task and the survivor finishes;
+    the repository must show a rescheduled task.  Then 8 requests on a
+    fresh pool of 2 ``shm://`` workers.  Every round's tokens must equal
+    phase 3's bit for bit; start-up to first result, each round's wall
+    time and tok/s are printed beside phase 3's.
 
 The line before the last is a JSON object with each kernel's numbers, one
 row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
@@ -97,10 +113,12 @@ from __future__ import annotations
 import ctypes
 import gc
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -180,6 +198,9 @@ TRAIN_LIMITS = {torch.bfloat16: (1e-3, 3e-2), torch.float32: (1e-5, 1e-5)}
 MAMBA_ARCH = "falcon_mamba_7b"
 MAMBA_REQUESTS, MAMBA_NEW = 8, 32
 MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_BATCH = 8, 2
+# Farm over worker processes (phase 13): 2 workers; the kill round's
+# victim is worker 0, the shm round serves the first SHM_REQUESTS prompts
+WORKERS, SHM_REQUESTS = 2, 8
 # Scan kernel vs plain chunked scan, element by element (phase 9):
 # |got - ref| <= SCAN_TOL + SCAN_TOL |ref|, the reference suite's own scan
 # tolerance (tests/test_kernels_mamba.py).  Both sides compute in fp32; the
@@ -1075,6 +1096,187 @@ def mamba_train_phase(cfg, dev, kernels, full_params):
         trainer.state, batch), 1)
 
 
+# --------------------------------------------------------------------- #
+# phase 13: the farm over worker processes
+# --------------------------------------------------------------------- #
+# Weights cannot ride a program to a worker: qwen3-1.7B's bf16 weights are
+# 3.2 GiB, over the wire's 1 GiB frame cap.  So the serve program a worker
+# gets carries only (arch, seed, ServeConfig); its first call builds the
+# weights on the worker's device from phase 3's seeded generator, and the
+# worker process keeps them for its later tasks and connections (a worker
+# unpickles a shipped program once per connection, and every round's
+# client opens new connections).
+_WORKER_MODELS: dict = {}
+
+
+class WorkerGenerate:
+    """Phase 3's serve program, shipped to a worker by reference (as
+    ``chip_smoke.WorkerGenerate``: workers import this file)."""
+
+    def __init__(self, arch, seed, sc):
+        self.arch, self.seed, self.sc = arch, seed, sc
+
+    def __call__(self, payload):
+        dev = payload["tokens"].device  # the worker's service device
+        key = (self.arch, self.seed, self.sc, str(dev))
+        generate = _WORKER_MODELS.get(key)
+        if generate is None:
+            import repro_torch.configs as cfgs
+            from repro_torch.models import build
+            from repro_torch.runtime.serve_loop import make_generate_program
+
+            api = build(cfgs.get(self.arch))
+            params = api.init(torch.Generator(device=dev).manual_seed(self.seed))
+            generate = make_generate_program(api, self.sc, params).fn
+            _WORKER_MODELS[key] = generate
+        return generate(payload)
+
+
+class WorkerLaunches:
+    """A worker's kernel launch counts by kernel name (launch counters are
+    per process); with ``reset`` every count is set to 0 first."""
+
+    def __init__(self, reset: bool):
+        self.reset = reset
+
+    def __call__(self, payload):
+        from repro_torch import kernels
+
+        if self.reset:
+            for kern in kernels.KERNELS:
+                kern.launches = 0
+        return {kern.name: kern.launches for kern in kernels.KERNELS}
+
+
+def worker_round(label, program, prompts, lookup, ref, on_client=None):
+    """One farm round over the pool registered in ``lookup``; its tokens
+    must equal ``ref`` (phase 3's for the same prompts) bit for bit.
+    Returns (wall s, client stats, perf_counter of the first result)."""
+    from repro_torch.core import BasicClient
+
+    tasks = [{"tokens": torch.as_tensor(prompts[i:i + PER_TASK])}
+             for i in range(0, len(prompts), PER_TASK)]
+    out: list = []
+    client = BasicClient(program, None, tasks, out, lookup=lookup,
+                         speculation=False)
+    first: dict = {}
+
+    def watch_first():
+        if client.repository.wait_until(lambda s: s["done"] >= 1, timeout=900):
+            first["t"] = time.perf_counter()
+
+    threading.Thread(target=watch_first, daemon=True).start()
+    if on_client is not None:
+        on_client(client)
+    t0 = time.perf_counter()
+    client.compute(timeout=900)
+    wall = time.perf_counter() - t0
+    stats = client.stats()
+    gen = torch.cat([o["generated"] for o in out], dim=0)
+    same = tuple(gen.shape) == tuple(ref.shape) and torch.equal(gen, ref)
+    say(f"  {label}: {tuple(gen.shape)} tokens in {wall:.3f} s, "
+        f"{gen.numel() / wall:.1f} tok/s; {stats['done']} tasks, "
+        f"{stats['reschedules']} reschedules, per worker {stats['per_service']}; "
+        f"tokens equal phase 3's: {same}")
+    if not same:
+        differ = (gen != ref).any(dim=1).nonzero().flatten().tolist() \
+            if gen.shape == ref.shape else "shape"
+        raise AssertionError(f"{label}: tokens differ from phase 3's "
+                             f"(rows {differ})")
+    return wall, stats, first.get("t")
+
+
+def worker_phase(prompts, ref_gen, inproc, smi, kernels):
+    """Phase 13: phase 3's load on 2 proc:// workers (cold, warm with the
+    workers' launch counts, one worker SIGKILLed), then on 2 shm://
+    workers.  ``inproc`` is phase 3's (wall s, tok/s)."""
+    import chip_smoke  # run as __main__: ship the programs by module name
+    import repro_torch.configs as cfgs
+    from repro_torch.core import LookupService, Program, resolve_handle
+    from repro_torch.kernels import decode_attention as decode
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch.now import NowPool
+    from repro_torch.runtime.serve_loop import ServeConfig
+
+    # workers import chip_smoke: the repo root goes on their PYTHONPATH
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    sc = ServeConfig(max_new_tokens=NEW, prompt_len=PROMPT,
+                     batch_per_task=PER_TASK)
+    program = Program(chip_smoke.WorkerGenerate(ARCH, SEED, sc),
+                      name=f"generate[{ARCH}]")
+    reset = Program(chip_smoke.WorkerLaunches(True), name="launches-reset",
+                    host=True)
+    read = Program(chip_smoke.WorkerLaunches(False), name="launches", host=True)
+    n_tasks = REQUESTS // PER_TASK
+    lookup = LookupService()
+    t_start = time.perf_counter()
+    with NowPool(WORKERS, lookup, service_prefix="gpu-proc") as pool:
+        cold, _, t_first = worker_round(
+            f"round 1 (cold) on {WORKERS} proc:// workers", program, prompts,
+            lookup, ref_gen)
+        startup = t_first - t_start
+        say(f"  worker start-up to first result: {startup:.3f} s (pool "
+            f"start, torch import, CUDA context, weight build, first task)")
+        handles = [resolve_handle(w.descriptor) for w in pool.workers]
+        try:
+            for h in handles:
+                h.execute(reset, None)
+            warm, _, _ = worker_round(f"round 2 (warm) on {WORKERS} proc:// "
+                                      "workers", program, prompts, lookup, ref_gen)
+            counts = [h.execute(read, None) for h in handles]
+        finally:
+            for h in handles:
+                h.close()
+        summed = {k.name: sum(c[k.name] for c in counts) for k in kernels.KERNELS}
+        say(f"  launches in the workers (round 2, {n_tasks} tasks): per worker "
+            f"{counts}")
+        want = {k.name: 0 for k in kernels.KERNELS}
+        layers = cfgs.get(ARCH).n_layers
+        want[flash.SM90_KERNEL.name] = n_tasks * layers
+        want[decode.KERNEL.name] = n_tasks * layers * NEW
+        if summed != want:
+            raise AssertionError(f"worker launches {summed}, expected {want}")
+
+        victim = pool.workers[0].service_id
+        killed = threading.Event()
+
+        def arm_killer(client):
+            def killer():
+                # after the victim's first task, once it holds another lease
+                if client.repository.wait_until(
+                        lambda s: s["per_service"].get(victim, 0) >= 1
+                        and (s["leased"] >= 2 or s["pending"] == 0),
+                        timeout=900):
+                    pool.kill(0)  # SIGKILL: no goodbye
+                    killed.set()
+            threading.Thread(target=killer, daemon=True).start()
+
+        kill_wall, kill_stats, _ = worker_round(
+            "round 3, worker 0 SIGKILLed after its first task", program,
+            prompts, lookup, ref_gen, on_client=arm_killer)
+        if not killed.is_set() or pool.workers[0].alive:
+            raise AssertionError("worker 0 was not killed during round 3")
+        if kill_stats["reschedules"] < 1:
+            raise AssertionError("no task was rescheduled after the kill")
+    lookup = LookupService()
+    with NowPool(WORKERS, lookup, service_prefix="gpu-shm",
+                 transport="shm") as pool:
+        shm_wall, _, _ = worker_round(
+            f"round 4 (cold) on {WORKERS} shm:// workers, {SHM_REQUESTS} "
+            "requests", program, prompts[:SHM_REQUESTS], lookup,
+            ref_gen[:SHM_REQUESTS])
+    from repro_torch.core.transport.shm import detach_all
+    detach_all()
+    tok = REQUESTS * NEW
+    say(f"  {smi}: in-process (phase 3, {SERVICES} services) {inproc[0]:.3f} s, "
+        f"{inproc[1]:.1f} tok/s; proc:// cold {cold:.3f} s ({tok / cold:.1f} "
+        f"tok/s, start-up to first result {startup:.3f} s), warm {warm:.3f} s "
+        f"({tok / warm:.1f} tok/s), with a kill {kill_wall:.3f} s "
+        f"({tok / kill_wall:.1f} tok/s); shm:// cold {shm_wall:.3f} s "
+        f"({SHM_REQUESTS * NEW / shm_wall:.1f} tok/s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1229,6 +1431,11 @@ def main() -> int:
 
     say("phase 12: falcon-mamba-7b sync training, depth cut")
     mamba_train_phase(mcfg, dev, kernels, full_params)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    say("phase 13: serve on worker processes (proc://, shm://)")
+    worker_phase(prompts, gen, (wall, gen.numel() / wall), smi, kernels)
 
     rows = []
     flash_py = "src/repro/kernels/flash_attention/flash_attention.py"

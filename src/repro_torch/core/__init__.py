@@ -7,8 +7,10 @@
 from .batching import (AdaptiveBatchController, payload_signature,  # noqa: F401
                        stack_payloads)
 from .client import BasicClient  # noqa: F401
+from .contracts import ApplicationManager, ParDegreeContract  # noqa: F401
 from .discovery import LookupService, ServiceDescriptor, new_service_id  # noqa: F401
 from .errors import RemoteProgramError, TransportError  # noqa: F401
+from .futures import FarmExecutor  # noqa: F401
 from .lease import ControlThread  # noqa: F401
 from .leases import Lease, LeaseTable  # noqa: F401
 from .normal_form import collect_stage_programs, normal_form_depth, normalize  # noqa: F401
@@ -16,4 +18,6 @@ from .pool import ServicePool  # noqa: F401
 from .repository import TaskRepository, TaskState  # noqa: F401
 from .service import Service, ServiceFailure  # noqa: F401
 from .skeletons import Farm, Pipe, Program, Seq, Skeleton, compose_programs, interpret  # noqa: F401
-from .transport import InProcessTransport, LivenessMonitor, ServiceHandle  # noqa: F401
+from .transport import (InProcessTransport, LivenessMonitor,  # noqa: F401
+                        ProcTransport, ServiceHandle, register_transport,
+                        resolve_handle)

@@ -42,13 +42,15 @@ class Service:
     def __init__(self, lookup: LookupService | None, *,
                  device: str | torch.device | None = None,
                  service_id: str | None = None, speed_factor: float = 1.0,
-                 capabilities: dict | None = None):
+                 capabilities: dict | None = None,
+                 task_delay_s: float = 0.0):
         self.lookup = lookup
         self.device = resolve_device(device)
         self.stream = (torch.cuda.Stream(device=self.device)
                        if self.device.type == "cuda" else None)
         self.service_id = service_id or new_service_id()
         self.speed_factor = speed_factor
+        self.task_delay_s = task_delay_s
         caps = {"n_devices": 1, "device": str(self.device),
                 "speed_factor": speed_factor}
         caps.update(capabilities or {})
@@ -184,6 +186,8 @@ class Service:
         with self._lock:
             self._check_dispatchable()
         fn = self._get_compiled(program, payload, None)
+        if self.task_delay_s:
+            time.sleep(self.task_delay_s)  # network/serialization stand-in
         with self._on_stream():
             result = fn(payload)
         if self.stream is not None:
@@ -204,13 +208,17 @@ class Service:
         stream: the returned :class:`BatchResults` carries the CUDA event
         recorded after it, and the caller waits on that event later.
 
-        The heterogeneity stand-in (``speed_factor``) scales with the
-        number of tasks, like real compute would."""
+        The dispatch round-trip stand-in (``task_delay_s``) is paid once
+        per batch — that is the point of batching — while the
+        heterogeneity stand-in (``speed_factor``) scales with the number
+        of tasks, like real compute would."""
         n = len(payloads)
         if n == 0:
             return []
         with self._lock:
             self._check_dispatchable()
+        if self.task_delay_s:
+            time.sleep(self.task_delay_s)  # one round-trip per *batch*
         if program.host:
             host_loop = self._get_compiled(program, payloads[0], n)
             results = BatchResults(host_loop(payloads))
