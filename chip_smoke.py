@@ -94,7 +94,21 @@ failure raises and exits non-zero:
     the repository must show a rescheduled task.  Then 8 requests on a
     fresh pool of 2 ``shm://`` workers.  Every round's tokens must equal
     phase 3's bit for bit; start-up to first result, each round's wall
-    time and tok/s are printed beside phase 3's.
+    time and tok/s are printed beside phase 3's;
+14. serve phase 3's load again on a ``TcpPool`` of 2 ``tcp://`` workers
+    on ``cuda:0`` bound to 127.0.0.1, which register themselves into a
+    network ``LookupServer``; the client's lookup is a ``RemoteLookup``.
+    Round 1 is cold; round 2 warm, with the workers' launch counts as in
+    phase 13 (handles resolved from the client's lookup); round 3 runs
+    after ``LookupServer.restart()`` (registry wiped, every connection
+    dropped) once both workers have re-registered through their
+    keepalive: both must serve tasks, each worker's ``RemoteLookup`` must
+    show a reconnect and a replayed registration, and no worker may
+    rebuild its weights (read by a shipped ``WorkerState``); in round 4
+    worker 0 is SIGKILLed after its first task and a task must be
+    rescheduled.  Every round's tokens must equal phase 3's bit for bit;
+    each round's wall time and tok/s are printed beside phase 3's and
+    phase 13's.
 
 The line before the last is a JSON object with each kernel's numbers, one
 row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
@@ -1148,6 +1162,43 @@ class WorkerLaunches:
         return {kern.name: kern.launches for kern in kernels.KERNELS}
 
 
+class WorkerState:
+    """A worker's weight builds (models it holds), and the reconnects and
+    replayed registrations of the process's ``RemoteLookup`` (a ``tcp://``
+    worker's entry point keeps its lookup to itself, so it is found among
+    the process's objects)."""
+
+    def __call__(self, payload):
+        from repro_torch.core.transport.tcp import RemoteLookup
+
+        lookups = [o for o in gc.get_objects() if type(o) is RemoteLookup]
+        return {"builds": len(_WORKER_MODELS), "lookups": len(lookups),
+                "reconnects": sum(lk.reconnects for lk in lookups),
+                "replayed": sum(lk.replayed_registrations for lk in lookups)}
+
+
+def worker_programs():
+    """The programs phases 13 and 14 ship to workers by reference: serve,
+    reset the launch counts, read them, read the worker's state."""
+    import chip_smoke  # run as __main__: ship the programs by module name
+    from repro_torch.core import Program
+    from repro_torch.runtime.serve_loop import ServeConfig
+
+    # workers import chip_smoke: the repo root goes on their PYTHONPATH
+    paths = [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]
+    if str(ROOT) not in paths:
+        os.environ["PYTHONPATH"] = os.pathsep.join([str(ROOT)] + paths)
+    sc = ServeConfig(max_new_tokens=NEW, prompt_len=PROMPT,
+                     batch_per_task=PER_TASK)
+    return (Program(chip_smoke.WorkerGenerate(ARCH, SEED, sc),
+                    name=f"generate[{ARCH}]"),
+            Program(chip_smoke.WorkerLaunches(True), name="launches-reset",
+                    host=True),
+            Program(chip_smoke.WorkerLaunches(False), name="launches",
+                    host=True),
+            Program(chip_smoke.WorkerState(), name="worker-state", host=True))
+
+
 def worker_round(label, program, prompts, lookup, ref, on_client=None):
     """One farm round over the pool registered in ``lookup``; its tokens
     must equal ``ref`` (phase 3's for the same prompts) bit for bit.
@@ -1186,29 +1237,68 @@ def worker_round(label, program, prompts, lookup, ref, on_client=None):
     return wall, stats, first.get("t")
 
 
-def worker_phase(prompts, ref_gen, inproc, smi, kernels):
-    """Phase 13: phase 3's load on 2 proc:// workers (cold, warm with the
-    workers' launch counts, one worker SIGKILLed), then on 2 shm://
-    workers.  ``inproc`` is phase 3's (wall s, tok/s)."""
-    import chip_smoke  # run as __main__: ship the programs by module name
+def counted_round(label, programs, prompts, lookup, ref, handles, kernels):
+    """A warm round with each worker's launch counts zeroed just before and
+    read just after (through ``handles``, one per worker): summed over the
+    workers, one bf16 flash launch a layer and one decode launch a layer
+    and new token, per task, and no other kernel's.  Returns wall s."""
     import repro_torch.configs as cfgs
-    from repro_torch.core import LookupService, Program, resolve_handle
     from repro_torch.kernels import decode_attention as decode
     from repro_torch.kernels import flash_attention as flash
-    from repro_torch.launch.now import NowPool
-    from repro_torch.runtime.serve_loop import ServeConfig
 
-    # workers import chip_smoke: the repo root goes on their PYTHONPATH
-    os.environ["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
-    sc = ServeConfig(max_new_tokens=NEW, prompt_len=PROMPT,
-                     batch_per_task=PER_TASK)
-    program = Program(chip_smoke.WorkerGenerate(ARCH, SEED, sc),
-                      name=f"generate[{ARCH}]")
-    reset = Program(chip_smoke.WorkerLaunches(True), name="launches-reset",
-                    host=True)
-    read = Program(chip_smoke.WorkerLaunches(False), name="launches", host=True)
-    n_tasks = REQUESTS // PER_TASK
+    program, reset, read, _ = programs
+    for h in handles:
+        h.execute(reset, None)
+    wall, _, _ = worker_round(label, program, prompts, lookup, ref)
+    counts = [h.execute(read, None) for h in handles]
+    n_tasks = len(prompts) // PER_TASK
+    summed = {k.name: sum(c[k.name] for c in counts) for k in kernels.KERNELS}
+    say(f"  launches in the workers ({n_tasks} tasks): per worker {counts}")
+    want = {k.name: 0 for k in kernels.KERNELS}
+    layers = cfgs.get(ARCH).n_layers
+    want[flash.SM90_KERNEL.name] = n_tasks * layers
+    want[decode.KERNEL.name] = n_tasks * layers * NEW
+    if summed != want:
+        raise AssertionError(f"worker launches {summed}, expected {want}")
+    return wall
+
+
+def kill_round(label, program, prompts, lookup, ref, pool):
+    """A round in which the pool's worker 0 is SIGKILLed after its first
+    task, once it holds another lease (or nothing is pending); at least
+    one task must be rescheduled.  Returns wall s."""
+    victim = pool.workers[0].service_id
+    killed = threading.Event()
+
+    def arm(client):
+        def killer():
+            if client.repository.wait_until(
+                    lambda s: s["per_service"].get(victim, 0) >= 1
+                    and (s["leased"] >= 2 or s["pending"] == 0),
+                    timeout=900):
+                pool.kill(0)  # SIGKILL: no goodbye
+                killed.set()
+        threading.Thread(target=killer, daemon=True).start()
+
+    wall, stats, _ = worker_round(label, program, prompts, lookup, ref,
+                                  on_client=arm)
+    if not killed.is_set() or pool.workers[0].alive:
+        raise AssertionError(f"worker 0 was not killed during {label}")
+    if stats["reschedules"] < 1:
+        raise AssertionError(f"no task was rescheduled after the kill ({label})")
+    return wall
+
+
+def worker_phase(prompts, ref_gen, kernels):
+    """Phase 13: phase 3's load on 2 proc:// workers (cold, warm with the
+    workers' launch counts, one worker SIGKILLed), then on 2 shm://
+    workers.  Returns each round's wall s and the start-up to first
+    result."""
+    from repro_torch.core import LookupService, resolve_handle
+    from repro_torch.launch.now import NowPool
+
+    programs = worker_programs()
+    program = programs[0]
     lookup = LookupService()
     t_start = time.perf_counter()
     with NowPool(WORKERS, lookup, service_prefix="gpu-proc") as pool:
@@ -1220,45 +1310,14 @@ def worker_phase(prompts, ref_gen, inproc, smi, kernels):
             f"start, torch import, CUDA context, weight build, first task)")
         handles = [resolve_handle(w.descriptor) for w in pool.workers]
         try:
-            for h in handles:
-                h.execute(reset, None)
-            warm, _, _ = worker_round(f"round 2 (warm) on {WORKERS} proc:// "
-                                      "workers", program, prompts, lookup, ref_gen)
-            counts = [h.execute(read, None) for h in handles]
+            warm = counted_round(f"round 2 (warm) on {WORKERS} proc:// workers",
+                                 programs, prompts, lookup, ref_gen, handles,
+                                 kernels)
         finally:
             for h in handles:
                 h.close()
-        summed = {k.name: sum(c[k.name] for c in counts) for k in kernels.KERNELS}
-        say(f"  launches in the workers (round 2, {n_tasks} tasks): per worker "
-            f"{counts}")
-        want = {k.name: 0 for k in kernels.KERNELS}
-        layers = cfgs.get(ARCH).n_layers
-        want[flash.SM90_KERNEL.name] = n_tasks * layers
-        want[decode.KERNEL.name] = n_tasks * layers * NEW
-        if summed != want:
-            raise AssertionError(f"worker launches {summed}, expected {want}")
-
-        victim = pool.workers[0].service_id
-        killed = threading.Event()
-
-        def arm_killer(client):
-            def killer():
-                # after the victim's first task, once it holds another lease
-                if client.repository.wait_until(
-                        lambda s: s["per_service"].get(victim, 0) >= 1
-                        and (s["leased"] >= 2 or s["pending"] == 0),
-                        timeout=900):
-                    pool.kill(0)  # SIGKILL: no goodbye
-                    killed.set()
-            threading.Thread(target=killer, daemon=True).start()
-
-        kill_wall, kill_stats, _ = worker_round(
-            "round 3, worker 0 SIGKILLed after its first task", program,
-            prompts, lookup, ref_gen, on_client=arm_killer)
-        if not killed.is_set() or pool.workers[0].alive:
-            raise AssertionError("worker 0 was not killed during round 3")
-        if kill_stats["reschedules"] < 1:
-            raise AssertionError("no task was rescheduled after the kill")
+        kill_wall = kill_round("round 3, worker 0 SIGKILLed after its first task",
+                               program, prompts, lookup, ref_gen, pool)
     lookup = LookupService()
     with NowPool(WORKERS, lookup, service_prefix="gpu-shm",
                  transport="shm") as pool:
@@ -1268,13 +1327,86 @@ def worker_phase(prompts, ref_gen, inproc, smi, kernels):
             ref_gen[:SHM_REQUESTS])
     from repro_torch.core.transport.shm import detach_all
     detach_all()
-    tok = REQUESTS * NEW
-    say(f"  {smi}: in-process (phase 3, {SERVICES} services) {inproc[0]:.3f} s, "
-        f"{inproc[1]:.1f} tok/s; proc:// cold {cold:.3f} s ({tok / cold:.1f} "
-        f"tok/s, start-up to first result {startup:.3f} s), warm {warm:.3f} s "
-        f"({tok / warm:.1f} tok/s), with a kill {kill_wall:.3f} s "
-        f"({tok / kill_wall:.1f} tok/s); shm:// cold {shm_wall:.3f} s "
-        f"({SHM_REQUESTS * NEW / shm_wall:.1f} tok/s)")
+    return {"cold": cold, "startup": startup, "warm": warm, "kill": kill_wall,
+            "shm": shm_wall}
+
+
+def tcp_phase(prompts, ref_gen, kernels):
+    """Phase 14: phase 3's load on a ``TcpPool`` of 2 tcp:// workers that
+    register themselves into a network lookup server; the client's lookup
+    is a ``RemoteLookup``.  Rounds: cold; warm with the workers' launch
+    counts; after a lookup restart (registry wiped, every connection
+    dropped) once both workers have re-registered; worker 0 SIGKILLed.
+    Returns each round's wall s and the start-up to first result."""
+    from repro_torch.core import resolve_handle
+    from repro_torch.launch.tcp import TcpPool
+
+    programs = worker_programs()
+    program, state = programs[0], programs[3]
+    ids = {f"gpu-tcp{i}" for i in range(WORKERS)}
+
+    def registered():
+        """Handles of both workers, resolved from the client's lookup."""
+        if not pool.lookup.wait_for_services(WORKERS, timeout_s=60):
+            raise AssertionError(f"only {len(pool.lookup)} of {WORKERS} tcp "
+                                 "workers registered within 60 s")
+        descs = pool.lookup.query()
+        if {d.service_id for d in descs} != ids:
+            raise AssertionError(f"registered {[d.service_id for d in descs]}")
+        return [resolve_handle(d) for d in descs]
+
+    t_start = time.perf_counter()
+    with TcpPool(WORKERS, service_prefix="gpu-tcp") as pool:
+        say(f"  lookup server {pool.lookup_address}; workers "
+            f"{[w.address for w in pool.workers]}")
+        cold, _, t_first = worker_round(
+            f"round 1 (cold) on {WORKERS} tcp:// workers", program, prompts,
+            pool.lookup, ref_gen)
+        startup = t_first - t_start
+        say(f"  worker start-up to first result: {startup:.3f} s (pool "
+            "start, torch import, CUDA context, registration, weight build, "
+            "first task)")
+        handles = registered()
+        try:
+            warm = counted_round(f"round 2 (warm) on {WORKERS} tcp:// workers",
+                                 programs, prompts, pool.lookup, ref_gen,
+                                 handles, kernels)
+            before = {h.service_id: h.execute(state, None) for h in handles}
+        finally:
+            for h in handles:
+                h.close()
+
+        t0 = time.perf_counter()
+        pool.server.restart()  # registry wiped, every connection dropped
+        for h in registered():
+            h.close()
+        say(f"  lookup restarted: both workers re-registered in "
+            f"{time.perf_counter() - t0:.3f} s; client lookup reconnects "
+            f"{pool.lookup.reconnects}")
+        restart, stats, _ = worker_round(
+            "round 3, after the lookup restart", program, prompts,
+            pool.lookup, ref_gen)
+        served = {sid: stats["per_service"].get(sid, 0) for sid in sorted(ids)}
+        if min(served.values()) < 1:
+            raise AssertionError(f"a re-registered worker served no task: {served}")
+        handles = registered()
+        try:
+            after = {h.service_id: h.execute(state, None) for h in handles}
+        finally:
+            for h in handles:
+                h.close()
+        say(f"  workers' state before the restart {before}, after round 3 "
+            f"{after}")
+        for sid, s in after.items():
+            if (s["builds"] != 1 or s["reconnects"] <= before[sid]["reconnects"]
+                    or s["replayed"] <= before[sid]["replayed"]):
+                raise AssertionError(f"{sid} rebuilt its weights, or did not "
+                                     "reconnect and replay its registration")
+
+        kill_wall = kill_round("round 4, worker 0 SIGKILLed after its first task",
+                               program, prompts, pool.lookup, ref_gen, pool)
+    return {"cold": cold, "startup": startup, "warm": warm, "restart": restart,
+            "kill": kill_wall}
 
 
 def main() -> int:
@@ -1435,7 +1567,29 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     say("phase 13: serve on worker processes (proc://, shm://)")
-    worker_phase(prompts, gen, (wall, gen.numel() / wall), smi, kernels)
+    now = worker_phase(prompts, gen, kernels)
+    tok = REQUESTS * NEW
+    say(f"  {smi}: in-process (phase 3, {SERVICES} services) {wall:.3f} s, "
+        f"{tok / wall:.1f} tok/s; proc:// cold {now['cold']:.3f} s "
+        f"({tok / now['cold']:.1f} tok/s, start-up to first result "
+        f"{now['startup']:.3f} s), warm {now['warm']:.3f} s "
+        f"({tok / now['warm']:.1f} tok/s), with a kill {now['kill']:.3f} s "
+        f"({tok / now['kill']:.1f} tok/s); shm:// cold {now['shm']:.3f} s "
+        f"({SHM_REQUESTS * NEW / now['shm']:.1f} tok/s)")
+
+    say("phase 14: serve on tcp:// workers behind a network lookup")
+    tcp = tcp_phase(prompts, gen, kernels)
+    rounds = "; ".join(
+        f"{name} {tcp[key]:.3f} s ({tok / tcp[key]:.1f} tok/s, proc:// "
+        f"{now[key]:.3f} s)" if key in now else
+        f"{name} {tcp[key]:.3f} s ({tok / tcp[key]:.1f} tok/s, "
+        f"{tcp[key] / tcp['warm']:.2f}x warm)"
+        for name, key in (("cold", "cold"), ("warm", "warm"),
+                          ("after the lookup restart", "restart"),
+                          ("with a kill", "kill")))
+    say(f"  {smi}: in-process (phase 3) {wall:.3f} s, {tok / wall:.1f} tok/s; "
+        f"tcp:// start-up to first result {tcp['startup']:.3f} s (proc:// "
+        f"{now['startup']:.3f} s); {rounds}")
 
     rows = []
     flash_py = "src/repro/kernels/flash_attention/flash_attention.py"

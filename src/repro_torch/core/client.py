@@ -83,7 +83,7 @@ class BasicClient:
             Every timestamp and blocking wait in the engine goes through
             this :class:`repro_torch.core.clock.Clock`.  Default: wall clock.
             The ``sim://`` backend passes a deterministic
-            :class:`repro.sim.VirtualClock` here.
+            :class:`repro_torch.sim.VirtualClock` here.
         on_lease
             Assignment-trace hook: ``(task_id, service_id, attempt, t)``
             per lease/speculative issue, in lease order.  Deprecated in

@@ -11,10 +11,10 @@ either clock:
 - :class:`RealClock` (the default, a zero-cost passthrough to
   ``time.monotonic`` / ``Condition.wait``) — production behavior,
   bit-for-bit what the code did before this seam existed;
-- :class:`repro.sim.VirtualClock` — a deterministic cooperative scheduler
-  that drives the *same* code paths in virtual time (the ``sim://``
-  backend), so a 90-second heterogeneous-NoW experiment runs in
-  milliseconds and produces the identical task-to-service assignment
+- :class:`repro_torch.sim.VirtualClock` — a deterministic cooperative
+  scheduler that drives the *same* code paths in virtual time (the
+  ``sim://`` backend), so a 90-second heterogeneous-NoW experiment runs
+  in milliseconds and produces the identical task-to-service assignment
   trace on every run.
 
 The contract that makes the virtual clock possible: farm code never calls

@@ -12,11 +12,13 @@ in etcd/GCS pub-sub means re-implementing exactly these four methods.
 
 What a registration *carries* is an endpoint **address** — an
 ``"<scheme>://..."`` string resolved through the transport registry
-(``repro_torch.core.transport``) at recruitment time: ``inproc://<token>`` for
-services living in the client's process, ``proc://host:port`` for worker
-processes launched by ``repro.launch.now``.  The lookup itself never
-touches a live service object, which is what makes discovery, death, and
-rescheduling real rather than simulated.
+(``repro_torch.core.transport``) at recruitment time: ``inproc://<token>``
+for services living in the client's process, ``proc://host:port`` for
+worker processes launched by ``repro_torch.launch.now``, and
+``tcp://host:port`` for workers launched by ``repro_torch.launch.tcp``,
+which register themselves through a network lookup.  The lookup itself
+never touches a live service object, which is what makes discovery,
+death, and rescheduling real rather than simulated.
 """
 
 from __future__ import annotations

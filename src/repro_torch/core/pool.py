@@ -37,7 +37,7 @@ def clock_join(clock, threads: Iterable[threading.Thread],
                grace_s: float) -> None:
     """Clock-aware reaping: wait (up to ``grace_s``) for control threads
     to exit, polling through the clock seam.  A raw ``Thread.join`` would
-    deadlock a :class:`~repro.sim.VirtualClock`'s cooperative scheduler;
+    deadlock a :class:`~repro_torch.sim.VirtualClock`'s cooperative scheduler;
     ``clock.sleep`` keeps the join deterministic under simulation and is
     an ordinary poll on the real clock."""
     deadline = clock.monotonic() + grace_s

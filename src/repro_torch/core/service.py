@@ -17,7 +17,13 @@ factor (heterogeneous clusters) are built in for the paper's
 fault-tolerance and load-balancing experiments.
 
 Clients never hold this object directly: they hold a ``ServiceHandle``
-resolved from the registered endpoint address (``inproc://``).
+resolved from the registered endpoint address.  In-process, the handle
+delegates straight to this object (``inproc://``); in a NoW deployment the
+same object runs inside a worker process behind
+``repro_torch.core.transport.proc.ServiceWorker``.  A ``proc://`` worker
+is built with ``lookup=None`` (registration is the launcher's job); a
+``tcp://`` worker holds a ``RemoteLookup`` and advertises its network
+address, so it registers itself.
 """
 
 from __future__ import annotations
@@ -43,8 +49,14 @@ class Service:
                  device: str | torch.device | None = None,
                  service_id: str | None = None, speed_factor: float = 1.0,
                  capabilities: dict | None = None,
-                 task_delay_s: float = 0.0):
+                 task_delay_s: float = 0.0,
+                 advertise: str | None = None):
         self.lookup = lookup
+        # Registered endpoint address override: a worker serving sockets
+        # advertises its network address ("tcp://host:port") instead of
+        # the in-process token, so recruit/release re-registration through
+        # a RemoteLookup lands the *reachable* endpoint.
+        self._advertise = advertise
         self.device = resolve_device(device)
         self.stream = (torch.cuda.Stream(device=self.device)
                        if self.device.type == "cuda" else None)
@@ -83,7 +95,11 @@ class Service:
         """Endpoint is an *address*, resolved through the transport
         registry at recruitment — never the live object.  ``keepalive``
         pins this service while it sits in a lookup (the endpoint table is
-        weak; see ``transport/inproc.py``)."""
+        weak; see ``transport/inproc.py``); an advertised network address
+        needs no pinning (the worker process itself is the lifetime)."""
+        if self._advertise is not None:
+            return ServiceDescriptor(self.service_id, self._advertise,
+                                     dict(self.capabilities))
         return ServiceDescriptor(self.service_id,
                                  f"inproc://{self._endpoint_token}",
                                  dict(self.capabilities),

@@ -3,7 +3,7 @@
 ``resolve_handle(descriptor, lookup=...)`` turns a registered endpoint
 address into a :class:`ServiceHandle`; the layers above (control threads,
 clients, executors) only ever see the handle.  Importing this package
-registers four backends:
+registers five backends:
 
 - ``inproc://`` — the live-object zero-copy backend (default);
 - ``proc://``   — one OS process per service, length-prefixed
@@ -14,14 +14,16 @@ registers four backends:
   arrays and tensors) ride a same-host ``multiprocessing.shared_memory``
   ring (only descriptors cross the frame — the zero-copy fast path for
   cheap tasks);
+- ``tcp://``    — real multi-host NoW: workers register with a
+  network-reachable :class:`~repro_torch.core.transport.tcp.LookupServer`
+  through a :class:`~repro_torch.core.transport.tcp.RemoteLookup` proxy
+  (workers spawned by :class:`repro_torch.launch.tcp.TcpPool`, or started
+  on any host with ``python -m repro_torch.launch.tcp --worker --lookup
+  <host>:<port>``); the data plane is proc's wire protocol;
 - ``sim://``    — deterministic simulated services on a virtual clock
   (clusters stood up by :class:`repro_torch.sim.SimCluster` /
   :class:`repro_torch.launch.sim.SimPool`), for reproducible scheduling
   and fault experiments.
-
-The reference package's ``tcp://`` backend (multi-host discovery through
-a network lookup server, and its ``launch/tcp.py`` launcher) is not
-ported yet.
 """
 
 from .base import (LivenessMonitor, ServiceHandle, Transport,  # noqa: F401
@@ -30,5 +32,7 @@ from .inproc import InProcessTransport, InProcHandle  # noqa: F401
 from .proc import ProcHandle, ProcTransport, ServiceWorker  # noqa: F401
 from .shm import ShmHandle, ShmRing, ShmTransport  # noqa: F401
 from .sim import SimHandle, SimTransport  # noqa: F401
+from .tcp import (LookupServer, RemoteLookup, TcpHandle,  # noqa: F401
+                  TcpTransport)
 from .wire import (dump_program, dump_pytree, load_program,  # noqa: F401
                    load_pytree, recv_frame, send_frame)

@@ -30,7 +30,7 @@ single-tenant ``BasicClient`` is "a scheduler with exactly one job" and
 Concurrency contract: one re-entrant scheduler lock guards all maps (the
 pool shares it); it is never held across a blocking clock wait, so the
 whole scheduler runs deterministically under a
-:class:`~repro.sim.VirtualClock` — the multi-tenant fairness tests pin
+:class:`~repro_torch.sim.VirtualClock` — the multi-tenant fairness tests pin
 exact assignment traces, not statistics.
 
 Rebalance cost model (the NoW-scale contract): *job* events (submit,

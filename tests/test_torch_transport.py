@@ -593,6 +593,7 @@ NEW_MODULES = [
     "repro_torch.obs.recorder", "repro_torch.obs.export",
     "repro_torch.core.transport.wire", "repro_torch.core.transport.proc",
     "repro_torch.core.transport.shm", "repro_torch.launch.now",
+    "repro_torch.core.transport.tcp", "repro_torch.launch.tcp",
 ]
 
 
