@@ -5,9 +5,10 @@
 
 Drives the port's main paths on ``cuda:0`` — serving as a task farm, and
 training in sync and in farm mode, of qwen3-1.7B; serving and sync
-training of falcon-mamba-7b — and holds every hand-written kernel of
-those paths against its plain PyTorch version.  Phases, in order; any
-failure raises and exits non-zero:
+training of falcon-mamba-7b; serving minicpm3-4b, phi-3-vision-4.2b and
+whisper-tiny — and holds every hand-written kernel of those paths against
+its plain PyTorch version.  Phases, in order; any failure raises and
+exits non-zero:
 
 1. build the CUDA kernels from this checkout's sources (one ``nvcc`` per
    source, all started together), print each kernel's registers, spills
@@ -18,19 +19,25 @@ failure raises and exits non-zero:
    instructions in the decode and scan libraries (failing if 0), print the
    fp32 backward pair's, decode's and the scan's dynamic shared memory a
    block, and print the card's name and power limit;
-2. each kernel against its plain version on the card, at the serve shapes
-   (B=4, H=16, K=8, D=128, Sq = Skv = 512, a 576-slot cache: many query
-   and key tiles) and at a ragged size (Sq = Skv = 13, a 24-slot cache
-   with ``cache_index`` mid-cache), each in bf16 and fp32 (flash goes to
-   the Hopper kernel of its dtype: fp32 products as three tf32 products
-   each), then each
-   kernel, its plain version and PyTorch's SDPA timed at the serve shapes
-   (flash in bf16 and in fp32, decode in bf16, and again at B=1 with the
-   number of KV splits it launched); SDPA runs with K and V
-   expanded to H heads outside the timed region, under each of its flash,
-   memory-efficient and cuDNN backends that takes the inputs, and the
-   fastest is kept with its backend's name.  The host cost of the bf16
-   kernel's three TMA descriptors is timed too;
+2. each attention kernel against its plain version on the card, on the
+   same inputs, at every shape its paths give it (``FLASH_SHAPES``,
+   ``DECODE_SHAPES``): qwen3's serve shapes (B=4, H=16, K=8, D=128, Sq =
+   Skv = 512, a 576-slot cache) in bf16 and fp32 (flash goes to the Hopper
+   kernel of its dtype: fp32 products as three tf32 products each); the
+   bf16 flash forward at (D, Dv) = (96, 64) (minicpm3's MLA prefill: B=4,
+   S=512, H=K=40) and (96, 96) (phi-3's, H=K=32, S=512 and 768), and at
+   whisper's D=64, H=K=6: non-causal encoder (1500 x 1500) and
+   cross-attention (64 x 1500), causal decoder self-attention (64 x 64);
+   decode at D=96 on phi-3's 544-slot cache in bf16 and fp32 and at D=64 on
+   whisper's 128-slot self-attention cache.  Each runs again at a ragged
+   size (Sq = 13; a 24-slot cache with ``cache_index`` mid-cache) and
+   decode on one request alone.  Then each kernel, its plain version and
+   PyTorch's SDPA are timed at each serve shape (decode in bf16, at B=4
+   and at B=1 with the number of KV splits it launched) beside the bound;
+   SDPA runs with K and V expanded to H heads outside the timed region,
+   under each of its flash, memory-efficient and cuDNN backends that
+   takes the inputs, and the fastest is kept with its backend's name.  The
+   host cost of the bf16 kernel's three TMA descriptors is timed too;
 3. serve full-width qwen3-1.7B (bf16, weights from a seeded generator on
    the card) through ``BasicClient`` on 2 in-process services: 16 requests,
    prompt 512, 64 new tokens, 4 requests per task.  The kernels' launch
@@ -108,12 +115,30 @@ failure raises and exits non-zero:
     worker 0 is SIGKILLed after its first task and a task must be
     rescheduled.  Every round's tokens must equal phase 3's bit for bit;
     each round's wall time and tok/s are printed beside phase 3's and
-    phase 13's.
+    phase 13's;
+15. (everything freed) one family at a time, with weights from the seeded
+    generator on the card, served through ``BasicClient`` on the 2
+    in-process services with every launch count zeroed just before and
+    read just after: full-width, full-depth minicpm3-4b (MLA; 8 requests,
+    prompt 512, 32 new tokens: exactly 62 bf16 flash launches a task at
+    (96, 64) and no decode launch, its decode being the absorbed form)
+    and phi-3-vision-4.2b (text only, as ``serve_requests`` builds tasks:
+    32 flash launches at (96, 96) and 1,024 decode launches at D=96 a
+    task), then whisper-tiny (tasks of 4 prompts of 64 tokens with seeded
+    1,500 x 384 stub encoder frames through ``make_generate_program``, 64
+    new tokens: 12 flash and 256 decode launches a task); no other kernel
+    launches.  minicpm3's task is timed alone and profiled.  Each
+    family's prefill and decode logits (phi-3's prefill with 256 seeded
+    patch embeddings before 512 tokens, then 4 decode steps at cache_index
+    768 + i) through the kernels and through the plain versions, same
+    weights, on 4 batches.
 
 The line before the last is a JSON object with each kernel's numbers, one
 row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
 (``flash_attention_fwd_fp32``), decode, dq and dk/dv in bf16 and in fp32
-(``..._fp32``), and the scan; the last
+(``..._fp32``), the scan, and phase 15's shapes of the bf16 flash forward
+(``flash_attention_fwd_d96_dv64``, ``flash_attention_fwd_d96``) and of
+decode (``decode_attention_fwd_d96``); the last
 line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event times on
 this card without flushing the 50 MB L2 cache (the serve and training
 paths find their inputs freshly written): for every kernel, its library
@@ -212,6 +237,66 @@ TRAIN_LIMITS = {torch.bfloat16: (1e-3, 3e-2), torch.float32: (1e-5, 1e-5)}
 MAMBA_ARCH = "falcon_mamba_7b"
 MAMBA_REQUESTS, MAMBA_NEW = 8, 32
 MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_BATCH = 8, 2
+# Phase 15: the dense families beyond GQA at full width, one at a time.
+# minicpm3-4b (MLA: flash at D=96, Dv=64 in prefill, an absorbed decode
+# with no kernel) and phi-3-vision-4.2b (MHA at D=96, served text-only, as
+# serve_requests builds tasks) serve FAMILY_REQUESTS prompts of PROMPT
+# tokens, FAMILY_NEW new tokens; whisper-tiny serves as many prompts of
+# WHISPER_PROMPT tokens, each task carrying seeded stub encoder frames
+# (1,500 x 384), WHISPER_NEW new tokens.
+FAMILIES = ("minicpm3_4b", "phi3_vision_4p2b", "whisper_tiny")
+FAMILY_REQUESTS, FAMILY_NEW = 8, 32
+WHISPER_PROMPT, WHISPER_NEW = 64, 64
+PATCHES = 256  # phi-3's patch embeddings in its kernels-vs-plain prefill
+FAMILY_BATCHES = 4
+# Full-width logits of each family, kernels vs plain versions (phase 15):
+# limits on the largest and the mean |difference| of each prefill's and
+# decode step's logits, as phase 4's, from this script's first readings on
+# an H100 over 4 batches (see PERF.md): minicpm3 (62 layers, prefill and
+# one decode step) largest 8.30e-2 to 9.62e-2, mean 1.490e-2 to 1.529e-2;
+# phi-3 (32 layers, prefill of 256 patches + 512 tokens and 4 decode
+# steps) largest 8.52e-2 to 1.000e-1, mean 1.573e-2 to 1.693e-2; whisper
+# (4 + 4 layers, prefill and one decode step) largest 1.022e-2 to
+# 1.318e-2, mean 1.874e-3 to 2.147e-3.  The element checks of phase 2, not
+# these limits, decide whether a kernel is right.
+FAMILY_LIMITS = {"minicpm3_4b": (0.13, 0.019), "phi3_vision_4p2b": (0.14, 0.021),
+                 "whisper_tiny": (0.018, 0.0027)}
+# Phase 2's shapes: each path's attention calls as its serve run makes them.
+# Flash: label -> (B, Sq, Skv, H, K, D, Dv, causal, dtypes), each also at a
+# ragged Sq = 13 (and Skv = 13 where Skv = Sq).  Decode: label -> (B, H, K,
+# D, cache slots, cache_index, dtypes), each also on a ragged 24-slot cache
+# at cache_index 11, and on one request alone.
+FLASH_SHAPES = {
+    "qwen3": (PER_TASK, PROMPT, PROMPT, 16, 8, 128, 128, True,
+              (torch.bfloat16, torch.float32)),
+    "minicpm3 MLA": (PER_TASK, PROMPT, PROMPT, 40, 40, 96, 64, True, (torch.bfloat16,)),
+    "phi-3": (PER_TASK, PROMPT, PROMPT, 32, 32, 96, 96, True, (torch.bfloat16,)),
+    "phi-3 with patches": (PER_TASK, PROMPT + PATCHES, PROMPT + PATCHES, 32, 32, 96, 96,
+                           True, (torch.bfloat16,)),
+    "whisper encoder": (PER_TASK, 1500, 1500, 6, 6, 64, 64, False, (torch.bfloat16,)),
+    "whisper cross": (PER_TASK, WHISPER_PROMPT, 1500, 6, 6, 64, 64, False,
+                      (torch.bfloat16,)),
+    "whisper self": (PER_TASK, WHISPER_PROMPT, WHISPER_PROMPT, 6, 6, 64, 64, True,
+                     (torch.bfloat16,)),
+}
+DECODE_SHAPES = {
+    "qwen3": (PER_TASK, 16, 8, 128, PROMPT + NEW, PROMPT + 31,
+              (torch.bfloat16, torch.float32)),
+    "phi-3": (PER_TASK, 32, 32, 96, PROMPT + FAMILY_NEW, PROMPT + FAMILY_NEW - 1,
+              (torch.bfloat16, torch.float32)),
+    "whisper self": (PER_TASK, 6, 6, 64, WHISPER_PROMPT + WHISPER_NEW,
+                     WHISPER_PROMPT + WHISPER_NEW - 1, (torch.bfloat16,)),
+}
+# the kernels line's phase-2 rows: (kind, label, dtypes), timed in the first
+# dtype, the largest |error| over all of them
+JSON_ROWS = {
+    "flash": ("flash", "qwen3", (torch.bfloat16,)),
+    "flash_fp32": ("flash", "qwen3", (torch.float32,)),
+    "decode": ("decode", "qwen3", (torch.bfloat16, torch.float32)),
+    "d96_dv64": ("flash", "minicpm3 MLA", (torch.bfloat16,)),
+    "d96": ("flash", "phi-3", (torch.bfloat16,)),
+    "decode_d96": ("decode", "phi-3", (torch.bfloat16, torch.float32)),
+}
 # Farm over worker processes (phase 13): 2 workers; the kill round's
 # victim is worker 0, the shm round serves the first SHM_REQUESTS prompts
 WORKERS, SHM_REQUESTS = 2, 8
@@ -375,7 +460,7 @@ def say_async_smem(decode, scan):
     size) takes."""
     ring = kernel_entry(decode.KERNEL, "_smem", 2)
     say(f"  {decode.KERNEL.source.name} K/V ring a block: " + ", ".join(
-        f"D={d} {name} {ring(d, code):,} B" for d in (32, 64, 128)
+        f"D={d} {name} {ring(d, code):,} B" for d in (32, 64, 96, 128)
         for name, code in (("f32", 0), ("bf16", 1))))
     tiles = kernel_entry(scan.KERNEL, "_smem", 1)
     say(f"  {scan.KERNEL.source.name} tile ring a block: " + ", ".join(
@@ -467,11 +552,11 @@ def describe_us(flash, q, k, v, reps=2000) -> float:
     descriptors for one call (the library's describe entry, no launch)."""
     lib = ctypes.CDLL(str(flash.SM90_KERNEL.library_path()))
     fn = lib.repro_flash_sm90_describe
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
     fn.restype = ctypes.c_int
     B, Sq, H, D = q.shape
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), B, Sq, k.shape[1], H,
-            k.shape[2], D)
+            k.shape[2], D, v.shape[3])
     t0 = time.perf_counter()
     err = fn(*args, reps)
     us = (time.perf_counter() - t0) / reps * 1e6
@@ -517,94 +602,126 @@ def causal_pairs(B, H, Sq, Skv) -> int:
 
 
 def kernel_phase(flash, decode):
-    """Phase 2: kernels vs plain versions; times at the serve shapes."""
-    errs = {"flash": 0.0, "flash_fp32": 0.0, "decode": 0.0}
-    B, H, K, D = PER_TASK, 16, 8, 128
-    S = PROMPT + NEW
-    cases = [(label, dt, sq, s_cache, ci)
-             for label, sq, s_cache, ci in (("serve", PROMPT, S, PROMPT + 31),
-                                            ("ragged", 13, 24, 11))
-             for dt in (torch.bfloat16, torch.float32)]
-    flash_inputs = {}
-    for label, dt, sq, s_cache, ci in cases:
-        q = randn((B, sq, H, D), dt, 1)
-        k = randn((B, sq, K, D), dt, 2)
-        v = randn((B, sq, K, D), dt, 3)
-        kern = flash.forward_kernel(dt)
-        before = kern.launches
-        out, lse = flash.flash_attention_fwd(q, k, v, causal=True)
-        if kern.launches != before + 1:
-            raise AssertionError(f"flash {str(dt)[6:]} did not launch {kern.name}")
-        ref, ref_lse = flash.flash_attention_plain(q, k, v, causal=True)
-        tag = f"flash ({kern.name}) {label} {str(dt)[6:]} Sq=Skv={sq}"
-        key = "flash" if dt == torch.bfloat16 else "flash_fp32"
-        errs[key] = max(errs[key], check(tag + " out", out, ref, RTOL[dt]),
-                        check(tag + " lse", lse, ref_lse, 0.0))
-        qd = randn((B, 1, H, D), dt, 4)
-        kc = randn((B, s_cache, K, D), dt, 5)
-        vc = randn((B, s_cache, K, D), dt, 6)
-        got = decode.decode_attention_fwd(qd, kc, vc, cache_index=ci)
-        ref = decode.decode_attention_plain(qd, kc, vc, cache_index=ci)
-        errs["decode"] = max(errs["decode"], check(
-            f"decode {label} {str(dt)[6:]} S={s_cache} cache_index={ci}",
-            got, ref, RTOL[dt]))
-        if label == "serve":
-            flash_inputs[dt] = (q, k, v)
-            if dt == torch.bfloat16:
-                decode_inputs = (qd, kc, vc, ci)
+    """Phase 2: each kernel against its plain version on the same inputs at
+    every shape of FLASH_SHAPES and DECODE_SHAPES (serve and ragged), then
+    each timed at its serve shape, graph-replayed, beside its bound and
+    SDPA's fastest backend.  Returns {row of JSON_ROWS: its times, bound,
+    library time and largest |error| ("err")}."""
+    errs, timed = {}, {}
+    for label, (B, sq, skv, H, K, D, Dv, causal, dtypes) in FLASH_SHAPES.items():
+        for dt in dtypes:
+            kern = flash.forward_kernel(dt)
+            for size, q_len, kv_len in (("serve", sq, skv),
+                                        ("ragged", 13, 13 if skv == sq else skv)):
+                q = randn((B, q_len, H, D), dt, 1)
+                k = randn((B, kv_len, K, D), dt, 2)
+                v = randn((B, kv_len, K, Dv), dt, 3)
+                before = kern.launches
+                out, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
+                if kern.launches != before + 1:
+                    raise AssertionError(f"flash {label} {str(dt)[6:]} did not launch "
+                                         f"{kern.name}")
+                ref, ref_lse = flash.flash_attention_plain(q, k, v, causal=causal)
+                tag = f"flash ({kern.name}) {label} {size} {str(dt)[6:]} Sq={q_len} Skv={kv_len}"
+                key = ("flash", label, dt)
+                errs[key] = max(errs.get(key, 0.0), check(tag + " out", out, ref, RTOL[dt]),
+                                check(tag + " lse", lse, ref_lse, 0.0))
+                if size == "serve":
+                    timed[key] = (q, k, v, causal)
+    for label, (B, H, K, D, slots, ci, dtypes) in DECODE_SHAPES.items():
+        for dt in dtypes:
+            for size, s_cache, c in (("serve", slots, ci), ("ragged", 24, 11)):
+                qd = randn((B, 1, H, D), dt, 4)
+                kc = randn((B, s_cache, K, D), dt, 5)
+                vc = randn((B, s_cache, K, D), dt, 6)
+                key = ("decode", label, dt)
+                for b in (B, 1) if size == "serve" else (B,):
+                    before = decode.KERNEL.launches
+                    got = decode.decode_attention_fwd(qd[:b], kc[:b], vc[:b], cache_index=c)
+                    if decode.KERNEL.launches != before + 1:
+                        raise AssertionError(f"decode {label} did not launch its kernel")
+                    ref = decode.decode_attention_plain(qd[:b], kc[:b], vc[:b], cache_index=c)
+                    errs[key] = max(errs.get(key, 0.0), check(
+                        f"decode {label} {size} {str(dt)[6:]} B={b} H={H} K={K} D={D} "
+                        f"S={s_cache} cache_index={c}", got, ref, RTOL[dt]))
+                if size == "serve" and dt == torch.bfloat16:
+                    timed[key] = (qd, kc, vc, ci)
     torch.cuda.synchronize()
 
     rows = {}
-    for dt, key in ((torch.bfloat16, "flash"), (torch.float32, "flash_fp32")):
-        q, k, v = flash_inputs[dt]
-        out = torch.empty_like(q)
-        lse = torch.empty((B, H, q.shape[1]), device="cuda")
-        r = dict(ms=graph_ms(lambda: flash.flash_attention_fwd(q, k, v, causal=True)),
-                 plain_ms=graph_ms(lambda: flash.flash_attention_plain(q, k, v, causal=True)),
-                 call_ms=cuda_ms(lambda: flash.flash_attention_fwd(q, k, v, causal=True)))
-        r["library_ms"], r["library"] = sdpa_library_ms(q, k, v, is_causal=True)
-        r["bound_ms"], r["bound_by"] = bound(
-            4 * D * causal_pairs(B, H, q.shape[1], k.shape[1]),
-            nbytes(q, k, v, out, lse), q.dtype)
-        r["host_us"] = host_us(lambda: flash.flash_attention_fwd(q, k, v, causal=True))
-        rows[key] = r
-    q, k, v = flash_inputs[torch.bfloat16]
+    for (kind, label, dt), inputs in timed.items():
+        if kind == "flash":
+            rows[(kind, label, dt)] = flash_times(flash, label, *inputs)
+        else:
+            rows[(kind, label, dt)] = decode_times(decode, label, *inputs)
+    q, k, v, _ = timed[("flash", "qwen3", torch.bfloat16)]
     say(f"  bf16 flash kernel's three TMA descriptors: {describe_us(flash, q, k, v):.2f} "
-        "us of host time a call")
-    qd, kc, vc, ci = decode_inputs
-    n = ci + 1
+        "us of host time a call (qwen3's serve shape)")
+    out = {}
+    for row, (kind, label, dtypes) in JSON_ROWS.items():
+        out[row] = dict(rows[(kind, label, dtypes[0])],
+                        err=max(errs[(kind, label, dt)] for dt in dtypes))
+    return out
+
+
+def flash_times(flash, label, q, k, v, causal):
+    """The flash forward at one serve shape: kernel, plain and SDPA times
+    (graph-replayed), back-to-back calls of the wrapper, its host time a
+    call, and its bound."""
+    B, Sq, H, D = q.shape
+    Skv, Dv = k.shape[1], v.shape[3]
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device="cuda")
+    lse = torch.empty((B, H, Sq), device="cuda")
+    pairs = causal_pairs(B, H, Sq, Skv) if causal else B * H * Sq * Skv
+    call = lambda: flash.flash_attention_fwd(q, k, v, causal=causal)  # noqa: E731
+    r = dict(ms=graph_ms(call),
+             plain_ms=graph_ms(lambda: flash.flash_attention_plain(q, k, v, causal=causal)),
+             call_ms=cuda_ms(call), host_us=host_us(call))
+    r["library_ms"], r["library"] = sdpa_library_ms(q, k, v, is_causal=causal)
+    # QK^T and PV, 2 D + 2 Dv flops a visible pair (the bf16 kernel splits P
+    # in two bf16 terms and issues 2 D + 4 Dv; the fp32 one 3 x tf32)
+    flops, moved = (2 * D + 2 * Dv) * pairs, nbytes(q, k, v, out, lse)
+    r["bound_ms"], r["bound_by"] = bound(flops, moved, q.dtype)
+    split = (f", {(2 * D + 4 * Dv) * pairs / 1e9:.2f} issued with P split"
+             if q.dtype == torch.bfloat16 else "")
+    say(f"  flash {label} {str(q.dtype)[6:]} (B={B}, Sq={Sq}, Skv={Skv}, H={H}, K={k.shape[2]}, "
+        f"D={D}, Dv={Dv}, {'causal' if causal else 'non-causal'}; graph-timed): kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {fmt_ms(r['library_ms'])} "
+        f"(SDPA {r['library']}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+        f"{moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP{split}); back-to-back calls of "
+        f"the wrapper {r['call_ms']:.4f} ms, host {r['host_us']:.1f} us a call")
+    return r
+
+
+def decode_times(decode, label, qd, kc, vc, ci):
+    """Decode at one serve shape, on the serve batch and on one request
+    alone: kernel, plain and SDPA times (graph-replayed), back-to-back
+    calls of the wrapper, the KV splits it launches and its bound.  Returns
+    the serve batch's."""
+    B, _, H, D = qd.shape
+    K, n = kc.shape[2], ci + 1
     mask = (torch.arange(kc.shape[1], device="cuda") <= ci).view(1, 1, 1, -1)
     splits = kernel_entry(decode.KERNEL, "_splits", 4)
-    de = None
-    for b in (B, 1):  # the serve batch, then one request alone
+    first = None
+    for b in (B, 1):
         q1, k1, v1 = qd[:b], kc[:b], vc[:b]
-        got = decode.decode_attention_fwd(q1, k1, v1, cache_index=ci)
-        if b != B:
-            errs["decode"] = max(errs["decode"], check(
-                f"decode serve bf16 B={b} cache_index={ci}", got,
-                decode.decode_attention_plain(q1, k1, v1, cache_index=ci), RTOL[qd.dtype]))
-        r = dict(
-            ms=graph_ms(lambda: decode.decode_attention_fwd(q1, k1, v1, cache_index=ci)),
-            plain_ms=graph_ms(lambda: decode.decode_attention_plain(q1, k1, v1,
-                                                                    cache_index=ci)),
-            call_ms=cuda_ms(lambda: decode.decode_attention_fwd(q1, k1, v1, cache_index=ci)))
+        call = lambda: decode.decode_attention_fwd(q1, k1, v1, cache_index=ci)  # noqa: E731
+        r = dict(ms=graph_ms(call),
+                 plain_ms=graph_ms(lambda: decode.decode_attention_plain(q1, k1, v1,
+                                                                         cache_index=ci)),
+                 call_ms=cuda_ms(call))
         r["library_ms"], r["library"] = sdpa_library_ms(q1, k1, v1, attn_mask=mask)
-        kv_read = 2 * b * n * K * D * kc.element_size()
-        r["bound_ms"], r["bound_by"] = bound(4 * D * b * H * n,
-                                             kv_read + 2 * nbytes(q1), qd.dtype)
+        moved = 2 * b * n * K * D * kc.element_size() + 2 * nbytes(q1)
+        r["bound_ms"], r["bound_by"] = bound(4 * D * b * H * n, moved, qd.dtype)
         s = splits(b, H, K, ci)
-        say(f"  decode B={b}: {s} KV splits a cluster, {s * b * K} blocks; kernel "
-            f"{r['ms']:.4f} ms, library {fmt_ms(r['library_ms'])} (SDPA {r['library']}), "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-        de = de or r
-    for name, r in (("flash bf16", rows["flash"]), ("flash fp32", rows["flash_fp32"]),
-                    ("decode", de)):
-        host = f", host {r['host_us']:.1f} us a call" if "host_us" in r else ""
-        say(f"  {name} at serve shapes (graph-timed): kernel {r['ms']:.4f} ms, plain "
+        say(f"  decode {label} {str(qd.dtype)[6:]} (B={b}, H={H}, K={K}, D={D}, "
+            f"{kc.shape[1]} slots, cache_index {ci}; graph-timed): {s} KV splits a "
+            f"cluster, {s * b * K} blocks; kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {fmt_ms(r['library_ms'])} (SDPA "
-            f"{r['library']}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
-            f"back-to-back calls of the wrapper {r['call_ms']:.4f} ms{host}")
-    return errs, rows["flash"], rows["flash_fp32"], de
+            f"{r['library']}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+            f"{moved / 1e6:.2f} MB); back-to-back calls of the wrapper {r['call_ms']:.4f} ms")
+        first = first or r
+    return first
 
 
 def profile_window(label, fn, reps):
@@ -680,38 +797,48 @@ def time_one_task(api, params, tokens, new):
     profile_task(api, params, tokens, new)
 
 
+def kernels_vs_plain(api, params, plain_ops, batches, budget, steps, limits):
+    """The full-width logits check of phases 4, 11 and 15: for each
+    (batch, first decode position) of ``batches``, a prefill and ``steps``
+    decode steps through the kernels and through ``plain_ops``, the same
+    greedy token fed to both; the largest and mean |logits difference| of
+    each held to ``limits``."""
+    max_lim, mean_lim = limits
+    for i, (batch, start) in enumerate(batches):
+        lg_k, c_k = api.prefill(params, batch, seq_budget=budget)
+        lg_p, c_p = api.prefill(params, batch, seq_budget=budget, ops=plain_ops)
+        pairs = [("prefill", lg_k, lg_p)]
+        for j in range(steps):
+            step = {"tokens": torch.argmax(lg_k, -1).to(torch.int32)[:, None],
+                    "cache_index": start + j}
+            lg_k, c_k = api.decode(params, step, c_k)
+            lg_p, c_p = api.decode(params, step, c_p, ops=plain_ops)
+            pairs.append((f"decode at {start + j}", lg_k, lg_p))
+        for name, a, b in pairs:
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                raise AssertionError(f"batch {i} {name}: non-finite logits")
+            diff = (a - b).abs()
+            err, mean = diff.max().item(), diff.mean().item()
+            agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+            say(f"  batch {i} {name} logits: max |diff| {err:.3e} (limit {max_lim:g}), "
+                f"mean |diff| {mean:.3e} (limit {mean_lim:g}), max |logit| "
+                f"{b.abs().max().item():.3f}, greedy tokens agree on {agree:.2f} of rows")
+            if not (err <= max_lim and mean <= mean_lim):
+                raise AssertionError(f"batch {i} {name}: full-width logits through the "
+                                     "kernels disagree")
+        del c_k, c_p
+
+
 def full_width_phase(api, params, cfg, dev, plain_ops, batches=FULL_WIDTH_BATCHES,
                      limits=(FULL_WIDTH_MAX_ERR, FULL_WIDTH_MEAN_ERR)):
     """Phases 4 and 11: one prefill and one decode step of each of
     ``batches`` prompt batches, through the kernels (the serving dispatch)
     and through the plain versions; |logits difference| held to
     ``limits`` (largest, mean)."""
-    budget = PROMPT + NEW
-    max_lim, mean_lim = limits
-    for i in range(batches):
-        tokens = torch.as_tensor(np.random.default_rng(SEED + 1 + i).integers(
-            0, cfg.vocab_size, (PER_TASK, PROMPT))).to(dev)
-        lg_k, c_k = api.prefill(params, {"tokens": tokens}, seq_budget=budget)
-        nxt = torch.argmax(lg_k, -1).to(torch.int32)[:, None]
-        step = {"tokens": nxt, "cache_index": PROMPT}
-        lg_k2, _ = api.decode(params, step, c_k)
-        lg_p, c_p = api.prefill(params, {"tokens": tokens}, seq_budget=budget,
-                                ops=plain_ops)
-        lg_p2, _ = api.decode(params, step, c_p, ops=plain_ops)
-        for name, a, b in (("prefill", lg_k, lg_p), ("decode", lg_k2, lg_p2)):
-            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-                raise AssertionError(f"batch {i} {name}: non-finite logits")
-            diff = (a - b).abs()
-            err, mean = diff.max().item(), diff.mean().item()
-            agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-            say(f"  batch {i} {name} logits: max |diff| {err:.3e} (limit "
-                f"{max_lim:g}), mean |diff| {mean:.3e} (limit "
-                f"{mean_lim:g}), max |logit| "
-                f"{b.abs().max().item():.3f}, greedy tokens agree on "
-                f"{agree:.2f} of rows")
-            if not (err <= max_lim and mean <= mean_lim):
-                raise AssertionError(f"batch {i} {name}: full-width logits "
-                                     "through the kernels disagree")
+    prompts = [{"tokens": torch.as_tensor(np.random.default_rng(SEED + 1 + i).integers(
+        0, cfg.vocab_size, (PER_TASK, PROMPT))).to(dev)} for i in range(batches)]
+    kernels_vs_plain(api, params, plain_ops, [(b, PROMPT) for b in prompts],
+                     PROMPT + NEW, 1, limits)
 
 
 def backward_phase(flash):
@@ -1110,6 +1237,100 @@ def mamba_train_phase(cfg, dev, kernels, full_params):
         trainer.state, batch), 1)
 
 
+def family_phase(arch, dev, lookup, kernels):
+    """Phase 15 for one family: serve it at full width and depth through
+    ``BasicClient`` on the services in ``lookup`` with every launch count
+    zeroed just before and read just after (exact counts a task: one flash
+    launch a prefill attention, one decode launch a self-attention layer
+    and new token but none for MLA, nothing else), then its logits through
+    the kernels against the plain versions.  Returns the launch counts."""
+    import repro_torch.configs as cfgs
+    from repro_torch.core import BasicClient
+    from repro_torch.kernels import decode_attention as decode
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import build
+    from repro_torch.runtime.serve_loop import (ServeConfig, make_generate_program,
+                                                serve_requests)
+
+    cfg = cfgs.get(arch)
+    api = build(cfg)
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    encdec = cfg.is_encoder_decoder
+    depth = (f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers" if encdec
+             else f"{cfg.n_layers} layers")
+    say(f"  {cfg.name}: {depth}, d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B params in "
+        f"{cfg.param_dtype}, initialised in {time.perf_counter() - t0:.2f} s")
+    prompt, new = (WHISPER_PROMPT, WHISPER_NEW) if encdec else (PROMPT, FAMILY_NEW)
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (FAMILY_REQUESTS, prompt)))
+    sc = ServeConfig(max_new_tokens=new, prompt_len=prompt, batch_per_task=PER_TASK)
+    if encdec:  # tasks carry the frontend stub's frames beside the prompt
+        frames = torch.randn((FAMILY_REQUESTS, cfg.encoder_seq_len, cfg.d_model),
+                             generator=torch.Generator().manual_seed(SEED))
+        tasks = [{"tokens": prompts[i:i + PER_TASK], "enc_frames": frames[i:i + PER_TASK]}
+                 for i in range(0, FAMILY_REQUESTS, PER_TASK)]
+
+        def serve(sc, tasks):
+            out: list = []
+            client = BasicClient(make_generate_program(api, sc, params), None, tasks, out,
+                                 lookup=lookup)
+            client.compute(timeout=600)
+            return torch.cat([o["generated"].cpu() for o in out]), client.stats()
+    else:
+        tasks = prompts
+
+        def serve(sc, tasks):
+            return serve_requests(api, params, tasks, sc, lookup=lookup, timeout=600)
+    # warm-up (cuBLAS handles, allocator), not counted
+    serve(ServeConfig(max_new_tokens=2, prompt_len=prompt, batch_per_task=PER_TASK),
+          tasks[:1] if encdec else tasks[:PER_TASK])
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    gen, stats = serve(sc, tasks)
+    wall = time.perf_counter() - t0
+    launches = {kern.name: kern.launches for kern in kernels.KERNELS}
+    n_tasks = FAMILY_REQUESTS // PER_TASK
+    say(f"  served {tuple(gen.shape)} tokens in {wall:.3f} s: {gen.numel() / wall:.1f} tok/s "
+        f"across {SERVICES} services; {stats['done']} tasks, {stats['reschedules']} "
+        f"reschedules; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    say(f"  launches on the main path: {launches}")
+    if tuple(gen.shape) != (FAMILY_REQUESTS, new):
+        raise AssertionError(f"generated shape {tuple(gen.shape)}")
+    if not (int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size):
+        raise AssertionError("generated token ids out of range")
+    want = {kern.name: 0 for kern in kernels.KERNELS}
+    attn_layers = cfg.n_encoder_layers + 2 * cfg.n_layers if encdec else cfg.n_layers
+    want[flash.SM90_KERNEL.name] = n_tasks * attn_layers
+    want[decode.KERNEL.name] = 0 if cfg.attention == "mla" else n_tasks * cfg.n_layers * new
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if arch == "minicpm3_4b":
+        time_one_task(api, params, prompts[:PER_TASK].to(dev), new)
+
+    say(f"  {cfg.name}: kernels vs plain versions at full width")
+    batches = []
+    for i in range(FAMILY_BATCHES):
+        g = np.random.default_rng(SEED + 1 + i)
+        batch = {"tokens": torch.as_tensor(g.integers(0, cfg.vocab_size,
+                                                      (PER_TASK, prompt))).to(dev)}
+        if encdec:
+            batch["enc_frames"] = randn((PER_TASK, cfg.encoder_seq_len, cfg.d_model),
+                                        torch.float32, SEED + 60 + i)
+        if cfg.frontend == "vision":
+            batch["patch_embeds"] = randn((PER_TASK, PATCHES, cfg.d_model), torch.float32,
+                                          SEED + 70 + i)
+        batches.append((batch, prompt + (PATCHES if cfg.frontend == "vision" else 0)))
+    steps = 4 if cfg.frontend == "vision" else 1
+    kernels_vs_plain(api, params, kernels.PLAIN, batches, batches[0][1] + new, steps,
+                     FAMILY_LIMITS[arch])
+    return launches
+
+
 # --------------------------------------------------------------------- #
 # phase 13: the farm over worker processes
 # --------------------------------------------------------------------- #
@@ -1448,7 +1669,7 @@ def main() -> int:
     say(smi)
 
     say("phase 2: kernels vs plain versions")
-    errs, fl, fl32, de = kernel_phase(flash, decode)
+    k_rows = kernel_phase(flash, decode)
 
     say("phase 3: serve")
     cfg = cfgs.get(ARCH)
@@ -1591,14 +1812,23 @@ def main() -> int:
         f"tcp:// start-up to first result {tcp['startup']:.3f} s (proc:// "
         f"{now['startup']:.3f} s); {rounds}")
 
+    say("phase 15: serve minicpm3-4b (MLA), phi-3-vision-4.2b and whisper-tiny")
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_launches = {}
+    for arch in FAMILIES:
+        family_launches[arch] = family_phase(arch, dev, lookup, kernels)
+        free(services)
+        say(f"  {arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+
     rows = []
     flash_py = "src/repro/kernels/flash_attention/flash_attention.py"
     for name, kern, r, err, replaces, count in (
-            ("flash_attention_fwd", flash.SM90_KERNEL, fl, errs["flash"],
-             f"{flash_py}:127", launches),
-            ("flash_attention_fwd_fp32", flash.SM90_FP32_KERNEL, fl32, errs["flash_fp32"],
-             f"{flash_py}:127", fp32_launches),
-            ("decode_attention_fwd", decode.KERNEL, de, errs["decode"],
+            ("flash_attention_fwd", flash.SM90_KERNEL, k_rows["flash"],
+             k_rows["flash"]["err"], f"{flash_py}:127", launches),
+            ("flash_attention_fwd_fp32", flash.SM90_FP32_KERNEL, k_rows["flash_fp32"],
+             k_rows["flash_fp32"]["err"], f"{flash_py}:127", fp32_launches),
+            ("decode_attention_fwd", decode.KERNEL, k_rows["decode"], k_rows["decode"]["err"],
              "src/repro/kernels/decode_attention/decode_attention.py:116",
              launches),
             ("flash_attention_bwd_dq", flash.DQ_SM90_KERNEL, bwd["dq"],
@@ -1610,7 +1840,15 @@ def main() -> int:
             ("flash_attention_bwd_dkv_fp32", flash.DKV_SM90_FP32_KERNEL, bwd["dkv_fp32"],
              bwd_errs[torch.float32]["dkv"], f"{flash_py}:307", fp32_launches),
             ("mamba_scan_fwd", scan.KERNEL, scan_row, scan_err,
-             "src/repro/kernels/mamba_scan/mamba_scan.py:83", mamba_launches)):
+             "src/repro/kernels/mamba_scan/mamba_scan.py:83", mamba_launches),
+            ("flash_attention_fwd_d96_dv64", flash.SM90_KERNEL, k_rows["d96_dv64"],
+             k_rows["d96_dv64"]["err"], f"{flash_py}:127", family_launches["minicpm3_4b"]),
+            ("flash_attention_fwd_d96", flash.SM90_KERNEL, k_rows["d96"],
+             k_rows["d96"]["err"], f"{flash_py}:127", family_launches["phi3_vision_4p2b"]),
+            ("decode_attention_fwd_d96", decode.KERNEL, k_rows["decode_d96"],
+             k_rows["decode_d96"]["err"],
+             "src/repro/kernels/decode_attention/decode_attention.py:116",
+             family_launches["phi3_vision_4p2b"])):
         rows.append({"name": name, "route": "cuda",
                      "source": str(kern.source.relative_to(ROOT)),
                      "replaces": replaces, "launches": count[kern.name],

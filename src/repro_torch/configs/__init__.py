@@ -2,8 +2,9 @@
 
 Each module defines ``CONFIG``, the full-scale config, identical to the
 reference package's.  ``reduced(cfg)`` derives the same small config the
-reference's CPU tests use.  Ported: the dense GQA decoders and the
-Mamba-1 SSM (falcon-mamba).
+reference's CPU tests use.  Ported: the dense GQA and MHA decoders, MLA
+(minicpm3), the vision LM (phi-3-vision), the whisper encoder-decoder and
+the Mamba-1 SSM (falcon-mamba); the MoE configs are not.
 """
 
 from __future__ import annotations
@@ -15,13 +16,21 @@ from repro_torch.models.common import ModelConfig, SSMConfig
 ARCH_IDS = [
     "qwen3_1p7b",
     "llama3p2_1b",
+    "minicpm3_4b",
+    "minicpm_2b",
     "falcon_mamba_7b",
+    "whisper_tiny",
+    "phi3_vision_4p2b",
 ]
 
 _ALIASES = {
     "qwen3-1.7b": "qwen3_1p7b",
     "llama3.2-1b": "llama3p2_1b",
+    "minicpm3-4b": "minicpm3_4b",
+    "minicpm-2b": "minicpm_2b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "whisper-tiny": "whisper_tiny",
+    "phi-3-vision-4.2b": "phi3_vision_4p2b",
 }
 
 
@@ -56,7 +65,15 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         compute_dtype="float32",
         remat=False,
         opt_state_dtype="float32",
+        max_seq_len=128,
     )
     if cfg.ssm is not None:
         kw["ssm"] = SSMConfig(state_dim=4, conv_width=4, expand=2, dt_rank=8)
+    if cfg.attention == "mla":
+        kw.update(q_lora_rank=32, kv_lora_rank=16, qk_rope_head_dim=8,
+                  qk_nope_head_dim=16, v_head_dim=16)
+    if cfg.is_encoder_decoder:
+        kw.update(n_encoder_layers=2, encoder_seq_len=16)
+    if cfg.frontend == "vision":
+        kw.update(n_patch_tokens=8)
     return cfg.replace(**kw)

@@ -13,7 +13,8 @@
 // bytes.  A call reads the (cache_index+1) valid keys and values of every kv
 // head once (8.9 MB at B=4, K=8, D=128, cache_index 543, bf16) and does ~2
 // FLOP a byte, far below the ridge: the floor is those bytes over 3.35 TB/s,
-// 2.7 us.  At that size the card has to keep a few MB in flight on all its
+// 2.7 us (phi-3's decode, B=4, K=32, D=96, cache_index 543: 26.7 MB, 8.0
+// us).  At that size the card has to keep a few MB in flight on all its
 // SMs at once, so the design is about parallelism and bytes in flight.
 //
 // Design.  One block of 4 warps per (b, kv-head, KV split): it serves every
@@ -29,7 +30,10 @@
 // (64 KB), so that all of a short split's tiles are in flight at once.  Each
 // warp takes 8 keys of a tile: a lane holds D/32 elements of each q row
 // (pre-scaled by D^-0.5 log2 e), of the key and value rows and of the
-// output accumulators, and keeps an online softmax (m, l, acc) for each
+// output accumulators (D/32 neighbours, one vector load, at D = 32, 64 and
+// 128; at D = 96 three elements strided by 32, since no load moves 6 or 12
+// bytes, and neighbouring lanes still read neighbouring elements), and
+// keeps an online softmax (m, l, acc) for each
 // q-head in registers, p = exp2(s - m).  The block merges its warps' states
 // in shared memory; then, after `cluster.sync()`, the blocks of the cluster
 // merge the splits' states by reading each other's shared memory
@@ -90,6 +94,26 @@ __device__ __forceinline__ void load_f(const T* p, float (&out)[N]) {
   const T* t = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int e = 0; e < N; ++e) out[e] = repro::to_f(t[e]);
+}
+
+// Element e of the D/32 a lane holds of a row: neighbours when D/32 is a
+// power of two, else (D = 96) elements strided by 32.
+template <int D>
+__device__ __forceinline__ int lane_col(int lane, int e) {
+  constexpr int EPL = D / 32;
+  return (EPL & (EPL - 1)) == 0 ? lane * EPL + e : lane + 32 * e;
+}
+
+// A lane's D/32 elements of a row in shared memory, as floats.
+template <typename T, int D>
+__device__ __forceinline__ void load_lane(const T* row, int lane, float (&out)[D / 32]) {
+  constexpr int EPL = D / 32;
+  if constexpr ((EPL & (EPL - 1)) == 0) {
+    load_f<T, EPL>(row + lane * EPL, out);
+  } else {
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) out[e] = repro::to_f(row[lane + 32 * e]);
+  }
 }
 
 template <typename T, int D, int GP>
@@ -155,10 +179,10 @@ decode_sm90_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qv[GP][EPL];
 #pragma unroll
   for (int g = 0; g < GP; ++g) {
-    const T* qrow = q + (static_cast<size_t>(b) * H + kh * G + g0 + g) * D + lane * EPL;
+    const T* qrow = q + (static_cast<size_t>(b) * H + kh * G + g0 + g) * D;
 #pragma unroll
     for (int e = 0; e < EPL; ++e)
-      qv[g][e] = g < n_heads ? repro::to_f(qrow[e]) * scale_log2 : 0.f;
+      qv[g][e] = g < n_heads ? repro::to_f(qrow[lane_col<D>(lane, e)]) * scale_log2 : 0.f;
   }
   float m[GP], l[GP], acc[GP][EPL];
 #pragma unroll
@@ -183,7 +207,7 @@ decode_sm90_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float kx[EPL];
-      load_f<T, EPL>(ks + u * D + lane * EPL, kx);
+      load_lane<T, D>(ks + u * D, lane, kx);
 #pragma unroll
       for (int g = 0; g < GP; ++g) {
         float dot = 0.f;
@@ -219,7 +243,7 @@ decode_sm90_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float vx[EPL];
-      load_f<T, EPL>(vs + u * D + lane * EPL, vx);
+      load_lane<T, D>(vs + u * D, lane, vx);
 #pragma unroll
       for (int g = 0; g < GP; ++g)
 #pragma unroll
@@ -236,7 +260,7 @@ decode_sm90_kernel(const T* __restrict__ q, const T* __restrict__ k,
       wl[w][g] = l[g];
     }
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) wacc[w][g][lane * EPL + e] = acc[g][e];
+    for (int e = 0; e < EPL; ++e) wacc[w][g][lane_col<D>(lane, e)] = acc[g][e];
   }
   __syncthreads();
   for (int i = threadIdx.x; i < GP * D; i += THREADS) {
@@ -351,6 +375,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, i
   switch (D) {
     case 32: return dispatch_g<T, 32>(q, k, v, out, B, S, H, K, cache_index, stream);
     case 64: return dispatch_g<T, 64>(q, k, v, out, B, S, H, K, cache_index, stream);
+    case 96: return dispatch_g<T, 96>(q, k, v, out, B, S, H, K, cache_index, stream);
     case 128: return dispatch_g<T, 128>(q, k, v, out, B, S, H, K, cache_index, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -391,6 +416,7 @@ extern "C" int repro_decode_attention_fwd_smem(int D, int dtype) {
   switch (D) {
     case 32: return bf16 ? Ring<__nv_bfloat16, 32>::BYTES : Ring<float, 32>::BYTES;
     case 64: return bf16 ? Ring<__nv_bfloat16, 64>::BYTES : Ring<float, 64>::BYTES;
+    case 96: return bf16 ? Ring<__nv_bfloat16, 96>::BYTES : Ring<float, 96>::BYTES;
     case 128: return bf16 ? Ring<__nv_bfloat16, 128>::BYTES : Ring<float, 128>::BYTES;
     default: return -1;
   }

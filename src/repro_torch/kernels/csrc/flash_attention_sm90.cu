@@ -9,14 +9,19 @@
 // kv-head h*K/H (no head expansion), scale D^-0.5, the top-left causal mask
 // k_pos <= q_pos (both from 0, so Sq != Skv keeps the reference's meaning),
 // kv tiles wholly above the diagonal skipped, l clamped at 1e-37, outputs
-// out (B,Sq,H,D) in bf16 and lse = m + log(l) (B,H,Sq) in fp32, natural log.
-// Inputs: q (B,Sq,H,D), k and v (B,Skv,K,D), contiguous bf16, D in
-// {32, 64, 128}, any Sq and Skv.
+// out (B,Sq,H,DV) in bf16 and lse = m + log(l) (B,H,Sq) in fp32, natural log.
+// Inputs: q (B,Sq,H,D), k (B,Skv,K,D), v (B,Skv,K,DV), contiguous bf16,
+// D == DV in {32, 64, 96, 128} or (D, DV) = (96, 64) (MLA's prefill: 64 nope
+// + 32 rope dims of q and k, 64 of v), any Sq and Skv.
 //
 // Bound on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16 dense): at the serve
 // shape (B=4, H=16, K=8, D=128, Sq=Skv=512, causal) the function moves
 // 25.3 MB (q, k, v read once, out and lse written once): 7.55 us; its 4.30
 // GFLOP of products (4*D a visible pair) take 4.3 us.  Bytes bound it.
+// So do MLA's prefill (B=4, S=512, H=K=40, D=96, DV=64: 52.8 MB, 15.7 us)
+// and phi-3's (H=K=32, D=DV=96); whisper's encoder (B=4, 1500 x 1500
+// non-causal, H=K=6, D=64) does 20.7 GFLOP on 18.6 MB: 21 us of tensor-core
+// time against 5.5 us of bytes, compute-bound.
 //
 // Why P is split.  The reference keeps p in fp32 for the PV product (q, k, v
 // are cast to fp32 and p.astype(v.dtype) stays fp32).  Against the plain
@@ -38,7 +43,7 @@
 //   one q-head.
 //   S = Q K^T is m64n64k16 wgmmas with A (the Q tile) and B (the K tile)
 //   both read from shared memory, fp32 accumulators in registers.  O += P V
-//   is m64nDk16 wgmmas in the RS form: A is P from registers, issued twice
+//   is m64nDVk16 wgmmas in the RS form: A is P from registers, issued twice
 //   (p_hi, then p_lo) into the same fp32 O; B is the V tile, whose
 //   reduction axis (keys) is not contiguous in memory, so it is read
 //   MN-major through the transpose-B immediate.  The S accumulator's
@@ -59,13 +64,16 @@
 //   backward's kernels): what TMA writes is what the wgmma descriptors
 //   read.  A bf16 row of D=128 is 256 bytes, split into two 64-column atoms
 //   with the 128-byte swizzle; D=64 is one such atom; D=32 (64-byte rows)
-//   uses the 64-byte swizzle.  Every atom starts on a 1024-byte boundary.
+//   uses the 64-byte swizzle, and so does D=96: a 192-byte row is three
+//   32-column atoms, QK^T six k16 slices two to an atom, and PV at DV=96 an
+//   n96 wgmma whose B operand spans the three atoms.  Q and K take D's
+//   geometry, V and O take DV's.  Every atom starts on a 1024-byte boundary.
 // - Softmax in the accumulator's layout: each thread holds two rows of its
 //   warp's 16 (lane/4 and lane/4 + 8); row max and row sum reduce over the
 //   4 threads of a quad with shuffles; O is rescaled by corr every tile.
 //   Scores are pre-scaled by D^-0.5 log2(e) so p = exp2(s - m); lse is
 //   returned as m ln2 + log(l).
-// - Registers: S (32), O (D/2) and the bf16 halves of P (32) per thread.
+// - Registers: S (32), O (DV/2) and the bf16 halves of P (32) per thread.
 //   Two-warpgroup blocks are held to 128 registers so that two blocks share
 //   an SM (phase 1 of chip_smoke.py prints ptxas -v, spills included).
 // - Grid: (q-head groups, batch, 64-row query tiles), the query tile on z
@@ -92,20 +100,34 @@ constexpr int BQ = 64;     // query rows of a warpgroup
 constexpr int BK = 64;     // keys per tile
 constexpr int STAGES = 2;  // K/V ring
 
-// Tile j of K and V into ring stage j % STAGES (K at skv + 2 s tile_bytes(BK),
-// V after it), completing on that stage's barrier (fbar + 8 s).
-template <int D>
+// Bytes of one ring stage: a K tile of D columns, then a V tile of DV.
+template <int D, int DV>
+__host__ __device__ constexpr int stage_bytes() {
+  return Geo<D>::tile_bytes(BK) + Geo<DV>::tile_bytes(BK);
+}
+
+// Tile j of K and V into ring stage j % STAGES (K at skv + s stage_bytes, V
+// after it), completing on that stage's barrier (fbar + 8 s).
+template <int D, int DV>
 __device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap* tv,
                                         uint32_t skv, uint32_t fbar, int kh, int b, int j) {
+  using GK = Geo<D>;
+  using GV = Geo<DV>;
   const int s = j % STAGES;
-  const uint32_t k_dst = skv + 2 * s * Geo<D>::tile_bytes(BK);
-  tma_load_pair<D>(tk, tv, k_dst, k_dst + Geo<D>::tile_bytes(BK), kh, j * BK, b, BK,
-                   fbar + 8 * s);
+  const uint32_t k_dst = skv + s * stage_bytes<D, DV>(), v_dst = k_dst + GK::tile_bytes(BK);
+  const uint32_t bar = fbar + 8 * s;
+  mbar_expect_tx(bar, stage_bytes<D, DV>());
+#pragma unroll
+  for (int c = 0; c < GK::NATOM; ++c)
+    tma_load(k_dst + c * GK::atom_bytes(BK), tk, c * GK::ATOM, kh, j * BK, b, bar);
+#pragma unroll
+  for (int c = 0; c < GV::NATOM; ++c)
+    tma_load(v_dst + c * GV::atom_bytes(BK), tv, c * GV::ATOM, kh, j * BK, b, bar);
 }
 
 // NWG warpgroups a block, each with its own q-head of the same kv-head and
 // the same 64 rows: they share every K/V tile.  Grid (H/NWG, B, q tiles).
-template <int D, int NWG>
+template <int D, int DV, int NWG>
 __global__ void __launch_bounds__(NWG * WG, 2)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -115,12 +137,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   using G = Geo<D>;
   constexpr int KSTEPS = D / 16;   // k16 slices of QK^T
   constexpr int PSTEPS = BK / 16;  // k16 slices of PV
-  constexpr int OREG = D / 2;      // O accumulator registers per thread
+  constexpr int OREG = DV / 2;     // O accumulator registers per thread
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + STAGES];
 
   const uint32_t sq0 = (smem_u32(smem_raw) + 1023u) & ~1023u;  // warpgroup w's Q tile
-  // stage s: K at skv + 2 s tile_bytes(BK), V after it
+  // stage s: K at skv + s stage_bytes, V after it
   const uint32_t skv = sq0 + NWG * G::tile_bytes(BQ);
   const uint32_t qbar = smem_u32(&bars[0]);
   const uint32_t fbar = smem_u32(&bars[1]);  // stage s: fbar + 8 s
@@ -152,7 +174,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       for (int c = 0; c < G::NATOM; ++c)
         tma_load(sq0 + w * G::tile_bytes(BQ) + c * G::atom_bytes(BQ), &tq, c * G::ATOM,
                  h0 + w, q0, b, qbar);
-    load_kv<D>(&tk, &tv, skv, fbar, kh, b, 0);
+    load_kv<D, DV>(&tk, &tv, skv, fbar, kh, b, 0);
   }
 
   // this thread's two rows and its first column in every 8-column chunk
@@ -170,9 +192,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // every warp of the block is past tile j-1's products: its stage may be
     // refilled
     __syncthreads();
-    if (tid == 0 && j + 1 < n_tiles) load_kv<D>(&tk, &tv, skv, fbar, kh, b, j + 1);
+    if (tid == 0 && j + 1 < n_tiles) load_kv<D, DV>(&tk, &tv, skv, fbar, kh, b, j + 1);
     mbar_wait(fbar + 8 * s, (j / STAGES) & 1);
-    const uint32_t k_tile = skv + 2 * s * G::tile_bytes(BK), v_tile = k_tile + G::tile_bytes(BK);
+    const uint32_t k_tile = skv + s * stage_bytes<D, DV>(), v_tile = k_tile + G::tile_bytes(BK);
 
     // S = Q K^T: K-major A and B, k16 slices walk the row inside an atom
     float sc[BK / 2];
@@ -235,17 +257,18 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         split_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1], p_hi[kk][e], p_lo[kk][e]);
 
     // O += P V: V MN-major; a k16 slice is 16 key rows, 2 swizzle groups of
-    // 8; the column atoms of D=128 lie atom_bytes(BK) bytes apart
+    // 8; the column atoms of DV=128 (two) and DV=96 (three) lie
+    // atom_bytes(BK) bytes apart
     pin(o);
     pin(p_hi);
     pin(p_lo);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < PSTEPS; ++kk)
-      wgmma_rs(o, p_hi[kk], desc_mn<D>(v_tile, BK, kk));
+      wgmma_rs(o, p_hi[kk], desc_mn<DV>(v_tile, BK, kk));
 #pragma unroll
     for (int kk = 0; kk < PSTEPS; ++kk)
-      wgmma_rs(o, p_lo[kk], desc_mn<D>(v_tile, BK, kk));
+      wgmma_rs(o, p_lo[kk], desc_mn<DV>(v_tile, BK, kk));
     wgmma_commit();
     wgmma_wait_all();
     pin(o);
@@ -263,9 +286,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   for (int r = 0; r < 2; ++r) {
     const int qp = r ? r1 : r0;
     if (qp >= Sq) continue;
-    __nv_bfloat16* orow = out + ((static_cast<size_t>(b) * Sq + qp) * H + h) * D + c0;
+    __nv_bfloat16* orow = out + ((static_cast<size_t>(b) * Sq + qp) * H + h) * DV + c0;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < DV / 8; ++i)
       *reinterpret_cast<uint32_t*>(orow + 8 * i) =
           pack_bf16(o[4 * i + 2 * r] / l[r], o[4 * i + 2 * r + 1] / l[r]);
     if (lane % 4 == 0)
@@ -273,58 +296,63 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
+template <int D, int DV>
 bool make_maps(CUtensorMap* maps, const void* q, const void* k, const void* v, int B,
                int Sq, int Skv, int H, int K) {
   return make_map<D>(&maps[0], q, B, Sq, H, BQ) && make_map<D>(&maps[1], k, B, Skv, K, BK) &&
-         make_map<D>(&maps[2], v, B, Skv, K, BK);
+         make_map<DV>(&maps[2], v, B, Skv, K, BK);
 }
 
-template <int D, int NWG>
+template <int D, int DV, int NWG>
 cudaError_t launch_nwg(const CUtensorMap* maps, void* out, void* lse, int B, int Sq, int Skv,
                        int H, int K, int causal, cudaStream_t stream) {
   // NWG Q tiles, the K/V ring, and room to align them to 1024 bytes
-  constexpr int smem = NWG * Geo<D>::tile_bytes(BQ) + STAGES * 2 * Geo<D>::tile_bytes(BK) + 1024;
+  constexpr int smem = NWG * Geo<D>::tile_bytes(BQ) + STAGES * stage_bytes<D, DV>() + 1024;
   static bool configured = false;  // once per instantiation (a repeat is harmless)
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_sm90_kernel<D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_fwd_sm90_kernel<D, DV, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid(H / NWG, B, (Sq + BQ - 1) / BQ);
-  flash_fwd_sm90_kernel<D, NWG><<<grid, NWG * WG, smem, stream>>>(
+  flash_fwd_sm90_kernel<D, DV, NWG><<<grid, NWG * WG, smem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
       Sq, Skv, H, K, LOG2E / sqrtf(static_cast<float>(D)), causal);
   return cudaGetLastError();
 }
 
 // Two q-heads a block when they share a kv-head (H/K even), else one.
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* lse, int B,
                    int Sq, int Skv, int H, int K, int causal, cudaStream_t stream) {
   CUtensorMap maps[3];
-  if (!make_maps<D>(maps, q, k, v, B, Sq, Skv, H, K)) return cudaErrorInvalidValue;
+  if (!make_maps<D, DV>(maps, q, k, v, B, Sq, Skv, H, K)) return cudaErrorInvalidValue;
   if ((H / K) % 2 == 0)
-    return launch_nwg<D, 2>(maps, out, lse, B, Sq, Skv, H, K, causal, stream);
-  return launch_nwg<D, 1>(maps, out, lse, B, Sq, Skv, H, K, causal, stream);
+    return launch_nwg<D, DV, 2>(maps, out, lse, B, Sq, Skv, H, K, causal, stream);
+  return launch_nwg<D, DV, 1>(maps, out, lse, B, Sq, Skv, H, K, causal, stream);
 }
 
 }  // namespace
 
-// q (B,Sq,H,D), k/v (B,Skv,K,D) contiguous bf16 with 16-byte aligned
-// pointers; out (B,Sq,H,D) bf16, lse (B,H,Sq) fp32.  Returns the
+// q (B,Sq,H,D), k (B,Skv,K,D), v (B,Skv,K,Dv) contiguous bf16 with 16-byte
+// aligned pointers; out (B,Sq,H,Dv) bf16, lse (B,H,Sq) fp32.  Returns the
 // cudaError_t of the launch (cudaErrorInvalidValue when a tensor map cannot
-// be made or D is not 32, 64 or 128).
+// be made or (D, Dv) is not one of (32, 32), (64, 64), (96, 96), (128, 128),
+// (96, 64)).
 extern "C" int repro_flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
                                               void* out, void* lse, int B, int Sq, int Skv,
-                                              int H, int K, int D, int causal,
+                                              int H, int K, int D, int Dv, int causal,
                                               void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 96 && Dv == 64)
+    return launch<96, 64>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
+  if (D != Dv) return cudaErrorInvalidValue;
   switch (D) {
-    case 32: return launch<32>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
-    case 64: return launch<64>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
-    case 128: return launch<128>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
+    case 32: return launch<32, 32>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
+    case 64: return launch<64, 64>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
+    case 96: return launch<96, 96>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
+    case 128: return launch<128, 128>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -333,14 +361,18 @@ extern "C" int repro_flash_attention_fwd_sm90(const void* q, const void* k, cons
 // nothing: what a call spends on its descriptors, timed by the caller.
 // Returns 0, or cudaErrorInvalidValue when a map cannot be made.
 extern "C" int repro_flash_sm90_describe(const void* q, const void* k, const void* v, int B,
-                                         int Sq, int Skv, int H, int K, int D, int reps) {
+                                         int Sq, int Skv, int H, int K, int D, int Dv,
+                                         int reps) {
   CUtensorMap maps[3];
   for (int i = 0; i < reps; ++i) {
     const bool ok =
-        D == 32    ? make_maps<32>(maps, q, k, v, B, Sq, Skv, H, K)
-        : D == 64  ? make_maps<64>(maps, q, k, v, B, Sq, Skv, H, K)
-        : D == 128 ? make_maps<128>(maps, q, k, v, B, Sq, Skv, H, K)
-                   : false;
+        D == 96 && Dv == 64 ? make_maps<96, 64>(maps, q, k, v, B, Sq, Skv, H, K)
+        : D != Dv           ? false
+        : D == 32           ? make_maps<32, 32>(maps, q, k, v, B, Sq, Skv, H, K)
+        : D == 64           ? make_maps<64, 64>(maps, q, k, v, B, Sq, Skv, H, K)
+        : D == 96           ? make_maps<96, 96>(maps, q, k, v, B, Sq, Skv, H, K)
+        : D == 128          ? make_maps<128, 128>(maps, q, k, v, B, Sq, Skv, H, K)
+                            : false;
     if (!ok) return cudaErrorInvalidValue;
   }
   return cudaSuccess;

@@ -396,12 +396,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, void*
 // q (B,Sq,H,D), k/v (B,Skv,K,D) contiguous fp32 with 16-byte aligned
 // pointers; out (B,Sq,H,D) fp32, lse (B,H,Sq) fp32.  Returns the
 // cudaError_t of the launch (cudaErrorInvalidValue when a tensor map cannot
-// be made or D is not 32, 64 or 128).
+// be made, D is not 32, 64 or 128, or Dv != D).
 extern "C" int repro_flash_attention_fwd_sm90_fp32(const void* q, const void* k,
                                                    const void* v, void* out, void* lse, int B,
                                                    int Sq, int Skv, int H, int K, int D,
-                                                   int causal, void* stream) {
+                                                   int Dv, int causal, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Dv != D) return cudaErrorInvalidValue;
   switch (D) {
     case 32: return launch<32>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
     case 64: return launch<64>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);

@@ -23,11 +23,14 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared-memory geometry of a tile with D columns of E-byte elements (E = 2:
 // bf16, E = 4: fp32): a tile of `rows` rows is NATOM column atoms of rows x
-// SW bytes (SW = the swizzle span: 64 bf16 columns, or 32 for bf16 D=32; 32
-// fp32 columns), each starting on a 1024-byte boundary.
+// SW bytes, each starting on a 1024-byte boundary.  SW, the swizzle span,
+// is the larger of 128 and 64 bytes that divides a row: 64 bf16 columns
+// (D = 64, 128), 32 for bf16 D = 32 and D = 96 (a 192-byte row is three
+// 64-byte atoms, not one 128-byte atom and a stray half), 32 fp32 columns.
 template <int D, int E = 2>
 struct Geo {
-  static constexpr int SW = D * E >= 128 ? 128 : D * E;
+  static constexpr int SW = D * E % 128 == 0 ? 128 : 64;
+  static_assert(D * E % SW == 0, "the swizzle atoms must cover a row exactly");
   static constexpr int ATOM = SW / E;
   static constexpr int NATOM = D / ATOM;
   static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma: 128B or 64B swizzle
@@ -231,6 +234,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

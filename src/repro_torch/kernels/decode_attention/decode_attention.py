@@ -14,10 +14,10 @@ import ctypes
 
 import torch
 
+from .. import head_dims
 from ..build import CudaKernel
 
 NEG_INF = -2.0e38
-HEAD_DIMS = (32, 64, 128)
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
@@ -82,9 +82,7 @@ def decode_attention_fwd(q, k_cache, v_cache, *, cache_index: int):
                         f"one of float32, bfloat16")
     B, _, H, D = q.shape
     _, S, K, Dv = v_cache.shape
-    if D not in HEAD_DIMS or Dv != D:
-        raise ValueError(f"decode_attention_fwd: head dims D={D}, Dv={Dv}; "
-                         f"the kernel takes D == Dv in {HEAD_DIMS}")
+    head_dims.check("decode_attention_fwd", "decode", q.dtype, D, Dv)
     if not (q.is_contiguous() and k_cache.is_contiguous()
             and v_cache.is_contiguous()):
         raise ValueError("decode_attention_fwd: inputs must be contiguous")

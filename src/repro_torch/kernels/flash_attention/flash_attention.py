@@ -28,15 +28,15 @@ import ctypes
 
 import torch
 
+from .. import head_dims
 from ..build import CudaKernel
 
 NEG_INF = -2.0e38
-HEAD_DIMS = (32, 64, 128)
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
-# the forward kernels take (q, k, v, out, lse, B, Sq, Skv, H, K, D, causal,
-# stream)
-_FWD_ARGS = [_p] * 5 + [_i] * 7 + [_p]
+# the forward kernels take (q, k, v, out, lse, B, Sq, Skv, H, K, D, Dv,
+# causal, stream)
+_FWD_ARGS = [_p] * 5 + [_i] * 8 + [_p]
 SM90_KERNEL = CudaKernel("flash_attention_sm90.cu",
                          "repro_flash_attention_fwd_sm90", _FWD_ARGS)
 SM90_FP32_KERNEL = CudaKernel("flash_attention_sm90_fp32.cu",
@@ -91,9 +91,10 @@ def _check(q, k, v, name="flash_attention_fwd"):
         raise ValueError(f"{name}: empty sequence")
 
 
-def _check_cuda(name, q, k, v, *more):
+def _check_cuda(name, kind, q, k, v, *more):
     """What the kernels take: one CUDA device, one dtype (fp32 or bf16),
-    D == Dv in HEAD_DIMS, contiguous tensors."""
+    head dims the ``kind`` ("flash_fwd" or "flash_bwd") of kernel takes
+    (``head_dims``), contiguous tensors."""
     ts = (q, k, v) + more
     if q.device.type != "cuda" or any(t.device != q.device for t in ts):
         raise ValueError(f"{name}: inputs on "
@@ -103,10 +104,7 @@ def _check_cuda(name, q, k, v, *more):
         raise TypeError(f"{name}: dtypes "
                         f"{', '.join(str(t.dtype) for t in ts)}; the kernel "
                         "takes one of float32, bfloat16")
-    D, Dv = q.shape[3], v.shape[3]
-    if D not in HEAD_DIMS or Dv != D:
-        raise ValueError(f"{name}: head dims D={D}, Dv={Dv}; the "
-                         f"kernel takes D == Dv in {HEAD_DIMS}")
+    head_dims.check(name, kind, q.dtype, q.shape[3], v.shape[3])
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{name}: inputs must be contiguous")
 
@@ -143,7 +141,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
-    _check_cuda("flash_attention_fwd", q, k, v)
+    _check_cuda("flash_attention_fwd", "flash_fwd", q, k, v)
     _check_tma("flash_attention_fwd", q, k, v)
     B, Sq, H, D = q.shape
     _, Skv, K, Dv = v.shape
@@ -153,7 +151,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         forward_kernel(q.dtype).launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, Sq, Skv, H, K, D, int(causal), stream)
+            lse.data_ptr(), B, Sq, Skv, H, K, D, Dv, int(causal), stream)
     return out, lse
 
 
@@ -203,7 +201,7 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True):
                          f"q {tuple(q.shape)}, v {tuple(v.shape)}")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal)
-    _check_cuda("flash_attention_bwd", q, k, v, out, g)
+    _check_cuda("flash_attention_bwd", "flash_bwd", q, k, v, out, g)
     if lse.dtype != torch.float32 or lse.device != q.device \
             or not lse.is_contiguous():
         raise TypeError("flash_attention_bwd: lse must be contiguous float32 "

@@ -1,0 +1,40 @@
+"""Which head dims each CUDA kernel takes: a pure function of the kernel,
+the dtype and (D, Dv), so the rule is tested without a card.
+
+The bf16 flash forward takes D == Dv in {32, 64, 96, 128} and (D, Dv) =
+(96, 64), MLA's prefill (64 nope + 32 rope dims of q and k, 64 of v).
+Decode takes D == Dv in {32, 64, 96, 128} in both dtypes.  The fp32
+forward and both backward pairs take D == Dv in {32, 64, 128}.  A wrapper
+given anything else on CUDA raises, naming the shape; there is no fall-back
+to the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_SQUARE = ((32, 32), (64, 64), (128, 128))
+_WITH_96 = ((32, 32), (64, 64), (96, 96), (128, 128))
+
+HEAD_DIMS = {
+    ("flash_fwd", torch.bfloat16): _WITH_96 + ((96, 64),),
+    ("flash_fwd", torch.float32): _SQUARE,
+    ("flash_bwd", torch.bfloat16): _SQUARE,
+    ("flash_bwd", torch.float32): _SQUARE,
+    ("decode", torch.bfloat16): _WITH_96,
+    ("decode", torch.float32): _WITH_96,
+}
+
+
+def takes(kernel: str, dtype: torch.dtype, D: int, Dv: int) -> bool:
+    """Whether ``kernel`` ("flash_fwd", "flash_bwd" or "decode") takes
+    head dims (D, Dv) in ``dtype``."""
+    return (D, Dv) in HEAD_DIMS.get((kernel, dtype), ())
+
+
+def check(name: str, kernel: str, dtype: torch.dtype, D: int, Dv: int) -> None:
+    """Raises ``ValueError`` naming the shape when ``takes`` says no."""
+    if not takes(kernel, dtype, D, Dv):
+        pairs = ", ".join(f"({d}, {dv})" for d, dv in HEAD_DIMS.get((kernel, dtype), ()))
+        raise ValueError(f"{name}: head dims D={D}, Dv={Dv} in {str(dtype)[6:]}; the "
+                         f"kernel takes (D, Dv) in {pairs}")

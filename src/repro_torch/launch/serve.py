@@ -4,7 +4,11 @@
         --requests 16 --services 2 --prompt-len 512 --new-tokens 64
 
 Runs on ``cuda:0``; ``--device cpu`` (with ``--reduced``) runs the same
-path on the CPU through the kernels' plain versions.
+path on the CPU through the kernels' plain versions.  Archs are served
+from text prompts, as by the reference's launcher: a vision model
+without patch embeddings.  An encoder-decoder arch (whisper) is refused:
+its tasks need encoder frames, which ``serve_requests`` does not build
+(run ``make_generate_program`` on tasks that carry ``enc_frames``).
 """
 
 from __future__ import annotations
@@ -39,6 +43,9 @@ def main() -> None:
 
     device = resolve_device(args.device)
     cfg = cfgs.get(args.arch)
+    if cfg.is_encoder_decoder:
+        ap.error(f"{cfg.name}: every task needs encoder frames (enc_frames); "
+                 "this launcher serves text prompts only")
     if args.reduced:
         cfg = cfgs.reduced(cfg)
     api = build(cfg)

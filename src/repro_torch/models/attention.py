@@ -1,5 +1,5 @@
-"""GQA attention: training, prefill and cached decode, plus the plain
-references.
+"""GQA attention: training, prefill and cached decode, self- or
+cross-attention, plus the plain references.
 
 The attention products themselves go through the ``AttentionOps`` pair
 the model's entry points pass down, by default the dispatch of
@@ -7,7 +7,9 @@ the model's entry points pass down, by default the dispatch of
 and flash-decode kernels, on a CPU tensor their plain PyTorch versions.  ``chunked_attention`` and
 ``decode_attention_xla`` are the plain references of the reference
 package's XLA path (a chunked online softmax and a masked one-token
-decode); the dispatch uses them for windowed attention on the CPU.
+decode); the dispatch uses them for windowed attention on the CPU, and
+whisper's decoder uses ``decode_attention_xla`` for its cross-attention
+decode on every device, as the reference does (it has no kernel there).
 """
 
 from __future__ import annotations
@@ -113,52 +115,92 @@ class Attention(nn.Module):
             self.k_norm = ones(hd, pd, g.device)
         self.cfg = cfg
 
-    def _project_qkv(self, x, positions):
+    def _q(self, x):
         cfg = self.cfg
         B, S, _ = x.shape
-        hd, dt = cfg.head_dim, cfg.dtype
-        q = (x @ self.wq.to(dt)).reshape(B, S, cfg.n_heads, hd)
-        k = (x @ self.wk.to(dt)).reshape(B, S, cfg.n_kv_heads, hd)
-        v = (x @ self.wv.to(dt)).reshape(B, S, cfg.n_kv_heads, hd)
+        return (x @ self.wq.to(cfg.dtype)).reshape(B, S, cfg.n_heads, cfg.head_dim)
+
+    def cross_kv(self, src):
+        """(k, v) of an external source (B,Skv,d): the encoder output a
+        whisper decoder layer attends to, with no qk-norm and no rope."""
+        cfg = self.cfg
+        B, Skv, _ = src.shape
+        dt, hd = cfg.dtype, cfg.head_dim
+        k = (src @ self.wk.to(dt)).reshape(B, Skv, cfg.n_kv_heads, hd)
+        v = (src @ self.wv.to(dt)).reshape(B, Skv, cfg.n_kv_heads, hd)
+        return k, v
+
+    def _project_qkv(self, x, positions):
+        """q, k, v of ``x``; rope at ``positions``, or none when it is None
+        (whisper's sinusoidal-position layers)."""
+        cfg = self.cfg
+        q = self._q(x)
+        k, v = self.cross_kv(x)
         if cfg.qk_norm:  # qk-norm before rope
             q = rms_norm(self.q_norm, q)
             k = rms_norm(self.k_norm, k)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if positions is not None:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
+
+    @staticmethod
+    def _positions(x, use_rope):
+        return torch.arange(x.shape[1], device=x.device) if use_rope else None
 
     def _out(self, o):
         B, S = o.shape[:2]
         return o.reshape(B, S, -1) @ self.wo.to(self.cfg.dtype)
 
-    def forward_train(self, x, *, window, ops: AttentionOps):
-        """Differentiable causal self-attention over the whole sequence
-        (the reference's ``apply_attention_train``)."""
-        positions = torch.arange(x.shape[1], device=x.device)
-        q, k, v = self._project_qkv(x, positions)
-        return self._out(ops.train(q, k, v, causal=True, window=window))
+    def forward_train(self, x, *, window, ops: AttentionOps, causal=True,
+                      use_rope=True, kv=None):
+        """Differentiable attention over the whole sequence (the
+        reference's ``apply_attention_train``): self-attention, or with
+        ``kv`` (B,Skv,d) non-causal cross-attention with no rope."""
+        if kv is None:
+            q, k, v = self._project_qkv(x, self._positions(x, use_rope))
+        else:
+            q, (k, v), causal = self._q(x), self.cross_kv(kv), False
+        return self._out(ops.train(q, k, v, causal=causal, window=window))
 
-    def prefill(self, x, *, window, ops: AttentionOps):
-        """Causal attention over the prompt; also returns its (k, v)."""
-        positions = torch.arange(x.shape[1], device=x.device)
-        q, k, v = self._project_qkv(x, positions)
-        out = ops.prefill(q, k, v, causal=True, window=window)
+    def prefill(self, x, *, window, ops: AttentionOps, use_rope=True,
+                causal=True):
+        """Attention over the prompt (causal unless told otherwise: whisper's
+        encoder); also returns its (k, v)."""
+        q, k, v = self._project_qkv(x, self._positions(x, use_rope))
+        out = ops.prefill(q, k, v, causal=causal, window=window)
         return self._out(out), {"k": k, "v": v}
 
+    def cross_prefill(self, x, k, v, *, ops: AttentionOps):
+        """Non-causal attention of ``x``'s queries over the cross cache
+        (k, v) (``cross_kv`` of the encoder output)."""
+        return self._out(ops.prefill(self._q(x), k, v, causal=False))
+
+    def cross_decode(self, x, cache):
+        """One token against the static cross cache {"k","v"}: the plain
+        ``decode_attention_xla`` at cache_index Skv - 1, on every device
+        (the reference's ``kv_cross`` decode has no kernel)."""
+        out = decode_attention_xla(self._q(x), cache["k"], cache["v"],
+                                   cache_index=cache["k"].shape[1] - 1)
+        return self._out(out)
+
     def decode(self, x, cache, *, cache_index: int, window,
-               ops: AttentionOps):
+               ops: AttentionOps, use_rope=True):
         """One-token decode. x: (B,1,d); cache {"k","v"}: (B,S,K,hd).
         The new token's k/v are written into the cache IN PLACE at
         ``cache_index`` (the reference returns an updated copy); the
         same cache dict is returned."""
-        positions = torch.full((1,), cache_index, dtype=torch.int64,
-                               device=x.device)
+        positions = (torch.full((1,), cache_index, dtype=torch.int64,
+                                device=x.device) if use_rope else None)
         q, k, v = self._project_qkv(x, positions)
         cache["k"][:, cache_index] = k[:, 0].to(cache["k"].dtype)
         cache["v"][:, cache_index] = v[:, 0].to(cache["v"].dtype)
         out = ops.decode(q, cache["k"], cache["v"], cache_index=cache_index,
                          window=window)
         return self._out(out), cache
+
+    def make_cache(self, batch: int, seq_len: int):
+        return make_empty_cache(self.cfg, batch, seq_len, self.wo.device)
 
 
 def make_empty_cache(cfg: ModelConfig, batch: int, seq_len: int, device):

@@ -1,7 +1,7 @@
-"""Block assembly: one pre-norm block (an attention or Mamba mixer, then
-a dense MLP or none), and the layer stack as an ``nn.ModuleList`` run by
-a Python loop (the reference package scans over parameters stacked along
-a repeats axis)."""
+"""Block assembly: one pre-norm block (an attention — GQA or MLA — or
+Mamba mixer, then a dense MLP or none), and the layer stack as an
+``nn.ModuleList`` run by a Python loop (the reference package scans over
+parameters stacked along a repeats axis)."""
 
 from __future__ import annotations
 
@@ -9,33 +9,43 @@ import torch
 from torch import nn
 
 from ..kernels import AttentionOps
-from .attention import Attention, make_empty_cache
+from .attention import Attention
 from .common import BlockSpec, ModelConfig
-from .layers import RMSNorm, SwiGLU
+from .layers import make_mlp, make_norm
 from .mamba import Mamba
+from .mla import MLA
+
+
+def pad_seq(a: torch.Tensor, seq_budget: int) -> torch.Tensor:
+    """``a`` (B, S, ...) zero-padded along S to ``seq_budget`` positions."""
+    c = a.new_zeros((a.shape[0], seq_budget) + tuple(a.shape[2:]))
+    c[:, :a.shape[1]] = a
+    return c
 
 
 class Block(nn.Module):
     """``x + mixer(norm(x))`` then, unless the MLP is "none",
-    ``x + mlp(norm(x))``.  The mixer is ``attn`` (GQA) or ``mamba``; the
-    MLP ``dense`` (SwiGLU) or ``none``.  A Mamba mixer ignores
-    ``cache_index`` and ``seq_budget``: its state has a fixed size."""
+    ``x + mlp(norm(x))``.  The mixer is ``attn`` (GQA, or MLA when
+    ``cfg.attention == "mla"``) or ``mamba``; the MLP ``dense`` (SwiGLU or
+    GELU by ``cfg.mlp_act``) or ``none``; the norms RMS or Layer by
+    ``cfg.norm_type``.  A Mamba mixer ignores ``cache_index`` and
+    ``seq_budget``: its state has a fixed size."""
 
     def __init__(self, cfg: ModelConfig, spec: BlockSpec, g: torch.Generator):
         super().__init__()
         if (spec.mixer not in ("attn", "mamba") or spec.mlp not in ("dense", "none")
-                or (spec.mixer == "attn" and cfg.attention != "gqa")):
+                or (spec.mixer == "attn" and cfg.attention not in ("gqa", "mla"))):
             raise NotImplementedError(
-                f"block {spec} of {cfg.name} is not ported: only attn (GQA) or "
-                "mamba mixers with a dense MLP or none")
-        self.mixer_norm = RMSNorm(cfg.d_model, cfg.pdtype, g.device)
+                f"block {spec} of {cfg.name} is not ported: only attn (GQA or "
+                "MLA) or mamba mixers with a dense MLP or none")
+        self.mixer_norm = make_norm(cfg, g.device)
         if spec.mixer == "attn":
-            self.attn = Attention(cfg, g)
+            self.attn = MLA(cfg, g) if cfg.attention == "mla" else Attention(cfg, g)
         else:
             self.mamba = Mamba(cfg, g)
         if spec.mlp == "dense":
-            self.mlp_norm = RMSNorm(cfg.d_model, cfg.pdtype, g.device)
-            self.mlp = SwiGLU(cfg, g)
+            self.mlp_norm = make_norm(cfg, g.device)
+            self.mlp = make_mlp(cfg, g)
         self.spec = spec
         self.cfg = cfg
 
@@ -56,19 +66,15 @@ class Block(nn.Module):
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def prefill(self, x, *, seq_budget: int, ops: AttentionOps):
-        """Returns (x, cache).  An attention cache is zero-padded to
-        ``seq_budget`` positions, leaving slots for the decoded tokens; a
-        Mamba cache is the layer's state after the prompt."""
+        """Returns (x, cache).  An attention cache (K/V, or MLA's latent)
+        is zero-padded to ``seq_budget`` positions, leaving slots for the
+        decoded tokens; a Mamba cache is the layer's state after the
+        prompt."""
         if self.spec.mixer == "mamba":
             h, cache = self.mamba.prefill(self.mixer_norm(x), ops=ops)
             return self._mlp(x + h), cache
-        h, kv = self.attn.prefill(self.mixer_norm(x), window=self.spec.window,
-                                  ops=ops)
-        cache = {}
-        for name, a in kv.items():
-            c = a.new_zeros((a.shape[0], seq_budget) + tuple(a.shape[2:]))
-            c[:, :a.shape[1]] = a
-            cache[name] = c
+        h, kv = self.attn.prefill(self.mixer_norm(x), window=self.spec.window, ops=ops)
+        cache = {name: pad_seq(a, seq_budget) for name, a in kv.items()}
         return self._mlp(x + h), cache
 
     def decode(self, x, cache, *, cache_index: int, ops: AttentionOps):
@@ -81,11 +87,11 @@ class Block(nn.Module):
         return self._mlp(x + h), cache
 
     def make_cache(self, batch: int, seq_len: int):
-        """An empty cache: (B, seq_len) KV slots, or a zero Mamba state."""
+        """An empty cache: (B, seq_len) KV or latent slots, or a zero Mamba
+        state."""
         if self.spec.mixer == "mamba":
             return self.mamba.make_empty_state(batch)
-        return make_empty_cache(self.cfg, batch, seq_len,
-                                self.mixer_norm.scale.device)
+        return self.attn.make_cache(batch, seq_len)
 
 
 def make_blocks(cfg: ModelConfig, g: torch.Generator) -> nn.ModuleList:

@@ -1,16 +1,20 @@
-"""Model configuration for the families the port runs: dense GQA
-decoders and Mamba-1 SSMs.
+"""Model configuration for the families the port runs: dense GQA and
+MHA decoders, MLA (minicpm3), the vision LM (phi-3-vision's backbone
+with its patch-embedding stub), the whisper encoder-decoder and Mamba-1
+SSMs.
 
 A model is a *block pattern* (a short tuple of ``BlockSpec``) repeated
 ``n_repeats`` times, as in the reference package; the port runs the
-layers as a loop over an ``nn.ModuleList``.  Ported blocks: attention +
-SwiGLU MLP (qwen3, llama) and mamba with no MLP (falcon-mamba); blocks
-of any other pattern are rejected when the model is built.
+layers as a loop over an ``nn.ModuleList``.  Ported blocks: attention
+(GQA or MLA) + a dense MLP (SwiGLU or GELU) and mamba with no MLP
+(falcon-mamba); blocks of any other pattern (MoE) are rejected when the
+model is built.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import torch
@@ -42,7 +46,7 @@ class BlockSpec:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | ssm
+    family: str  # dense | ssm | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -52,18 +56,38 @@ class ModelConfig:
     head_dim: int = 0  # 0 -> d_model // n_heads
     pattern: tuple[BlockSpec, ...] = ()
 
-    attention: str = "gqa"  # "gqa" | "none"
+    attention: str = "gqa"  # "gqa" | "mla" | "none"
     qk_norm: bool = False
     rope_theta: float = 10000.0
-    tie_embeddings: bool = False
+    # MLA (DeepSeek/MiniCPM3 style multi-head latent attention)
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_rope_head_dim: int = 0
+    qk_nope_head_dim: int = 0
+    v_head_dim: int = 0
 
     ssm: SSMConfig | None = None
+
+    # encoder-decoder (whisper backbone)
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq_len: int = 1500  # whisper stub frontend frames
+
+    # modality frontend stubs
+    frontend: str | None = None  # None | "audio" | "vision"
+    n_patch_tokens: int = 256  # vision stub: patch embeds before the text
+
+    norm_type: str = "rmsnorm"  # "rmsnorm" | "layernorm"
+    mlp_act: str = "swiglu"  # "swiglu" | "gelu"
+    tie_embeddings: bool = False
 
     # numerics: names of torch dtypes; training policy
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     remat: bool = False  # carried from the reference; True is not ported
     opt_state_dtype: str = "float32"  # AdamW moments: float32 | bfloat16 | int8
+
+    max_seq_len: int = 4096
 
     def __post_init__(self) -> None:
         if self.head_dim == 0:
@@ -96,3 +120,16 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+def sinusoidal_positions(n: int, d: int, device=None,
+                         offset: int = 0) -> torch.Tensor:
+    """Whisper-style sinusoidal position embeddings of positions
+    ``offset .. offset + n - 1``: (n, d) fp32, sin then cos halves."""
+    half = d // 2
+    log_timescale = math.log(10000.0) / max(half - 1, 1)
+    inv = torch.exp(-log_timescale * torch.arange(half, dtype=torch.float32,
+                                                  device=device))
+    pos = torch.arange(offset, offset + n, dtype=torch.float32, device=device)
+    scaled = pos[:, None] * inv[None, :]
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1)

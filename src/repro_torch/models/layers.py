@@ -1,4 +1,5 @@
-"""Shared layers: RMSNorm, qk-norm, RoPE, SwiGLU MLP, embeddings.
+"""Shared layers: RMSNorm, LayerNorm, qk-norm, RoPE, SwiGLU and GELU
+MLPs, embeddings.
 
 Weights are kept in the reference package's layout — a projection is a
 ``(d_in, d_out)`` matrix applied as ``x @ w`` — so converted parameters
@@ -52,6 +53,30 @@ class RMSNorm(nn.Module):
         return rms_norm(self.scale, x)
 
 
+class LayerNorm(nn.Module):
+    """LayerNorm with scale and bias at eps 1e-6 (the reference's, not
+    torch's 1e-5), computed in fp32, returned in the input's dtype."""
+
+    def __init__(self, dim: int, dtype: torch.dtype, device):
+        super().__init__()
+        self.scale = ones(dim, dtype, device)
+        self.bias = _param(torch.zeros(dim, dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf - mean).square().mean(-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + eps)
+        return (y * self.scale.float() + self.bias.float()).to(x.dtype)
+
+
+def make_norm(cfg: ModelConfig, device) -> nn.Module:
+    """The config's norm over d_model: RMSNorm or LayerNorm (``norm_type``)."""
+    if cfg.norm_type == "layernorm":
+        return LayerNorm(cfg.d_model, cfg.pdtype, device)
+    return RMSNorm(cfg.d_model, cfg.pdtype, device)
+
+
 def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
     """RMSNorm over the last axis in fp32; also the head-wise qk-norm when
     ``x`` is (..., heads, head_dim) and ``scale`` is (head_dim,)."""
@@ -96,6 +121,28 @@ class SwiGLU(nn.Module):
         dt = self.dtype
         h = nn.functional.silu(x @ self.wg.to(dt)) * (x @ self.wi.to(dt))
         return h @ self.wo.to(dt)
+
+
+class GeluMLP(nn.Module):
+    """``gelu(x wi) wo`` with no bias; GELU's tanh approximation, which is
+    ``jax.nn.gelu``'s default."""
+
+    def __init__(self, cfg: ModelConfig, g: torch.Generator):
+        super().__init__()
+        d, ff, pd = cfg.d_model, cfg.d_ff, cfg.pdtype
+        self.wi = dense_init(g, (d, ff), pd)
+        self.wo = dense_init(g, (ff, d), pd)
+        self.dtype = cfg.dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        h = nn.functional.gelu(x @ self.wi.to(dt), approximate="tanh")
+        return h @ self.wo.to(dt)
+
+
+def make_mlp(cfg: ModelConfig, g: torch.Generator) -> nn.Module:
+    """The config's dense MLP: SwiGLU or GELU (``mlp_act``)."""
+    return GeluMLP(cfg, g) if cfg.mlp_act == "gelu" else SwiGLU(cfg, g)
 
 
 # --------------------------------------------------------------------- #

@@ -1,5 +1,5 @@
-"""Decoder-only LM built from the block stack: training, prefill and
-decode.
+"""Decoder-only LM (and VLM backbone) built from the block stack:
+training, prefill and decode.
 
 ``LM`` is the port's parameter tree: an ``nn.Module`` whose weights live
 on one device.  Its entry points take and return the reference
@@ -9,8 +9,12 @@ package's shapes:
   decode     -> (logits (B,V) fp32, caches)   [caches updated in place]
 All take ``ops``, the attention and scan functions every layer calls:
 the kernels' dispatch by default (see ``repro_torch.kernels``).  A
-layer's cache is a KV cache (attention) or a Mamba state.  Weights are
-created with ``requires_grad=False``; a trainer turns it on.
+layer's cache is a KV cache (GQA), a latent cache (MLA) or a Mamba state.
+A vision config (phi-3-vision) takes precomputed ``patch_embeds`` (B,P,d)
+in its batch, projected by ``patch_proj`` and placed before the text
+tokens, the reference's CLIP-frontend stub; its loss covers the text
+positions only.  Weights are created with ``requires_grad=False``; a
+trainer turns it on.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from torch import nn
 from ..kernels import DISPATCH, AttentionOps
 from .blocks import make_blocks
 from .common import ModelConfig
-from .layers import Embedding, RMSNorm
+from .layers import Embedding, dense_init, make_norm
 from .loss import fused_cross_entropy
 
 
@@ -31,9 +35,12 @@ class LM(nn.Module):
         self.cfg = cfg
         self.embed = Embedding(cfg, g)
         self.blocks = make_blocks(cfg, g)
-        self.final_norm = RMSNorm(cfg.d_model, cfg.pdtype, g.device)
+        self.final_norm = make_norm(cfg, g.device)
         if not cfg.tie_embeddings:
             self.lm_head = Embedding(cfg, g)
+        if cfg.frontend == "vision":
+            # stub projection of precomputed patch embeddings
+            self.patch_proj = dense_init(g, (cfg.d_model, cfg.d_model), cfg.pdtype)
         self.refresh()
 
     @property
@@ -48,22 +55,37 @@ class LM(nn.Module):
         so services never race to build it.  Call after changing weights."""
         self.head().table_f32()
 
+    def _has_patches(self, batch) -> bool:
+        return self.cfg.frontend == "vision" and "patch_embeds" in batch
+
+    def _embed_inputs(self, batch):
+        """Token embeddings, after the projected patch embeddings when the
+        batch has them."""
+        x = self.embed(batch["tokens"])
+        if self._has_patches(batch):
+            dt = self.cfg.dtype
+            pe = batch["patch_embeds"].to(dt) @ self.patch_proj.to(dt)
+            x = torch.cat([pe, x], dim=1)
+        return x
+
     def train_loss(self, batch, *, ops: AttentionOps = DISPATCH):
-        """batch: tokens (B,S) int, targets (B,S) int [, loss_mask (B,S)].
-        Returns (loss + aux, {"ce_loss", "aux_loss"}), fp32 scalars; the
-        reference's ``forward_train``."""
+        """batch: tokens (B,S) int, targets (B,S) int [, loss_mask (B,S),
+        patch_embeds (B,P,d)].  Returns (loss + aux, {"ce_loss",
+        "aux_loss"}), fp32 scalars; the reference's ``forward_train``."""
         if self.cfg.remat:
             raise NotImplementedError(
                 f"{self.cfg.name}: remat=True is not ported (activations "
                 "are kept for the backward)")
         if ops.train is None:
             raise ValueError("train_loss needs AttentionOps with a train member")
-        x = self.embed(batch["tokens"])
+        x = self._embed_inputs(batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.blocks:
             x, a = blk.forward_train(x, ops=ops)
             aux = aux + a
         x = self.final_norm(x)
+        if self._has_patches(batch):
+            x = x[:, batch["patch_embeds"].shape[1]:]  # text positions only
         loss = fused_cross_entropy(x, self.head().table, batch["targets"],
                                    batch.get("loss_mask"))
         return loss + aux, {"ce_loss": loss, "aux_loss": aux}
@@ -71,8 +93,9 @@ class LM(nn.Module):
     @torch.no_grad()
     def prefill(self, batch, *, seq_budget: int | None = None,
                 ops: AttentionOps = DISPATCH):
-        """batch: tokens (B,S) int. Returns (last-token logits (B,V), caches)."""
-        x = self.embed(batch["tokens"])
+        """batch: tokens (B,S) int [, patch_embeds (B,P,d)].  Returns
+        (last-token logits (B,V), caches)."""
+        x = self._embed_inputs(batch)
         seq_budget = max(seq_budget or 0, x.shape[1])
         caches = []
         for blk in self.blocks:
@@ -94,5 +117,5 @@ class LM(nn.Module):
         return self.head().unembed(x)[:, 0], caches
 
     def make_caches(self, batch: int, seq_len: int):
-        """Each layer's empty cache: KV slots or a Mamba state."""
+        """Each layer's empty cache: KV or latent slots, or a Mamba state."""
         return [blk.make_cache(batch, seq_len) for blk in self.blocks]

@@ -2,10 +2,13 @@
 port's modules.
 
 ``build(cfg)`` returns a ``ModelAPI``.  ``init(generator)`` makes the
-parameters (an :class:`~repro_torch.models.lm.LM`) on the generator's
-device; ``train_loss``/``prefill``/``decode`` take those parameters
-first, as in the reference.  Ported families: ``dense`` (GQA decoders)
-and ``ssm`` (Mamba-1, falcon-mamba).
+parameters (an :class:`~repro_torch.models.lm.LM`, or for an
+encoder-decoder config an :class:`~repro_torch.models.encdec.EncDec`) on
+the generator's device; ``train_loss``/``prefill``/``decode`` take those
+parameters first, as in the reference.  Ported families: ``dense`` (GQA,
+MHA and MLA decoders), ``ssm`` (Mamba-1, falcon-mamba), ``vlm``
+(phi-3-vision's backbone with its patch stub) and ``audio`` (whisper's
+encoder-decoder).  The MoE families are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,13 +19,16 @@ from typing import Any, Callable
 import torch
 
 from .common import ModelConfig
+from .encdec import EncDec
 from .lm import LM
+
+FAMILIES = ("dense", "ssm", "vlm", "audio")
 
 
 @dataclass
 class ModelAPI:
     cfg: ModelConfig
-    init: Callable[[torch.Generator], LM]
+    init: Callable[[torch.Generator], LM | EncDec]
     train_loss: Callable[..., Any]
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
@@ -30,12 +36,14 @@ class ModelAPI:
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA decoders and Mamba SSMs are ported")
+            f"{cfg.name}: the {cfg.family} family is not ported (ported: "
+            f"{', '.join(FAMILIES)}); the MoE families are not ported yet")
+    model = EncDec if cfg.is_encoder_decoder else LM
     return ModelAPI(
         cfg=cfg,
-        init=lambda g: LM(cfg, g),
+        init=lambda g: model(cfg, g),
         train_loss=lambda p, b, **kw: p.train_loss(b, **kw),
         prefill=lambda p, b, **kw: p.prefill(b, **kw),
         decode=lambda p, b, c, **kw: p.decode(

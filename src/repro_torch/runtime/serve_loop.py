@@ -8,9 +8,14 @@ Batched generation requests are *embarrassingly parallel*: each task is
     client   = BasicClient with pull scheduling, elastic recruitment and
                rescheduling of failed requests
 
-Payload token tensors are CPU integer tensors; the program moves them to
-the parameters' device, and ``serve_requests`` brings the generated
-tokens back to the CPU.
+A payload is a dict of CPU tensors: the prompt ``tokens`` and whatever
+else the model's prefill reads (whisper's ``enc_frames``, a vision
+model's ``patch_embeds``).  The program moves every tensor to the
+parameters' device and hands the whole payload to prefill, as the
+reference does; ``serve_requests`` builds token-only tasks and brings the
+generated tokens back to the CPU.  Decode writes its caches at
+``prompt_len + i``, as the reference's program does, which ignores a
+vision prefix: vision models are served text-only.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ class ServeConfig:
 
 
 def make_generate_program(api: ModelAPI, sc: ServeConfig, params) -> Program:
-    """payload: {"tokens": (B, prompt_len)} -> {"generated": (B, N)} int32.
+    """payload: {"tokens": (B, prompt_len), ...} -> {"generated": (B, N)}
+    int32.
 
     ``params`` are closed over (weights are resident on the service's
     device; the task payload is only the request batch — matching JJPF,
@@ -40,9 +46,9 @@ def make_generate_program(api: ModelAPI, sc: ServeConfig, params) -> Program:
     device = params.device
 
     def generate(payload):
-        tokens = payload["tokens"].to(device)
-        logits, caches = api.prefill(params, {"tokens": tokens},
-                                     seq_budget=budget)
+        batch = {k: v.to(device) if torch.is_tensor(v) else v
+                 for k, v in payload.items()}
+        logits, caches = api.prefill(params, batch, seq_budget=budget)
         toks = []
         for i in range(sc.max_new_tokens):
             nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]

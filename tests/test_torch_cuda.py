@@ -75,6 +75,23 @@ FLASH_SHAPES = [
 FLASH_CASES = [shape + (dt,) for shape in FLASH_SHAPES
                for dt in (torch.float32, torch.bfloat16)]
 
+# the head dims only the bf16 kernel takes, and whisper's shapes:
+# (B, Sq, Skv, H, K, D, Dv, causal)
+FLASH_BF16_SHAPES = [
+    (4, 512, 512, 40, 40, 96, 64, True),  # minicpm3's MLA prefill
+    (2, 13, 13, 40, 40, 96, 64, True),
+    (1, 100, 37, 4, 2, 96, 64, False),
+    (4, 512, 512, 32, 32, 96, 96, True),  # phi-3's prefill
+    (4, 768, 768, 32, 32, 96, 96, True),  # with 256 patch embeddings
+    (1, 13, 13, 32, 32, 96, 96, True),
+    (2, 130, 70, 8, 4, 96, 96, True),  # two q-heads a block
+    (4, 1500, 1500, 6, 6, 64, 64, False),  # whisper's encoder
+    (4, 64, 1500, 6, 6, 64, 64, False),  # whisper's cross-attention
+    (1, 13, 1500, 6, 6, 64, 64, False),
+    (4, 64, 64, 6, 6, 64, 64, True),  # whisper's decoder self-attention
+    (4, 13, 13, 6, 6, 64, 64, True),
+]
+
 DECODE_CASES = [
     # (B, S, H, K, D, cache_index, dtype)
     (4, 576, 16, 8, 128, 543, torch.bfloat16),
@@ -98,6 +115,16 @@ DECODE_CASES = [
     (1, 2048, 8, 8, 32, 2047, torch.float32),
     (1, 64, 12, 4, 64, 40, torch.float32),
     (1, 130, 16, 1, 64, 129, torch.bfloat16),
+    # D = 96 (phi-3): three elements a lane, strided by 32
+    (4, 544, 32, 32, 96, 543, torch.bfloat16),
+    (4, 544, 32, 32, 96, 543, torch.float32),
+    (1, 24, 32, 32, 96, 11, torch.bfloat16),
+    (2, 300, 16, 4, 96, 150, torch.float32),
+    (1, 576, 8, 1, 96, 575, torch.bfloat16),
+    # whisper's decoder self-attention: D = 64, G = 1, 128 slots
+    (4, 128, 6, 6, 64, 127, torch.bfloat16),
+    (4, 128, 6, 6, 64, 64, torch.bfloat16),
+    (4, 24, 6, 6, 64, 11, torch.bfloat16),
 ]
 
 
@@ -166,6 +193,26 @@ def test_flash_kernel_matches_plain(case, device):
     else:
         torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
         torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("case", FLASH_BF16_SHAPES)
+def test_bf16_flash_kernel_at_mla_phi3_and_whisper_shapes(case, device):
+    """D = 96 with Dv = 64 and 96 (MLA, phi-3), and whisper's non-causal
+    encoder and Sq != Skv cross-attention and its causal decoder, held
+    element by element as the bf16 cases above."""
+    B, Sq, Skv, H, K, D, Dv, causal = case
+    q = _randn((B, Sq, H, D), torch.bfloat16, device, 0)
+    k = _randn((B, Skv, K, D), torch.bfloat16, device, 1)
+    v = _randn((B, Skv, K, Dv), torch.bfloat16, device, 2)
+    kern = forward_kernel(torch.bfloat16)
+    before = kern.launches
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    ref, ref_lse = flash_attention_plain(q, k, v, causal=causal)
+    assert tuple(out.shape) == (B, Sq, H, Dv)
+    _assert_elementwise(out, ref, 2.0 ** -7)
+    _assert_elementwise(lse, ref_lse, 0.0)
 
 
 @pytest.mark.parametrize("case", DECODE_CASES)
@@ -281,10 +328,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(device):
 
 
 def test_bf16_flash_raises_on_a_head_dim_it_does_not_take(device):
-    q = _randn((1, 8, 4, 96), torch.bfloat16, device, 9)
+    q = _randn((1, 8, 4, 80), torch.bfloat16, device, 9)
     before = forward_kernel(torch.bfloat16).launches
     with pytest.raises(ValueError, match="head dims"):
         flash_attention_fwd(q, q, q)
+    q = _randn((1, 8, 4, 64), torch.bfloat16, device, 9)
+    v = _randn((1, 8, 4, 96), torch.bfloat16, device, 10)
+    with pytest.raises(ValueError, match="D=64, Dv=96"):
+        flash_attention_fwd(q, q, v)
     assert forward_kernel(torch.bfloat16).launches == before
 
 

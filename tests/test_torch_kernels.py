@@ -196,3 +196,49 @@ if __name__ == "__main__":
                                        rtol=2e-5))
     print(f"torch {torch.__version__}, {threads} threads, {runs} runs: {differ} differ "
           f"from one thread, {beyond} beyond 2e-5 of the Pallas kernel")
+
+
+@pytest.mark.parametrize("kernel, dtype, D, Dv, takes", [
+    # the bf16 forward: D == Dv in {32, 64, 96, 128}, and MLA's (96, 64)
+    ("flash_fwd", torch.bfloat16, 96, 64, True),
+    ("flash_fwd", torch.bfloat16, 96, 96, True),
+    ("flash_fwd", torch.bfloat16, 128, 128, True),
+    ("flash_fwd", torch.bfloat16, 64, 96, False),
+    ("flash_fwd", torch.bfloat16, 128, 64, False),
+    ("flash_fwd", torch.bfloat16, 80, 80, False),
+    # the fp32 forward and both backward pairs: D == Dv in {32, 64, 128}
+    ("flash_fwd", torch.float32, 64, 64, True),
+    ("flash_fwd", torch.float32, 96, 96, False),
+    ("flash_fwd", torch.float32, 96, 64, False),
+    ("flash_bwd", torch.bfloat16, 128, 128, True),
+    ("flash_bwd", torch.bfloat16, 96, 96, False),
+    ("flash_bwd", torch.bfloat16, 96, 64, False),
+    ("flash_bwd", torch.float32, 96, 96, False),
+    # decode: D == Dv in {32, 64, 96, 128}, both dtypes
+    ("decode", torch.bfloat16, 96, 96, True),
+    ("decode", torch.float32, 96, 96, True),
+    ("decode", torch.float32, 32, 32, True),
+    ("decode", torch.bfloat16, 96, 64, False),
+    ("decode", torch.float16, 64, 64, False),
+])
+def test_head_dim_rule_of_each_kernel(kernel, dtype, D, Dv, takes):
+    from repro_torch.kernels import head_dims
+
+    assert head_dims.takes(kernel, dtype, D, Dv) is takes
+    if takes:
+        head_dims.check("k", kernel, dtype, D, Dv)
+    else:
+        with pytest.raises(ValueError, match=f"D={D}, Dv={Dv}"):
+            head_dims.check("k", kernel, dtype, D, Dv)
+
+
+def test_cpu_tensors_take_any_head_dims():
+    """The plain versions take any D and Dv: MLA's (96, 64) on the CPU
+    never reaches the rule (and launches nothing)."""
+    rng = np.random.default_rng(9)
+    q, k = (torch.from_numpy(rng.standard_normal((1, 5, 2, 96), np.float32)) for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((1, 5, 2, 64), np.float32))
+    before = flash_attention.SM90_FP32_KERNEL.launches
+    out, _ = flash_attention_fwd(q, k, v, causal=True)
+    assert tuple(out.shape) == (1, 5, 2, 64)
+    assert flash_attention.SM90_FP32_KERNEL.launches == before

@@ -54,7 +54,8 @@ def _models(arch):
     return api_j, params, api_t, model
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["minicpm3_4b", "minicpm_2b", "phi3_vision_4p2b",
+                                  "whisper_tiny"])
 def test_configs_mirror_the_reference(arch):
     for full in (True, False):
         cj, ct = jcfgs.get(arch), tcfgs.get(arch)

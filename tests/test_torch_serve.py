@@ -96,6 +96,46 @@ def test_serve_requests_matches_jax_greedy_tokens():
     assert stats["done"] == N_REQ // 4
 
 
+def test_generate_program_hands_the_whole_payload_to_prefill():
+    """Both packages' generate programs pass every key of a task's payload
+    to prefill (the port moving each tensor to the parameters' device),
+    so a model's prefill sees its extra inputs (whisper's ``enc_frames``,
+    a vision model's ``patch_embeds``)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from repro.runtime.serve_loop import make_generate_program as jprogram
+    from repro_torch.runtime.serve_loop import make_generate_program
+
+    cfg_j = jcfgs.reduced(jcfgs.get("qwen3_1p7b"))
+    cfg_t = tcfgs.reduced(tcfgs.get("qwen3_1p7b"))
+    api_j, api_t = jbuild(cfg_j), tbuild(cfg_t)
+    params = api_j.init(jax.random.PRNGKey(0))
+    model = params_from_jax(jax.tree.map(np.asarray, params), cfg_t, "cpu")
+    tokens = np.random.default_rng(7).integers(0, cfg_t.vocab_size, (2, PROMPT))
+    extra = np.arange(6, dtype=np.float32).reshape(2, 3)
+    seen = {}
+
+    def recording(prefill, tag):
+        def call(p, batch, **kw):
+            seen[tag] = batch
+            return prefill(p, {"tokens": batch["tokens"]}, **kw)
+        return call
+
+    sc = ServeConfig(max_new_tokens=2, prompt_len=PROMPT)
+    jprogram(dataclasses.replace(api_j, prefill=recording(api_j.prefill, "jax")),
+             JServeConfig(max_new_tokens=2, prompt_len=PROMPT), params).fn(
+        {"tokens": jnp.asarray(tokens), "extra": jnp.asarray(extra)})
+    out = make_generate_program(
+        dataclasses.replace(api_t, prefill=recording(api_t.prefill, "torch")), sc, model).fn(
+        {"tokens": torch.from_numpy(tokens), "extra": torch.from_numpy(extra)})
+    assert sorted(seen["jax"]) == sorted(seen["torch"]) == ["extra", "tokens"]
+    assert seen["torch"]["extra"].device == model.device
+    np.testing.assert_array_equal(seen["torch"]["extra"].numpy(), extra)
+    assert tuple(out["generated"].shape) == (2, 2)
+
+
 def test_port_imports_neither_jax_nor_repro():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
