@@ -5,10 +5,10 @@
 
 Drives the port's main paths on ``cuda:0`` — serving as a task farm, and
 training in sync and in farm mode, of qwen3-1.7B; serving and sync
-training of falcon-mamba-7b; serving minicpm3-4b, phi-3-vision-4.2b and
-whisper-tiny — and holds every hand-written kernel of those paths against
-its plain PyTorch version.  Phases, in order; any failure raises and
-exits non-zero:
+training of falcon-mamba-7b; serving and sync training of minicpm3-4b,
+phi-3-vision-4.2b and whisper-tiny — and holds every hand-written kernel
+of those paths against its plain PyTorch version.  Phases, in order; any
+failure raises and exits non-zero:
 
 1. build the CUDA kernels from this checkout's sources (one ``nvcc`` per
    source, all started together), print each kernel's registers, spills
@@ -47,14 +47,19 @@ exits non-zero:
    through the plain versions, with the same weights, on several prompt
    batches;
 5. the flash-backward kernels (dq, then dk/dv) against the plain
-   backward at the training shapes (B=4, H=16, K=8, D=128, S=512) and at
-   a ragged S=13, in bf16 (the Hopper bf16 pair) and fp32 (the Hopper
-   fp32 pair: three tf32 products for each product); a second launch
-   bit-identical; each kernel, the whole backward
-   (dq + dk/dv in one call), the plain backward and PyTorch's SDPA
-   backward timed at the training shapes in each dtype: SDPA's backward
-   alone (one forward with grad-enabled inputs, then ``autograd.grad``
-   timed), K and V expanded, each backend as in phase 2;
+   backward at every shape a training path gives them (``BWD_SHAPES``):
+   qwen3's (B=4, H=16, K=8, D=128, S=512) in bf16 (the Hopper bf16 pair)
+   and fp32 (the Hopper fp32 pair: three tf32 products for each
+   product); in bf16 minicpm3's MLA at (D, Dv) = (96, 64) (B=4, S=512,
+   H=K=40), phi-3's (96, 96) (H=K=32, S=512 and 768) and whisper's D=64,
+   H=K=6: non-causal encoder (1500 x 1500) and cross-attention (448 x
+   1500), causal decoder self-attention (448 x 448); each also at a
+   ragged size (Sq = 13, and Skv = 13 where Skv = Sq); a second launch
+   bit-identical.  Each kernel, the whole backward (dq + dk/dv in one
+   call), the plain backward and PyTorch's SDPA backward timed at each
+   training shape beside each kernel's bound: SDPA's backward alone (one
+   forward with grad-enabled inputs, then ``autograd.grad`` timed), K and
+   V expanded, each backend as in phase 2;
 6. sync training of full-width, full-depth qwen3-1.7B (``Trainer``, 4
    AdamW steps on MarkovDataset batches of 4 x 512, fp32 moments), the
    launch counts zeroed just before and read just after (the bf16
@@ -131,14 +136,30 @@ exits non-zero:
     family's prefill and decode logits (phi-3's prefill with 256 seeded
     patch embeddings before 512 tokens, then 4 decode steps at cache_index
     768 + i) through the kernels and through the plain versions, same
-    weights, on 4 batches.
+    weights, on 4 batches;
+16. (everything freed) one family at a time, sync training at full width
+    and full depth (``Trainer``, 4 AdamW steps, fp32 moments, seeded
+    weights) on MarkovDataset batches of 4 sequences (``FamilyBatches``):
+    minicpm3-4b on 512 tokens, phi-3-vision-4.2b on 256 seeded patch
+    embeddings and 512 tokens, whisper-tiny on 448 tokens beside 1,500
+    seeded encoder frames.  Every launch count is zeroed just before and
+    read just after: exactly one bf16 flash forward, dq and dk/dv launch an
+    attention layer a step (minicpm3 62 at (96, 64), phi-3 32 at (96, 96),
+    whisper 12: 4 encoder, 4 self, 4 cross), nothing else.  Step time,
+    tok/s, peak memory and one profiled step are printed; the losses must
+    be finite and step 0's batch must score lower after training.  Then,
+    the moments freed, one step's loss and gradients through the kernels
+    and through the plain versions, same weights, same batch, held to
+    ``FAMILY_TRAIN_LIMITS``.
 
 The line before the last is a JSON object with each kernel's numbers, one
 row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
-(``flash_attention_fwd_fp32``), decode, dq and dk/dv in bf16 and in fp32
-(``..._fp32``), the scan, and phase 15's shapes of the bf16 flash forward
-(``flash_attention_fwd_d96_dv64``, ``flash_attention_fwd_d96``) and of
-decode (``decode_attention_fwd_d96``); the last
+(``flash_attention_fwd_fp32``), decode, the scan, phase 15's shapes of
+the bf16 flash forward (``flash_attention_fwd_d96_dv64``,
+``flash_attention_fwd_d96``) and of decode (``decode_attention_fwd_d96``),
+dq and dk/dv in bf16 and in fp32 (``..._fp32``), and phase 16's shapes of
+the bf16 pair (``flash_attention_bwd_{dq,dkv}_d96_dv64``, ``..._d96`` at
+S = 768, ``..._whisper`` on the encoder); the last
 line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event times on
 this card without flushing the 50 MB L2 cache (the serve and training
 paths find their inputs freshly written): for every kernel, its library
@@ -296,6 +317,40 @@ JSON_ROWS = {
     "d96_dv64": ("flash", "minicpm3 MLA", (torch.bfloat16,)),
     "d96": ("flash", "phi-3", (torch.bfloat16,)),
     "decode_d96": ("decode", "phi-3", (torch.bfloat16, torch.float32)),
+}
+# Phase 16: sync training of phase 15's families at full width, one at a
+# time, FAMILY_TRAIN_BATCH sequences of TRAIN_SEQ tokens (phi-3: after
+# PATCHES seeded patch embeddings; whisper: WHISPER_TRAIN_SEQ tokens, its
+# published decoder context, beside 1,500 seeded encoder frames).
+FAMILY_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 4, 448
+# One training step of each family, kernels vs plain versions (phase 16):
+# limits on |dloss| and on the largest per-group relative gradient
+# difference, as TRAIN_LIMITS for qwen3, from this script's first readings
+# on an H100 (see PERF.md): minicpm3 |dloss| 7.25e-5, largest 1.112e-2
+# (attn.wq_a); phi-3 5.34e-5, 1.581e-2 (embed.table); whisper 9.5e-7 (an
+# fp32 ulp of the loss), 3.081e-2 (decoder.cross_attn.wk, whose gradient
+# is small).  One-ulp flips of bf16 activations and gradients, as phase
+# 7's; the element checks of phase 5 decide whether a kernel is right.
+FAMILY_TRAIN_LIMITS = {"minicpm3_4b": (2e-4, 2e-2), "phi3_vision_4p2b": (2e-4, 3e-2),
+                       "whisper_tiny": (1e-5, 5e-2)}
+# Phase 5's shapes: each training path's attention backward as its step
+# makes it (phases 6 and 16): label -> (B, Sq, Skv, H, K, D, Dv, causal,
+# dtypes), each also at a ragged Sq = 13 (and Skv = 13 where Skv = Sq).
+BWD_SHAPES = {
+    "qwen3": (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 8, 128, 128, True,
+              (torch.bfloat16, torch.float32)),
+    "minicpm3 MLA": (FAMILY_TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 40, 40, 96, 64, True,
+                     (torch.bfloat16,)),
+    "phi-3": (FAMILY_TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 96, 96, True,
+              (torch.bfloat16,)),
+    "phi-3 with patches": (FAMILY_TRAIN_BATCH, TRAIN_SEQ + PATCHES, TRAIN_SEQ + PATCHES, 32,
+                           32, 96, 96, True, (torch.bfloat16,)),
+    "whisper encoder": (FAMILY_TRAIN_BATCH, 1500, 1500, 6, 6, 64, 64, False,
+                        (torch.bfloat16,)),
+    "whisper cross": (FAMILY_TRAIN_BATCH, WHISPER_TRAIN_SEQ, 1500, 6, 6, 64, 64, False,
+                      (torch.bfloat16,)),
+    "whisper self": (FAMILY_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_SEQ, 6, 6, 64, 64,
+                     True, (torch.bfloat16,)),
 }
 # Farm over worker processes (phase 13): 2 workers; the kill round's
 # victim is worker 0, the shm round serves the first SHM_REQUESTS prompts
@@ -518,11 +573,12 @@ def sdpa_library_ms(q, k, v, **kw):
     return best
 
 
-def sdpa_backward_ms(q, k, v, g):
-    """SDPA's backward alone, causal, on (B,S,heads,D) inputs: one forward
-    with grad-enabled inputs under each backend that takes them, then
+def sdpa_backward_ms(q, k, v, g, causal=True):
+    """SDPA's backward alone on (B,S,heads,D) inputs: one forward with
+    grad-enabled inputs under each backend that takes them, then
     ``autograd.grad`` graph-timed (the forward runs on the capture stream,
-    where autograd puts its backward); (fastest ms, its backend's name)."""
+    where autograd puts its backward); (fastest ms, its backend's name), or
+    (None, None)."""
     from torch.nn.attention import sdpa_kernel
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -536,7 +592,8 @@ def sdpa_backward_ms(q, k, v, g):
             warnings.simplefilter("ignore")
             try:
                 with torch.cuda.stream(stream):
-                    o = sdpa(*leaves, is_causal=True)
+                    o = sdpa(*leaves, is_causal=causal)
+                    torch.autograd.grad(o, leaves, gT, retain_graph=True)
             except (RuntimeError, ValueError):  # the backend does not take these inputs
                 continue
             ms = graph_ms(lambda: torch.autograd.grad(o, leaves, gT, retain_graph=True),
@@ -842,76 +899,101 @@ def full_width_phase(api, params, cfg, dev, plain_ops, batches=FULL_WIDTH_BATCHE
 
 
 def backward_phase(flash):
-    """Phase 5: the backward kernels vs the plain backward, each dtype's
-    Hopper pair; times at the training shapes."""
-    errs = {dt: {"dq": 0.0, "dkv": 0.0} for dt in (torch.bfloat16, torch.float32)}
-    B, H, K, D = TRAIN_BATCH, 16, 8, 128
-    inputs = {}
-    for label, S in (("train", TRAIN_SEQ), ("ragged", 13)):
-        for dt in (torch.bfloat16, torch.float32):
-            q = randn((B, S, H, D), dt, 21)
-            k = randn((B, S, K, D), dt, 22)
-            v = randn((B, S, K, D), dt, 23)
-            g = randn((B, S, H, D), dt, 24)
-            out, lse = flash.flash_attention_fwd(q, k, v, causal=True)
+    """Phase 5: the backward kernels vs the plain backward at every shape
+    of BWD_SHAPES (training and ragged), each dtype's Hopper pair, a second
+    launch bit-identical; then each timed at its training shape.  Returns
+    {(label, dtype): {"dq": row, "dkv": row}}, each row with its times,
+    bound, library time and largest |error| ("err")."""
+    errs, timed = {}, {}
+    for label, (B, sq, skv, H, K, D, Dv, causal, dtypes) in BWD_SHAPES.items():
+        for dt in dtypes:
             pair = flash.backward_kernels(dt)
-            before = [kern.launches for kern in pair]
-            got = flash.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
-            if [kern.launches for kern in pair] != [n + 1 for n in before]:
-                raise AssertionError(f"{str(dt)[6:]} backward did not launch "
-                                     f"{pair[0].name} and {pair[1].name}")
-            ref = flash.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=True)
-            tag = f"{label} {str(dt)[6:]} S={S} ({pair[0].name}, {pair[1].name})"
-            for name, a, b in zip(("dq", "dk", "dv"), got, ref):
-                key = "dq" if name == "dq" else "dkv"
-                errs[dt][key] = max(errs[dt][key], check(f"{name} {tag}", a, b, RTOL[dt],
-                                                         BWD_ATOL))
-            again = flash.flash_attention_bwd(q, k, v, out, lse, g, causal=True)
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            say(f"  dq, dk, dv {tag}: two launches bit-identical: {same}")
-            if not same:
-                raise AssertionError(f"{tag}: the backward is not deterministic")
-            if label == "train":
-                inputs[dt] = (q, k, v, out, lse, g)
+            key = (label, dt)
+            errs[key] = {"dq": 0.0, "dkv": 0.0}
+            for size, q_len, kv_len in (("train", sq, skv),
+                                        ("ragged", 13, 13 if skv == sq else skv)):
+                q = randn((B, q_len, H, D), dt, 21)
+                k = randn((B, kv_len, K, D), dt, 22)
+                v = randn((B, kv_len, K, Dv), dt, 23)
+                g = randn((B, q_len, H, Dv), dt, 24)
+                out, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
+                before = [kern.launches for kern in pair]
+                got = flash.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+                if [kern.launches for kern in pair] != [n + 1 for n in before]:
+                    raise AssertionError(f"{label} {str(dt)[6:]} backward did not launch "
+                                         f"{pair[0].name} and {pair[1].name}")
+                ref = flash.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal)
+                tag = (f"{label} {size} {str(dt)[6:]} Sq={q_len} Skv={kv_len} "
+                       f"({pair[0].name}, {pair[1].name})")
+                for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+                    part = "dq" if name == "dq" else "dkv"
+                    errs[key][part] = max(errs[key][part], check(
+                        f"{name} {tag}", a, b, RTOL[dt], BWD_ATOL))
+                again = flash.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                say(f"  dq, dk, dv {tag}: two launches bit-identical: {same}")
+                if not same:
+                    raise AssertionError(f"{tag}: the backward is not deterministic")
+                if size == "train":
+                    timed[key] = (q, k, v, out, lse, g, causal)
     torch.cuda.synchronize()
-
-    pairs = causal_pairs(B, H, TRAIN_SEQ, TRAIN_SEQ)
     rows = {}
-    for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
-        q, k, v, out, lse, g = inputs[dt]
-        dq, dvec = flash.bwd_dq_launch(q, k, v, out, lse, g, causal=True)
-        dk, dv = flash.bwd_dkv_launch(q, k, v, g, lse, dvec, causal=True)
-        plain_ms = graph_ms(lambda: flash.flash_attention_bwd_plain(
-            q, k, v, out, lse, g, causal=True))
-        both_ms = graph_ms(lambda: flash.flash_attention_bwd(q, k, v, out, lse, g, causal=True))
-        library_ms, library = sdpa_backward_ms(q, k, v, g)
-        lib = dict(plain_ms=plain_ms, library_ms=library_ms, library=library)
-        rows["dq" + sfx] = dict(ms=graph_ms(lambda: flash.bwd_dq_launch(
-            q, k, v, out, lse, g, causal=True)), **lib)
-        rows["dkv" + sfx] = dict(ms=graph_ms(lambda: flash.bwd_dkv_launch(
-            q, k, v, g, lse, dvec, causal=True)), **lib)
-        rows["dq" + sfx]["bound_ms"], rows["dq" + sfx]["bound_by"] = bound(
-            6 * D * pairs, nbytes(q, k, v, out, g, lse, dq, dvec), dt)
-        rows["dkv" + sfx]["bound_ms"], rows["dkv" + sfx]["bound_by"] = bound(
-            8 * D * pairs, nbytes(q, k, v, g, lse, dvec, dk, dv), dt)
-        for name in ("dq" + sfx, "dkv" + sfx):
-            r = rows[name]
-            say(f"  {name} at training shapes (graph-timed): kernel {r['ms']:.4f} ms, plain "
-                f"backward (dq, dk, dv) {r['plain_ms']:.4f} ms, library backward "
-                f"(SDPA {r['library']}, dq, dk, dv together) {fmt_ms(r['library_ms'])}, "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-        ratio = "" if library_ms is None else f" ({both_ms / library_ms:.2f}x)"
-        say(f"  {str(dt)[6:]} backward, dq + dk/dv in one call (graph-timed) {both_ms:.4f} ms "
-            f"(the two kernels timed alone: {rows['dq' + sfx]['ms'] + rows['dkv' + sfx]['ms']:.4f}"
-            f" ms) beside SDPA's whole backward (SDPA {library}) "
-            f"{fmt_ms(library_ms)}{ratio}")
-    return errs, rows
+    for (label, dt), inputs in timed.items():
+        rows[(label, dt)] = backward_times(flash, label, *inputs)
+        for part in ("dq", "dkv"):
+            rows[(label, dt)][part]["err"] = errs[(label, dt)][part]
+    return rows
+
+
+def backward_times(flash, label, q, k, v, out, lse, g, causal):
+    """The backward pair at one training shape, graph-replayed: dq, dk/dv,
+    both in one call, the plain backward and SDPA's whole backward, beside
+    each kernel's bound.  Returns {"dq": row, "dkv": row}."""
+    B, Sq, H, D = q.shape
+    Skv, K, Dv = k.shape[1], k.shape[2], v.shape[3]
+    dt = q.dtype
+    pairs = causal_pairs(B, H, Sq, Skv) if causal else B * H * Sq * Skv
+    dq, dvec = flash.bwd_dq_launch(q, k, v, out, lse, g, causal=causal)
+    dk, dv = flash.bwd_dkv_launch(q, k, v, g, lse, dvec, causal=causal)
+    plain_ms = graph_ms(lambda: flash.flash_attention_bwd_plain(
+        q, k, v, out, lse, g, causal=causal))
+    both_ms = graph_ms(lambda: flash.flash_attention_bwd(q, k, v, out, lse, g, causal=causal))
+    library_ms, library = sdpa_backward_ms(q, k, v, g, causal)
+    lib = dict(plain_ms=plain_ms, library_ms=library_ms, library=library)
+    rows = {"dq": dict(ms=graph_ms(lambda: flash.bwd_dq_launch(
+                q, k, v, out, lse, g, causal=causal)), **lib),
+            "dkv": dict(ms=graph_ms(lambda: flash.bwd_dkv_launch(
+                q, k, v, g, lse, dvec, causal=causal)), **lib)}
+    # the function's products a visible pair: dq S, dP and dS K (4 D + 2 Dv),
+    # dk/dv S, dP, P^T dO and dS^T Q (4 D + 4 Dv)
+    rows["dq"]["bound_ms"], rows["dq"]["bound_by"] = bound(
+        (4 * D + 2 * Dv) * pairs, nbytes(q, k, v, out, g, lse, dq, dvec), dt)
+    rows["dkv"]["bound_ms"], rows["dkv"]["bound_by"] = bound(
+        (4 * D + 4 * Dv) * pairs, nbytes(q, k, v, g, lse, dvec, dk, dv), dt)
+    shape = (f"B={B}, Sq={Sq}, Skv={Skv}, H={H}, K={K}, D={D}, Dv={Dv}, "
+             f"{'causal' if causal else 'non-causal'}")
+    for name, r in rows.items():
+        say(f"  {name} {label} {str(dt)[6:]} ({shape}; graph-timed): kernel {r['ms']:.4f} ms, "
+            f"plain backward (dq, dk, dv) {r['plain_ms']:.4f} ms, library backward (SDPA "
+            f"{r['library']}, dq, dk, dv together) {fmt_ms(r['library_ms'])}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    ratio = "" if library_ms is None else f" ({both_ms / library_ms:.2f}x)"
+    say(f"  {label} {str(dt)[6:]} backward, dq + dk/dv in one call (graph-timed) "
+        f"{both_ms:.4f} ms (the two kernels timed alone: "
+        f"{rows['dq']['ms'] + rows['dkv']['ms']:.4f} ms) beside SDPA's whole backward (SDPA "
+        f"{library}) {fmt_ms(library_ms)}{ratio}")
+    return rows
 
 
 def group_of(name: str) -> str:
-    """Parameter group: the name without its layer index."""
+    """Parameter group: the name without its layer index (whisper's
+    encoder and decoder layers keep their stack's name)."""
     parts = name.split(".")
-    return ".".join(parts[2:]) if parts[0] == "blocks" else name
+    if parts[0] == "blocks":
+        return ".".join(parts[2:])
+    if parts[0] in ("encoder", "decoder"):
+        return ".".join(parts[:1] + parts[2:])
+    return name
 
 
 def sync_training_phase(api, params, dev, kernels):
@@ -983,15 +1065,21 @@ def sync_training_phase(api, params, dev, kernels):
     return launches, state
 
 
-def train_step_agreement(api, model, dev, plain_ops):
-    """One training step's loss and gradients, kernels vs plain versions,
-    held to ``TRAIN_LIMITS`` for the model's dtype."""
+def markov_batch(cfg, dev, seed=SEED + 7):
+    """Phase 7's batch: TRAIN_BATCH x TRAIN_SEQ MarkovDataset tokens."""
     from repro_torch.data import MarkovDataset
+
+    ds = MarkovDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    return {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(0).items()}
+
+
+def train_step_agreement(api, model, batch, plain_ops, limits):
+    """One training step's loss and gradients on ``batch``, kernels vs
+    plain versions: |dloss| and the largest per-group relative gradient
+    difference held to ``limits``."""
     from repro_torch.runtime.train_loop import loss_and_grads
 
-    loss_lim, grad_lim = TRAIN_LIMITS[api.cfg.dtype]
-    ds = MarkovDataset(api.cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED + 7)
-    batch = {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(0).items()}
+    loss_lim, grad_lim = limits
     loss_k, _, g_k = loss_and_grads(api, model, batch)
     loss_p, _, g_p = loss_and_grads(api, model, batch, ops=plain_ops)
     dloss = abs(loss_k.item() - loss_p.item())
@@ -1328,6 +1416,107 @@ def family_phase(arch, dev, lookup, kernels):
     steps = 4 if cfg.frontend == "vision" else 1
     kernels_vs_plain(api, params, kernels.PLAIN, batches, batches[0][1] + new, steps,
                      FAMILY_LIMITS[arch])
+    return launches
+
+
+class FamilyBatches:
+    """A family's training batches: MarkovDataset tokens and targets and,
+    as the reference's own smoke batch carries them, the frontend stub's
+    input made from the seed and the step: PATCHES patch embeddings before
+    the text for the vision model, the encoder's frames for whisper."""
+
+    def __init__(self, cfg, seq_len, batch, seed):
+        from repro_torch.data import MarkovDataset
+
+        self.cfg, self.batch, self.seed = cfg, batch, seed
+        self.tokens = MarkovDataset(cfg.vocab_size, seq_len, batch, seed=seed)
+
+    def batch_at(self, step: int) -> dict:
+        cfg, out = self.cfg, self.tokens.batch_at(step)
+        rng = np.random.default_rng((self.seed, step, 1))
+        if cfg.is_encoder_decoder:
+            out["enc_frames"] = rng.standard_normal(
+                (self.batch, cfg.encoder_seq_len, cfg.d_model), np.float32)
+        if cfg.frontend == "vision":
+            out["patch_embeds"] = rng.standard_normal((self.batch, PATCHES, cfg.d_model),
+                                                      np.float32)
+        return out
+
+
+def family_train_phase(arch, dev, kernels):
+    """Phase 16 for one family: sync training at full width and full
+    depth, TRAIN_STEPS AdamW steps with fp32
+    moments on FamilyBatches, every launch count zeroed just before and
+    read just after (exactly one bf16 flash forward, dq and dk/dv launch an
+    attention layer a step, nothing else), the losses finite and falling,
+    one profiled step; then, the moments freed, one step's loss and
+    gradients through the kernels and through the plain versions, same
+    weights, same batch, held to FAMILY_TRAIN_LIMITS.  Returns the launch
+    counts."""
+    import repro_torch.configs as cfgs
+    from repro_torch.models import build
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer
+
+    cfg = cfgs.get(arch)
+    encdec = cfg.is_encoder_decoder
+    api = build(cfg)
+    seq = WHISPER_TRAIN_SEQ if encdec else TRAIN_SEQ
+    ds = FamilyBatches(cfg, seq, FAMILY_TRAIN_BATCH, SEED)
+    tc = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=100, seed=SEED)
+    t0 = time.perf_counter()
+    trainer = Trainer(api, tc, ds, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in trainer.state["params"].parameters())
+    depth = (f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers" if encdec
+             else f"{cfg.n_layers} layers")
+    extra = (f" beside {cfg.encoder_seq_len} encoder frames" if encdec else
+             f" after {PATCHES} patch embeddings" if cfg.frontend == "vision" else "")
+    say(f"  {cfg.name}: {depth}, d_model {cfg.d_model}, {n_params / 1e9:.3f} B params in "
+        f"{cfg.param_dtype}, state made in {time.perf_counter() - t0:.2f} s; "
+        f"{TRAIN_STEPS} AdamW steps ({cfg.opt_state_dtype} moments) on batches of "
+        f"{FAMILY_TRAIN_BATCH} x {seq} tokens{extra}")
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    logs = trainer.run(TRAIN_STEPS)
+    launches = {kern.name: kern.launches for kern in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_s = [m["step_time_s"] for m in logs]
+    med = float(np.median(step_s))
+    losses = [m["loss"] for m in logs]
+    norms = ", ".join(f"{m['grad_norm']:.3f}" for m in logs)
+    steps = ", ".join(f"{t * 1e3:.1f}" for t in step_s)
+    say(f"  losses {', '.join(f'{x:.4f}' for x in losses)}; grad norms {norms}")
+    say(f"  step time median {med * 1e3:.1f} ms (steps {steps}; after the first "
+        f"{np.median(step_s[1:]) * 1e3:.1f} ms), {FAMILY_TRAIN_BATCH * seq / med:.0f} tok/s; "
+        f"peak memory {peak:.2f} GB")
+    say(f"  launches on the training path: {launches}")
+    attn_layers = cfg.n_encoder_layers + 2 * cfg.n_layers if encdec else cfg.n_layers
+    want = {kern.name: 0 for kern in kernels.KERNELS}
+    for name in BF16_TRAIN_KERNELS:
+        want[name] = TRAIN_STEPS * attn_layers
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite training loss")
+    # falling: step 0's batch again, on the trained weights (the steps'
+    # own losses are of different batches, and step 0's rate is 0)
+    first = {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(0).items()}
+    with torch.no_grad():
+        after = float(api.train_loss(trainer.state["params"], first)[0])
+    say(f"  loss of step 0's batch: {losses[0]:.4f} before training, {after:.4f} after "
+        f"{TRAIN_STEPS} steps")
+    if not after < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses[0]} -> {after}")
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(99).items()}
+    profile_window("training step", lambda i: trainer.train_step(trainer.state, batch), 1)
+
+    say(f"  {cfg.name}: one training step, kernels vs plain versions (moments freed)")
+    model = trainer.state["params"]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_step_agreement(api, model, batch, kernels.PLAIN, FAMILY_TRAIN_LIMITS[arch])
     return launches
 
 
@@ -1723,13 +1912,14 @@ def main() -> int:
     full_width_phase(api, params, cfg, dev, kernels.PLAIN)
 
     say("phase 5: backward kernels vs the plain backward")
-    bwd_errs, bwd = backward_phase(flash)
+    bwd = backward_phase(flash)
 
     say("phase 6: sync training at full width")
     train_launches, state = sync_training_phase(api, params, dev, kernels)
 
     say("phase 7: full-width training step, kernels vs plain versions")
-    train_step_agreement(api, state["params"], dev, kernels.PLAIN)
+    train_step_agreement(api, state["params"], markov_batch(cfg, dev), kernels.PLAIN,
+                         TRAIN_LIMITS[torch.bfloat16])
     del state, params
     torch.cuda.empty_cache()
     api32 = build(cfg.replace(param_dtype="float32", compute_dtype="float32"))
@@ -1738,7 +1928,8 @@ def main() -> int:
     model32.head().drop_f32()
     for kern in kernels.KERNELS:
         kern.launches = 0
-    train_step_agreement(api32, model32, dev, kernels.PLAIN)
+    train_step_agreement(api32, model32, markov_batch(cfg, dev), kernels.PLAIN,
+                         TRAIN_LIMITS[torch.float32])
     fp32_launches = {kern.name: kern.launches for kern in kernels.KERNELS}
     say(f"  launches on the fp32 training step: {fp32_launches}")
     if (any(fp32_launches[name] != cfg.n_layers for name in FP32_TRAIN_KERNELS)
@@ -1821,40 +2012,52 @@ def main() -> int:
         free(services)
         say(f"  {arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
 
-    rows = []
+    say("phase 16: train minicpm3-4b (MLA), phi-3-vision-4.2b and whisper-tiny")
+    trained = {}
+    for arch in FAMILIES:
+        trained[arch] = family_train_phase(arch, dev, kernels)
+        gc.collect()
+        torch.cuda.empty_cache()
+        say(f"  {arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+
+    # the kernels line: (name, kernel, its times, its largest |error|, the
+    # Pallas call it replaces, the launch counts of the path that reports it)
     flash_py = "src/repro/kernels/flash_attention/flash_attention.py"
-    for name, kern, r, err, replaces, count in (
-            ("flash_attention_fwd", flash.SM90_KERNEL, k_rows["flash"],
-             k_rows["flash"]["err"], f"{flash_py}:127", launches),
-            ("flash_attention_fwd_fp32", flash.SM90_FP32_KERNEL, k_rows["flash_fp32"],
-             k_rows["flash_fp32"]["err"], f"{flash_py}:127", fp32_launches),
-            ("decode_attention_fwd", decode.KERNEL, k_rows["decode"], k_rows["decode"]["err"],
-             "src/repro/kernels/decode_attention/decode_attention.py:116",
-             launches),
-            ("flash_attention_bwd_dq", flash.DQ_SM90_KERNEL, bwd["dq"],
-             bwd_errs[torch.bfloat16]["dq"], f"{flash_py}:280", train_launches),
-            ("flash_attention_bwd_dkv", flash.DKV_SM90_KERNEL, bwd["dkv"],
-             bwd_errs[torch.bfloat16]["dkv"], f"{flash_py}:307", train_launches),
-            ("flash_attention_bwd_dq_fp32", flash.DQ_SM90_FP32_KERNEL, bwd["dq_fp32"],
-             bwd_errs[torch.float32]["dq"], f"{flash_py}:280", fp32_launches),
-            ("flash_attention_bwd_dkv_fp32", flash.DKV_SM90_FP32_KERNEL, bwd["dkv_fp32"],
-             bwd_errs[torch.float32]["dkv"], f"{flash_py}:307", fp32_launches),
-            ("mamba_scan_fwd", scan.KERNEL, scan_row, scan_err,
-             "src/repro/kernels/mamba_scan/mamba_scan.py:83", mamba_launches),
-            ("flash_attention_fwd_d96_dv64", flash.SM90_KERNEL, k_rows["d96_dv64"],
-             k_rows["d96_dv64"]["err"], f"{flash_py}:127", family_launches["minicpm3_4b"]),
-            ("flash_attention_fwd_d96", flash.SM90_KERNEL, k_rows["d96"],
-             k_rows["d96"]["err"], f"{flash_py}:127", family_launches["phi3_vision_4p2b"]),
-            ("decode_attention_fwd_d96", decode.KERNEL, k_rows["decode_d96"],
-             k_rows["decode_d96"]["err"],
-             "src/repro/kernels/decode_attention/decode_attention.py:116",
-             family_launches["phi3_vision_4p2b"])):
-        rows.append({"name": name, "route": "cuda",
-                     "source": str(kern.source.relative_to(ROOT)),
-                     "replaces": replaces, "launches": count[kern.name],
-                     "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
-                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"], "library": r.get("library")})
+    decode_py = "src/repro/kernels/decode_attention/decode_attention.py"
+    table = [
+        ("flash_attention_fwd", flash.SM90_KERNEL, k_rows["flash"],
+         k_rows["flash"]["err"], f"{flash_py}:127", launches),
+        ("flash_attention_fwd_fp32", flash.SM90_FP32_KERNEL, k_rows["flash_fp32"],
+         k_rows["flash_fp32"]["err"], f"{flash_py}:127", fp32_launches),
+        ("decode_attention_fwd", decode.KERNEL, k_rows["decode"], k_rows["decode"]["err"],
+         f"{decode_py}:116", launches),
+        ("mamba_scan_fwd", scan.KERNEL, scan_row, scan_err,
+         "src/repro/kernels/mamba_scan/mamba_scan.py:83", mamba_launches),
+        ("flash_attention_fwd_d96_dv64", flash.SM90_KERNEL, k_rows["d96_dv64"],
+         k_rows["d96_dv64"]["err"], f"{flash_py}:127", family_launches["minicpm3_4b"]),
+        ("flash_attention_fwd_d96", flash.SM90_KERNEL, k_rows["d96"],
+         k_rows["d96"]["err"], f"{flash_py}:127", family_launches["phi3_vision_4p2b"]),
+        ("decode_attention_fwd_d96", decode.KERNEL, k_rows["decode_d96"],
+         k_rows["decode_d96"]["err"], f"{decode_py}:116", family_launches["phi3_vision_4p2b"]),
+    ]
+    # the backward rows: one BWD_SHAPES label and dtype each, with the
+    # launches of the training run that gives the pair that shape
+    for sfx, label, dt, count in (
+            ("", "qwen3", torch.bfloat16, train_launches),
+            ("_fp32", "qwen3", torch.float32, fp32_launches),
+            ("_d96_dv64", "minicpm3 MLA", torch.bfloat16, trained["minicpm3_4b"]),
+            ("_d96", "phi-3 with patches", torch.bfloat16, trained["phi3_vision_4p2b"]),
+            ("_whisper", "whisper encoder", torch.bfloat16, trained["whisper_tiny"])):
+        for part, kern, line in zip(("dq", "dkv"), flash.backward_kernels(dt), (280, 307)):
+            r = bwd[(label, dt)][part]
+            table.append((f"flash_attention_bwd_{part}{sfx}", kern, r, r["err"],
+                          f"{flash_py}:{line}", count))
+    rows = [{"name": name, "route": "cuda", "source": str(kern.source.relative_to(ROOT)),
+             "replaces": replaces, "launches": count[kern.name], "max_abs_err": err,
+             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+             "library": r.get("library")}
+            for name, kern, r, err, replaces, count in table]
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

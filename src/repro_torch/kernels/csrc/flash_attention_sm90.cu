@@ -100,29 +100,16 @@ constexpr int BQ = 64;     // query rows of a warpgroup
 constexpr int BK = 64;     // keys per tile
 constexpr int STAGES = 2;  // K/V ring
 
-// Bytes of one ring stage: a K tile of D columns, then a V tile of DV.
-template <int D, int DV>
-__host__ __device__ constexpr int stage_bytes() {
-  return Geo<D>::tile_bytes(BK) + Geo<DV>::tile_bytes(BK);
-}
-
-// Tile j of K and V into ring stage j % STAGES (K at skv + s stage_bytes, V
-// after it), completing on that stage's barrier (fbar + 8 s).
+// Tile j of K (D columns) and V (DV) into ring stage j % STAGES (K at
+// skv + s pair_bytes(BK), V after it), completing on that stage's barrier
+// (fbar + 8 s).
 template <int D, int DV>
 __device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap* tv,
                                         uint32_t skv, uint32_t fbar, int kh, int b, int j) {
-  using GK = Geo<D>;
-  using GV = Geo<DV>;
   const int s = j % STAGES;
-  const uint32_t k_dst = skv + s * stage_bytes<D, DV>(), v_dst = k_dst + GK::tile_bytes(BK);
-  const uint32_t bar = fbar + 8 * s;
-  mbar_expect_tx(bar, stage_bytes<D, DV>());
-#pragma unroll
-  for (int c = 0; c < GK::NATOM; ++c)
-    tma_load(k_dst + c * GK::atom_bytes(BK), tk, c * GK::ATOM, kh, j * BK, b, bar);
-#pragma unroll
-  for (int c = 0; c < GV::NATOM; ++c)
-    tma_load(v_dst + c * GV::atom_bytes(BK), tv, c * GV::ATOM, kh, j * BK, b, bar);
+  const uint32_t k_dst = skv + s * pair_bytes<D, DV>(BK);
+  tma_load_pair<D, DV>(tk, tv, k_dst, k_dst + Geo<D>::tile_bytes(BK), kh, j * BK, b, BK,
+                       fbar + 8 * s);
 }
 
 // NWG warpgroups a block, each with its own q-head of the same kv-head and
@@ -142,7 +129,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   __shared__ __align__(8) uint64_t bars[1 + STAGES];
 
   const uint32_t sq0 = (smem_u32(smem_raw) + 1023u) & ~1023u;  // warpgroup w's Q tile
-  // stage s: K at skv + s stage_bytes, V after it
+  // stage s: K at skv + s pair_bytes(BK), V after it
   const uint32_t skv = sq0 + NWG * G::tile_bytes(BQ);
   const uint32_t qbar = smem_u32(&bars[0]);
   const uint32_t fbar = smem_u32(&bars[1]);  // stage s: fbar + 8 s
@@ -194,7 +181,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     __syncthreads();
     if (tid == 0 && j + 1 < n_tiles) load_kv<D, DV>(&tk, &tv, skv, fbar, kh, b, j + 1);
     mbar_wait(fbar + 8 * s, (j / STAGES) & 1);
-    const uint32_t k_tile = skv + s * stage_bytes<D, DV>(), v_tile = k_tile + G::tile_bytes(BK);
+    const uint32_t k_tile = skv + s * pair_bytes<D, DV>(BK), v_tile = k_tile + G::tile_bytes(BK);
 
     // S = Q K^T: K-major A and B, k16 slices walk the row inside an atom
     float sc[BK / 2];
@@ -307,7 +294,7 @@ template <int D, int DV, int NWG>
 cudaError_t launch_nwg(const CUtensorMap* maps, void* out, void* lse, int B, int Sq, int Skv,
                        int H, int K, int causal, cudaStream_t stream) {
   // NWG Q tiles, the K/V ring, and room to align them to 1024 bytes
-  constexpr int smem = NWG * Geo<D>::tile_bytes(BQ) + STAGES * stage_bytes<D, DV>() + 1024;
+  constexpr int smem = NWG * Geo<D>::tile_bytes(BQ) + STAGES * pair_bytes<D, DV>(BK) + 1024;
   static bool configured = false;  // once per instantiation (a repeat is harmless)
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -141,7 +141,7 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap
                                         uint32_t base, uint32_t fbar, int kh, int b, int j) {
   const int s = j % STAGES;
   const uint32_t k_dst = base + Smem<D>::k_tile(s);
-  tma_load_pair<D, 4>(tk, tv, k_dst, k_dst + Geo<D, 4>::tile_bytes(BK), kh, j * BK, b, BK,
+  tma_load_pair<D, D, 4>(tk, tv, k_dst, k_dst + Geo<D, 4>::tile_bytes(BK), kh, j * BK, b, BK,
                       fbar + 8 * s);
 }
 

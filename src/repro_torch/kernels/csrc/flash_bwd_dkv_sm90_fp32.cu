@@ -121,7 +121,7 @@ __device__ __forceinline__ void load_step(const CUtensorMap* tq, const CUtensorM
                                           uint32_t base, uint32_t bar, int i, int q_begin,
                                           int group, int kh, int b) {
   const uint32_t dst = base + Smem<D>::RAW;
-  tma_load_pair<D, 4>(tq, tg, dst, dst + Geo<D, 4>::tile_bytes(BQ), kh * group + i % group,
+  tma_load_pair<D, D, 4>(tq, tg, dst, dst + Geo<D, 4>::tile_bytes(BQ), kh * group + i % group,
                       q_begin + i / group * BQ, b, BQ, bar);
 }
 
@@ -190,7 +190,7 @@ flash_bwd_dkv_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
   if (tid == 0) {
-    tma_load_pair<D, 4>(&tk, &tv, base + L::K, base + L::V, kh, k0, b, BKV, kvbar);
+    tma_load_pair<D, D, 4>(&tk, &tv, base + L::K, base + L::V, kh, k0, b, BKV, kvbar);
     if (n_steps > 0) load_step<D>(&tq, &tg, base, rbar, 0, q_begin, group, kh, b);
   }
 
@@ -353,12 +353,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
 // q, g (B,Sq,H,D), k/v (B,Skv,K,D) contiguous fp32 with 16-byte aligned
 // pointers, lse and dvec (B,H,Sq) fp32; writes dk, dv (B,Skv,K,D) fp32.
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue when a tensor
-// map cannot be made or D is not 32, 64 or 128).
+// map cannot be made, Dv is not D, or D is not 32, 64 or 128: the fp32 pair
+// takes D == Dv alone).
 extern "C" int repro_flash_bwd_dkv_sm90_fp32(const void* q, const void* k, const void* v,
                                              const void* g, const void* lse, const void* dvec,
                                              void* dk, void* dv, int B, int Sq, int Skv,
-                                             int H, int K, int D, int causal, void* stream) {
+                                             int H, int K, int D, int Dv, int causal,
+                                             void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Dv != D) return cudaErrorInvalidValue;
   switch (D) {
     case 32: return launch<32>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, st);
     case 64: return launch<64>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, st);

@@ -169,8 +169,8 @@ flash_bwd_dq_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
   if (tid == 0) {
-    tma_load_pair<D, 4>(&tq, &tg, base + L::Q, base + L::DO, h, q0, b, BQ, qbar);
-    tma_load_pair<D, 4>(&tk, &tv, base + L::K, base + L::V, kh, 0, b, BK, kvbar);
+    tma_load_pair<D, D, 4>(&tq, &tg, base + L::Q, base + L::DO, h, q0, b, BQ, qbar);
+    tma_load_pair<D, D, 4>(&tk, &tv, base + L::K, base + L::V, kh, 0, b, BK, kvbar);
   }
 
   // prologue: Dvec = rowsum(dO * O) for the block's 64 rows, two threads a
@@ -269,7 +269,7 @@ flash_bwd_dq_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
     // every warp's products have read K and V: tile j+1 may come in
     __syncthreads();
     if (tid == 0 && j + 1 < n_tiles)
-      tma_load_pair<D, 4>(&tk, &tv, base + L::K, base + L::V, kh, k0 + BK, b, BK, kvbar);
+      tma_load_pair<D, D, 4>(&tk, &tv, base + L::K, base + L::V, kh, k0 + BK, b, BK, kvbar);
 
     // dS in dP's registers, in the accumulator's layout: dp[4i + e] is row
     // (e < 2 ? r0 : r1), key column k0 + 8i + c0 + (e & 1)
@@ -356,13 +356,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
 // q, out, g (B,Sq,H,D), k/v (B,Skv,K,D) contiguous fp32 with 16-byte aligned
 // pointers, lse (B,H,Sq) fp32 from the forward; writes dq (B,Sq,H,D) and
 // dvec (B,H,Sq), fp32.  Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue when a tensor map cannot be made or D is not 32, 64
-// or 128).
+// (cudaErrorInvalidValue when a tensor map cannot be made, Dv is not D, or D
+// is not 32, 64 or 128: the fp32 pair takes D == Dv alone).
 extern "C" int repro_flash_bwd_dq_sm90_fp32(const void* q, const void* k, const void* v,
                                             const void* out, const void* g, const void* lse,
                                             void* dvec, void* dq, int B, int Sq, int Skv,
-                                            int H, int K, int D, int causal, void* stream) {
+                                            int H, int K, int D, int Dv, int causal,
+                                            void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Dv != D) return cudaErrorInvalidValue;
   switch (D) {
     case 32: return launch<32>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
     case 64: return launch<64>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);

@@ -84,20 +84,29 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       : "memory");
 }
 
-// Tiles of `rows` rows of one head from two maps of the same shape (K and
-// V, or Q and dO) of E-byte elements into dst_a and dst_b, completing on
-// `bar`.
-template <int D, int E = 2>
+// Bytes of two tiles of `rows` rows of E-byte elements, DA and DB columns
+// wide (K and V, or Q and dO): what tma_load_pair brings in.
+template <int DA, int DB, int E = 2>
+__host__ __device__ constexpr int pair_bytes(int rows) {
+  return Geo<DA, E>::tile_bytes(rows) + Geo<DB, E>::tile_bytes(rows);
+}
+
+// Tiles of `rows` rows of one head from two maps (K and V, or Q and dO) of
+// E-byte elements, DA and DB columns wide, into dst_a and dst_b, each in
+// its own width's geometry, completing on `bar`.
+template <int DA, int DB, int E = 2>
 __device__ __forceinline__ void tma_load_pair(const CUtensorMap* ma, const CUtensorMap* mb,
                                               uint32_t dst_a, uint32_t dst_b, int head,
                                               int row, int b, int rows, uint32_t bar) {
-  using G = Geo<D, E>;
-  mbar_expect_tx(bar, 2 * G::tile_bytes(rows));
+  using GA = Geo<DA, E>;
+  using GB = Geo<DB, E>;
+  mbar_expect_tx(bar, pair_bytes<DA, DB, E>(rows));
 #pragma unroll
-  for (int c = 0; c < G::NATOM; ++c) {
-    tma_load(dst_a + c * G::atom_bytes(rows), ma, c * G::ATOM, head, row, b, bar);
-    tma_load(dst_b + c * G::atom_bytes(rows), mb, c * G::ATOM, head, row, b, bar);
-  }
+  for (int c = 0; c < GA::NATOM; ++c)
+    tma_load(dst_a + c * GA::atom_bytes(rows), ma, c * GA::ATOM, head, row, b, bar);
+#pragma unroll
+  for (int c = 0; c < GB::NATOM; ++c)
+    tma_load(dst_b + c * GB::atom_bytes(rows), mb, c * GB::ATOM, head, row, b, bar);
 }
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride

@@ -41,9 +41,9 @@ SM90_KERNEL = CudaKernel("flash_attention_sm90.cu",
                          "repro_flash_attention_fwd_sm90", _FWD_ARGS)
 SM90_FP32_KERNEL = CudaKernel("flash_attention_sm90_fp32.cu",
                               "repro_flash_attention_fwd_sm90_fp32", _FWD_ARGS)
-# the backward kernels all take (8 pointers, B, Sq, Skv, H, K, D, causal,
-# stream)
-_BWD_ARGS = [_p] * 8 + [_i] * 7 + [_p]
+# the backward kernels all take (8 pointers, B, Sq, Skv, H, K, D, Dv,
+# causal, stream)
+_BWD_ARGS = [_p] * 8 + [_i] * 8 + [_p]
 DQ_SM90_KERNEL = CudaKernel("flash_bwd_dq_sm90.cu", "repro_flash_bwd_dq_sm90",
                             _BWD_ARGS)
 DKV_SM90_KERNEL = CudaKernel("flash_bwd_dkv_sm90.cu",
@@ -214,8 +214,8 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True):
 
 def _bwd_args(q, v, causal):
     B, Sq, H, D = q.shape
-    _, Skv, K, _ = v.shape
-    return B, Sq, Skv, H, K, D, int(causal)
+    _, Skv, K, Dv = v.shape
+    return B, Sq, Skv, H, K, D, Dv, int(causal)
 
 
 def bwd_dq_launch(q, k, v, out, lse, g, *, causal: bool = True):

@@ -1,12 +1,15 @@
 """Which head dims each CUDA kernel takes: a pure function of the kernel,
 the dtype and (D, Dv), so the rule is tested without a card.
 
-The bf16 flash forward takes D == Dv in {32, 64, 96, 128} and (D, Dv) =
-(96, 64), MLA's prefill (64 nope + 32 rope dims of q and k, 64 of v).
-Decode takes D == Dv in {32, 64, 96, 128} in both dtypes.  The fp32
-forward and both backward pairs take D == Dv in {32, 64, 128}.  A wrapper
-given anything else on CUDA raises, naming the shape; there is no fall-back
-to the plain version.
+The bf16 flash forward and the bf16 backward pair take D == Dv in {32, 64,
+96, 128} and (D, Dv) = (96, 64), MLA's prefill and training (64 nope + 32
+rope dims of q and k, 64 of v).  Decode takes D == Dv in {32, 64, 96, 128}
+in both dtypes.  The fp32 forward and the fp32 backward pair take D == Dv
+in {32, 64, 128}: at D = 96 their split-tf32 layouts (three 128-byte atoms
+in a 384-byte row, the transposed split tiles) are not written yet, and
+bf16 is the dtype every family trains in.  A wrapper given anything else
+on CUDA raises, naming the shape; there is no fall-back to the plain
+version.
 """
 
 from __future__ import annotations
@@ -15,11 +18,12 @@ import torch
 
 _SQUARE = ((32, 32), (64, 64), (128, 128))
 _WITH_96 = ((32, 32), (64, 64), (96, 96), (128, 128))
+_MLA = _WITH_96 + ((96, 64),)
 
 HEAD_DIMS = {
-    ("flash_fwd", torch.bfloat16): _WITH_96 + ((96, 64),),
+    ("flash_fwd", torch.bfloat16): _MLA,
     ("flash_fwd", torch.float32): _SQUARE,
-    ("flash_bwd", torch.bfloat16): _SQUARE,
+    ("flash_bwd", torch.bfloat16): _MLA,
     ("flash_bwd", torch.float32): _SQUARE,
     ("decode", torch.bfloat16): _WITH_96,
     ("decode", torch.float32): _WITH_96,

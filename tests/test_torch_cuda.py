@@ -148,6 +148,23 @@ BWD_SHAPES = [
 BWD_CASES = [shape + (dt,) for shape in BWD_SHAPES
              for dt in (torch.float32, torch.bfloat16)]
 
+# the head dims only the bf16 pair takes, and whisper's training shapes:
+# (B, Sq, Skv, H, K, D, Dv, causal)
+BWD_BF16_SHAPES = [
+    (4, 512, 512, 40, 40, 96, 64, True),  # minicpm3's MLA
+    (2, 13, 13, 40, 40, 96, 64, True),
+    (1, 100, 37, 4, 2, 96, 64, False),
+    (4, 512, 512, 32, 32, 96, 96, True),  # phi-3
+    (4, 768, 768, 32, 32, 96, 96, True),  # with 256 patch embeddings
+    (1, 13, 13, 32, 32, 96, 96, True),
+    (2, 130, 70, 8, 4, 96, 96, True),  # two q-heads a dq block
+    (4, 1500, 1500, 6, 6, 64, 64, False),  # whisper's encoder
+    (4, 448, 1500, 6, 6, 64, 64, False),  # its cross-attention
+    (1, 13, 1500, 6, 6, 64, 64, False),
+    (4, 448, 448, 6, 6, 64, 64, True),  # its decoder self-attention
+    (1, 37, 130, 6, 6, 64, 64, True),  # causal key tiles past the last query
+]
+
 
 @pytest.fixture
 def device():
@@ -478,13 +495,59 @@ def test_flash_dq_kernel_is_deterministic(case, device):
 
 
 def test_bf16_bwd_raises_on_a_head_dim_it_does_not_take(device):
-    q = _randn((1, 8, 4, 96), torch.bfloat16, device, 9)
-    kv = _randn((1, 8, 2, 96), torch.bfloat16, device, 10)
+    q = _randn((1, 8, 4, 80), torch.bfloat16, device, 9)
+    kv = _randn((1, 8, 2, 80), torch.bfloat16, device, 10)
     lse = torch.zeros((1, 4, 8), device=device)
     before = [kern.launches for kern in backward_kernels(torch.bfloat16)]
-    with pytest.raises(ValueError, match="head dims"):
+    with pytest.raises(ValueError, match="D=80, Dv=80"):
         flash_attention_bwd(q, kv, kv, q, lse, q)
     assert [kern.launches for kern in backward_kernels(torch.bfloat16)] == before
+
+
+def _bwd_inputs_dv(case, device):
+    """bf16 q, k, v (Dv wide), the forward's (out, lse) and dO (Dv wide)."""
+    B, Sq, Skv, H, K, D, Dv, causal = case
+    q = _randn((B, Sq, H, D), torch.bfloat16, device, 10)
+    k = _randn((B, Skv, K, D), torch.bfloat16, device, 11)
+    v = _randn((B, Skv, K, Dv), torch.bfloat16, device, 12)
+    g = _randn((B, Sq, H, Dv), torch.bfloat16, device, 13)
+    out, lse = flash_attention_plain(q, k, v, causal=causal)
+    return q, k, v, out.contiguous(), lse, g
+
+
+@pytest.mark.parametrize("case", BWD_BF16_SHAPES)
+def test_bf16_bwd_kernels_at_mla_phi3_and_whisper_shapes(case, device):
+    """D = 96 with Dv = 64 and 96 (MLA, phi-3) and whisper's non-causal
+    Sq != Skv shapes, held element by element as the bf16 cases above; a
+    second launch gives the same bits."""
+    causal = case[-1]
+    q, k, v, out, lse, g = _bwd_inputs_dv(case, device)
+    kerns = backward_kernels(torch.bfloat16) + backward_kernels(torch.float32)
+    before = [kern.launches for kern in kerns]
+    got = flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in kerns] == [n + (i < 2) for i, n in enumerate(before)]
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal)
+    for name, a, b, like in zip(("dq", "dk", "dv"), got, ref, (q, k, v)):
+        assert a.shape == like.shape and a.dtype == torch.bfloat16, name
+        _assert_elementwise(a, b, 2.0 ** -7, atol=1e-4)
+    again = flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D, Dv", [(96, 96), (96, 64), (64, 96)])
+def test_fp32_bwd_raises_at_head_dims_only_bf16_takes(D, Dv, device):
+    q = _randn((1, 8, 4, D), torch.float32, device, 9)
+    k = _randn((1, 8, 2, D), torch.float32, device, 10)
+    v = _randn((1, 8, 2, Dv), torch.float32, device, 11)
+    g = _randn((1, 8, 4, Dv), torch.float32, device, 12)
+    lse = torch.zeros((1, 4, 8), device=device)
+    kerns = backward_kernels(torch.float32) + backward_kernels(torch.bfloat16)
+    before = [kern.launches for kern in kerns]
+    with pytest.raises(ValueError, match=f"D={D}, Dv={Dv} in float32"):
+        flash_attention_bwd(q, k, v, g, lse, g)
+    assert [kern.launches for kern in kerns] == before
 
 
 @pytest.mark.parametrize("which", range(5))

@@ -45,13 +45,20 @@ _JNP = {F32: jnp.float32, BF16: jnp.bfloat16}
 _TORCH = {F32: torch.float32, BF16: torch.bfloat16}
 
 CASES = [
-    # (B, S, H, K, D, causal, dtype): the reference sweep ...
-    (2, 128, 4, 2, 64, True, F32),
-    (1, 256, 8, 8, 32, True, F32),
-    (2, 128, 4, 1, 64, False, F32),
-    (1, 128, 6, 2, 32, True, BF16),
-    # ... and a ragged length (block 13 resolves on the JAX side)
-    (2, 13, 4, 2, 16, True, F32),
+    # (B, Sq, Skv, H, K, D, Dv, causal, dtype): the reference sweep ...
+    (2, 128, 128, 4, 2, 64, 64, True, F32),
+    (1, 256, 256, 8, 8, 32, 32, True, F32),
+    (2, 128, 128, 4, 1, 64, 64, False, F32),
+    (1, 128, 128, 6, 2, 32, 32, True, BF16),
+    # ... and a ragged length (block 13 resolves on the JAX side) ...
+    (2, 13, 13, 4, 2, 16, 16, True, F32),
+    # ... and the trained families' shapes: MLA's (D, Dv) = (96, 64),
+    # phi-3's 96, whisper's non-causal cross-attention with Sq != Skv
+    (1, 128, 128, 4, 4, 96, 64, True, F32),
+    (1, 128, 128, 2, 2, 96, 64, True, BF16),
+    (1, 128, 128, 4, 4, 96, 96, True, BF16),
+    (2, 48, 150, 2, 2, 64, 64, False, F32),
+    (1, 48, 150, 6, 6, 64, 64, False, BF16),
 ]
 
 
@@ -64,22 +71,29 @@ def _pair(x, dtype):
 
 
 def _inputs(case, seed=0):
-    B, S, H, K, D, causal, dtype = case
+    B, Sq, Skv, H, K, D, Dv, causal, dtype = case
     rng = np.random.default_rng(seed)
-    shapes = ((B, S, H, D), (B, S, K, D), (B, S, K, D), (B, S, H, D))
+    shapes = ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, Dv), (B, Sq, H, Dv))
     return [_pair(rng.standard_normal(s, np.float32), dtype) for s in shapes]
+
+
+def _blocks(case):
+    """The Pallas kernels' (block_q, block_k): 64 where it divides the
+    length, else the whole length."""
+    Sq, Skv = case[1], case[2]
+    return tuple(n if n % 64 else 64 for n in (Sq, Skv))
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_plain_bwd_matches_pallas_bwd(case):
     """The same (q, k, v, out, lse, dO) through both backward passes."""
-    B, S, H, K, D, causal, dtype = case
+    causal, dtype = case[-2:]
     (qj, qt), (kj, kt), (vj, vt), (gj, gt) = _inputs(case)
-    blk = min(S, 64)
-    out_j, lse_j = jax_fwd(qj, kj, vj, causal=causal, block_q=blk,
-                           block_k=blk, interpret=True, return_lse=True)
-    ref = jax_bwd(qj, kj, vj, out_j, lse_j, gj, causal=causal, block_q=blk,
-                  block_k=blk, interpret=True)
+    bq, bk = _blocks(case)
+    out_j, lse_j = jax_fwd(qj, kj, vj, causal=causal, block_q=bq,
+                           block_k=bk, interpret=True, return_lse=True)
+    ref = jax_bwd(qj, kj, vj, out_j, lse_j, gj, causal=causal, block_q=bq,
+                  block_k=bk, interpret=True)
     out_t = torch.from_numpy(np.array(out_j, np.float32)).to(_TORCH[dtype])
     lse_t = torch.from_numpy(np.array(lse_j))
     got = flash_attention_bwd(qt, kt, vt, out_t, lse_t, gt, causal=causal)
@@ -94,12 +108,12 @@ def test_plain_bwd_matches_pallas_bwd(case):
 def test_dispatch_train_grads_match_jax_grad(case):
     """Autograd of ``DISPATCH.train`` (the plain versions on the CPU) vs
     ``jax.grad`` of the reference's differentiable ``flash_attention``."""
-    B, S, H, K, D, causal, dtype = case
+    causal, dtype = case[-2:]
     (qj, qt), (kj, kt), (vj, vt), (cj, ct) = _inputs(case, seed=1)
     co_j = cj.astype(jnp.float32)
-    blk = min(S, 64)
+    bq, bk = _blocks(case)
     ref = jax.grad(lambda *a: (jax_flash(
-        *a, causal=causal, block_q=blk, block_k=blk, interpret=True
+        *a, causal=causal, block_q=bq, block_k=bk, interpret=True
     ).astype(jnp.float32) * co_j).sum(), argnums=(0, 1, 2))(qj, kj, vj)
     leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
     out = DISPATCH.train(*leaves, causal=causal, window=None)

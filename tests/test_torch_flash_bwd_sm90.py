@@ -18,6 +18,9 @@ Against the reference's Pallas backward the tolerance is its own bf16 one,
 6e-2 absolute / 1e-2 relative (tests/test_kernels_flash_bwd.py).
 """
 
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -53,21 +56,26 @@ ATOL, RTOL_BF16 = 1e-4, 2.0 ** -7
 LOG2E = np.float32(1.4426950408889634)
 
 CASES = [
-    # (B, Sq, Skv, H, K, D, causal)
-    (1, 512, 512, 4, 2, 128, True),
-    (2, 13, 13, 4, 2, 64, True),
-    (1, 130, 70, 4, 4, 32, True),
-    (1, 100, 37, 4, 2, 64, False),
-    (1, 96, 160, 4, 1, 32, True),
+    # (B, Sq, Skv, H, K, D, Dv, causal)
+    (1, 512, 512, 4, 2, 128, 128, True),
+    (2, 13, 13, 4, 2, 64, 64, True),
+    (1, 130, 70, 4, 4, 32, 32, True),
+    (1, 100, 37, 4, 2, 64, 64, False),
+    (1, 96, 160, 4, 1, 32, 32, True),
+    # phi-3's head dim, MLA's (D, Dv) with one q-head a kv-head, and
+    # whisper's non-causal cross-attention (Sq != Skv, a 22-key tail)
+    (1, 128, 128, 4, 4, 96, 96, True),
+    (1, 130, 130, 2, 2, 96, 64, True),
+    (2, 48, 150, 2, 2, 64, 64, False),
 ]
 
 
 def _numpy_inputs(case, seed=0):
-    B, Sq, Skv, H, K, D, _ = case
+    B, Sq, Skv, H, K, D, Dv, _ = case
     rng = np.random.default_rng(seed)
     return tuple(rng.standard_normal(shape, np.float32)
-                 for shape in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D),
-                               (B, Sq, H, D)))
+                 for shape in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, Dv),
+                               (B, Sq, H, Dv)))
 
 
 def _bf16(x):
@@ -89,16 +97,17 @@ def _terms(x, split):
 
 def sm90_bwd_model(q, k, v, out, lse, g, *, causal=True, split_p=True,
                    split_ds=True):
-    """The kernels' arithmetic on bf16 q, dO (B,Sq,H,D), k, v (B,Skv,K,D),
-    the forward's out and lse: returns (dq, dk, dv) in bf16.  ``split_p``
-    / ``split_ds`` False round P / dS once to bf16 instead of splitting."""
+    """The kernels' arithmetic on bf16 q (B,Sq,H,D), dO (B,Sq,H,Dv), k
+    (B,Skv,K,D), v (B,Skv,K,Dv), the forward's out and lse: returns (dq,
+    dk, dv) in bf16.  ``split_p`` / ``split_ds`` False round P / dS once to
+    bf16 instead of splitting."""
     B, Sq, H, D = q.shape
-    Skv, K = k.shape[1], k.shape[2]
+    Skv, K, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // K
     root = np.sqrt(np.float32(D), dtype=np.float32)
     scale_log2, scale = float(LOG2E / root), float(np.float32(1.0) / root)
     qf = q.float().reshape(B, Sq, K, G, D)
-    gf = g.float().reshape(B, Sq, K, G, D)
+    gf = g.float().reshape(B, Sq, K, G, Dv)
     kf, vf = k.float(), v.float()
     # Dvec in the dq kernel's prologue; lse as a base-2 exponent
     dvec = (g.float() * out.float()).sum(-1).permute(0, 2, 1).reshape(B, K, G, Sq)
@@ -123,11 +132,11 @@ def sm90_bwd_model(q, k, v, out, lse, g, *, causal=True, split_p=True,
     # steps (query tile, q-head) in order, dealt to two warpgroups in turn;
     # warpgroup 1's sums are added to warpgroup 0's at the end
     dk = [torch.zeros(B, Skv, K, D) for _ in range(2)]
-    dv = [torch.zeros(B, Skv, K, D) for _ in range(2)]
+    dv = [torch.zeros(B, Skv, K, Dv) for _ in range(2)]
     steps = [(q0, gi) for q0 in range(0, Sq, DKV_BQ) for gi in range(G)]
     for j, (q0, gi) in enumerate(steps):
         rows, wg = slice(q0, q0 + DKV_BQ), j % 2
-        qt, gt = qf[:, rows, :, gi], gf[:, rows, :, gi]  # (B, n, K, D)
+        qt, gt = qf[:, rows, :, gi], gf[:, rows, :, gi]  # (B, n, K, D or Dv)
         st = torch.einsum("bskd,bnkd->bkns", kf, qt)  # queries, keys
         dpt = torch.einsum("bskd,bnkd->bkns", vf, gt)
         p, ds = p_ds(st, dpt, l2[:, :, gi, rows], dvec[:, :, gi, rows],
@@ -182,7 +191,7 @@ def test_rounding_p_or_ds_once_fails_the_check(split_p, split_ds, failing):
 
 @pytest.mark.parametrize("case", CASES)
 def test_model_matches_pallas_reference(case):
-    B, Sq, Skv, H, K, D, causal = case
+    B, Sq, Skv, H, K, D, Dv, causal = case
     qn, kn, vn, gn = _numpy_inputs(case, seed=1)
     qj, kj, vj, gj = (jnp.asarray(x, jnp.bfloat16) for x in (qn, kn, vn, gn))
     bq = 64 if Sq % 64 == 0 else Sq
@@ -226,3 +235,17 @@ def test_the_four_backward_kernels_have_their_own_sources():
         "flash_bwd_dq_sm90_fp32.cu", "flash_bwd_dkv_sm90_fp32.cu"]
     assert all(kern.source.is_file() for kern in kerns)
     assert len({kern.symbol for kern in kerns}) == 4
+
+
+@pytest.mark.parametrize("kern", [DQ_SM90_KERNEL, DKV_SM90_KERNEL,
+                                  DQ_SM90_FP32_KERNEL, DKV_SM90_FP32_KERNEL],
+                         ids=lambda kern: kern.name)
+def test_backward_abi_takes_dv(kern):
+    """One ABI for the four backward kernels: 8 pointers, then B, Sq, Skv,
+    H, K, D, Dv, causal as ints, then the stream; the C entry in the
+    source declares the same ints in that order."""
+    assert kern.argtypes == [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    src = kern.source.read_text()
+    decl = re.search(rf'extern "C" int {kern.symbol}\(([^)]*)\)', src).group(1)
+    ints = re.findall(r"\bint (\w+)", decl)
+    assert ints == ["B", "Sq", "Skv", "H", "K", "D", "Dv", "causal"]
