@@ -6,7 +6,8 @@
 Drives the port's main paths on ``cuda:0`` — serving as a task farm, and
 training in sync and in farm mode, of qwen3-1.7B; serving and sync
 training of falcon-mamba-7b; serving and sync training of minicpm3-4b,
-phi-3-vision-4.2b and whisper-tiny — and holds every hand-written kernel
+phi-3-vision-4.2b and whisper-tiny; serving of the MoE family,
+llama4-maverick and arctic — and holds every hand-written kernel
 of those paths against its plain PyTorch version.  Phases, in order; any
 failure raises and exits non-zero:
 
@@ -29,7 +30,10 @@ failure raises and exits non-zero:
    whisper's D=64, H=K=6: non-causal encoder (1500 x 1500) and
    cross-attention (64 x 1500), causal decoder self-attention (64 x 64);
    decode at D=96 on phi-3's 544-slot cache in bf16 and fp32 and at D=64 on
-   whisper's 128-slot self-attention cache.  Each runs again at a ragged
+   whisper's 128-slot self-attention cache; the odd GQA groups of phase 17
+   in bf16 at D=128: flash at B=4, S=512, H=40, K=8 (llama4, G=5) and H=56,
+   K=8 (arctic, G=7), one q-head a block, and decode at both on a 544-slot
+   cache (5 or 7 q-heads in a block of 8).  Each runs again at a ragged
    size (Sq = 13; a 24-slot cache with ``cache_index`` mid-cache) and
    decode on one request alone.  Then each kernel, its plain version and
    PyTorch's SDPA are timed at each serve shape (decode in bf16, at B=4
@@ -150,7 +154,20 @@ failure raises and exits non-zero:
     be finite and step 0's batch must score lower after training.  Then,
     the moments freed, one step's loss and gradients through the kernels
     and through the plain versions, same weights, same batch, held to
-    ``FAMILY_TRAIN_LIMITS``.
+    ``FAMILY_TRAIN_LIMITS``;
+17. (everything freed) the MoE family as phase 15 serves its families,
+    one config at a time, at full width with the depth cut to whole
+    repeats of the pattern that one card holds (``MOE_LAYERS``, printed as
+    a ``reduced`` list beside the weights each cut takes):
+    llama4-maverick-400b-a17b at 2 layers (a dense and an MoE block,
+    128 experts, top-1, a dense residual; H=40, K=8) and arctic-480b at 2
+    layers (two MoE blocks, 128 experts, top-2, a dense residual; H=56,
+    K=8).  Exactly 2 flash and 64 decode launches a task, nothing else;
+    one task timed alone and profiled; each config's prefill and 4 decode
+    steps of logits through the kernels and through the plain versions on
+    4 batches, with the share of (token, choice) routing decisions that
+    differ between the two paths (a one-ulp bf16 difference in attention
+    can flip a near-tied router choice).
 
 The line before the last is a JSON object with each kernel's numbers, one
 row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
@@ -159,7 +176,9 @@ the bf16 flash forward (``flash_attention_fwd_d96_dv64``,
 ``flash_attention_fwd_d96``) and of decode (``decode_attention_fwd_d96``),
 dq and dk/dv in bf16 and in fp32 (``..._fp32``), and phase 16's shapes of
 the bf16 pair (``flash_attention_bwd_{dq,dkv}_d96_dv64``, ``..._d96`` at
-S = 768, ``..._whisper`` on the encoder); the last
+S = 768, ``..._whisper`` on the encoder), and phase 17's odd GQA groups of
+the bf16 flash forward and decode (``flash_attention_fwd_g5``, ``..._g7``,
+``decode_attention_fwd_g5``, ``..._g7``); the last
 line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event times on
 this card without flushing the 50 MB L2 cache (the serve and training
 paths find their inputs freshly written): for every kernel, its library
@@ -278,10 +297,26 @@ FAMILY_BATCHES = 4
 # phi-3 (32 layers, prefill of 256 patches + 512 tokens and 4 decode
 # steps) largest 8.52e-2 to 1.000e-1, mean 1.573e-2 to 1.693e-2; whisper
 # (4 + 4 layers, prefill and one decode step) largest 1.022e-2 to
-# 1.318e-2, mean 1.874e-3 to 2.147e-3.  The element checks of phase 2, not
-# these limits, decide whether a kernel is right.
+# 1.318e-2, mean 1.874e-3 to 2.147e-3.  Phase 17's MoE configs (2 layers,
+# prefill and 4 decode steps): llama4 largest 3.04e-2 to 2.512e-1, mean
+# 5.16e-3 to 1.522e-2; arctic largest 5.41e-2 to 7.84e-2, mean 8.47e-3 to
+# 1.091e-2.  There a one-ulp bf16 flip in attention can flip a near-tied
+# router choice (47 of 8,256 and 255 of 33,024 (token, choice) decisions
+# differed), and llama4's largest gap, 2.512e-1, is a decode step where 1
+# of its 4 decisions flipped.  The element checks of phase 2, not these
+# limits, decide whether a kernel is right.
 FAMILY_LIMITS = {"minicpm3_4b": (0.13, 0.019), "phi3_vision_4p2b": (0.14, 0.021),
-                 "whisper_tiny": (0.018, 0.0027)}
+                 "whisper_tiny": (0.018, 0.0027),
+                 "llama4_maverick_400b_a17b": (0.34, 0.021), "arctic_480b": (0.11, 0.015)}
+# Phase 17: the MoE family at full width, served as phase 15 serves its
+# families (FAMILY_REQUESTS prompts of PROMPT tokens, FAMILY_NEW new
+# tokens), its depth cut to the whole pattern repeats one card holds:
+# llama4-maverick one dense and one MoE block (128 experts of 3 x 5120 x
+# 8192 bf16 weights, 32.2 GB a MoE layer), arctic two MoE blocks (26.8 GB
+# each; a third would make 83.5 GB).  The reference's MoE is a dense
+# one-hot dispatch: every expert is read on every call.
+MOE_FAMILIES = ("llama4_maverick_400b_a17b", "arctic_480b")
+MOE_LAYERS = {"llama4_maverick_400b_a17b": 2, "arctic_480b": 2}
 # Phase 2's shapes: each path's attention calls as its serve run makes them.
 # Flash: label -> (B, Sq, Skv, H, K, D, Dv, causal, dtypes), each also at a
 # ragged Sq = 13 (and Skv = 13 where Skv = Sq).  Decode: label -> (B, H, K,
@@ -299,6 +334,9 @@ FLASH_SHAPES = {
                       (torch.bfloat16,)),
     "whisper self": (PER_TASK, WHISPER_PROMPT, WHISPER_PROMPT, 6, 6, 64, 64, True,
                      (torch.bfloat16,)),
+    # the odd GQA groups of phase 17: one q-head a block (H/K odd)
+    "llama4 G=5": (PER_TASK, PROMPT, PROMPT, 40, 8, 128, 128, True, (torch.bfloat16,)),
+    "arctic G=7": (PER_TASK, PROMPT, PROMPT, 56, 8, 128, 128, True, (torch.bfloat16,)),
 }
 DECODE_SHAPES = {
     "qwen3": (PER_TASK, 16, 8, 128, PROMPT + NEW, PROMPT + 31,
@@ -307,6 +345,11 @@ DECODE_SHAPES = {
               (torch.bfloat16, torch.float32)),
     "whisper self": (PER_TASK, 6, 6, 64, WHISPER_PROMPT + WHISPER_NEW,
                      WHISPER_PROMPT + WHISPER_NEW - 1, (torch.bfloat16,)),
+    # a kv-head's 5 or 7 q-heads in one block of 8, the rest masked
+    "llama4 G=5": (PER_TASK, 40, 8, 128, PROMPT + FAMILY_NEW, PROMPT + FAMILY_NEW - 1,
+                   (torch.bfloat16,)),
+    "arctic G=7": (PER_TASK, 56, 8, 128, PROMPT + FAMILY_NEW, PROMPT + FAMILY_NEW - 1,
+                   (torch.bfloat16,)),
 }
 # the kernels line's phase-2 rows: (kind, label, dtypes), timed in the first
 # dtype, the largest |error| over all of them
@@ -317,6 +360,10 @@ JSON_ROWS = {
     "d96_dv64": ("flash", "minicpm3 MLA", (torch.bfloat16,)),
     "d96": ("flash", "phi-3", (torch.bfloat16,)),
     "decode_d96": ("decode", "phi-3", (torch.bfloat16, torch.float32)),
+    "g5": ("flash", "llama4 G=5", (torch.bfloat16,)),
+    "g7": ("flash", "arctic G=7", (torch.bfloat16,)),
+    "decode_g5": ("decode", "llama4 G=5", (torch.bfloat16,)),
+    "decode_g7": ("decode", "arctic G=7", (torch.bfloat16,)),
 }
 # Phase 16: sync training of phase 15's families at full width, one at a
 # time, FAMILY_TRAIN_BATCH sequences of TRAIN_SEQ tokens (phi-3: after
@@ -854,32 +901,71 @@ def time_one_task(api, params, tokens, new):
     profile_task(api, params, tokens, new)
 
 
-def kernels_vs_plain(api, params, plain_ops, batches, budget, steps, limits):
-    """The full-width logits check of phases 4, 11 and 15: for each
+class RoutingTap:
+    """Records the routing decisions of a model's MoE layers as it runs:
+    for each (token, choice), the chosen expert, or -1 where the capacity
+    dropped it.  A forward hook routes each layer's input again
+    (``MoE.route``); ``take`` returns what was recorded since its last
+    call, ``close`` removes the hooks."""
+
+    def __init__(self, model):
+        self.seen = []
+        self.hooks = [blk.moe.register_forward_hook(self._record)
+                      for blk in model.blocks if blk.spec.mlp == "moe"]
+
+    def _record(self, layer, args, out):
+        keep = layer.route(args[0])[3]
+        expert = torch.arange(1, keep.shape[-1] + 1, device=keep.device)
+        self.seen.append(((keep * expert).sum(-1) - 1).flatten())
+
+    def take(self) -> torch.Tensor:
+        seen, self.seen = torch.cat(self.seen), []
+        return seen
+
+    def close(self):
+        for hook in self.hooks:
+            hook.remove()
+
+
+def kernels_vs_plain(api, params, plain_ops, batches, budget, steps, limits, tap=None):
+    """The full-width logits check of phases 4, 11, 15 and 17: for each
     (batch, first decode position) of ``batches``, a prefill and ``steps``
     decode steps through the kernels and through ``plain_ops``, the same
     greedy token fed to both; the largest and mean |logits difference| of
-    each held to ``limits``."""
+    each held to ``limits``.  With a RoutingTap, the share of (token,
+    choice) routing decisions that differ between the two paths is printed
+    beside each."""
     max_lim, mean_lim = limits
+
+    def flips():
+        return None if tap is None else tap.take()
+
     for i, (batch, start) in enumerate(batches):
         lg_k, c_k = api.prefill(params, batch, seq_budget=budget)
+        r_k = flips()
         lg_p, c_p = api.prefill(params, batch, seq_budget=budget, ops=plain_ops)
-        pairs = [("prefill", lg_k, lg_p)]
+        pairs = [("prefill", lg_k, lg_p, r_k, flips())]
         for j in range(steps):
             step = {"tokens": torch.argmax(lg_k, -1).to(torch.int32)[:, None],
                     "cache_index": start + j}
             lg_k, c_k = api.decode(params, step, c_k)
+            r_k = flips()
             lg_p, c_p = api.decode(params, step, c_p, ops=plain_ops)
-            pairs.append((f"decode at {start + j}", lg_k, lg_p))
-        for name, a, b in pairs:
+            pairs.append((f"decode at {start + j}", lg_k, lg_p, r_k, flips()))
+        for name, a, b, r_a, r_b in pairs:
             if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
                 raise AssertionError(f"batch {i} {name}: non-finite logits")
             diff = (a - b).abs()
             err, mean = diff.max().item(), diff.mean().item()
             agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+            routing = ("" if r_a is None else
+                       f", routing decisions differ on {(r_a != r_b).sum().item()} of "
+                       f"{r_a.numel()} (token, choice) pairs "
+                       f"({(r_a != r_b).float().mean().item():.4f})")
             say(f"  batch {i} {name} logits: max |diff| {err:.3e} (limit {max_lim:g}), "
                 f"mean |diff| {mean:.3e} (limit {mean_lim:g}), max |logit| "
-                f"{b.abs().max().item():.3f}, greedy tokens agree on {agree:.2f} of rows")
+                f"{b.abs().max().item():.3f}, greedy tokens agree on {agree:.2f} of rows"
+                f"{routing}")
             if not (err <= max_lim and mean <= mean_lim):
                 raise AssertionError(f"batch {i} {name}: full-width logits through the "
                                      "kernels disagree")
@@ -1325,13 +1411,16 @@ def mamba_train_phase(cfg, dev, kernels, full_params):
         trainer.state, batch), 1)
 
 
-def family_phase(arch, dev, lookup, kernels):
-    """Phase 15 for one family: serve it at full width and depth through
-    ``BasicClient`` on the services in ``lookup`` with every launch count
-    zeroed just before and read just after (exact counts a task: one flash
-    launch a prefill attention, one decode launch a self-attention layer
-    and new token but none for MLA, nothing else), then its logits through
-    the kernels against the plain versions.  Returns the launch counts."""
+def family_phase(arch, dev, lookup, kernels, layers=None):
+    """Phase 15 (and 17) for one family: serve it at full width, at full
+    depth or cut to ``layers`` layers, through ``BasicClient`` on the
+    services in ``lookup`` with every launch count zeroed just before and
+    read just after (exact counts a task: one flash launch a prefill
+    attention, one decode launch a self-attention layer and new token but
+    none for MLA, nothing else), then its logits through the kernels
+    against the plain versions (with an MoE's routing flips).  minicpm3's
+    and the MoE families' task is timed alone and profiled.  Returns the
+    launch counts."""
     import repro_torch.configs as cfgs
     from repro_torch.core import BasicClient
     from repro_torch.kernels import decode_attention as decode
@@ -1340,7 +1429,8 @@ def family_phase(arch, dev, lookup, kernels):
     from repro_torch.runtime.serve_loop import (ServeConfig, make_generate_program,
                                                 serve_requests)
 
-    cfg = cfgs.get(arch)
+    full = cfgs.get(arch)
+    cfg = full if layers is None else full.replace(n_layers=layers)
     api = build(cfg)
     t0 = time.perf_counter()
     params = api.init(torch.Generator(device=dev).manual_seed(SEED))
@@ -1349,8 +1439,10 @@ def family_phase(arch, dev, lookup, kernels):
     depth = (f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers" if encdec
              else f"{cfg.n_layers} layers")
     say(f"  {cfg.name}: {depth}, d_model {cfg.d_model}, {cfg.n_heads} heads, "
-        f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B params in "
-        f"{cfg.param_dtype}, initialised in {time.perf_counter() - t0:.2f} s")
+        f"{cfg.n_kv_heads} kv-heads, {sum(p.numel() for p in params.parameters()) / 1e9:.3f} "
+        f"B params in {cfg.param_dtype}, initialised in {time.perf_counter() - t0:.2f} s")
+    if layers is not None:
+        say_depth_cut(full, cfg, params)
     prompt, new = (WHISPER_PROMPT, WHISPER_NEW) if encdec else (PROMPT, FAMILY_NEW)
     rng = np.random.default_rng(SEED)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (FAMILY_REQUESTS, prompt)))
@@ -1397,7 +1489,7 @@ def family_phase(arch, dev, lookup, kernels):
     want[decode.KERNEL.name] = 0 if cfg.attention == "mla" else n_tasks * cfg.n_layers * new
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
-    if arch == "minicpm3_4b":
+    if arch == "minicpm3_4b" or cfg.moe is not None:
         time_one_task(api, params, prompts[:PER_TASK].to(dev), new)
 
     say(f"  {cfg.name}: kernels vs plain versions at full width")
@@ -1413,10 +1505,36 @@ def family_phase(arch, dev, lookup, kernels):
             batch["patch_embeds"] = randn((PER_TASK, PATCHES, cfg.d_model), torch.float32,
                                           SEED + 70 + i)
         batches.append((batch, prompt + (PATCHES if cfg.frontend == "vision" else 0)))
-    steps = 4 if cfg.frontend == "vision" else 1
+    steps = 4 if cfg.frontend == "vision" or cfg.moe is not None else 1
+    tap = RoutingTap(params) if cfg.moe is not None else None
     kernels_vs_plain(api, params, kernels.PLAIN, batches, batches[0][1] + new, steps,
-                     FAMILY_LIMITS[arch])
+                     FAMILY_LIMITS[arch], tap)
+    if tap is not None:
+        tap.close()
     return launches
+
+
+def say_depth_cut(full, cfg, params):
+    """Phase 17's cut, as a ``reduced`` list: the layers kept at full
+    width, the weights they take, what the full depth and one more pattern
+    repeat would take beside the embeddings and the fp32 unembedding copy,
+    and the card's memory."""
+    def gb(named):
+        return sum(p.numel() * p.element_size() for _, p in named) / 1e9
+
+    blocks = gb(params.blocks.named_parameters())
+    rest = gb((n, p) for n, p in params.named_parameters() if not n.startswith("blocks."))
+    f32 = params.head().table_f32().numel() * 4 / 1e9
+    per_repeat = blocks / cfg.n_repeats
+    card = torch.cuda.get_device_properties(0).total_memory / 1e9
+    say("  reduced: " + json.dumps([
+        f"n_layers {full.n_layers} -> {cfg.n_layers}: {cfg.n_repeats} of {full.n_repeats} "
+        f"repeats of the pattern ({', '.join(s.mlp for s in cfg.pattern)} MLPs), widths "
+        "as published"]))
+    say(f"  weights: blocks {blocks:.2f} GB ({per_repeat:.2f} GB a repeat), embeddings "
+        f"{rest:.2f} GB, fp32 unembedding copy {f32:.2f} GB: {blocks + rest + f32:.2f} GB; "
+        f"one more repeat {blocks + per_repeat + rest + f32:.2f} GB, full depth "
+        f"{per_repeat * full.n_repeats + rest + f32:.1f} GB; the card has {card:.1f} GB")
 
 
 class FamilyBatches:
@@ -2020,6 +2138,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         say(f"  {arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
 
+    say("phase 17: serve llama4-maverick-400b-a17b and arctic-480b (MoE), depth cut")
+    for arch in MOE_FAMILIES:
+        family_launches[arch] = family_phase(arch, dev, lookup, kernels, MOE_LAYERS[arch])
+        free(services)
+        say(f"  {arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+
     # the kernels line: (name, kernel, its times, its largest |error|, the
     # Pallas call it replaces, the launch counts of the path that reports it)
     flash_py = "src/repro/kernels/flash_attention/flash_attention.py"
@@ -2040,6 +2164,12 @@ def main() -> int:
         ("decode_attention_fwd_d96", decode.KERNEL, k_rows["decode_d96"],
          k_rows["decode_d96"]["err"], f"{decode_py}:116", family_launches["phi3_vision_4p2b"]),
     ]
+    # phase 17's odd GQA groups: G = 5 (llama4), G = 7 (arctic)
+    for sfx, arch in (("g5", "llama4_maverick_400b_a17b"), ("g7", "arctic_480b")):
+        table += [(f"flash_attention_fwd_{sfx}", flash.SM90_KERNEL, k_rows[sfx],
+                   k_rows[sfx]["err"], f"{flash_py}:127", family_launches[arch]),
+                  (f"decode_attention_fwd_{sfx}", decode.KERNEL, k_rows[f"decode_{sfx}"],
+                   k_rows[f"decode_{sfx}"]["err"], f"{decode_py}:116", family_launches[arch])]
     # the backward rows: one BWD_SHAPES label and dtype each, with the
     # launches of the training run that gives the pair that shape
     for sfx, label, dt, count in (

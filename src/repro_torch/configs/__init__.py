@@ -2,18 +2,22 @@
 
 Each module defines ``CONFIG``, the full-scale config, identical to the
 reference package's.  ``reduced(cfg)`` derives the same small config the
-reference's CPU tests use.  Ported: the dense GQA and MHA decoders, MLA
-(minicpm3), the vision LM (phi-3-vision), the whisper encoder-decoder and
-the Mamba-1 SSM (falcon-mamba); the MoE configs are not.
+reference's CPU tests use.  Ported: the MoE decoders (llama4-maverick,
+arctic), the dense GQA and MHA decoders, MLA (minicpm3), the vision LM
+(phi-3-vision), the whisper encoder-decoder and the Mamba-1 SSM
+(falcon-mamba); jamba (hybrid) is not.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from repro_torch.models.common import ModelConfig, SSMConfig
 
 ARCH_IDS = [
+    "llama4_maverick_400b_a17b",
+    "arctic_480b",
     "qwen3_1p7b",
     "llama3p2_1b",
     "minicpm3_4b",
@@ -24,6 +28,8 @@ ARCH_IDS = [
 ]
 
 _ALIASES = {
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "arctic-480b": "arctic_480b",
     "qwen3-1.7b": "qwen3_1p7b",
     "llama3.2-1b": "llama3p2_1b",
     "minicpm3-4b": "minicpm3_4b",
@@ -67,6 +73,10 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         opt_state_dtype="float32",
         max_seq_len=128,
     )
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=4, top_k=min(cfg.moe.top_k, 2),
+            dense_residual_ff=128 if cfg.moe.dense_residual else 0)
     if cfg.ssm is not None:
         kw["ssm"] = SSMConfig(state_dim=4, conv_width=4, expand=2, dt_rank=8)
     if cfg.attention == "mla":

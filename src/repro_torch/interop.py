@@ -14,8 +14,11 @@ stacked along a leading layer axis (``encoder.{l}.attn.wq`` is
 ``encoder/attn/wq[l]``); the vision stub's ``patch_proj`` is
 ``patch_proj/w``.  Every parameter of the port must be found and every
 leaf of the tree used, with the same shape, or this raises.  Each weight
-keeps the port's dtype: a Mamba layer's ``A_log`` and ``D`` stay fp32 in
-every config, as in the reference.
+keeps the port's dtype: a Mamba layer's ``A_log`` and ``D`` and an MoE's
+router stay fp32 in every config, as in the reference.  An MoE layer's
+stacked experts map whole: ``blocks.{l}.moe.experts.wi`` (E, d, ff) is
+``blocks/b{i}/moe/experts/wi[r]``, its dense residual
+``blocks/b{i}/moe/residual/...[r]``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Block assembly: one pre-norm block (an attention — GQA or MLA — or
-Mamba mixer, then a dense MLP or none), and the layer stack as an
+Mamba mixer, then a dense MLP, an MoE or none), and the layer stack as an
 ``nn.ModuleList`` run by a Python loop (the reference package scans over
 parameters stacked along a repeats axis)."""
 
@@ -14,6 +14,7 @@ from .common import BlockSpec, ModelConfig
 from .layers import make_mlp, make_norm
 from .mamba import Mamba
 from .mla import MLA
+from .moe import MoE
 
 
 def pad_seq(a: torch.Tensor, seq_budget: int) -> torch.Tensor:
@@ -27,43 +28,58 @@ class Block(nn.Module):
     """``x + mixer(norm(x))`` then, unless the MLP is "none",
     ``x + mlp(norm(x))``.  The mixer is ``attn`` (GQA, or MLA when
     ``cfg.attention == "mla"``) or ``mamba``; the MLP ``dense`` (SwiGLU or
-    GELU by ``cfg.mlp_act``) or ``none``; the norms RMS or Layer by
+    GELU by ``cfg.mlp_act``), ``moe`` (``models/moe.py``, whose aux loss
+    training adds up) or ``none``; the norms RMS or Layer by
     ``cfg.norm_type``.  A Mamba mixer ignores ``cache_index`` and
     ``seq_budget``: its state has a fixed size."""
 
     def __init__(self, cfg: ModelConfig, spec: BlockSpec, g: torch.Generator):
         super().__init__()
-        if (spec.mixer not in ("attn", "mamba") or spec.mlp not in ("dense", "none")
+        if (spec.mixer not in ("attn", "mamba")
+                or spec.mlp not in ("dense", "moe", "none")
                 or (spec.mixer == "attn" and cfg.attention not in ("gqa", "mla"))):
             raise NotImplementedError(
                 f"block {spec} of {cfg.name} is not ported: only attn (GQA or "
-                "MLA) or mamba mixers with a dense MLP or none")
+                "MLA) or mamba mixers with a dense MLP, an MoE or none")
         self.mixer_norm = make_norm(cfg, g.device)
         if spec.mixer == "attn":
             self.attn = MLA(cfg, g) if cfg.attention == "mla" else Attention(cfg, g)
         else:
             self.mamba = Mamba(cfg, g)
-        if spec.mlp == "dense":
+        if spec.mlp != "none":
             self.mlp_norm = make_norm(cfg, g.device)
+        if spec.mlp == "dense":
             self.mlp = make_mlp(cfg, g)
+        elif spec.mlp == "moe":
+            self.moe = MoE(cfg, g)
         self.spec = spec
         self.cfg = cfg
 
-    def _mlp(self, x):
+    def _mlp_aux(self, x):
+        """(x + mlp(norm(x)), the MLP's aux loss: the MoE's, else 0)."""
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.spec.mlp == "none":
-            return x
-        return x + self.mlp(self.mlp_norm(x))
+            return x, zero
+        if self.spec.mlp == "moe":
+            h, aux = self.moe(self.mlp_norm(x))
+            return x + h, aux
+        return x + self.mlp(self.mlp_norm(x)), zero
+
+    def _mlp(self, x):
+        """Serving drops the aux loss, as the reference's prefill and
+        decode do."""
+        return self._mlp_aux(x)[0]
 
     def forward_train(self, x, *, ops: AttentionOps):
-        """Differentiable; returns (x, aux loss): aux is 0 for these blocks
-        (the reference's ``apply_block_train``)."""
+        """Differentiable; returns (x, aux loss): the MoE's load-balance and
+        z losses, 0 for the other blocks (the reference's
+        ``apply_block_train``)."""
         h = self.mixer_norm(x)
         if self.spec.mixer == "attn":
             h = self.attn.forward_train(h, window=self.spec.window, ops=ops)
         else:
             h = self.mamba.forward_train(h, ops=ops)
-        x = self._mlp(x + h)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._mlp_aux(x + h)
 
     def prefill(self, x, *, seq_budget: int, ops: AttentionOps):
         """Returns (x, cache).  An attention cache (K/V, or MLA's latent)

@@ -1,14 +1,15 @@
 """Model configuration for the families the port runs: dense GQA and
 MHA decoders, MLA (minicpm3), the vision LM (phi-3-vision's backbone
-with its patch-embedding stub), the whisper encoder-decoder and Mamba-1
-SSMs.
+with its patch-embedding stub), the whisper encoder-decoder, Mamba-1
+SSMs and token-dropping MoE with an optional dense residual
+(llama4-maverick, arctic).
 
 A model is a *block pattern* (a short tuple of ``BlockSpec``) repeated
 ``n_repeats`` times, as in the reference package; the port runs the
 layers as a loop over an ``nn.ModuleList``.  Ported blocks: attention
-(GQA or MLA) + a dense MLP (SwiGLU or GELU) and mamba with no MLP
-(falcon-mamba); blocks of any other pattern (MoE) are rejected when the
-model is built.
+(GQA or MLA) or mamba, then a dense MLP (SwiGLU or GELU), an MoE or
+none.  The hybrid family (jamba, with its ``long_context_window``) is
+rejected when the model is built.
 """
 
 from __future__ import annotations
@@ -18,6 +19,25 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Token-dropping (capacity-factor) mixture-of-experts."""
+
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    # Routing-group size (tokens per capacity group); the dispatch and
+    # combine one-hots are O(tokens x E x capacity).  0 = one group per
+    # sequence.
+    group_size: int = 256
+    # Arctic-style: a dense FFN residual branch computed for every token in
+    # parallel with the routed experts (also llama4-maverick's shared expert).
+    dense_residual: bool = False
+    dense_residual_ff: int = 0  # 0 -> the config's d_ff
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
 
 
 @dataclass(frozen=True)
@@ -38,7 +58,7 @@ class BlockSpec:
     """One layer's shape: a mixer plus an MLP."""
 
     mixer: str = "attn"  # "attn" | "mamba"
-    mlp: str = "dense"  # "dense" | "none"
+    mlp: str = "dense"  # "dense" | "moe" | "none"
     # sliding window for this block's attention (None = full/causal).
     window: int | None = None
 
@@ -46,7 +66,7 @@ class BlockSpec:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | ssm | vlm | audio
+    family: str  # dense | moe | ssm | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -66,6 +86,7 @@ class ModelConfig:
     qk_nope_head_dim: int = 0
     v_head_dim: int = 0
 
+    moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
 
     # encoder-decoder (whisper backbone)
@@ -84,7 +105,7 @@ class ModelConfig:
     # numerics: names of torch dtypes; training policy
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
-    remat: bool = False  # carried from the reference; True is not ported
+    remat: bool = False  # as the reference; serving ignores it, training refuses True
     opt_state_dtype: str = "float32"  # AdamW moments: float32 | bfloat16 | int8
 
     max_seq_len: int = 4096
@@ -93,8 +114,9 @@ class ModelConfig:
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if not self.pattern:
+            mlp = "moe" if self.moe is not None else "dense"
             mixer = "mamba" if self.family == "ssm" else "attn"
-            object.__setattr__(self, "pattern", (BlockSpec(mixer=mixer),))
+            object.__setattr__(self, "pattern", (BlockSpec(mixer=mixer, mlp=mlp),))
         if self.n_layers % len(self.pattern) != 0:
             raise ValueError(
                 f"{self.name}: n_layers={self.n_layers} not divisible by "

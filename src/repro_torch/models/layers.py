@@ -18,12 +18,25 @@ from .common import ModelConfig
 # --------------------------------------------------------------------- #
 # initializers
 # --------------------------------------------------------------------- #
-def dense_init(g: torch.Generator, shape, dtype: torch.dtype) -> nn.Parameter:
-    """Truncated-normal fan-in initializer (std fan_in^-0.5, cut at 2 std)."""
+def dense_init(g: torch.Generator, shape, dtype: torch.dtype,
+               in_axis_size: int | None = None) -> nn.Parameter:
+    """Truncated-normal fan-in initializer (std fan_in^-0.5, cut at 2 std),
+    fan_in ``in_axis_size``, by default ``shape[0]``.  A stack of matrices
+    (more than 2 axes, e.g. an MoE's (E, d, ff) experts, whose fan-in is
+    d) is drawn one matrix at a time into a tensor of ``dtype``: an fp32
+    temporary of llama4's whole ``wi`` stack would take 21.5 GB."""
+    std = (in_axis_size or shape[0]) ** -0.5
+    if len(shape) <= 2:
+        return _param(_trunc_normal(g, shape, std).to(dtype))
+    out = torch.empty(shape, dtype=dtype, device=g.device)
+    for matrix in out:
+        matrix.copy_(_trunc_normal(g, shape[1:], std))
+    return _param(out)
+
+
+def _trunc_normal(g: torch.Generator, shape, std: float) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=g.device)
-    std = shape[0] ** -0.5
-    nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std, generator=g)
-    return _param(t.to(dtype))
+    return nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std, generator=g)
 
 
 def embed_init(g: torch.Generator, shape, dtype: torch.dtype) -> nn.Parameter:

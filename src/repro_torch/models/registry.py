@@ -6,9 +6,11 @@ parameters (an :class:`~repro_torch.models.lm.LM`, or for an
 encoder-decoder config an :class:`~repro_torch.models.encdec.EncDec`) on
 the generator's device; ``train_loss``/``prefill``/``decode`` take those
 parameters first, as in the reference.  Ported families: ``dense`` (GQA,
-MHA and MLA decoders), ``ssm`` (Mamba-1, falcon-mamba), ``vlm``
+MHA and MLA decoders), ``moe`` (token-dropping MoE with a dense residual:
+llama4-maverick, arctic), ``ssm`` (Mamba-1, falcon-mamba), ``vlm``
 (phi-3-vision's backbone with its patch stub) and ``audio`` (whisper's
-encoder-decoder).  The MoE families are not ported yet.
+encoder-decoder).  ``hybrid`` (jamba) is refused: it comes with jamba's
+slice of the port.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from .common import ModelConfig
 from .encdec import EncDec
 from .lm import LM
 
-FAMILIES = ("dense", "ssm", "vlm", "audio")
+FAMILIES = ("dense", "moe", "ssm", "vlm", "audio")
 
 
 @dataclass
@@ -39,7 +41,8 @@ def build(cfg: ModelConfig) -> ModelAPI:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported (ported: "
-            f"{', '.join(FAMILIES)}); the MoE families are not ported yet")
+            f"{', '.join(FAMILIES)}); the hybrid family (jamba) comes with "
+            "jamba's slice")
     model = EncDec if cfg.is_encoder_decoder else LM
     return ModelAPI(
         cfg=cfg,

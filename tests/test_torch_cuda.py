@@ -92,6 +92,17 @@ FLASH_BF16_SHAPES = [
     (4, 13, 13, 6, 6, 64, 64, True),
 ]
 
+# the odd GQA groups of the MoE family at D = 128, one q-head a block:
+# llama4-maverick H = 40, K = 8 (G = 5), arctic H = 56, K = 8 (G = 7);
+# (B, Sq, Skv, H, K, D, Dv, causal)
+FLASH_ODD_G_SHAPES = [
+    (4, 512, 512, 40, 8, 128, 128, True),
+    (4, 512, 512, 56, 8, 128, 128, True),
+    (2, 13, 13, 40, 8, 128, 128, True),
+    (2, 13, 13, 56, 8, 128, 128, True),
+    (1, 100, 37, 56, 8, 128, 128, False),
+]
+
 DECODE_CASES = [
     # (B, S, H, K, D, cache_index, dtype)
     (4, 576, 16, 8, 128, 543, torch.bfloat16),
@@ -125,6 +136,16 @@ DECODE_CASES = [
     (4, 128, 6, 6, 64, 127, torch.bfloat16),
     (4, 128, 6, 6, 64, 64, torch.bfloat16),
     (4, 24, 6, 6, 64, 11, torch.bfloat16),
+    # the MoE family's odd GQA groups at D = 128: 5 (llama4) or 7 (arctic)
+    # q-heads in a block of 8, the rest masked; 544 slots, ragged 24 slots
+    (4, 544, 40, 8, 128, 543, torch.bfloat16),
+    (4, 544, 56, 8, 128, 543, torch.bfloat16),
+    (1, 544, 40, 8, 128, 543, torch.bfloat16),
+    (1, 544, 56, 8, 128, 543, torch.bfloat16),
+    (4, 24, 40, 8, 128, 11, torch.bfloat16),
+    (4, 24, 56, 8, 128, 11, torch.bfloat16),
+    (2, 544, 56, 8, 128, 300, torch.float32),
+    (2, 24, 40, 8, 128, 11, torch.float32),
 ]
 
 
@@ -217,6 +238,18 @@ def test_bf16_flash_kernel_at_mla_phi3_and_whisper_shapes(case, device):
     """D = 96 with Dv = 64 and 96 (MLA, phi-3), and whisper's non-causal
     encoder and Sq != Skv cross-attention and its causal decoder, held
     element by element as the bf16 cases above."""
+    _check_bf16_flash(case, device)
+
+
+@pytest.mark.parametrize("case", FLASH_ODD_G_SHAPES)
+def test_bf16_flash_kernel_at_odd_gqa_groups(case, device):
+    """G = 5 and 7 (llama4-maverick, arctic) at D = 128, serve and ragged
+    sizes: the one-warpgroup launch, each q-head reading kv-head h K / H,
+    held element by element as the bf16 cases above."""
+    _check_bf16_flash(case, device)
+
+
+def _check_bf16_flash(case, device):
     B, Sq, Skv, H, K, D, Dv, causal = case
     q = _randn((B, Sq, H, D), torch.bfloat16, device, 0)
     k = _randn((B, Skv, K, D), torch.bfloat16, device, 1)

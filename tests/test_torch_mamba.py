@@ -264,7 +264,7 @@ def test_mamba_weights_and_state_dtypes_in_bf16():
 
 def test_other_families_still_raise():
     with pytest.raises(NotImplementedError, match="ported"):
-        tbuild(tcfgs.reduced(tcfgs.get(ARCH)).replace(family="moe"))
+        tbuild(tcfgs.reduced(tcfgs.get(ARCH)).replace(family="hybrid"))
 
 
 def test_train_loss_and_grads_match_reference():
