@@ -6,8 +6,8 @@
 Drives the port's main paths on ``cuda:0`` — serving as a task farm, and
 training in sync and in farm mode, of qwen3-1.7B; serving and sync
 training of falcon-mamba-7b; serving and sync training of minicpm3-4b,
-phi-3-vision-4.2b and whisper-tiny; serving of the MoE family,
-llama4-maverick and arctic — and holds every hand-written kernel
+phi-3-vision-4.2b and whisper-tiny; serving and sync training of the MoE
+family, llama4-maverick and arctic — and holds every hand-written kernel
 of those paths against its plain PyTorch version.  Phases, in order; any
 failure raises and exits non-zero:
 
@@ -57,9 +57,11 @@ failure raises and exits non-zero:
    product); in bf16 minicpm3's MLA at (D, Dv) = (96, 64) (B=4, S=512,
    H=K=40), phi-3's (96, 96) (H=K=32, S=512 and 768) and whisper's D=64,
    H=K=6: non-causal encoder (1500 x 1500) and cross-attention (448 x
-   1500), causal decoder self-attention (448 x 448); each also at a
-   ragged size (Sq = 13, and Skv = 13 where Skv = Sq); a second launch
-   bit-identical.  Each kernel, the whole backward (dq + dk/dv in one
+   1500), causal decoder self-attention (448 x 448); the MoE family's odd
+   GQA groups at D=128 (B=4, S=512, K=8: H=40, G=5, llama4; H=56, G=7,
+   arctic; one q-head a dq block, an odd number of dk/dv steps at Sq = 13);
+   each also at a ragged size (Sq = 13, and Skv = 13 where Skv = Sq); a
+   second launch bit-identical.  Each kernel, the whole backward (dq + dk/dv in one
    call), the plain backward and PyTorch's SDPA backward timed at each
    training shape beside each kernel's bound: SDPA's backward alone (one
    forward with grad-enabled inputs, then ``autograd.grad`` timed), K and
@@ -167,7 +169,25 @@ failure raises and exits non-zero:
     steps of logits through the kernels and through the plain versions on
     4 batches, with the share of (token, choice) routing decisions that
     differ between the two paths (a one-ulp bf16 difference in attention
-    can flip a near-tied router choice).
+    can flip a near-tied router choice);
+18. (everything freed) the MoE family trained as phase 16 trains its
+    families, one config at a time, at full width on phase 17's depth with
+    the expert count cut from 128 to 32 (``MOE_TRAIN_EXPERTS``; the cuts
+    printed as a ``reduced`` list with the training state each saves):
+    ``Trainer``, 4 AdamW steps with the config's own moments (llama4 bf16,
+    arctic int8) and its own ``remat=True`` (each pattern repeat
+    checkpointed), seeded weights, batches of 4 x 512.  Exactly 4 bf16
+    flash forwards (2 attention layers, each run again by the recompute),
+    2 dq and 2 dk/dv launches a step, nothing else; losses finite, step
+    0's batch scoring lower after training; step time, tok/s, peak memory
+    (below 80 GB, beside the state's reckoning) and one profiled step.
+    Then, the moments freed, one step's loss and gradients through the
+    kernels and through the plain versions held to
+    ``FAMILY_TRAIN_LIMITS``, with the (token, choice) routing decisions
+    that differ between the two and a check that each recompute routed as
+    its forward did; then the same step with remat off (one flash forward
+    a layer), whose loss and gradients must equal remat's, bit for bit or
+    within ``REMAT_GRAD_TOL``.
 
 The line before the last is a JSON object with each kernel's numbers, one
 row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
@@ -178,7 +198,8 @@ dq and dk/dv in bf16 and in fp32 (``..._fp32``), and phase 16's shapes of
 the bf16 pair (``flash_attention_bwd_{dq,dkv}_d96_dv64``, ``..._d96`` at
 S = 768, ``..._whisper`` on the encoder), and phase 17's odd GQA groups of
 the bf16 flash forward and decode (``flash_attention_fwd_g5``, ``..._g7``,
-``decode_attention_fwd_g5``, ``..._g7``); the last
+``decode_attention_fwd_g5``, ``..._g7``), and phase 18's of the bf16 pair
+(``flash_attention_bwd_{dq,dkv}_{g5,g7}``); the last
 line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event times on
 this card without flushing the 50 MB L2 cache (the serve and training
 paths find their inputs freshly written): for every kernel, its library
@@ -378,10 +399,29 @@ FAMILY_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 4, 448
 # fp32 ulp of the loss), 3.081e-2 (decoder.cross_attn.wk, whose gradient
 # is small).  One-ulp flips of bf16 activations and gradients, as phase
 # 7's; the element checks of phase 5 decide whether a kernel is right.
+# Phase 18's MoE configs (2 layers, 32 experts, remat), the same readings
+# in two runs: llama4 |dloss| 1.140e-3, largest 1.103e-1 (moe.router; the
+# expert stacks 8.1e-2), 6 of 2,048 (token, choice) routing decisions
+# flipped; arctic 8.168e-4, 3.321e-2 (moe.experts.wg), 11 of 8,192.  A
+# token routed to another expert moves that expert's gradient and the
+# router's by far more than rounding, so these limits are looser than the
+# dense families'.
 FAMILY_TRAIN_LIMITS = {"minicpm3_4b": (2e-4, 2e-2), "phi3_vision_4p2b": (2e-4, 3e-2),
-                       "whisper_tiny": (1e-5, 5e-2)}
+                       "whisper_tiny": (1e-5, 5e-2),
+                       "llama4_maverick_400b_a17b": (3e-3, 0.25), "arctic_480b": (2e-3, 0.1)}
+# Phase 18: the MoE family trained at full width on phase 17's depth with
+# the expert count cut from 128 to MOE_TRAIN_EXPERTS: at 128 one MoE layer's
+# weights, gradients and moments alone take 128.8 GB (llama4, bf16 moments)
+# and 81.1 GB (arctic, int8 moments).  Every other MoE field is kept
+# (top_k, capacity_factor, group_size 256, dense_residual), so a 512-token
+# sequence is two routing groups with 10 (top-1) or 20 (top-2) slots an
+# expert.  The configs' own remat=True and moment dtypes.  remat=False's
+# gradients must equal remat=True's within REMAT_GRAD_TOL of each
+# parameter's gradient norm, where they are not bit-identical.
+MOE_TRAIN_EXPERTS = 32
+REMAT_GRAD_TOL = 1e-6
 # Phase 5's shapes: each training path's attention backward as its step
-# makes it (phases 6 and 16): label -> (B, Sq, Skv, H, K, D, Dv, causal,
+# makes it (phases 6, 16 and 18): label -> (B, Sq, Skv, H, K, D, Dv, causal,
 # dtypes), each also at a ragged Sq = 13 (and Skv = 13 where Skv = Sq).
 BWD_SHAPES = {
     "qwen3": (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 8, 128, 128, True,
@@ -398,6 +438,12 @@ BWD_SHAPES = {
                       (torch.bfloat16,)),
     "whisper self": (FAMILY_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_SEQ, 6, 6, 64, 64,
                      True, (torch.bfloat16,)),
+    # phase 18's odd GQA groups: one q-head a dq block; at the ragged Sq =
+    # 13 an odd number of dk/dv steps (1 query tile x 5 or 7 q-heads)
+    "llama4 G=5": (FAMILY_TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 40, 8, 128, 128, True,
+                   (torch.bfloat16,)),
+    "arctic G=7": (FAMILY_TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 56, 8, 128, 128, True,
+                   (torch.bfloat16,)),
 }
 # Farm over worker processes (phase 13): 2 workers; the kill round's
 # victim is worker 0, the shm round serves the first SHM_REQUESTS prompts
@@ -904,23 +950,39 @@ def time_one_task(api, params, tokens, new):
 class RoutingTap:
     """Records the routing decisions of a model's MoE layers as it runs:
     for each (token, choice), the chosen expert, or -1 where the capacity
-    dropped it.  A forward hook routes each layer's input again
-    (``MoE.route``); ``take`` returns what was recorded since its last
-    call, ``close`` removes the hooks."""
+    dropped it.  A forward pre-hook routes each layer's input
+    (``MoE.route``): it sees remat's recompute too, which stops once the
+    backward has what it needs, before a layer's forward returns.  ``take``
+    returns what was recorded since its last call, ``forward_and_recompute``
+    the same split into each layer's first run and its second (the
+    recompute), ``close`` removes the hooks."""
 
     def __init__(self, model):
         self.seen = []
-        self.hooks = [blk.moe.register_forward_hook(self._record)
+        self.hooks = [blk.moe.register_forward_pre_hook(self._record)
                       for blk in model.blocks if blk.spec.mlp == "moe"]
 
-    def _record(self, layer, args, out):
+    @torch.no_grad()
+    def _record(self, layer, args):
         keep = layer.route(args[0])[3]
         expert = torch.arange(1, keep.shape[-1] + 1, device=keep.device)
-        self.seen.append(((keep * expert).sum(-1) - 1).flatten())
+        self.seen.append((layer, ((keep * expert).sum(-1) - 1).flatten()))
 
     def take(self) -> torch.Tensor:
-        seen, self.seen = torch.cat(self.seen), []
+        seen, self.seen = torch.cat([d for _, d in self.seen]), []
         return seen
+
+    def forward_and_recompute(self):
+        """(each layer's first decisions, its second or None when no layer
+        ran twice), layers in the order of their first run."""
+        runs: dict = {}
+        for layer, d in self.seen:
+            runs.setdefault(layer, []).append(d)
+        self.seen = []
+        first = torch.cat([r[0] for r in runs.values()])
+        if all(len(r) == 1 for r in runs.values()):
+            return first, None
+        return first, torch.cat([r[1] for r in runs.values()])
 
     def close(self):
         for hook in self.hooks:
@@ -1159,36 +1221,44 @@ def markov_batch(cfg, dev, seed=SEED + 7):
     return {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(0).items()}
 
 
-def train_step_agreement(api, model, batch, plain_ops, limits):
+def train_step_agreement(api, model, batch, plain_ops, limits, tap=None):
     """One training step's loss and gradients on ``batch``, kernels vs
     plain versions: |dloss| and the largest per-group relative gradient
-    difference held to ``limits``."""
+    difference held to ``limits``.  With a RoutingTap, the routing
+    decisions that differ between the two are printed, and each path's
+    recompute (remat) must route as its forward did.  Returns the kernels'
+    (loss, grads)."""
     from repro_torch.runtime.train_loop import loss_and_grads
 
     loss_lim, grad_lim = limits
     loss_k, _, g_k = loss_and_grads(api, model, batch)
+    routes = [tap.forward_and_recompute()] if tap is not None else []
     loss_p, _, g_p = loss_and_grads(api, model, batch, ops=plain_ops)
+    if tap is not None:
+        routes.append(tap.forward_and_recompute())
+        for name, (fwd, again) in zip(("kernels", "plain versions"), routes):
+            if again is None:
+                continue
+            same = torch.equal(fwd, again)
+            say(f"  routing through the {name}: the recompute's {again.numel()} (token, "
+                f"choice) decisions equal the forward's: {same}")
+            if not same:
+                raise AssertionError(f"{name}: remat's recompute routed otherwise")
+        (fwd_k, _), (fwd_p, _) = routes
+        flips = (fwd_k != fwd_p).sum().item()
+        say(f"  routing decisions differ between the kernels and the plain versions on "
+            f"{flips} of {fwd_k.numel()} (token, choice) pairs ({flips / fwd_k.numel():.4f})")
     dloss = abs(loss_k.item() - loss_p.item())
     say(f"  {api.cfg.compute_dtype}: loss through the kernels "
         f"{loss_k.item():.6f}, through the plain versions {loss_p.item():.6f}: "
         f"|dloss| {dloss:.3e} (limit {loss_lim:g})")
-    num: dict = {}
-    den: dict = {}
-    for name in g_k:
-        grp = group_of(name)
-        d = (g_k[name].float() - g_p[name].float()).square().sum()
-        num[grp] = num.get(grp, 0.0) + d
-        den[grp] = den.get(grp, 0.0) + g_p[name].float().square().sum()
-    worst = 0.0
-    for grp in num:
-        rel = (num[grp].sqrt() / den[grp].sqrt().clamp_min(1e-30)).item()
-        worst = max(worst, rel)
-        say(f"    {grp}: ||g_kernels - g_plain|| / ||g_plain|| {rel:.3e}")
+    worst = compare_grads(g_k, g_p, "g_kernels - g_plain", "g_plain")
     say(f"  largest relative gradient difference {worst:.3e} (limit "
         f"{grad_lim:g})")
     if not (dloss <= loss_lim and worst <= grad_lim):
         raise AssertionError("training step through the kernels disagrees "
                              "with the plain versions")
+    return loss_k, g_k
 
 
 def farm_phase(cfg, dev, lookup, services, kernels):
@@ -1561,38 +1631,26 @@ class FamilyBatches:
         return out
 
 
-def family_train_phase(arch, dev, kernels):
-    """Phase 16 for one family: sync training at full width and full
-    depth, TRAIN_STEPS AdamW steps with fp32
-    moments on FamilyBatches, every launch count zeroed just before and
-    read just after (exactly one bf16 flash forward, dq and dk/dv launch an
-    attention layer a step, nothing else), the losses finite and falling,
-    one profiled step; then, the moments freed, one step's loss and
-    gradients through the kernels and through the plain versions, same
-    weights, same batch, held to FAMILY_TRAIN_LIMITS.  Returns the launch
-    counts."""
-    import repro_torch.configs as cfgs
-    from repro_torch.models import build
+def train_and_check(api, ds, seq, dev, kernels, want):
+    """Phases 16 and 18: sync training of ``api``'s config on ``ds``
+    (``Trainer``, TRAIN_STEPS AdamW steps, the config's moment dtype,
+    weights from the seed) with every launch count zeroed just before and
+    read just after and held equal to ``want``; the losses finite and step
+    0's batch scoring lower after training; step time, tok/s, peak memory
+    and one profiled step printed.  Returns (trainer, launches, peak GB,
+    median step s)."""
     from repro_torch.runtime.train_loop import TrainConfig, Trainer
 
-    cfg = cfgs.get(arch)
-    encdec = cfg.is_encoder_decoder
-    api = build(cfg)
-    seq = WHISPER_TRAIN_SEQ if encdec else TRAIN_SEQ
-    ds = FamilyBatches(cfg, seq, FAMILY_TRAIN_BATCH, SEED)
+    cfg = api.cfg
     tc = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=100, seed=SEED)
     t0 = time.perf_counter()
     trainer = Trainer(api, tc, ds, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in trainer.state["params"].parameters())
-    depth = (f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers" if encdec
-             else f"{cfg.n_layers} layers")
-    extra = (f" beside {cfg.encoder_seq_len} encoder frames" if encdec else
-             f" after {PATCHES} patch embeddings" if cfg.frontend == "vision" else "")
-    say(f"  {cfg.name}: {depth}, d_model {cfg.d_model}, {n_params / 1e9:.3f} B params in "
-        f"{cfg.param_dtype}, state made in {time.perf_counter() - t0:.2f} s; "
-        f"{TRAIN_STEPS} AdamW steps ({cfg.opt_state_dtype} moments) on batches of "
-        f"{FAMILY_TRAIN_BATCH} x {seq} tokens{extra}")
+    say(f"  {cfg.name}: {n_params / 1e9:.3f} B params in {cfg.param_dtype}, state made in "
+        f"{time.perf_counter() - t0:.2f} s; {TRAIN_STEPS} AdamW steps "
+        f"({cfg.opt_state_dtype} moments{', remat' if cfg.remat else ''}) on batches of "
+        f"{ds.batch} x {seq} tokens")
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels.KERNELS:
         kern.launches = 0
@@ -1603,16 +1661,14 @@ def family_train_phase(arch, dev, kernels):
     med = float(np.median(step_s))
     losses = [m["loss"] for m in logs]
     norms = ", ".join(f"{m['grad_norm']:.3f}" for m in logs)
+    aux = ("" if cfg.moe is None else
+           "; aux losses " + ", ".join(f"{m['aux_loss']:.4f}" for m in logs))
     steps = ", ".join(f"{t * 1e3:.1f}" for t in step_s)
-    say(f"  losses {', '.join(f'{x:.4f}' for x in losses)}; grad norms {norms}")
+    say(f"  losses {', '.join(f'{x:.4f}' for x in losses)}; grad norms {norms}{aux}")
     say(f"  step time median {med * 1e3:.1f} ms (steps {steps}; after the first "
-        f"{np.median(step_s[1:]) * 1e3:.1f} ms), {FAMILY_TRAIN_BATCH * seq / med:.0f} tok/s; "
+        f"{np.median(step_s[1:]) * 1e3:.1f} ms), {ds.batch * seq / med:.0f} tok/s; "
         f"peak memory {peak:.2f} GB")
     say(f"  launches on the training path: {launches}")
-    attn_layers = cfg.n_encoder_layers + 2 * cfg.n_layers if encdec else cfg.n_layers
-    want = {kern.name: 0 for kern in kernels.KERNELS}
-    for name in BF16_TRAIN_KERNELS:
-        want[name] = TRAIN_STEPS * attn_layers
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
     if not all(np.isfinite(losses)):
@@ -1628,6 +1684,35 @@ def family_train_phase(arch, dev, kernels):
         raise AssertionError(f"the loss did not fall: {losses[0]} -> {after}")
     batch = {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(99).items()}
     profile_window("training step", lambda i: trainer.train_step(trainer.state, batch), 1)
+    return trainer, launches, peak, med
+
+
+def family_train_phase(arch, dev, kernels):
+    """Phase 16 for one family: sync training at full width and full
+    depth with fp32 moments on FamilyBatches (``train_and_check``: exactly
+    one bf16 flash forward, dq and dk/dv launch an attention layer a step,
+    nothing else); then, the moments freed, one step's loss and gradients
+    through the kernels and through the plain versions, same weights, same
+    batch, held to FAMILY_TRAIN_LIMITS.  Returns the launch counts."""
+    import repro_torch.configs as cfgs
+    from repro_torch.models import build
+
+    cfg = cfgs.get(arch)
+    encdec = cfg.is_encoder_decoder
+    api = build(cfg)
+    seq = WHISPER_TRAIN_SEQ if encdec else TRAIN_SEQ
+    depth = (f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers" if encdec
+             else f"{cfg.n_layers} layers")
+    extra = (f" beside {cfg.encoder_seq_len} encoder frames" if encdec else
+             f" after {PATCHES} patch embeddings" if cfg.frontend == "vision" else "")
+    say(f"  {cfg.name}: {depth}, d_model {cfg.d_model}{extra}")
+    attn_layers = cfg.n_encoder_layers + 2 * cfg.n_layers if encdec else cfg.n_layers
+    want = {kern.name: 0 for kern in kernels.KERNELS}
+    for name in BF16_TRAIN_KERNELS:
+        want[name] = TRAIN_STEPS * attn_layers
+    ds = FamilyBatches(cfg, seq, FAMILY_TRAIN_BATCH, SEED)
+    trainer, launches, _, _ = train_and_check(api, ds, seq, dev, kernels, want)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(99).items()}
 
     say(f"  {cfg.name}: one training step, kernels vs plain versions (moments freed)")
     model = trainer.state["params"]
@@ -1636,6 +1721,137 @@ def family_train_phase(arch, dev, kernels):
     torch.cuda.empty_cache()
     train_step_agreement(api, model, batch, kernels.PLAIN, FAMILY_TRAIN_LIMITS[arch])
     return launches
+
+
+def moe_train_cfg(arch):
+    """Phase 18's config: phase 17's depth cut, MOE_TRAIN_EXPERTS experts,
+    everything else as published (remat and the moment dtype included)."""
+    import dataclasses
+
+    import repro_torch.configs as cfgs
+
+    full = cfgs.get(arch)
+    return full, full.replace(n_layers=MOE_LAYERS[arch], moe=dataclasses.replace(
+        full.moe, n_experts=MOE_TRAIN_EXPERTS))
+
+
+def say_moe_cuts(full, cfg, model, opt):
+    """Phase 18's cuts, as a ``reduced`` list with the training state
+    (weights, gradients and moments) each saves, and the state kept beside
+    the loss's fp32 unembedding table and its fp32 gradient."""
+    named = dict(model.named_parameters())
+    n = sum(p.numel() for p in named.values())
+    wbytes = sum(p.numel() * p.element_size() for p in named.values())
+    mbytes = sum(t.numel() * t.element_size() for mom in ("m", "v")
+                 for x in opt[mom].values()
+                 for t in (x.values() if isinstance(x, dict) else (x,)))
+    per_param = (2 * wbytes + mbytes) / n  # weight, gradient and both moments
+    experts = sum(p.numel() for k, p in named.items() if ".moe.experts." in k)
+    blocks = sum(p.numel() for k, p in named.items() if k.startswith("blocks."))
+    per_repeat = blocks / cfg.n_repeats
+    e_full, e_cut = full.moe.n_experts, cfg.moe.n_experts
+    saved_experts = experts / e_cut * (e_full - e_cut) * per_param / 1e9
+    saved_depth = (per_repeat + experts / cfg.n_repeats / e_cut * (e_full - e_cut)) \
+        * (full.n_repeats - cfg.n_repeats) * per_param / 1e9
+    say("  reduced: " + json.dumps([
+        f"n_experts {e_full} -> {e_cut} in each of the {sum(s.mlp == 'moe' for s in cfg.pattern) * cfg.n_repeats} "
+        f"MoE layers kept: saves {saved_experts:.1f} GB of training state",
+        f"n_layers {full.n_layers} -> {cfg.n_layers} ({cfg.n_repeats} of {full.n_repeats} "
+        f"repeats of the pattern): saves {saved_depth:.1f} GB more at {e_full} experts",
+        "widths, heads, top_k, capacity_factor, group_size and dense_residual as published"]))
+    table = cfg.vocab_size * cfg.d_model * 4 * 2 / 1e9
+    say(f"  training state: {n / 1e9:.3f} B params (experts {experts / 1e9:.3f} B), weights "
+        f"{wbytes / 1e9:.2f} GB + gradients {wbytes / 1e9:.2f} GB + {cfg.opt_state_dtype} "
+        f"moments {mbytes / 1e9:.2f} GB = {(2 * wbytes + mbytes) / 1e9:.2f} GB; the loss's "
+        f"fp32 table and its fp32 gradient {table:.2f} GB")
+    return (2 * wbytes + mbytes) / 1e9 + table
+
+
+def moe_train_phase(arch, dev, kernels):
+    """Phase 18 for one MoE config (``moe_train_cfg``): sync training
+    (``train_and_check``: exactly 2 bf16 flash forwards an attention layer
+    a step, the second the recompute of remat, one dq and one dk/dv,
+    nothing else), the peak memory below the card's 80 GB; then, the
+    moments freed, one step's loss and gradients through the kernels and
+    through the plain versions, same weights, same batch, held to
+    FAMILY_TRAIN_LIMITS, with the routing decisions that differ between
+    the two and between each forward and its recompute; then the same step
+    with remat off, whose gradients must equal remat's within
+    REMAT_GRAD_TOL.  Returns the launch counts."""
+    from repro_torch.models import build
+    from repro_torch.runtime.train_loop import loss_and_grads
+
+    full, cfg = moe_train_cfg(arch)
+    if not cfg.remat:
+        raise AssertionError(f"{cfg.name}: the config no longer carries remat")
+    api = build(cfg)
+    say(f"  {cfg.name}: {cfg.n_layers} layers ({', '.join(s.mlp for s in cfg.pattern)} "
+        f"MLPs), d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv-heads, "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}")
+    want = {kern.name: 0 for kern in kernels.KERNELS}
+    for name in BF16_TRAIN_KERNELS:  # the forward twice: the step's and remat's
+        want[name] = TRAIN_STEPS * cfg.n_layers * (2 if name == "flash_attention_sm90" else 1)
+    ds = FamilyBatches(cfg, TRAIN_SEQ, FAMILY_TRAIN_BATCH, SEED)
+    trainer, launches, peak, med = train_and_check(api, ds, TRAIN_SEQ, dev, kernels, want)
+    expected = say_moe_cuts(full, cfg, trainer.state["params"], trainer.state["opt"])
+    say(f"  peak memory {peak:.2f} GB against {expected:.2f} GB of state and loss "
+        f"temporaries reckoned; step {med * 1e3:.1f} ms")
+    if not peak < 80:
+        raise AssertionError(f"peak memory {peak:.2f} GB: over the card's 80 GB")
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(99).items()}
+
+    say(f"  {cfg.name}: one training step, kernels vs plain versions (moments freed)")
+    model = trainer.state["params"]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    tap = RoutingTap(model)
+    loss_k, g_k = train_step_agreement(api, model, batch, kernels.PLAIN,
+                                       FAMILY_TRAIN_LIMITS[arch], tap)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tap.close()
+
+    say(f"  {cfg.name}: the same step with remat off (same weights, same batch)")
+    model.cfg = cfg.replace(remat=False)
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    loss_n, _, g_n = loss_and_grads(api, model, batch)
+    model.cfg = cfg
+    off = {kern.name: kern.launches for kern in kernels.KERNELS}
+    if off != {name: n // TRAIN_STEPS // (2 if name == "flash_attention_sm90" else 1)
+               for name, n in want.items()}:
+        raise AssertionError(f"remat off launched {off}: the forward ran again")
+    same = torch.equal(loss_n, loss_k) and all(torch.equal(g_n[k], g_k[k]) for k in g_k)
+    say(f"  remat off: loss {loss_n.item():.6f} (remat {loss_k.item():.6f}); loss and "
+        f"gradients bit-identical to remat's: {same}")
+    if not same:
+        rel = compare_grads(g_n, g_k, "g_remat_off - g_remat", "g_remat", quiet=True)
+        say(f"  largest relative difference of a parameter's gradient {rel:.3e} (limit "
+            f"{REMAT_GRAD_TOL:g})")
+        if not (rel <= REMAT_GRAD_TOL and abs(loss_n.item() - loss_k.item()) <= REMAT_GRAD_TOL
+                * abs(loss_k.item())):
+            raise AssertionError("remat's gradients differ from remat off's")
+    return launches
+
+
+def compare_grads(got, ref, num, den, quiet=False):
+    """Per parameter group (``group_of``), ||num|| / ||den||; prints each
+    unless ``quiet`` (then per parameter) and returns the largest."""
+    acc: dict = {}
+    for name in ref:
+        grp = name if quiet else group_of(name)
+        d = (got[name].float() - ref[name].float()).square().sum()
+        r = ref[name].float().square().sum()
+        a, b = acc.get(grp, (0.0, 0.0))
+        acc[grp] = (a + d, b + r)
+    worst = 0.0
+    for grp, (d, r) in acc.items():
+        rel = (d.sqrt() / r.sqrt().clamp_min(1e-30)).item()
+        worst = max(worst, rel)
+        if not quiet:
+            say(f"    {grp}: ||{num}|| / ||{den}|| {rel:.3e}")
+    return worst
 
 
 # --------------------------------------------------------------------- #
@@ -2144,6 +2360,14 @@ def main() -> int:
         free(services)
         say(f"  {arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
 
+    say("phase 18: train llama4-maverick-400b-a17b and arctic-480b (MoE), depth and "
+        "experts cut, remat")
+    for arch in MOE_FAMILIES:
+        trained[arch] = moe_train_phase(arch, dev, kernels)
+        gc.collect()
+        torch.cuda.empty_cache()
+        say(f"  {arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+
     # the kernels line: (name, kernel, its times, its largest |error|, the
     # Pallas call it replaces, the launch counts of the path that reports it)
     flash_py = "src/repro/kernels/flash_attention/flash_attention.py"
@@ -2177,7 +2401,9 @@ def main() -> int:
             ("_fp32", "qwen3", torch.float32, fp32_launches),
             ("_d96_dv64", "minicpm3 MLA", torch.bfloat16, trained["minicpm3_4b"]),
             ("_d96", "phi-3 with patches", torch.bfloat16, trained["phi3_vision_4p2b"]),
-            ("_whisper", "whisper encoder", torch.bfloat16, trained["whisper_tiny"])):
+            ("_whisper", "whisper encoder", torch.bfloat16, trained["whisper_tiny"]),
+            ("_g5", "llama4 G=5", torch.bfloat16, trained["llama4_maverick_400b_a17b"]),
+            ("_g7", "arctic G=7", torch.bfloat16, trained["arctic_480b"])):
         for part, kern, line in zip(("dq", "dkv"), flash.backward_kernels(dt), (280, 307)):
             r = bwd[(label, dt)][part]
             table.append((f"flash_attention_bwd_{part}{sfx}", kern, r, r["err"],

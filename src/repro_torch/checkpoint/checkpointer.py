@@ -52,7 +52,9 @@ def _to_host(flat: dict) -> tuple[dict, dict]:
         if isinstance(v, torch.Tensor):
             t = v.detach().cpu()
             if t.dtype == torch.bfloat16:
-                arrays[k] = t.view(torch.int16).numpy().view(np.uint16)
+                # a copy: on the CPU ``.cpu()`` is the live tensor, which the
+                # optimizer writes in place while the snapshot persists
+                arrays[k] = t.view(torch.int16).numpy().view(np.uint16).copy()
                 dtypes[k] = "bfloat16"
                 continue
             v = t.numpy()

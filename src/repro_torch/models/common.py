@@ -105,7 +105,7 @@ class ModelConfig:
     # numerics: names of torch dtypes; training policy
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
-    remat: bool = False  # as the reference; serving ignores it, training refuses True
+    remat: bool = False  # as the reference: LM training checkpoints each pattern repeat
     opt_state_dtype: str = "float32"  # AdamW moments: float32 | bfloat16 | int8
 
     max_seq_len: int = 4096

@@ -15,18 +15,35 @@ in its batch, projected by ``patch_proj`` and placed before the text
 tokens, the reference's CLIP-frontend stub; its loss covers the text
 positions only.  Weights are created with ``requires_grad=False``; a
 trainer turns it on.
+
+With ``cfg.remat`` training keeps only each pattern repeat's input and
+runs the repeat's forward again in the backward
+(``torch.utils.checkpoint``), as the reference checkpoints its scan body,
+one repeat of the pattern; the attention kernels' forward launches again
+there, and their backward uses the recomputed (out, lse).  Serving
+ignores ``remat``.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import DISPATCH, AttentionOps
 from .blocks import make_blocks
 from .common import ModelConfig
 from .layers import Embedding, dense_init, make_norm
 from .loss import fused_cross_entropy
+
+
+def _train_repeat(blocks, x, aux, ops: AttentionOps):
+    """One repeat of the pattern (``len(cfg.pattern)`` consecutive
+    blocks): returns (x, aux plus the blocks' aux losses)."""
+    for blk in blocks:
+        x, a = blk.forward_train(x, ops=ops)
+        aux = aux + a
+    return x, aux
 
 
 class LM(nn.Module):
@@ -72,17 +89,18 @@ class LM(nn.Module):
         """batch: tokens (B,S) int, targets (B,S) int [, loss_mask (B,S),
         patch_embeds (B,P,d)].  Returns (loss + aux, {"ce_loss",
         "aux_loss"}), fp32 scalars; the reference's ``forward_train``."""
-        if self.cfg.remat:
-            raise NotImplementedError(
-                f"{self.cfg.name}: remat=True is not ported (activations "
-                "are kept for the backward)")
         if ops.train is None:
             raise ValueError("train_loss needs AttentionOps with a train member")
         x = self._embed_inputs(batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for blk in self.blocks:
-            x, a = blk.forward_train(x, ops=ops)
-            aux = aux + a
+        n = len(self.cfg.pattern)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for r in range(0, len(self.blocks), n):
+            if remat:  # keep the repeat's input, run its forward again in the backward
+                x, aux = checkpoint(_train_repeat, self.blocks[r:r + n], x, aux, ops,
+                                    use_reentrant=False)
+            else:
+                x, aux = _train_repeat(self.blocks[r:r + n], x, aux, ops)
         x = self.final_norm(x)
         if self._has_patches(batch):
             x = x[:, batch["patch_embeds"].shape[1]:]  # text positions only

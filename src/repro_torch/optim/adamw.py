@@ -7,10 +7,14 @@ per 256-element block of the last axis) quarters it, with the second
 moment coded in the log domain.  Also here: global-norm gradient clipping
 and decoupled weight decay.
 
-Unlike the reference, which returns new arrays, ``adamw_update`` writes
-the new parameters into the given tensors in place (under
-``torch.no_grad``), so a model's parameters are updated without a second
-copy of the weights; the moments are replaced in the state dict.
+Unlike the reference, which returns new arrays, ``adamw_update`` works
+in place (under ``torch.no_grad``): it clips the caller's gradients, and
+writes the new parameters and moments into the tensors it was given, one
+slice of a tensor's leading axis at a time (``SLICE`` elements), so a
+step holds no second copy of the weights or gradients and only a slice's
+fp32 temporaries.  The arithmetic is elementwise (int8 moments blockwise
+along the last axis), so the slices give the whole-tensor values bit for
+bit; only the gradient norm's summation order depends on the slicing.
 """
 
 from __future__ import annotations
@@ -115,19 +119,66 @@ def _write_moment(val, dtype: str, *, log_domain: bool = False):
 
 
 # ----------------------------- update --------------------------------- #
+# The largest slice of a tensor's leading axis that the norm, the clip and
+# the update hold fp32 temporaries of at once, in elements: an expert stack
+# (E, d, ff) goes one expert at a time, an embedding table in row blocks.
+SLICE = 1 << 26
+
+
+def _slices(t: torch.Tensor) -> list:
+    """Indices of ``t``'s pieces along its leading axis, each at most SLICE
+    elements (a leading row beyond it stays whole): ``...`` (the whole
+    tensor) for a tensor of at most SLICE elements and for a 1-D tensor,
+    whose int8 moment blocks run along that axis."""
+    if t.dim() < 2 or t.numel() <= SLICE:
+        return [...]
+    rows = max(SLICE // math.prod(t.shape[1:]), 1)
+    return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor (a mapping's values or
-    an iterable), in fp32."""
+    an iterable), in fp32, summed SLICE elements at a time."""
     ts = tensors.values() if isinstance(tensors, Mapping) else tensors
-    return torch.sqrt(torch.stack([torch.sum(torch.square(t.float()))
-                                   for t in ts]).sum())
+    return torch.sqrt(torch.stack([torch.sum(torch.square(t[i].float()))
+                                   for t in ts for i in _slices(t)]).sum())
 
 
 def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float):
-    """Returns (clipped grads, the norm before clipping)."""
+    """Returns (clipped grads, the norm before clipping).  The caller's
+    gradient tensors are scaled in place, SLICE elements at a time, so no
+    second set is made; a gradient autograd handed out as a broadcast view
+    (stride 0), which cannot be written, is replaced by a scaled copy."""
     norm = global_norm(grads)
     factor = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return {k: (g.float() * factor).to(g.dtype) for k, g in grads.items()}, norm
+    out, done = {}, {}  # done: autograd may hand one tensor to two parameters
+    with torch.no_grad():
+        for k, g in grads.items():
+            if id(g) not in done:
+                if g.is_contiguous():
+                    for i in _slices(g):
+                        g[i].copy_(g[i].float() * factor)
+                    done[id(g)] = g
+                else:
+                    done[id(g)] = (g.float() * factor).to(g.dtype)
+            out[k] = done[id(g)]
+    return out, norm
+
+
+def _moment_part(mom, dtype: str, i):
+    if dtype == "int8":
+        return {k: a[i] for k, a in mom.items()}
+    return mom[i]
+
+
+def _store_moment(dst, val, dtype: str, *, log_domain: bool = False):
+    """Writes ``val`` (fp32) into the moment slice ``dst`` in place."""
+    new = _write_moment(val, dtype, log_domain=log_domain)
+    if dtype == "int8":
+        for k, a in dst.items():
+            a.copy_(new[k])
+    else:
+        dst.copy_(new)
 
 
 @torch.no_grad()
@@ -135,9 +186,10 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: dict,
                  params: Mapping[str, torch.Tensor], *, lr, b1=0.9, b2=0.95,
                  eps=1e-8, weight_decay=0.1, moment_dtype="float32",
                  clip_norm: float | None = 1.0):
-    """One AdamW step.  Writes the new parameters into ``params``' tensors
-    and the new moments (and step) into ``state``; returns
-    (params, state, metrics)."""
+    """One AdamW step.  Clips ``grads`` in place, writes the new
+    parameters into ``params``' tensors and the new moments (and step) into
+    ``state``'s, each tensor SLICE elements of its leading axis at a time;
+    returns (params, state, metrics)."""
     metrics = {}
     if clip_norm is not None:
         grads, metrics["grad_norm"] = clip_by_global_norm(grads, clip_norm)
@@ -149,22 +201,26 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: dict,
     lr = torch.as_tensor(lr, dtype=torch.float32, device=step.device)
     masters = state.get("master", params)
     for k, p in params.items():
-        g32 = grads[k].float()
-        m32 = _read_moment(state["m"][k], p, moment_dtype)
-        v32 = _read_moment(state["v"][k], p, moment_dtype, log_domain=True)
-        m32 = b1 * m32 + (1 - b1) * g32
-        v32 = b2 * v32 + (1 - b2) * g32 * g32
-        del g32
-        mh = m32 / c1
-        vh = v32 / c2
-        base = masters[k].float()
-        new = base - lr * (mh / (torch.sqrt(vh) + eps) + weight_decay * base)
-        del mh, vh, base
-        if "master" in state:
-            state["master"][k] = new
-        p.copy_(new)
-        state["m"][k] = _write_moment(m32, moment_dtype)
-        state["v"][k] = _write_moment(v32, moment_dtype, log_domain=True)
+        for i in _slices(p):
+            ps = p[i]
+            m_s = _moment_part(state["m"][k], moment_dtype, i)
+            v_s = _moment_part(state["v"][k], moment_dtype, i)
+            g32 = grads[k][i].float()
+            m32 = _read_moment(m_s, ps, moment_dtype)
+            v32 = _read_moment(v_s, ps, moment_dtype, log_domain=True)
+            m32 = b1 * m32 + (1 - b1) * g32
+            v32 = b2 * v32 + (1 - b2) * g32 * g32
+            del g32
+            mh = m32 / c1
+            vh = v32 / c2
+            base = masters[k][i].float()
+            new = base - lr * (mh / (torch.sqrt(vh) + eps) + weight_decay * base)
+            del mh, vh, base
+            if "master" in state:
+                state["master"][k][i].copy_(new)
+            ps.copy_(new)
+            _store_moment(m_s, m32, moment_dtype)
+            _store_moment(v_s, v32, moment_dtype, log_domain=True)
     state["step"] = step
     metrics["lr"] = lr
     return params, state, metrics

@@ -184,6 +184,12 @@ BWD_BF16_SHAPES = [
     (1, 13, 1500, 6, 6, 64, 64, False),
     (4, 448, 448, 6, 6, 64, 64, True),  # its decoder self-attention
     (1, 37, 130, 6, 6, 64, 64, True),  # causal key tiles past the last query
+    # the MoE family's odd groups, one q-head a dq block and an odd number
+    # of dk/dv steps: llama4 (G = 5) and arctic (G = 7), full size and ragged
+    (4, 512, 512, 40, 8, 128, 128, True),
+    (2, 13, 13, 40, 8, 128, 128, True),
+    (4, 512, 512, 56, 8, 128, 128, True),
+    (2, 13, 13, 56, 8, 128, 128, True),
 ]
 
 
@@ -550,9 +556,10 @@ def _bwd_inputs_dv(case, device):
 
 @pytest.mark.parametrize("case", BWD_BF16_SHAPES)
 def test_bf16_bwd_kernels_at_mla_phi3_and_whisper_shapes(case, device):
-    """D = 96 with Dv = 64 and 96 (MLA, phi-3) and whisper's non-causal
-    Sq != Skv shapes, held element by element as the bf16 cases above; a
-    second launch gives the same bits."""
+    """D = 96 with Dv = 64 and 96 (MLA, phi-3), whisper's non-causal
+    Sq != Skv shapes and the MoE family's G = 5 and 7, held element by
+    element as the bf16 cases above; a second launch gives the same
+    bits."""
     causal = case[-1]
     q, k, v, out, lse, g = _bwd_inputs_dv(case, device)
     kerns = backward_kernels(torch.bfloat16) + backward_kernels(torch.float32)
@@ -674,3 +681,45 @@ def test_tma_kernels_launch_as_a_fresh_threads_first_cuda_call(dt, device):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
         else:
             _assert_elementwise(a, b, 2.0 ** -7, atol=1e-4)
+
+
+def test_moe_training_step_with_remat_gives_the_gradients_without(device):
+    """One training step of a small bf16 llama4-shaped model on the card
+    (the MoE configs' pattern at 2 repeats, d_model 256, G = 5 over
+    head_dim 64, 8 experts): with ``remat`` every flash forward launches
+    twice (the recompute), dq and dk/dv once an attention layer; the loss
+    and every gradient equal ``remat=False``'s, bit for bit or within 1e-6
+    of each parameter's gradient norm."""
+    import dataclasses
+
+    import repro_torch.configs as cfgs
+    from repro_torch.kernels.flash_attention import SM90_KERNEL
+    from repro_torch.models import build
+    from repro_torch.runtime.train_loop import loss_and_grads
+
+    full = cfgs.get("llama4_maverick_400b_a17b")
+    cfg = cfgs.reduced(full).replace(
+        d_model=256, n_heads=10, n_kv_heads=2, head_dim=64, d_ff=512,
+        param_dtype="bfloat16", compute_dtype="bfloat16",
+        moe=dataclasses.replace(full.moe, n_experts=8, dense_residual_ff=512))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256),
+                           generator=torch.Generator().manual_seed(3)).to(device)
+    batch = {"tokens": tokens, "targets": tokens.roll(1, 1)}
+    pair = backward_kernels(torch.bfloat16)
+    runs = {}
+    for remat in (False, True):
+        api = build(cfg.replace(remat=remat))
+        model = api.init(torch.Generator(device=device).manual_seed(0))
+        model.requires_grad_(True)
+        before = [kern.launches for kern in (SM90_KERNEL,) + pair]
+        loss, _, grads = loss_and_grads(api, model, batch)
+        torch.cuda.synchronize()
+        launches = [kern.launches - n for kern, n in zip((SM90_KERNEL,) + pair, before)]
+        assert launches == [cfg.n_layers * (2 if remat else 1)] + [cfg.n_layers] * 2
+        runs[remat] = (loss, grads)
+    assert torch.isfinite(runs[True][0])
+    assert torch.equal(runs[True][0], runs[False][0])
+    for name, g in runs[False][1].items():
+        d = (runs[True][1][name].float() - g.float()).norm()
+        assert d <= 1e-6 * g.float().norm(), name
+

@@ -59,6 +59,12 @@ CASES = [
     (1, 128, 128, 4, 4, 96, 96, True, BF16),
     (2, 48, 150, 2, 2, 64, 64, False, F32),
     (1, 48, 150, 6, 6, 64, 64, False, BF16),
+    # ... and the MoE family's odd GQA groups: G = 5 (llama4's 40 over 8)
+    # and G = 7 (arctic's 56 over 8), causal and not
+    (1, 64, 64, 10, 2, 32, 32, True, BF16),
+    (1, 48, 80, 10, 2, 32, 32, False, F32),
+    (1, 64, 64, 7, 1, 16, 16, True, F32),
+    (2, 40, 40, 7, 1, 32, 32, False, BF16),
 ]
 
 

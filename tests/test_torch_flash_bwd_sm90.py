@@ -67,7 +67,13 @@ CASES = [
     (1, 128, 128, 4, 4, 96, 96, True),
     (1, 130, 130, 2, 2, 96, 64, True),
     (2, 48, 150, 2, 2, 64, 64, False),
+    # the MoE family's odd GQA groups, G = 5 (llama4) and G = 7 (arctic):
+    # an odd number of dk/dv steps, warpgroup 0 taking one more
+    (1, 160, 160, 5, 1, 128, 128, True),
+    (1, 96, 96, 10, 2, 64, 64, True),
+    (1, 70, 70, 7, 1, 32, 32, False),
 ]
+ODD_G = CASES[-3:]
 
 
 def _numpy_inputs(case, seed=0):
@@ -166,6 +172,19 @@ def test_model_matches_plain_elementwise(case):
         assert a.dtype == torch.bfloat16 and a.shape == b.shape
         n, worst = _beyond(a, b)
         assert n == 0, f"{name}: {n} elements beyond the check, worst {worst:.2f}"
+
+
+@pytest.mark.parametrize("case", ODD_G)
+def test_odd_groups_deal_an_odd_number_of_dkv_steps(case):
+    """G = 5 and 7 over whole and ragged query tiles: the (query tile,
+    q-head) steps of a kv-head are odd in number, so the model's deal
+    (``j % 2``, the kernel's rule, which deals a key tile's visible steps:
+    the same steps at a non-causal shape) gives warpgroup 0 one step more
+    than warpgroup 1 before the fixed-order merge."""
+    _, Sq, _, H, K = case[:5]
+    steps = -(-Sq // DKV_BQ) * (H // K)
+    assert H // K in (5, 7) and steps % 2 == 1
+    assert len(range(0, steps, 2)) == len(range(1, steps, 2)) + 1
 
 
 @pytest.mark.parametrize("split_p, split_ds, failing", [

@@ -15,7 +15,9 @@ parameters through ``params_from_jax``; prefill logits and 4
 teacher-forced decode steps within 2e-3, ``train_loss`` (cross-entropy
 and aux) within 2e-4, with the JAX side on its XLA backend and on its
 Pallas kernels in interpret mode; greedy tokens through both generate
-programs equal.
+programs equal.  The layer's gradients (parameters and input) against
+``jax.grad`` of ``apply_moe`` at 1e-5, random and skewed; ``remat=True``
+training gives ``remat=False``'s gradients bit for bit.
 """
 
 import contextlib
@@ -198,6 +200,69 @@ def test_moe_layer_matches_jax(case, monkeypatch):
         assert G == 6  # 12 tokens in groups of 8 -> the divisor loop -> 6
 
 
+GRAD_CASES = [c for c in LAYER_CASES if c[1] > 1 and not c[2]]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES, ids=lambda c: f"{c[0][:6]}-S{c[1]}-{c[3]}")
+def test_moe_layer_grads_match_jax(case):
+    """d/d(params, x) of sum(out * w) + aux, the layer alone, against
+    ``jax.grad`` of ``apply_moe`` at 1e-5: the gradient runs through the
+    chosen gates and the combine, into the fp32 router through the
+    load-balance and z losses, never through the dispatch, dropped tokens
+    included (the skewed inputs)."""
+    arch, S, _, kind = case
+    cfg_j, cfg_t = _cfgs(arch)
+    p = jmoe.init_moe(jax.random.PRNGKey(1), cfg_j)
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((B, S, cfg_t.d_model)).astype(np.float32)
+    if kind == "skewed":
+        x = rng.standard_normal((1, 1, cfg_t.d_model)).astype(np.float32) + 0.01 * x
+    w = rng.standard_normal(x.shape).astype(np.float32)
+
+    def f(p, x):
+        out, aux = jmoe.apply_moe(p, x, cfg_j)
+        return jnp.sum(out * w) + aux
+
+    gp_j, gx_j = jax.grad(f, argnums=(0, 1))(p, jnp.asarray(x))
+    layer = _port_moe(p, cfg_t)
+    layer.requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out, aux = layer(xt)
+    _, _, onehot, keep, _, _ = layer.route(xt.detach())
+    if kind == "skewed":  # over a third of the (token, choice) pairs dropped
+        assert 3 * int(onehot.sum() - keep.sum()) > int(onehot.sum())
+    named = dict(layer.named_parameters())
+    grads = torch.autograd.grad((out * torch.from_numpy(w)).sum() + aux,
+                                list(named.values()) + [xt])
+    np.testing.assert_allclose(grads[-1].numpy(), np.asarray(gx_j), atol=LAYER_TOL,
+                               rtol=LAYER_TOL, err_msg="x")
+    for (name, param), g in zip(named.items(), grads):
+        ref = gp_j
+        for key in name.split("."):
+            ref = ref[key]
+        assert g.dtype == param.dtype, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(ref), atol=LAYER_TOL,
+                                   rtol=LAYER_TOL, err_msg=name)
+
+
+def test_aux_loss_alone_reaches_only_the_router():
+    """The load-balance and z losses depend on the router's product and
+    nothing downstream of the dispatch: their gradient is the router's
+    alone, fp32 under bf16 weights, and nonzero."""
+    _, cfg_t = (c.replace(param_dtype="bfloat16", compute_dtype="bfloat16")
+                for c in _cfgs("arctic_480b"))
+    layer = tmoe.MoE(cfg_t, torch.Generator().manual_seed(0))
+    layer.requires_grad_(True)
+    x = torch.randn(B, 12, cfg_t.d_model, generator=torch.Generator().manual_seed(1))
+    _, aux = layer(x.to(torch.bfloat16))
+    named = dict(layer.named_parameters())
+    grads = dict(zip(named, torch.autograd.grad(aux, list(named.values()),
+                                                allow_unused=True)))
+    assert grads["router"].dtype == torch.float32
+    assert float(grads["router"].abs().max()) > 0
+    assert all(g is None for n, g in grads.items() if n != "router")
+
+
 @pytest.mark.parametrize("jax_backend", ["xla", "pallas"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_logits_match_jax(models, arch, jax_backend):
@@ -326,7 +391,12 @@ def test_stacked_experts_are_initialised_by_their_own_fan_in():
     assert layer.router.dtype == torch.float32
 
 
-def test_remat_is_carried_for_serving_and_refused_for_training(models):
+def test_remat_is_carried_for_serving_and_trains_to_the_same_gradients(models):
+    """Both MoE configs carry ``remat=True``: serving ignores it (the same
+    logits), and training checkpoints each pattern repeat, with the loss,
+    the aux loss and every gradient of ``remat=False`` bit for bit."""
+    from repro_torch.runtime.train_loop import loss_and_grads
+
     _, _, _, model = models["arctic_480b"]
     cfg = model.cfg.replace(remat=True)
     api = tbuild(cfg)
@@ -338,8 +408,18 @@ def test_remat_is_carried_for_serving_and_refused_for_training(models):
     lg, _ = api.prefill(carried, {"tokens": tokens})
     ref, _ = tbuild(model.cfg).prefill(model, {"tokens": tokens})
     torch.testing.assert_close(lg, ref, atol=0, rtol=0)
-    with pytest.raises(NotImplementedError, match="remat"):
-        api.train_loss(carried, {"tokens": tokens, "targets": tokens})
+    batch = {"tokens": tokens, "targets": tokens.roll(1, 1)}
+    carried.requires_grad_(True)
+    loss_r, met_r, grads_r = loss_and_grads(api, carried, batch)
+    plain = params_from_jax(
+        jax.tree.map(np.asarray, jbuild(_cfgs("arctic_480b")[0]).init(
+            jax.random.PRNGKey(0))), model.cfg, "cpu")
+    plain.requires_grad_(True)
+    loss_p, met_p, grads_p = loss_and_grads(tbuild(model.cfg), plain, batch)
+    assert torch.equal(loss_r, loss_p) and torch.equal(met_r["aux_loss"], met_p["aux_loss"])
+    assert grads_r.keys() == grads_p.keys()
+    for name, g in grads_p.items():
+        assert torch.equal(grads_r[name], g), name
 
 
 def test_hybrid_family_is_still_refused():

@@ -45,12 +45,12 @@ from repro_torch.data import MarkovDataset, ShardedLoader, make_dataset
 from repro_torch.interop import params_from_jax
 from repro_torch.models import build as tbuild
 from repro_torch.models.loss import fused_cross_entropy, token_nll
-from repro_torch.optim import adamw_update, init_opt_state, schedules
+from repro_torch.optim import adamw, adamw_update, init_opt_state, schedules
 from repro_torch.runtime.local_sgd import (LocalSGDConfig, LocalSGDTrainer,
                                            make_local_round_program,
                                            markov_batch)
 from repro_torch.runtime.train_loop import (TrainConfig, Trainer,
-                                            make_train_state)
+                                            loss_and_grads, make_train_state)
 
 
 @pytest.fixture(autouse=True)
@@ -172,7 +172,9 @@ def test_adamw_update_matches_reference(dtype, master):
         G = {k: rng.standard_normal(v.shape).astype(np.float32) for k, v in P.items()}
         jp, js, jm = jadamw({k: jnp.asarray(v) for k, v in G.items()}, js, jp,
                             lr=1e-2, moment_dtype=dtype, clip_norm=1.0)
-        _, ts, tm = adamw_update({k: torch.from_numpy(v) for k, v in G.items()},
+        # copies: the port clips its gradients in place, and JAX may still
+        # be reading the numpy buffers it was given (dispatch is asynchronous)
+        _, ts, tm = adamw_update({k: torch.from_numpy(v.copy()) for k, v in G.items()},
                                  ts, tp, lr=1e-2, moment_dtype=dtype, clip_norm=1.0)
     assert int(ts["step"]) == int(js["step"]) == 4
     np.testing.assert_allclose(tm["grad_norm"].item(), float(jm["grad_norm"]),
@@ -185,6 +187,116 @@ def test_adamw_update_matches_reference(dtype, master):
         assert tuple(ts["m"]["w"]["codes"].shape) == (8, 512)
     else:
         assert ts["v"]["w"].dtype == getattr(torch, dtype)
+
+
+def _whole_tensor_update(grads, state, params, *, lr, b1=0.9, b2=0.95, eps=1e-8,
+                         weight_decay=0.1, moment_dtype="float32"):
+    """The unclipped AdamW update one whole tensor at a time, as the port
+    wrote it before its update went slice by slice: the reference for the
+    sliced one's bit-identity."""
+    step = state["step"] + 1
+    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32), step.float())
+    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32), step.float())
+    lr = torch.as_tensor(lr, dtype=torch.float32)
+    masters = state.get("master", params)
+    for k, p in params.items():
+        g32 = grads[k].float()
+        m32 = adamw._read_moment(state["m"][k], p, moment_dtype)
+        v32 = adamw._read_moment(state["v"][k], p, moment_dtype, log_domain=True)
+        m32 = b1 * m32 + (1 - b1) * g32
+        v32 = b2 * v32 + (1 - b2) * g32 * g32
+        new = masters[k].float() - lr * (m32 / c1 / (torch.sqrt(v32 / c2) + eps)
+                                         + weight_decay * masters[k].float())
+        if "master" in state:
+            state["master"][k] = new
+        p.copy_(new)
+        state["m"][k] = adamw._write_moment(m32, moment_dtype)
+        state["v"][k] = adamw._write_moment(v32, moment_dtype, log_domain=True)
+    state["step"] = step
+
+
+def _stacked_params(pdtype, seed):
+    """An expert stack (6, 16, 40), a table (50, 24), a (2, 800) tensor
+    whose one row exceeds a 700-element slice and a 1-D (1000,)."""
+    rng = np.random.default_rng(seed)
+    shapes = {"experts.wi": (6, 16, 40), "embed.table": (50, 24), "wide": (2, 800),
+              "bias": (1000,)}
+    return {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(pdtype)
+            for k, s in shapes.items()}
+
+
+@pytest.mark.parametrize("master", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_sliced_adamw_update_equals_the_whole_tensor_one(dtype, master, monkeypatch):
+    """Three unclipped steps through slices of at most 700 elements equal
+    the whole-tensor update bit for bit: parameters, moments (int8 codes,
+    scales and offsets) and fp32 masters."""
+    monkeypatch.setattr(adamw, "SLICE", 700)
+    pdtype = torch.float32 if dtype == "float32" else torch.bfloat16
+    P = _stacked_params(pdtype, 0)
+    assert [len(adamw._slices(t)) for t in P.values()] == [6, 2, 2, 1]
+    sliced = {k: t.clone() for k, t in P.items()}
+    whole = {k: t.clone() for k, t in P.items()}
+    s_state = init_opt_state(sliced, moment_dtype=dtype, master_fp32=master)
+    w_state = init_opt_state(whole, moment_dtype=dtype, master_fp32=master)
+    for i in range(3):
+        G = _stacked_params(pdtype, i + 1)
+        adamw_update({k: g.clone() for k, g in G.items()}, s_state, sliced, lr=1e-2,
+                     moment_dtype=dtype, clip_norm=None)
+        _whole_tensor_update(G, w_state, whole, lr=1e-2, moment_dtype=dtype)
+    for k in P:
+        assert torch.equal(sliced[k], whole[k]), k
+        for mom in ("m", "v"):
+            a, b = s_state[mom][k], w_state[mom][k]
+            for part in (("codes", "scale", "offset") if dtype == "int8" else (None,)):
+                assert torch.equal(a if part is None else a[part],
+                                   b if part is None else b[part]), (k, mom, part)
+        if master:
+            assert torch.equal(s_state["master"][k], w_state["master"][k]), k
+    assert int(s_state["step"]) == 3
+
+
+@pytest.mark.parametrize("sliced", [False, True])
+@pytest.mark.parametrize("pdtype", [torch.float32, torch.bfloat16])
+def test_in_place_clip_equals_the_copying_clip(pdtype, sliced, monkeypatch):
+    """The clip scales the caller's tensors in place (the same objects come
+    back) and gives the copying clip's values bit for bit at the same norm.
+    The norm sums squares a slice at a time: unsliced it is the per-tensor
+    sum's bit for bit, sliced it moves by summation order only, within
+    1e-6 relative (fp32 sums of a few thousand squares)."""
+    if sliced:
+        monkeypatch.setattr(adamw, "SLICE", 700)
+    G = {k: g * 0.5 for k, g in _stacked_params(pdtype, 4).items()}
+    norm_before = torch.sqrt(torch.stack([torch.sum(torch.square(g.float()))
+                                          for g in G.values()]).sum())
+    copies = {k: g.clone() for k, g in G.items()}
+    clipped, norm = adamw.clip_by_global_norm(G, 1.0)
+    if not sliced:
+        assert torch.equal(norm, norm_before)
+    else:
+        torch.testing.assert_close(norm, norm_before, rtol=1e-6, atol=0)
+    factor = torch.clamp(1.0 / torch.clamp(norm, min=1e-9), max=1.0)
+    assert float(factor) < 1.0
+    for k, g in copies.items():
+        assert clipped[k] is G[k], k
+        assert torch.equal(clipped[k], (g.float() * factor).to(g.dtype)), k
+
+
+def test_clip_scales_a_shared_gradient_once_and_copies_a_broadcast_one():
+    """autograd hands one tensor to both leaves of ``a + b`` and a stride-0
+    view to a leaf read through ``sum``: the first is scaled once, the
+    second (which cannot be written) replaced by a scaled copy."""
+    a = torch.randn(4, requires_grad=True, generator=torch.Generator().manual_seed(0))
+    b = torch.randn(4, requires_grad=True, generator=torch.Generator().manual_seed(1))
+    c = torch.randn(4, requires_grad=True, generator=torch.Generator().manual_seed(2))
+    ga, gb, gc = torch.autograd.grad(((a + b) * 3).square().sum() + c.sum(), (a, b, c))
+    assert ga is gb and gc.stride() == (0,)
+    want = {k: g.clone() for k, g in zip("abc", (ga, gb, gc))}
+    out, norm = adamw.clip_by_global_norm({"a": ga, "b": gb, "c": gc}, 1.0)
+    factor = 1.0 / norm
+    for k in "abc":
+        torch.testing.assert_close(out[k], want[k] * factor, rtol=1e-6, atol=0)
+    assert out["a"] is ga and out["b"] is ga and out["c"] is not gc
 
 
 @pytest.mark.parametrize("name", ["cosine", "wsd", "constant"])
@@ -296,6 +408,22 @@ def test_async_checkpointer_and_restore_latest(tmp_path):
                                    "opt": tree["opt"]})
 
 
+def test_async_snapshot_is_taken_before_save_returns(tmp_path):
+    """A CPU bf16 tensor written in place (as AdamW writes weights and
+    moments) after ``save`` returns leaves the checkpoint as it was."""
+    ck = AsyncCheckpointer(str(tmp_path))
+    tree = {"w": torch.arange(12, dtype=torch.float32).reshape(3, 4).to(torch.bfloat16),
+            "m": torch.ones(5)}
+    want = {k: t.clone() for k, t in tree.items()}
+    ck.save(1, tree)
+    for t in tree.values():
+        t.mul_(3)
+    ck.wait()
+    _, out = ck.restore_latest({k: torch.zeros_like(t) for k, t in tree.items()})
+    for k, t in want.items():
+        assert torch.equal(out[k], t), k
+
+
 def test_trainer_restart_bitwise(tmp_path):
     cfg = tcfgs.reduced(tcfgs.get("llama3p2_1b"))
     api = tbuild(cfg)
@@ -364,14 +492,47 @@ def test_train_mode_switches_still_work():
     assert torch.equal(loss, again)
 
 
-def test_remat_is_carried_and_refused():
+def test_remat_runs_each_repeat_again_and_keeps_the_gradients(monkeypatch):
+    """``remat=True``: the flash forward runs twice an attention layer a
+    step (the checkpointed repeat's recompute in the backward), its
+    backward once, and loss and gradients equal ``remat=False``'s bit for
+    bit; without grad nothing is recomputed."""
+    import repro_torch.kernels.flash_attention.ops as flash_ops
+
     cfg = tcfgs.reduced(tcfgs.get("qwen3_1p7b"))
     assert cfg.remat is False and cfg.opt_state_dtype == "float32"
-    api = tbuild(cfg.replace(remat=True))
-    model = api.init(torch.Generator().manual_seed(0))
-    tok = torch.zeros(1, 4, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="remat"):
-        api.train_loss(model, {"tokens": tok, "targets": tok})
+    model = tbuild(cfg).init(torch.Generator().manual_seed(0))
+    tok = torch.from_numpy(np.random.default_rng(5).integers(0, 512, (2, 12)))
+    calls = {"fwd": 0, "bwd": 0}
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return run
+
+    monkeypatch.setattr(flash_ops, "flash_attention_fwd",
+                        counted("fwd", flash_ops.flash_attention_fwd))
+    monkeypatch.setattr(flash_ops, "flash_attention_bwd",
+                        counted("bwd", flash_ops.flash_attention_bwd))
+    runs = {}
+    for remat in (False, True):
+        api = tbuild(cfg.replace(remat=remat))
+        m = api.init(torch.Generator().manual_seed(1))
+        m.load_state_dict(model.state_dict())
+        m.requires_grad_(True)
+        calls.update(fwd=0, bwd=0)
+        loss, _, grads = loss_and_grads(api, m, {"tokens": tok, "targets": tok})
+        runs[remat] = (loss, grads, dict(calls))
+    assert runs[False][2] == {"fwd": cfg.n_layers, "bwd": cfg.n_layers}
+    assert runs[True][2] == {"fwd": 2 * cfg.n_layers, "bwd": cfg.n_layers}
+    assert torch.equal(runs[True][0], runs[False][0])
+    for name, g in runs[False][1].items():
+        assert torch.equal(runs[True][1][name], g), name
+    calls.update(fwd=0, bwd=0)
+    with torch.no_grad():
+        api.train_loss(m, {"tokens": tok, "targets": tok})
+    assert calls == {"fwd": cfg.n_layers, "bwd": 0}
 
 
 def test_trainer_losses_match_reference():
