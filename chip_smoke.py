@@ -7,8 +7,10 @@ Drives the port's main paths on ``cuda:0`` — serving as a task farm, and
 training in sync and in farm mode, of qwen3-1.7B; serving and sync
 training of falcon-mamba-7b; serving and sync training of minicpm3-4b,
 phi-3-vision-4.2b and whisper-tiny; serving and sync training of the MoE
-family, llama4-maverick and arctic — and holds every hand-written kernel
-of those paths against its plain PyTorch version.  Phases, in order; any
+family, llama4-maverick and arctic; serving jamba-1.5-large-398b, the
+hybrid of Mamba, attention and MoE, and one request of it at long
+context — and holds every hand-written kernel of those paths against its
+plain PyTorch version.  Phases, in order; any
 failure raises and exits non-zero:
 
 1. build the CUDA kernels from this checkout's sources (one ``nvcc`` per
@@ -33,7 +35,9 @@ failure raises and exits non-zero:
    whisper's 128-slot self-attention cache; the odd GQA groups of phase 17
    in bf16 at D=128: flash at B=4, S=512, H=40, K=8 (llama4, G=5) and H=56,
    K=8 (arctic, G=7), one q-head a block, and decode at both on a 544-slot
-   cache (5 or 7 q-heads in a block of 8).  Each runs again at a ragged
+   cache (5 or 7 q-heads in a block of 8); phase 19's G = 8 (jamba: H=64,
+   K=8): flash two q-heads a block, decode the block of 8 full.  Each runs
+   again at a ragged
    size (Sq = 13; a 24-slot cache with ``cache_index`` mid-cache) and
    decode on one request alone.  Then each kernel, its plain version and
    PyTorch's SDPA are timed at each serve shape (decode in bf16, at B=4
@@ -66,14 +70,16 @@ failure raises and exits non-zero:
    training shape beside each kernel's bound: SDPA's backward alone (one
    forward with grad-enabled inputs, then ``autograd.grad`` timed), K and
    V expanded, each backend as in phase 2;
-6. sync training of full-width, full-depth qwen3-1.7B (``Trainer``, 4
+6. sync training of full-width qwen3-1.7B with its depth cut from 28 to
+   ``TRAIN_LAYERS`` = 8 layers, fresh seeded weights (``Trainer``, 4
    AdamW steps on MarkovDataset batches of 4 x 512, fp32 moments), the
    launch counts zeroed just before and read just after (the bf16
    forward, dq and dk/dv kernels each at least once per layer per step,
    the fp32 ones never), one profiled step, and a checkpoint saved and
    restored into a fresh state;
-7. one full-width training step's loss and gradients through the
-   kernels and through the plain versions, same weights, same batch, in
+7. one full-width training step's loss and gradients (phase 6's depth)
+   through the kernels and through the plain versions, same weights,
+   same batch, in
    bf16 (the trained weights) and in fp32 (fresh fp32 weights; the launch
    counts zeroed just before and read just after: this is the fp32
    forward, dq and dk/dv kernels' path, once per layer, and no bf16
@@ -83,11 +89,11 @@ failure raises and exits non-zero:
    a service failing after one task (the bf16 kernels launched, the fp32
    ones not);
 9. (qwen3's state freed) the selective-scan kernel against the plain
-   chunked scan in fp32 at the serve shape (b=4, s=512, d_inner=8192,
-   n=16), at a ragged (2, 13, 96, 16), with h0 (two halves chained
-   against one whole scan) and with strided x, B and C; kernel (graph-timed
-   and back to back) and plain timed at the serve shape beside the bound's bytes,
-   exponential and flop terms;
+   chunked scan in fp32 at the serve shapes (b=4, s=512, n=16, d_inner
+   8192 for falcon-mamba, 16384 for jamba), at a ragged (2, 13, 96, 16),
+   with h0 (two halves chained against one whole scan) and with strided
+   x, B and C; kernel (graph-timed and back to back) and plain timed at
+   each serve shape beside the bound's bytes, exponential and flop terms;
 10. serve full-width, full-depth falcon-mamba-7b (64 layers, bf16, seeded
     weights) through ``BasicClient`` on the 2 services: 8 requests, prompt
     512, 32 new tokens, 4 requests per task, asserting exactly one scan
@@ -187,7 +193,33 @@ failure raises and exits non-zero:
     that differ between the two and a check that each recompute routed as
     its forward did; then the same step with remat off (one flash forward
     a layer), whose loss and gradients must equal remat's, bit for bit or
-    within ``REMAT_GRAD_TOL``.
+    within ``REMAT_GRAD_TOL``;
+19. (everything freed) jamba-1.5-large-398b served as phase 17 serves the
+    MoE family, at full width on one period of its pattern (8 of 72
+    layers: attention at position 0, H=64, K=8, G=8; Mamba-1 at 1-7,
+    d_inner 16384; MoE MLPs at the odd positions) with the experts cut
+    from 16 to 8 (``JAMBA_EXPERTS``; both cuts printed as ``reduced``
+    lists beside the weights they save): exactly 1 flash, 7 scan and 32
+    decode launches a task, nothing else; one task timed alone and
+    profiled; prefill and 4 decode steps of logits through the kernels
+    and through the plain versions on 4 batches, held to jamba's
+    ``FAMILY_LIMITS`` with the plain versions' top-k choices pinned to the
+    kernels' (``RoutingPin``), the comparison with each path routing its
+    own inputs printed beside it; the share of top-k choices the plain
+    router makes otherwise held to ``ROUTING_LIMITS`` on both, and the
+    differing decisions split into first flips and the drops that follow,
+    by MoE layer.
+    Then long context: ``long_context=True`` on one of those batches
+    (inside the 2,048-token window) against the kernels, the same way; one
+    request of 4,096 tokens through ``prefill(long_context=True)`` and 4
+    decode steps, the counts zeroed just before and read just after (no
+    flash or decode launch: the attention layer runs the plain windowed
+    path; 7 scan launches), finite logits, the last logits away from those
+    of the same plain attention without a window by more than ``BITES``
+    times the largest kernels-vs-plain gap; and, the served model
+    freed, each decode step within ``CONSISTENCY_TOL`` of a prefill of
+    the longer prompt, in fp32 with 2 experts at a capacity that drops
+    nothing (``JAMBA_FP32_EXPERTS``).
 
 The line before the last is a JSON object with each kernel's numbers, one
 row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
@@ -199,7 +231,10 @@ the bf16 pair (``flash_attention_bwd_{dq,dkv}_d96_dv64``, ``..._d96`` at
 S = 768, ``..._whisper`` on the encoder), and phase 17's odd GQA groups of
 the bf16 flash forward and decode (``flash_attention_fwd_g5``, ``..._g7``,
 ``decode_attention_fwd_g5``, ``..._g7``), and phase 18's of the bf16 pair
-(``flash_attention_bwd_{dq,dkv}_{g5,g7}``); the last
+(``flash_attention_bwd_{dq,dkv}_{g5,g7}``), and phase 19's G = 8 of the
+flash forward and decode (``flash_attention_fwd_g8``,
+``decode_attention_fwd_g8``) and d_inner = 16384 of the scan
+(``mamba_scan_d16384``); the last
 line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event times on
 this card without flushing the 50 MB L2 cache (the serve and training
 paths find their inputs freshly written): for every kernel, its library
@@ -210,7 +245,9 @@ kernels' own); for the plain scan, of back-to-back calls.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import gc
 import json
 import os
@@ -276,8 +313,11 @@ FULL_WIDTH_MEAN_ERR = 0.0125
 # (tests/test_torch_flash_bwd_fp32_sm90.py; two terms in any product do
 # not).
 BWD_ATOL = 1e-4
-# Training path (phases 6-8)
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 4
+# Training path (phases 6-8).  Phases 6 and 7 train qwen3 at full width
+# cut to TRAIN_LAYERS layers (at the full 28, the checkpoint alone is
+# 17.2 GB and takes ~60 s to save and restore), so that the script stays
+# within the time its earlier versions took as it grows.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LAYERS = 4, 512, 4, 8
 # the attention kernels a training step launches in bf16 and in fp32 (the
 # Hopper kernels of each): forward, dq, dk/dv
 BF16_TRAIN_KERNELS = ("flash_attention_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
@@ -290,7 +330,7 @@ FARM_LAYERS, FARM_SHARDS, FARM_INNER, FARM_BATCH = 8, 4, 2, 2
 # weights and activations, where only summation order differs).  bf16:
 # from the first reading on an H100, |dloss| 5.4e-4 and a largest
 # relative difference of 2.0e-2 (one-ulp flips of bf16 activations and
-# gradients through 28 layers; see PERF.md).  fp32, from the first
+# gradients through 28 layers, the depth phase 7 ran then; see PERF.md).  fp32, from the first
 # reading: |dloss| 0 and at most 5.3e-6, which shows the bf16 gap is
 # rounding, not the kernels.
 TRAIN_LIMITS = {torch.bfloat16: (1e-3, 3e-2), torch.float32: (1e-5, 1e-5)}
@@ -326,9 +366,37 @@ FAMILY_BATCHES = 4
 # differed), and llama4's largest gap, 2.512e-1, is a decode step where 1
 # of its 4 decisions flipped.  The element checks of phase 2, not these
 # limits, decide whether a kernel is right.
+# Phase 19's jamba (8 layers: 1 attention, 7 Mamba, 4 MoE of 8 experts,
+# top-2; prefill and 4 decode steps): limits set before its first run on
+# the card from falcon-mamba's bf16 readings at 64 layers (largest 0.358,
+# mean 0.055) and llama4's routing-flip spike (0.251), not fitted to a
+# reading (see PERF.md).  The first run broke them with the routing free:
+# 4.4-6.1% of a prefill's (token, choice) decisions differed between the
+# paths and a decode step's largest gap read 1.265.  A flipped top-k
+# choice changes that token's output by an expert's share; the Mamba
+# layers carry it to every later token and MoE layer, where more choices
+# flip.  The reference shows the same between its XLA and Pallas-interpret
+# paths on the reduced jamba in bf16: 4.9-5.2% first flips, from 0.5-1.5%
+# at the first MoE layer to 7-10% at the last, none in fp32
+# (tests/test_torch_hybrid_routing.py).  So for the configs in PINNED the
+# plain versions' top-k choices are pinned to the kernels' (RoutingPin;
+# each path computes its own gates, and its own drops from the shared
+# choices) and their logits are held to these limits there, while the
+# share of (token, choice) pairs whose top-k choice the plain router makes
+# otherwise is held to ROUTING_LIMITS over each batch's prefill and decode
+# steps: "pinned", on the pinned path's inputs, where no flip compounds;
+# "free", on the inputs of the plain path routing itself.  Both set before
+# the run that first held them, "free" above the reference witness's 5.2%
+# and the card's first 4.4-6.1% (which counted drops too); "pinned" three
+# times the largest share llama4's or arctic's shallow stacks gave (1.03%),
+# as jamba's pinned logits differ 3-4x more than theirs (largest 0.18-0.27
+# against 0.04-0.07).
 FAMILY_LIMITS = {"minicpm3_4b": (0.13, 0.019), "phi3_vision_4p2b": (0.14, 0.021),
                  "whisper_tiny": (0.018, 0.0027),
-                 "llama4_maverick_400b_a17b": (0.34, 0.021), "arctic_480b": (0.11, 0.015)}
+                 "llama4_maverick_400b_a17b": (0.34, 0.021), "arctic_480b": (0.11, 0.015),
+                 "jamba_1p5_large_398b": (0.6, 0.06)}
+PINNED = ("jamba_1p5_large_398b",)
+ROUTING_LIMITS = {"free": 0.10, "pinned": 0.03}
 # Phase 17: the MoE family at full width, served as phase 15 serves its
 # families (FAMILY_REQUESTS prompts of PROMPT tokens, FAMILY_NEW new
 # tokens), its depth cut to the whole pattern repeats one card holds:
@@ -338,6 +406,34 @@ FAMILY_LIMITS = {"minicpm3_4b": (0.13, 0.019), "phi3_vision_4p2b": (0.14, 0.021)
 # one-hot dispatch: every expert is read on every call.
 MOE_FAMILIES = ("llama4_maverick_400b_a17b", "arctic_480b")
 MOE_LAYERS = {"llama4_maverick_400b_a17b": 2, "arctic_480b": 2}
+# Phase 19: jamba-1.5-large-398b (hybrid) served as phase 17 serves the MoE
+# family, at full width on one period of its pattern (8 of 72 layers:
+# attention at position 0, Mamba at 1-7, MoE MLPs at the odd positions)
+# with the expert count cut from 16 to JAMBA_EXPERTS: 25.91 B params,
+# 51.8 GB in bf16 (16 experts: 45.24 B, 90.5 GB).  Every other field as
+# published (top-2, capacity 1.25, routing groups of 256, the window).
+JAMBA = "jamba_1p5_large_398b"
+JAMBA_LAYERS, JAMBA_EXPERTS = 8, 8
+# Long context on the card: one request of JAMBA_LONG_PROMPT tokens (twice
+# the 2,048-token window) through prefill(long_context=True), then
+# JAMBA_LONG_STEPS decode steps with long_context=True: the attention layer
+# runs the plain windowed path (no kernel takes a window) and the Mamba
+# layers the scan kernel.  Decode against a prefill of the longer prompt is
+# held to the reference's serve-consistency limit
+# (tests/test_serve_consistency.py, 2e-3) in fp32, where only summation
+# order differs: the same period at full width with fp32 weights and
+# activations and JAMBA_FP32_EXPERTS experts (45.6 GB; 8 would take 103.6),
+# their capacity n_experts / top_k = 1.0 so that no routing group drops a
+# token, as the reference test raises its capacity for (a group of 256 in a
+# prefill may drop where a decode step's group of 1 never does).  The
+# served bf16 model's decode-vs-prefill gap is printed beside it.
+JAMBA_LONG_PROMPT, JAMBA_LONG_STEPS = 4096, 4
+# The window bites when the long-context logits move away from the same
+# attention without a window by more than BITES times the largest gap
+# between the kernels and the plain versions held above (rounding).
+BITES = 10
+JAMBA_FP32_EXPERTS = 2
+CONSISTENCY_TOL = 2e-3
 # Phase 2's shapes: each path's attention calls as its serve run makes them.
 # Flash: label -> (B, Sq, Skv, H, K, D, Dv, causal, dtypes), each also at a
 # ragged Sq = 13 (and Skv = 13 where Skv = Sq).  Decode: label -> (B, H, K,
@@ -358,6 +454,8 @@ FLASH_SHAPES = {
     # the odd GQA groups of phase 17: one q-head a block (H/K odd)
     "llama4 G=5": (PER_TASK, PROMPT, PROMPT, 40, 8, 128, 128, True, (torch.bfloat16,)),
     "arctic G=7": (PER_TASK, PROMPT, PROMPT, 56, 8, 128, 128, True, (torch.bfloat16,)),
+    # phase 19's jamba: G = 8, two q-heads a block
+    "jamba G=8": (PER_TASK, PROMPT, PROMPT, 64, 8, 128, 128, True, (torch.bfloat16,)),
 }
 DECODE_SHAPES = {
     "qwen3": (PER_TASK, 16, 8, 128, PROMPT + NEW, PROMPT + 31,
@@ -371,6 +469,9 @@ DECODE_SHAPES = {
                    (torch.bfloat16,)),
     "arctic G=7": (PER_TASK, 56, 8, 128, PROMPT + FAMILY_NEW, PROMPT + FAMILY_NEW - 1,
                    (torch.bfloat16,)),
+    # jamba's 8 q-heads a kv-head fill the block of 8
+    "jamba G=8": (PER_TASK, 64, 8, 128, PROMPT + FAMILY_NEW, PROMPT + FAMILY_NEW - 1,
+                  (torch.bfloat16,)),
 }
 # the kernels line's phase-2 rows: (kind, label, dtypes), timed in the first
 # dtype, the largest |error| over all of them
@@ -385,6 +486,8 @@ JSON_ROWS = {
     "g7": ("flash", "arctic G=7", (torch.bfloat16,)),
     "decode_g5": ("decode", "llama4 G=5", (torch.bfloat16,)),
     "decode_g7": ("decode", "arctic G=7", (torch.bfloat16,)),
+    "g8": ("flash", "jamba G=8", (torch.bfloat16,)),
+    "decode_g8": ("decode", "jamba G=8", (torch.bfloat16,)),
 }
 # Phase 16: sync training of phase 15's families at full width, one at a
 # time, FAMILY_TRAIN_BATCH sequences of TRAIN_SEQ tokens (phi-3: after
@@ -473,6 +576,14 @@ MAMBA_FULL_WIDTH_LIMITS = {torch.bfloat16: (0.45, 0.07), torch.float32: (2e-4, 3
 # compute capability 9.0); the card has 132 SMs
 MUFU_PER_CLOCK_SM, SMS = 16, 132
 SCAN_FLOP_PER_ELEMENT = 6  # dt*A, h*dA, dx*B, +, C*h, + per (b, s, d, n)
+
+
+START = time.perf_counter()
+
+
+def phase(title):
+    """A phase's title line, with the seconds since the script started."""
+    say(f"{title} [{time.perf_counter() - START:.1f} s into the run]")
 
 
 def say(*a):
@@ -949,89 +1060,210 @@ def time_one_task(api, params, tokens, new):
 
 class RoutingTap:
     """Records the routing decisions of a model's MoE layers as it runs:
-    for each (token, choice), the chosen expert, or -1 where the capacity
-    dropped it.  A forward pre-hook routes each layer's input
-    (``MoE.route``): it sees remat's recompute too, which stops once the
-    backward has what it needs, before a layer's forward returns.  ``take``
-    returns what was recorded since its last call, ``forward_and_recompute``
-    the same split into each layer's first run and its second (the
-    recompute), ``close`` removes the hooks."""
+    for each (token, choice), the chosen expert and whether it found a
+    slot.  A forward pre-hook routes each layer's input (``MoE.route``)
+    with its own router, never pinned (``pin``): it sees remat's
+    recompute too, which stops once the backward has what it needs,
+    before a layer's forward returns.  ``calls`` returns what was
+    recorded since its last call, one (choices, kept) a layer call;
+    ``take`` the same as one decision a (token, choice), the expert or -1
+    where the capacity dropped it; ``forward_and_recompute`` the
+    decisions split into each layer's first run and its second (the
+    recompute); ``close`` removes the hooks."""
 
-    def __init__(self, model):
-        self.seen = []
+    def __init__(self, model, pin=None):
+        self.seen, self.pin = [], pin
         self.hooks = [blk.moe.register_forward_pre_hook(self._record)
                       for blk in model.blocks if blk.spec.mlp == "moe"]
 
     @torch.no_grad()
     def _record(self, layer, args):
-        keep = layer.route(args[0])[3]
-        expert = torch.arange(1, keep.shape[-1] + 1, device=keep.device)
-        self.seen.append((layer, ((keep * expert).sum(-1) - 1).flatten()))
+        with contextlib.nullcontext() if self.pin is None else self.pin(None):
+            _, _, onehot, keep, _, _ = layer.route(args[0])
+        self.seen.append((layer, onehot.argmax(-1).flatten(), keep.sum(-1).flatten() > 0))
+
+    @staticmethod
+    def decisions(calls) -> torch.Tensor:
+        return torch.cat([torch.where(kept, choice, -1) for choice, kept in calls])
+
+    def calls(self):
+        seen, self.seen = [(c, k) for _, c, k in self.seen], []
+        return seen
 
     def take(self) -> torch.Tensor:
-        seen, self.seen = torch.cat([d for _, d in self.seen]), []
-        return seen
+        return self.decisions(self.calls())
 
     def forward_and_recompute(self):
         """(each layer's first decisions, its second or None when no layer
         ran twice), layers in the order of their first run."""
         runs: dict = {}
-        for layer, d in self.seen:
-            runs.setdefault(layer, []).append(d)
+        for layer, c, k in self.seen:
+            runs.setdefault(layer, []).append((c, k))
         self.seen = []
-        first = torch.cat([r[0] for r in runs.values()])
+        first = self.decisions([r[0] for r in runs.values()])
         if all(len(r) == 1 for r in runs.values()):
             return first, None
-        return first, torch.cat([r[1] for r in runs.values()])
+        return first, self.decisions([r[1] for r in runs.values()])
 
     def close(self):
         for hook in self.hooks:
             hook.remove()
 
 
-def kernels_vs_plain(api, params, plain_ops, batches, budget, steps, limits, tap=None):
-    """The full-width logits check of phases 4, 11, 15 and 17: for each
+def routing_split(a, b):
+    """Two runs' routing (RoutingTap.calls), one MoE layer call each:
+    [(first flips: (token, choice) pairs whose top-k choice differs,
+    drops: pairs with the same choice that one run kept and the other
+    dropped, pairs)]."""
+    out = []
+    for (ca, ka), (cb, kb) in zip(a, b, strict=True):
+        flip = ca != cb
+        out.append((flip.sum().item(), (~flip & (ka != kb)).sum().item(), ca.numel()))
+    return out
+
+
+class RoutingPin:
+    """Pins the top-k choices of a model's MoE layers to another run's.
+    ``repro_torch.models.moe.top_k`` is replaced while the pin lives:
+    called with "record", each routing keeps its choices in call order;
+    with "replay", each routing takes the recorded choices of the same
+    order in place of its own top k, and gathers its gates from its own
+    router's probabilities at them.  So each path computes its own gates
+    and, from the shared choices, its own capacity drops.  Phase 19 holds
+    the plain versions to the kernels' logits with the choices pinned, so
+    that the two differ by the arithmetic, not by a near-tied choice one
+    ulp flipped and what it moves downstream; the first flips each router
+    makes on its own are counted and held beside it (ROUTING_LIMITS)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.top_k = moe, moe.top_k
+        self.kept, self.mode = [], None
+        moe.top_k = self._top_k
+
+    def _top_k(self, probs, k):
+        if self.mode == "replay":
+            idx = self.kept.pop(0)
+            if idx.shape != probs.shape[:-1] + (k,):
+                raise AssertionError("a pinned routing replayed at another shape")
+            return probs.gather(-1, idx), idx
+        gate, idx = self.top_k(probs, k)
+        if self.mode == "record":
+            self.kept.append(idx)
+        return gate, idx
+
+    @contextlib.contextmanager
+    def __call__(self, mode):
+        before, self.mode = self.mode, mode
+        try:
+            yield
+        finally:
+            self.mode = before
+
+    def close(self):
+        self.moe.top_k = self.top_k
+
+
+def say_routing(label, split, limit=None, by_layer=False):
+    """One line of routing_split's sums (and with ``by_layer`` each layer
+    call's share of first flips): the shares of first flips and of the
+    drops that follow; with ``limit``, the first flips' share is held to
+    it."""
+    flips, drops, n = (sum(col) for col in zip(*split))
+    layers = ("; first flips by layer " + ", ".join(f"{f / m:.4f}" for f, _, m in split)
+              if by_layer else "")
+    say(f"    {label}: top-k choices differ on {flips} of {n} (token, choice) pairs "
+        f"({flips / n:.4f}{'' if limit is None else f', limit {limit:g}'}), the same "
+        f"choice kept in one and dropped in the other on {drops} ({drops / n:.4f}){layers}")
+    if limit is not None and not flips / n <= limit:
+        raise AssertionError(f"{label}: {flips / n:.4f} of the routers' choices flipped")
+
+
+def kernels_vs_plain(api, params, plain_ops, batches, budget, steps, limits, tap=None,
+                     other=None, pin=None):
+    """The full-width logits check of phases 4, 11, 15, 17 and 19: for each
     (batch, first decode position) of ``batches``, a prefill and ``steps``
     decode steps through the kernels and through ``plain_ops``, the same
     greedy token fed to both; the largest and mean |logits difference| of
-    each held to ``limits``.  With a RoutingTap, the share of (token,
-    choice) routing decisions that differ between the two paths is printed
-    beside each."""
+    each held to ``limits``.  With a RoutingTap, the routing decisions
+    that differ between the two paths are printed beside each, split into
+    first flips and the drops that follow.  ``other``: the second path's
+    keywords in place of ``ops=plain_ops`` (phase 19:
+    ``long_context=True``).  With a RoutingPin, the second path runs
+    twice: routing its own inputs (logits printed, not held; its first
+    flips over the batch held to ROUTING_LIMITS["free"]) and with its
+    top-k choices pinned to the kernels' (logits held; the choices its
+    own router would have made there held to ROUTING_LIMITS["pinned"]).
+    Returns the largest held |logits difference|."""
     max_lim, mean_lim = limits
+    other = {"ops": plain_ops} if other is None else other
+    worst = 0.0
 
-    def flips():
-        return None if tap is None else tap.take()
+    def calls():
+        return [] if tap is None else tap.calls()
 
-    for i, (batch, start) in enumerate(batches):
-        lg_k, c_k = api.prefill(params, batch, seq_budget=budget)
-        r_k = flips()
-        lg_p, c_p = api.prefill(params, batch, seq_budget=budget, ops=plain_ops)
-        pairs = [("prefill", lg_k, lg_p, r_k, flips())]
-        for j in range(steps):
-            step = {"tokens": torch.argmax(lg_k, -1).to(torch.int32)[:, None],
-                    "cache_index": start + j}
-            lg_k, c_k = api.decode(params, step, c_k)
-            r_k = flips()
-            lg_p, c_p = api.decode(params, step, c_p, ops=plain_ops)
-            pairs.append((f"decode at {start + j}", lg_k, lg_p, r_k, flips()))
+    def pinned(mode):
+        return contextlib.nullcontext() if pin is None else pin(mode)
+
+    def report(i, pairs, held):
+        nonlocal worst
         for name, a, b, r_a, r_b in pairs:
             if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
                 raise AssertionError(f"batch {i} {name}: non-finite logits")
             diff = (a - b).abs()
             err, mean = diff.max().item(), diff.mean().item()
             agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-            routing = ("" if r_a is None else
-                       f", routing decisions differ on {(r_a != r_b).sum().item()} of "
-                       f"{r_a.numel()} (token, choice) pairs "
-                       f"({(r_a != r_b).float().mean().item():.4f})")
-            say(f"  batch {i} {name} logits: max |diff| {err:.3e} (limit {max_lim:g}), "
+            tag = ("" if pin is None else
+                   " (top-k choices pinned to the kernels')" if held else
+                   " (own routing; not held)")
+            say(f"  batch {i} {name} logits{tag}: max |diff| {err:.3e} (limit {max_lim:g}), "
                 f"mean |diff| {mean:.3e} (limit {mean_lim:g}), max |logit| "
-                f"{b.abs().max().item():.3f}, greedy tokens agree on {agree:.2f} of rows"
-                f"{routing}")
-            if not (err <= max_lim and mean <= mean_lim):
-                raise AssertionError(f"batch {i} {name}: full-width logits through the "
-                                     "kernels disagree")
+                f"{b.abs().max().item():.3f}, greedy tokens agree on {agree:.2f} of rows")
+            if r_a and (pin is None or name == "prefill"):
+                say_routing("routing vs the kernels'", routing_split(r_a, r_b),
+                            by_layer=name == "prefill")
+            if held:
+                worst = max(worst, err)
+                if not (err <= max_lim and mean <= mean_lim):
+                    raise AssertionError(f"batch {i} {name}: full-width logits through the "
+                                         "kernels disagree")
+
+    for i, (batch, start) in enumerate(batches):
+        with pinned("record"):
+            lg_k, c_k = api.prefill(params, batch, seq_budget=budget)
+        r_k = calls()
+        lg_p, c_p = api.prefill(params, batch, seq_budget=budget, **other)
+        pairs = [("prefill", lg_k, lg_p, r_k, calls())]
+        if pin is not None:
+            with pin("replay"):
+                lg_q, c_q = api.prefill(params, batch, seq_budget=budget, **other)
+            held = [("prefill", lg_k, lg_q, r_k, calls())]
+        for j in range(steps):
+            step = {"tokens": torch.argmax(lg_k, -1).to(torch.int32)[:, None],
+                    "cache_index": start + j}
+            with pinned("record"):
+                lg_k, c_k = api.decode(params, step, c_k)
+            r_k = calls()
+            lg_p, c_p = api.decode(params, step, c_p, **other)
+            pairs.append((f"decode at {start + j}", lg_k, lg_p, r_k, calls()))
+            if pin is not None:
+                with pin("replay"):
+                    lg_q, c_q = api.decode(params, step, c_q, **other)
+                held.append((f"decode at {start + j}", lg_k, lg_q, r_k, calls()))
+        report(i, pairs, pin is None)
+        if pin is not None:
+            report(i, held, True)
+            if pin.kept:
+                raise AssertionError("a recorded routing was not replayed")
+            for label, runs, limit in (("free", pairs, ROUTING_LIMITS["free"]),
+                                       ("pinned", held, ROUTING_LIMITS["pinned"])):
+                say_routing(f"batch {i}, prefill and {steps} decode steps, {label}",
+                            [s for *_, r_a, r_b in runs for s in routing_split(r_a, r_b)],
+                            limit)
+            del c_q
         del c_k, c_p
+    return worst
 
 
 def full_width_phase(api, params, cfg, dev, plain_ops, batches=FULL_WIDTH_BATCHES,
@@ -1145,7 +1377,8 @@ def group_of(name: str) -> str:
 
 
 def sync_training_phase(api, params, dev, kernels):
-    """Phase 6: full-width sync training; returns (launches, state)."""
+    """Phase 6: full-width sync training (depth cut to TRAIN_LAYERS);
+    returns (launches, state)."""
     from repro_torch.checkpoint import restore, save
     from repro_torch.data import MarkovDataset
     from repro_torch.runtime.train_loop import (TrainConfig, Trainer,
@@ -1481,16 +1714,18 @@ def mamba_train_phase(cfg, dev, kernels, full_params):
         trainer.state, batch), 1)
 
 
-def family_phase(arch, dev, lookup, kernels, layers=None):
-    """Phase 15 (and 17) for one family: serve it at full width, at full
-    depth or cut to ``layers`` layers, through ``BasicClient`` on the
-    services in ``lookup`` with every launch count zeroed just before and
-    read just after (exact counts a task: one flash launch a prefill
-    attention, one decode launch a self-attention layer and new token but
-    none for MLA, nothing else), then its logits through the kernels
-    against the plain versions (with an MoE's routing flips).  minicpm3's
-    and the MoE families' task is timed alone and profiled.  Returns the
-    launch counts."""
+def family_phase(arch, dev, lookup, kernels, layers=None, experts=None, then=None):
+    """Phase 15 (and 17, 19) for one family: serve it at full width, at
+    full depth or cut to ``layers`` layers (and ``experts`` experts),
+    through ``BasicClient`` on the services in ``lookup`` with every launch
+    count zeroed just before and read just after (exact counts a task: one
+    flash launch a prefill attention, one decode launch a self-attention
+    layer and new token but none for MLA, one scan launch a Mamba layer,
+    nothing else), then its logits through the kernels against the plain
+    versions (with an MoE's routing flips), then ``then(api, params,
+    batches, tap, pin, largest held |logits difference|)``.
+    minicpm3's and the MoE families' task is timed alone and profiled.
+    Returns the launch counts."""
     import repro_torch.configs as cfgs
     from repro_torch.core import BasicClient
     from repro_torch.kernels import decode_attention as decode
@@ -1499,8 +1734,12 @@ def family_phase(arch, dev, lookup, kernels, layers=None):
     from repro_torch.runtime.serve_loop import (ServeConfig, make_generate_program,
                                                 serve_requests)
 
+    from repro_torch.kernels import mamba_scan as scan
+
     full = cfgs.get(arch)
     cfg = full if layers is None else full.replace(n_layers=layers)
+    if experts is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, n_experts=experts))
     api = build(cfg)
     t0 = time.perf_counter()
     params = api.init(torch.Generator(device=dev).manual_seed(SEED))
@@ -1513,6 +1752,8 @@ def family_phase(arch, dev, lookup, kernels, layers=None):
         f"B params in {cfg.param_dtype}, initialised in {time.perf_counter() - t0:.2f} s")
     if layers is not None:
         say_depth_cut(full, cfg, params)
+    if cfg.moe is not None and cfg.moe.n_experts != full.moe.n_experts:
+        say_expert_cut(full, cfg, params)
     prompt, new = (WHISPER_PROMPT, WHISPER_NEW) if encdec else (PROMPT, FAMILY_NEW)
     rng = np.random.default_rng(SEED)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (FAMILY_REQUESTS, prompt)))
@@ -1554,9 +1795,13 @@ def family_phase(arch, dev, lookup, kernels, layers=None):
     if not (int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size):
         raise AssertionError("generated token ids out of range")
     want = {kern.name: 0 for kern in kernels.KERNELS}
-    attn_layers = cfg.n_encoder_layers + 2 * cfg.n_layers if encdec else cfg.n_layers
-    want[flash.SM90_KERNEL.name] = n_tasks * attn_layers
-    want[decode.KERNEL.name] = 0 if cfg.attention == "mla" else n_tasks * cfg.n_layers * new
+    mixers = [cfg.pattern[i % len(cfg.pattern)].mixer for i in range(cfg.n_layers)]
+    self_attn = mixers.count("attn")
+    # whisper: the encoder's, the decoder's self- and cross-attention prefills
+    prefills = cfg.n_encoder_layers + 2 * cfg.n_layers if encdec else self_attn
+    want[flash.SM90_KERNEL.name] = n_tasks * prefills
+    want[decode.KERNEL.name] = 0 if cfg.attention == "mla" else n_tasks * self_attn * new
+    want[scan.KERNEL.name] = n_tasks * mixers.count("mamba")
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
     if arch == "minicpm3_4b" or cfg.moe is not None:
@@ -1576,11 +1821,15 @@ def family_phase(arch, dev, lookup, kernels, layers=None):
                                           SEED + 70 + i)
         batches.append((batch, prompt + (PATCHES if cfg.frontend == "vision" else 0)))
     steps = 4 if cfg.frontend == "vision" or cfg.moe is not None else 1
-    tap = RoutingTap(params) if cfg.moe is not None else None
-    kernels_vs_plain(api, params, kernels.PLAIN, batches, batches[0][1] + new, steps,
-                     FAMILY_LIMITS[arch], tap)
-    if tap is not None:
-        tap.close()
+    pin = RoutingPin() if arch in PINNED else None
+    tap = RoutingTap(params, pin) if cfg.moe is not None else None
+    gap = kernels_vs_plain(api, params, kernels.PLAIN, batches, batches[0][1] + new, steps,
+                           FAMILY_LIMITS[arch], tap, pin=pin)
+    if then is not None:
+        then(api, params, batches, tap, pin, gap)
+    for hooks in (tap, pin):
+        if hooks is not None:
+            hooks.close()
     return launches
 
 
@@ -1605,6 +1854,152 @@ def say_depth_cut(full, cfg, params):
         f"{rest:.2f} GB, fp32 unembedding copy {f32:.2f} GB: {blocks + rest + f32:.2f} GB; "
         f"one more repeat {blocks + per_repeat + rest + f32:.2f} GB, full depth "
         f"{per_repeat * full.n_repeats + rest + f32:.1f} GB; the card has {card:.1f} GB")
+
+
+def say_expert_cut(full, cfg, params):
+    """Phase 19's expert cut, as a ``reduced`` list beside what it saves:
+    the expert stacks at the published count (their bytes scale with it)."""
+    kept = sum(p.numel() * p.element_size() for n, p in params.named_parameters()
+               if ".moe.experts." in n) / 1e9
+    total = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
+    f32 = params.head().table_f32().numel() * 4 / 1e9
+    grown = kept * full.moe.n_experts / cfg.moe.n_experts
+    say("  reduced: " + json.dumps([
+        f"moe.n_experts {full.moe.n_experts} -> {cfg.moe.n_experts} in each of the "
+        f"{sum(s.mlp == 'moe' for s in cfg.pattern) * cfg.n_repeats} MoE layers; top_k "
+        f"{cfg.moe.top_k}, capacity {cfg.moe.capacity_factor}, groups of "
+        f"{cfg.moe.group_size} as published"]))
+    say(f"  experts: {kept:.2f} GB kept of {grown:.2f} GB; weights {total:.2f} GB and the "
+        f"fp32 unembedding copy {f32:.2f} GB: {total + f32:.2f} GB, "
+        f"{total - kept + grown + f32:.2f} GB with every expert (saves {grown - kept:.2f} GB)")
+
+
+def long_context_tokens(cfg, dev):
+    """Phase 19's long-context request: one prompt of JAMBA_LONG_PROMPT
+    tokens and the JAMBA_LONG_STEPS tokens fed after it, from the seed."""
+    return torch.as_tensor(np.random.default_rng(SEED + 90).integers(
+        0, cfg.vocab_size, (1, JAMBA_LONG_PROMPT + JAMBA_LONG_STEPS))).to(dev)
+
+
+def decode_vs_prefill(api, params, tokens):
+    """The serve-consistency comparison at long context: prefill the first
+    JAMBA_LONG_PROMPT tokens and decode the rest one at a time, each
+    step's logits beside those of a prefill of the prompt that ends at
+    the fed token, all with ``long_context=True``.  Returns [(decode
+    logits, prefill logits)]."""
+    S, n = JAMBA_LONG_PROMPT, JAMBA_LONG_STEPS
+    _, caches = api.prefill(params, {"tokens": tokens[:, :S]}, seq_budget=S + n,
+                            long_context=True)
+    pairs = []
+    for i in range(n):
+        lg, caches = api.decode(params, {"tokens": tokens[:, S + i:S + i + 1],
+                                         "cache_index": S + i}, caches, long_context=True)
+        ref, _ = api.prefill(params, {"tokens": tokens[:, :S + i + 1]}, long_context=True)
+        pairs.append((lg, ref))
+    return pairs
+
+
+def long_context_phase(api, params, batches, tap, pin, gap):
+    """Phase 19's long context on the served model.  Within the window
+    (PROMPT-token prompts), ``long_context=True`` (the plain windowed path)
+    against the kernels' ``long_context=False`` logits, held to jamba's
+    FAMILY_LIMITS.  Past it, one request of JAMBA_LONG_PROMPT tokens
+    through ``prefill(long_context=True)`` and JAMBA_LONG_STEPS decode
+    steps, the launch counts zeroed just before and read just after: no
+    flash or decode launch, one scan launch a Mamba layer, finite logits.
+    The window bites: the prompt's last logits differ from those of the
+    same plain attention without a window (which computes the positions
+    inside the window bit for bit alike) by more than BITES times ``gap``,
+    the largest kernels-vs-plain gap held before; the kernels'
+    ``long_context=False`` gap is printed beside it, and the served
+    model's decode-vs-prefill gap."""
+    from repro_torch import kernels
+    from repro_torch.kernels import AttentionOps
+    from repro_torch.kernels import mamba_scan as scan
+    from repro_torch.models.attention import chunked_attention
+
+    cfg = api.cfg
+    W, S, n = cfg.long_context_window, JAMBA_LONG_PROMPT, JAMBA_LONG_STEPS
+    say(f"  long_context=True within the window ({batches[0][1]}-token prompts, window {W}) "
+        "against the kernels' long_context=False")
+    gap = max(gap, kernels_vs_plain(api, params, None, batches[:1],
+                                    batches[0][1] + FAMILY_NEW, 4, FAMILY_LIMITS[JAMBA],
+                                    tap, other={"long_context": True}, pin=pin))
+    tokens = long_context_tokens(cfg, params.device)
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    lg, caches = api.prefill(params, {"tokens": tokens[:, :S]}, seq_budget=S + n,
+                             long_context=True)
+    steps = []
+    for i in range(n):
+        out, caches = api.decode(params, {"tokens": tokens[:, S + i:S + i + 1],
+                                          "cache_index": S + i}, caches, long_context=True)
+        steps.append(out)
+    torch.cuda.synchronize()
+    launches = {kern.name: kern.launches for kern in kernels.KERNELS}
+    want = {kern.name: 0 for kern in kernels.KERNELS}
+    want[scan.KERNEL.name] = sum(s.mixer == "mamba" for s in cfg.pattern) * cfg.n_repeats
+    say(f"  long context (B=1, prompt {S}, window {W}, {n} decode steps): launches {launches}")
+    if launches != want:
+        raise AssertionError(f"long-context launches {launches}, expected {want}")
+    if not all(torch.isfinite(t).all() for t in [lg] + steps):
+        raise AssertionError("non-finite long-context logits")
+    del caches
+    # the same plain attention without a window: bit-identical inside it
+    unwindowed = AttentionOps(
+        lambda q, k, v, *, causal=True, window=None: chunked_attention(q, k, v, causal=causal),
+        kernels.DISPATCH.decode, None, kernels.DISPATCH.scan)
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    lg_plain, _ = api.prefill(params, {"tokens": tokens[:, :S]}, ops=unwindowed)
+    lg_kern, _ = api.prefill(params, {"tokens": tokens[:, :S]})
+    bites = (lg - lg_plain).abs()
+    say(f"  the window bites: last logits vs the same attention unwindowed max |diff| "
+        f"{bites.max().item():.3e}, mean {bites.mean().item():.3e}; vs the kernels' "
+        f"long_context=False max {(lg - lg_kern).abs().max().item():.3e}, mean "
+        f"{(lg - lg_kern).abs().mean().item():.3e}; max |logit| {lg.abs().max().item():.3f}")
+    say(f"  the window's largest gap is {bites.max().item() / gap:.1f} times the largest "
+        f"kernels-vs-plain gap {gap:.3e} (limit: more than {BITES})")
+    if not bites.max().item() > BITES * gap:
+        raise AssertionError("long_context=True is within rounding of the unwindowed "
+                             "logits: the window does not bite")
+    gaps = [(a - b).abs().max().item() for a, b in decode_vs_prefill(api, params, tokens)]
+    say(f"  served bf16 model, decode vs prefill of the longer prompt at long context: max "
+        f"|diff| {', '.join(f'{g:.3e}' for g in gaps)} (bf16, capacity "
+        f"{cfg.moe.capacity_factor}: not held; the fp32 check below is)")
+
+
+def long_context_fp32_phase(dev):
+    """Phase 19's serve-consistency check at long context, in fp32 (see
+    JAMBA_FP32_EXPERTS): each decode step's logits within CONSISTENCY_TOL
+    (absolute and relative) of a prefill of the longer prompt."""
+    import repro_torch.configs as cfgs
+    from repro_torch.models import build
+
+    full = cfgs.get(JAMBA)
+    cfg = full.replace(n_layers=JAMBA_LAYERS, param_dtype="float32", compute_dtype="float32",
+                       moe=dataclasses.replace(full.moe, n_experts=JAMBA_FP32_EXPERTS,
+                                               capacity_factor=JAMBA_FP32_EXPERTS
+                                               / full.moe.top_k))
+    api = build(cfg)
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    say(f"  fp32: {cfg.n_layers} layers, {cfg.moe.n_experts} experts at capacity "
+        f"{cfg.moe.capacity_factor}, {sum(p.numel() for p in params.parameters()) / 1e9:.3f} "
+        f"B params, initialised in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i, (lg, ref) in enumerate(decode_vs_prefill(api, params, long_context_tokens(cfg, dev))):
+        diff = (lg - ref).abs()
+        excess = (diff / (CONSISTENCY_TOL + CONSISTENCY_TOL * ref.abs())).max().item()
+        say(f"  decode at {JAMBA_LONG_PROMPT + i} vs prefill of {JAMBA_LONG_PROMPT + i + 1} "
+            f"tokens: max |diff| {diff.max().item():.3e}, worst |diff| / limit {excess:.4f}, "
+            f"max |logit| {ref.abs().max().item():.3f}")
+        if not (torch.isfinite(lg).all() and excess <= 1):
+            raise AssertionError("long-context decode disagrees with prefill")
+    say(f"  fp32 consistency check in {time.perf_counter() - t0:.2f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
 
 class FamilyBatches:
@@ -1726,8 +2121,6 @@ def family_train_phase(arch, dev, kernels):
 def moe_train_cfg(arch):
     """Phase 18's config: phase 17's depth cut, MOE_TRAIN_EXPERTS experts,
     everything else as published (remat and the moment dtype included)."""
-    import dataclasses
-
     import repro_torch.configs as cfgs
 
     full = cfgs.get(arch)
@@ -2170,7 +2563,7 @@ def main() -> int:
     from repro_torch.runtime.serve_loop import ServeConfig, serve_requests
 
     dev = torch.device("cuda", 0)
-    say("phase 1: build")
+    phase("phase 1: build")
     t0 = time.perf_counter()
     logs = build_all(kernels.KERNELS)
     say(f"  kernels built in {time.perf_counter() - t0:.2f} s "
@@ -2191,10 +2584,10 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     say(smi)
 
-    say("phase 2: kernels vs plain versions")
+    phase("phase 2: kernels vs plain versions")
     k_rows = kernel_phase(flash, decode)
 
-    say("phase 3: serve")
+    phase("phase 3: serve")
     cfg = cfgs.get(ARCH)
     api = build(cfg)
     t0 = time.perf_counter()
@@ -2242,31 +2635,37 @@ def main() -> int:
 
     time_one_task(api, params, torch.as_tensor(prompts[:PER_TASK]).to(dev), NEW)
 
-    say("phase 4: full width, kernels vs plain versions")
+    phase("phase 4: full width, kernels vs plain versions")
     full_width_phase(api, params, cfg, dev, kernels.PLAIN)
 
-    say("phase 5: backward kernels vs the plain backward")
+    phase("phase 5: backward kernels vs the plain backward")
     bwd = backward_phase(flash)
 
-    say("phase 6: sync training at full width")
-    train_launches, state = sync_training_phase(api, params, dev, kernels)
+    phase("phase 6: sync training at full width, depth cut")
+    del params
+    tcfg = cfg.replace(n_layers=TRAIN_LAYERS)
+    tapi = build(tcfg)
+    say("  reduced: " + json.dumps([f"n_layers {cfg.n_layers} -> {TRAIN_LAYERS} for "
+                                    "phases 6-7, widths as published"]))
+    train_launches, state = sync_training_phase(
+        tapi, tapi.init(torch.Generator(device=dev).manual_seed(SEED)), dev, kernels)
 
-    say("phase 7: full-width training step, kernels vs plain versions")
-    train_step_agreement(api, state["params"], markov_batch(cfg, dev), kernels.PLAIN,
+    phase("phase 7: full-width training step, kernels vs plain versions")
+    train_step_agreement(tapi, state["params"], markov_batch(tcfg, dev), kernels.PLAIN,
                          TRAIN_LIMITS[torch.bfloat16])
-    del state, params
+    del state
     torch.cuda.empty_cache()
-    api32 = build(cfg.replace(param_dtype="float32", compute_dtype="float32"))
+    api32 = build(tcfg.replace(param_dtype="float32", compute_dtype="float32"))
     model32 = api32.init(torch.Generator(device=dev).manual_seed(SEED))
     model32.requires_grad_(True)
     model32.head().drop_f32()
     for kern in kernels.KERNELS:
         kern.launches = 0
-    train_step_agreement(api32, model32, markov_batch(cfg, dev), kernels.PLAIN,
+    train_step_agreement(api32, model32, markov_batch(tcfg, dev), kernels.PLAIN,
                          TRAIN_LIMITS[torch.float32])
     fp32_launches = {kern.name: kern.launches for kern in kernels.KERNELS}
     say(f"  launches on the fp32 training step: {fp32_launches}")
-    if (any(fp32_launches[name] != cfg.n_layers for name in FP32_TRAIN_KERNELS)
+    if (any(fp32_launches[name] != tcfg.n_layers for name in FP32_TRAIN_KERNELS)
             or any(fp32_launches[name] for name in BF16_TRAIN_KERNELS)):
         raise AssertionError("the fp32 training step did not go through the fp32 "
                              "flash kernels (forward, dq, dk/dv) once per layer, "
@@ -2274,24 +2673,26 @@ def main() -> int:
     del model32
     torch.cuda.empty_cache()
 
-    say("phase 8: farm-mode training")
+    phase("phase 8: farm-mode training")
     farm_phase(cfg, dev, lookup, services, kernels)
     del api
     free(services)  # their cached programs hold qwen3's weights
     say(f"  qwen3 state freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         "still allocated")
 
-    say("phase 9: scan kernel vs plain")
-    mcfg = cfgs.get(MAMBA_ARCH)
+    phase("phase 9: scan kernel vs plain")
+    mcfg, jcfg = cfgs.get(MAMBA_ARCH), cfgs.get(JAMBA)
     scan_err, scan_row = scan_phase(scan, PER_TASK, PROMPT, mcfg.d_inner,
                                     mcfg.ssm.state_dim)
+    jscan_err, jscan_row = scan_phase(scan, PER_TASK, PROMPT, jcfg.d_inner,
+                                      jcfg.ssm.state_dim)
 
-    say("phase 10: serve falcon-mamba-7b")
+    phase("phase 10: serve falcon-mamba-7b")
     for svc in services:  # phase 8 failed one on purpose
         svc.revive()
     mapi, mparams, mamba_launches = mamba_serve_phase(mcfg, dev, lookup, kernels)
 
-    say("phase 11: falcon-mamba-7b full width, kernels vs plain versions")
+    phase("phase 11: falcon-mamba-7b full width, kernels vs plain versions")
     full_width_phase(mapi, mparams, mcfg, dev, kernels.PLAIN,
                      MAMBA_FULL_WIDTH_BATCHES,
                      MAMBA_FULL_WIDTH_LIMITS[torch.bfloat16])
@@ -2307,12 +2708,12 @@ def main() -> int:
     del api32, model32
     free(services)
 
-    say("phase 12: falcon-mamba-7b sync training, depth cut")
+    phase("phase 12: falcon-mamba-7b sync training, depth cut")
     mamba_train_phase(mcfg, dev, kernels, full_params)
     gc.collect()
     torch.cuda.empty_cache()
 
-    say("phase 13: serve on worker processes (proc://, shm://)")
+    phase("phase 13: serve on worker processes (proc://, shm://)")
     now = worker_phase(prompts, gen, kernels)
     tok = REQUESTS * NEW
     say(f"  {smi}: in-process (phase 3, {SERVICES} services) {wall:.3f} s, "
@@ -2323,7 +2724,7 @@ def main() -> int:
         f"({tok / now['kill']:.1f} tok/s); shm:// cold {now['shm']:.3f} s "
         f"({SHM_REQUESTS * NEW / now['shm']:.1f} tok/s)")
 
-    say("phase 14: serve on tcp:// workers behind a network lookup")
+    phase("phase 14: serve on tcp:// workers behind a network lookup")
     tcp = tcp_phase(prompts, gen, kernels)
     rounds = "; ".join(
         f"{name} {tcp[key]:.3f} s ({tok / tcp[key]:.1f} tok/s, proc:// "
@@ -2337,7 +2738,7 @@ def main() -> int:
         f"tcp:// start-up to first result {tcp['startup']:.3f} s (proc:// "
         f"{now['startup']:.3f} s); {rounds}")
 
-    say("phase 15: serve minicpm3-4b (MLA), phi-3-vision-4.2b and whisper-tiny")
+    phase("phase 15: serve minicpm3-4b (MLA), phi-3-vision-4.2b and whisper-tiny")
     gc.collect()
     torch.cuda.empty_cache()
     family_launches = {}
@@ -2346,7 +2747,7 @@ def main() -> int:
         free(services)
         say(f"  {arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
 
-    say("phase 16: train minicpm3-4b (MLA), phi-3-vision-4.2b and whisper-tiny")
+    phase("phase 16: train minicpm3-4b (MLA), phi-3-vision-4.2b and whisper-tiny")
     trained = {}
     for arch in FAMILIES:
         trained[arch] = family_train_phase(arch, dev, kernels)
@@ -2354,13 +2755,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         say(f"  {arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
 
-    say("phase 17: serve llama4-maverick-400b-a17b and arctic-480b (MoE), depth cut")
+    phase("phase 17: serve llama4-maverick-400b-a17b and arctic-480b (MoE), depth cut")
     for arch in MOE_FAMILIES:
         family_launches[arch] = family_phase(arch, dev, lookup, kernels, MOE_LAYERS[arch])
         free(services)
         say(f"  {arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
 
-    say("phase 18: train llama4-maverick-400b-a17b and arctic-480b (MoE), depth and "
+    phase("phase 18: train llama4-maverick-400b-a17b and arctic-480b (MoE), depth and "
         "experts cut, remat")
     for arch in MOE_FAMILIES:
         trained[arch] = moe_train_phase(arch, dev, kernels)
@@ -2368,6 +2769,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         say(f"  {arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
 
+    phase("phase 19: serve jamba-1.5-large-398b (hybrid), one period, experts cut; long "
+        "context")
+    family_launches[JAMBA] = family_phase(JAMBA, dev, lookup, kernels, JAMBA_LAYERS,
+                                          JAMBA_EXPERTS, then=long_context_phase)
+    free(services)
+    say(f"  {JAMBA} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+    long_context_fp32_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    say(f"all phases in {time.perf_counter() - START:.1f} s")
     # the kernels line: (name, kernel, its times, its largest |error|, the
     # Pallas call it replaces, the launch counts of the path that reports it)
     flash_py = "src/repro/kernels/flash_attention/flash_attention.py"
@@ -2388,12 +2800,16 @@ def main() -> int:
         ("decode_attention_fwd_d96", decode.KERNEL, k_rows["decode_d96"],
          k_rows["decode_d96"]["err"], f"{decode_py}:116", family_launches["phi3_vision_4p2b"]),
     ]
-    # phase 17's odd GQA groups: G = 5 (llama4), G = 7 (arctic)
-    for sfx, arch in (("g5", "llama4_maverick_400b_a17b"), ("g7", "arctic_480b")):
+    # phase 17's odd GQA groups: G = 5 (llama4), G = 7 (arctic); phase 19's
+    # G = 8 (jamba)
+    for sfx, arch in (("g5", "llama4_maverick_400b_a17b"), ("g7", "arctic_480b"),
+                      ("g8", JAMBA)):
         table += [(f"flash_attention_fwd_{sfx}", flash.SM90_KERNEL, k_rows[sfx],
                    k_rows[sfx]["err"], f"{flash_py}:127", family_launches[arch]),
                   (f"decode_attention_fwd_{sfx}", decode.KERNEL, k_rows[f"decode_{sfx}"],
                    k_rows[f"decode_{sfx}"]["err"], f"{decode_py}:116", family_launches[arch])]
+    table.append(("mamba_scan_d16384", scan.KERNEL, jscan_row, jscan_err,
+                  "src/repro/kernels/mamba_scan/mamba_scan.py:83", family_launches[JAMBA]))
     # the backward rows: one BWD_SHAPES label and dtype each, with the
     # launches of the training run that gives the pair that shape
     for sfx, label, dt, count in (

@@ -2,10 +2,11 @@
 
 Each module defines ``CONFIG``, the full-scale config, identical to the
 reference package's.  ``reduced(cfg)`` derives the same small config the
-reference's CPU tests use.  Ported: the MoE decoders (llama4-maverick,
-arctic), the dense GQA and MHA decoders, MLA (minicpm3), the vision LM
-(phi-3-vision), the whisper encoder-decoder and the Mamba-1 SSM
-(falcon-mamba); jamba (hybrid) is not.
+reference's CPU tests use.  Every config of the reference is ported:
+the MoE decoders (llama4-maverick, arctic), the dense GQA and MHA
+decoders, MLA (minicpm3), the vision LM (phi-3-vision), the whisper
+encoder-decoder, the Mamba-1 SSM (falcon-mamba) and the hybrid of Mamba,
+attention and MoE (jamba).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ ARCH_IDS = [
     "falcon_mamba_7b",
     "whisper_tiny",
     "phi3_vision_4p2b",
+    "jamba_1p5_large_398b",
 ]
 
 _ALIASES = {
@@ -37,6 +39,7 @@ _ALIASES = {
     "falcon-mamba-7b": "falcon_mamba_7b",
     "whisper-tiny": "whisper_tiny",
     "phi-3-vision-4.2b": "phi3_vision_4p2b",
+    "jamba-1.5-large-398b": "jamba_1p5_large_398b",
 }
 
 
@@ -86,4 +89,6 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         kw.update(n_encoder_layers=2, encoder_seq_len=16)
     if cfg.frontend == "vision":
         kw.update(n_patch_tokens=8)
+    if cfg.long_context_window:
+        kw.update(long_context_window=32)
     return cfg.replace(**kw)

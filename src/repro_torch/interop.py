@@ -18,7 +18,9 @@ keeps the port's dtype: a Mamba layer's ``A_log`` and ``D`` and an MoE's
 router stay fp32 in every config, as in the reference.  An MoE layer's
 stacked experts map whole: ``blocks.{l}.moe.experts.wi`` (E, d, ff) is
 ``blocks/b{i}/moe/experts/wi[r]``, its dense residual
-``blocks/b{i}/moe/residual/...[r]``.
+``blocks/b{i}/moe/residual/...[r]``.  A hybrid pattern (jamba) maps the
+same way: its attention, Mamba, dense and MoE leaves sit under
+``blocks/b{i}`` at the pattern positions that hold them.
 """
 
 from __future__ import annotations

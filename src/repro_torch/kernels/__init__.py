@@ -7,9 +7,11 @@ fp32, the fp32 ones' products three tf32 products each), and the Mamba-1
 selective scan.
 
 There is no tuning cache yet: block sizes are fixed in the kernels.  A
-windowed attention call has no kernel in this package: on CUDA it
-raises, on the CPU it runs the model's chunked reference (only jamba has
-a window).
+windowed attention call (jamba's attention layers at long context) runs
+the model's plain windowed path on every device, as the reference sends
+every windowed call to its non-Pallas path: ``chunked_attention`` for
+prefill and training, ``decode_attention_xla`` for decode.  It launches
+no kernel and counts no launch; the kernels take no window.
 
 A model's layers call one :class:`AttentionOps`, passed down from the
 model's entry points: its attention members, and ``scan`` for Mamba
@@ -50,16 +52,9 @@ class AttentionOps(NamedTuple):
     scan: Callable | None = None
 
 
-def _no_window_kernel(x) -> None:
-    if x.device.type == "cuda":
-        raise NotImplementedError(
-            "windowed attention has no CUDA kernel in repro_torch yet")
-
-
 def flash_attention_dispatch(q, k, v, *, causal=True, window=None):
     """(B,Sq,H,D) x (B,Skv,K,D) -> (B,Sq,H,Dv)."""
     if window is not None:
-        _no_window_kernel(q)
         from repro_torch.models.attention import chunked_attention
 
         return chunked_attention(q, k, v, causal=causal, window=window)
@@ -69,7 +64,6 @@ def flash_attention_dispatch(q, k, v, *, causal=True, window=None):
 def decode_attention_dispatch(q, k_cache, v_cache, *, cache_index, window=None):
     """(B,1,H,D) against (B,S,K,D) caches -> (B,1,H,Dv)."""
     if window is not None:
-        _no_window_kernel(q)
         from repro_torch.models.attention import decode_attention_xla
 
         return decode_attention_xla(q, k_cache, v_cache,
@@ -81,7 +75,6 @@ def decode_attention_dispatch(q, k_cache, v_cache, *, cache_index, window=None):
 def flash_attention_train_dispatch(q, k, v, *, causal=True, window=None):
     """Differentiable (B,Sq,H,D) x (B,Skv,K,D) -> (B,Sq,H,Dv)."""
     if window is not None:
-        _no_window_kernel(q)
         from repro_torch.models.attention import chunked_attention
 
         return chunked_attention(q, k, v, causal=causal, window=window)

@@ -4,7 +4,10 @@
         --requests 16 --services 2 --prompt-len 512 --new-tokens 64
 
 Runs on ``cuda:0``; ``--device cpu`` (with ``--reduced``) runs the same
-path on the CPU through the kernels' plain versions.  Archs are served
+path on the CPU through the kernels' plain versions.  ``--arch`` takes
+the configs of ``repro_torch.configs`` of the dense, MLA, vision, Mamba
+(falcon-mamba-7b), MoE (llama4-maverick, arctic) and hybrid
+(jamba-1.5-large-398b) families.  Archs are served
 from text prompts, as by the reference's launcher: a vision model
 without patch embeddings.  An encoder-decoder arch (whisper) is refused:
 its tasks need encoder frames, which ``serve_requests`` does not build

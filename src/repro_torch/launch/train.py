@@ -6,8 +6,11 @@
         --layers 8 --services 2 --rounds 2 --batch 2 --seq-len 512
 
 Runs on ``cuda:0``; ``--device cpu`` (with ``--reduced``) runs the same
-path on the CPU through the kernels' plain versions.  ``--layers`` cuts
-the depth of the chosen config, keeping its widths.
+path on the CPU through the kernels' plain versions.  ``--arch`` takes
+every config of ``repro_torch.configs``: the dense, MLA, vision,
+encoder-decoder, Mamba (falcon-mamba-7b), MoE (llama4-maverick, arctic)
+and hybrid (jamba-1.5-large-398b) families.  ``--layers`` cuts the depth
+of the chosen config, keeping its widths.
 """
 
 from __future__ import annotations

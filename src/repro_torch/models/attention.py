@@ -7,7 +7,8 @@ the model's entry points pass down, by default the dispatch of
 and flash-decode kernels, on a CPU tensor their plain PyTorch versions.  ``chunked_attention`` and
 ``decode_attention_xla`` are the plain references of the reference
 package's XLA path (a chunked online softmax and a masked one-token
-decode); the dispatch uses them for windowed attention on the CPU, and
+decode); the dispatch uses them for windowed attention on every device
+(jamba's attention at long context), and
 whisper's decoder uses ``decode_attention_xla`` for its cross-attention
 decode on every device, as the reference does (it has no kernel there).
 """
@@ -24,14 +25,6 @@ from .layers import apply_rope, dense_init, ones, rms_norm
 NEG_INF = -2.0e38
 
 
-def _pick_chunk(seq: int, target: int) -> int:
-    """Largest divisor of ``seq`` that is <= target."""
-    c = min(seq, target)
-    while seq % c:
-        c -= 1
-    return c
-
-
 # --------------------------------------------------------------------- #
 # plain references
 # --------------------------------------------------------------------- #
@@ -39,25 +32,29 @@ def chunked_attention(q, k, v, *, causal: bool = True,
                       window: int | None = None, q_chunk: int = 512,
                       kv_chunk: int = 1024) -> torch.Tensor:
     """Chunked online-softmax attention. q (B,Sq,H,D), k (B,Sk,K,D),
-    v (B,Sk,K,Dv) -> (B,Sq,H,Dv) in v's dtype; fp32 softmax."""
+    v (B,Sk,K,Dv) -> (B,Sq,H,Dv) in v's dtype; fp32 softmax.  Chunks of
+    ``q_chunk`` queries and ``kv_chunk`` keys, the last of each ragged
+    (the reference scans chunks of the largest divisor of the length up to
+    those sizes: one position at a prime length, which a loop here would
+    take ~S^2 steps over)."""
     B, Sq, H, D = q.shape
     Sk, K, Dv = v.shape[1], k.shape[2], v.shape[3]
     G = H // K
     scale = D ** -0.5
-    qc, kc = _pick_chunk(Sq, q_chunk), _pick_chunk(Sk, kv_chunk)
     qg = q.reshape(B, Sq, K, G, D).float()
     kf, vf = k.float(), v.float()
     kv_pos = torch.arange(Sk, device=q.device)
     outs = []
-    for q0 in range(0, Sq, qc):
-        qi = qg[:, q0:q0 + qc]
+    for q0 in range(0, Sq, q_chunk):
+        qi = qg[:, q0:q0 + q_chunk]
+        qc = qi.shape[1]
         qpos = q0 + torch.arange(qc, device=q.device)
         acc = torch.zeros(B, qc, K, G, Dv, device=q.device)
         m = torch.full((B, K, G, qc), NEG_INF, device=q.device)
         l = torch.zeros(B, K, G, qc, device=q.device)
-        for k0 in range(0, Sk, kc):
-            s = torch.einsum("bqkgd,bckd->bkgqc", qi, kf[:, k0:k0 + kc]) * scale
-            kpos = kv_pos[k0:k0 + kc]
+        for k0 in range(0, Sk, kv_chunk):
+            s = torch.einsum("bqkgd,bckd->bkgqc", qi, kf[:, k0:k0 + kv_chunk]) * scale
+            kpos = kv_pos[k0:k0 + kv_chunk]
             mask = torch.ones(qc, kpos.numel(), dtype=torch.bool,
                               device=q.device)
             if causal:
@@ -70,7 +67,7 @@ def chunked_attention(q, k, v, *, causal: bool = True,
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
             pv = torch.einsum("bkgqc,bckv->bqkgv", p.to(v.dtype).float(),
-                              vf[:, k0:k0 + kc])
+                              vf[:, k0:k0 + kv_chunk])
             acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
             m = m_new
         out = acc / l.clamp_min(1e-37).permute(0, 3, 1, 2)[..., None]

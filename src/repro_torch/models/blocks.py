@@ -17,6 +17,17 @@ from .mla import MLA
 from .moe import MoE
 
 
+def _window_for(cfg: ModelConfig, spec: BlockSpec, long_context: bool):
+    """The attention window of a block: its own ``spec.window``, else at
+    long context ``cfg.long_context_window`` for an attention mixer, else
+    None (full causal attention), as the reference's ``_window_for``."""
+    if spec.window is not None:
+        return spec.window
+    if long_context and spec.mixer == "attn" and cfg.long_context_window:
+        return cfg.long_context_window
+    return None
+
+
 def pad_seq(a: torch.Tensor, seq_budget: int) -> torch.Tensor:
     """``a`` (B, S, ...) zero-padded along S to ``seq_budget`` positions."""
     c = a.new_zeros((a.shape[0], seq_budget) + tuple(a.shape[2:]))
@@ -70,18 +81,19 @@ class Block(nn.Module):
         decode do."""
         return self._mlp_aux(x)[0]
 
-    def forward_train(self, x, *, ops: AttentionOps):
+    def forward_train(self, x, *, ops: AttentionOps, long_context=False):
         """Differentiable; returns (x, aux loss): the MoE's load-balance and
         z losses, 0 for the other blocks (the reference's
         ``apply_block_train``)."""
         h = self.mixer_norm(x)
         if self.spec.mixer == "attn":
-            h = self.attn.forward_train(h, window=self.spec.window, ops=ops)
+            window = _window_for(self.cfg, self.spec, long_context)
+            h = self.attn.forward_train(h, window=window, ops=ops)
         else:
             h = self.mamba.forward_train(h, ops=ops)
         return self._mlp_aux(x + h)
 
-    def prefill(self, x, *, seq_budget: int, ops: AttentionOps):
+    def prefill(self, x, *, seq_budget: int, ops: AttentionOps, long_context=False):
         """Returns (x, cache).  An attention cache (K/V, or MLA's latent)
         is zero-padded to ``seq_budget`` positions, leaving slots for the
         decoded tokens; a Mamba cache is the layer's state after the
@@ -89,17 +101,19 @@ class Block(nn.Module):
         if self.spec.mixer == "mamba":
             h, cache = self.mamba.prefill(self.mixer_norm(x), ops=ops)
             return self._mlp(x + h), cache
-        h, kv = self.attn.prefill(self.mixer_norm(x), window=self.spec.window, ops=ops)
+        window = _window_for(self.cfg, self.spec, long_context)
+        h, kv = self.attn.prefill(self.mixer_norm(x), window=window, ops=ops)
         cache = {name: pad_seq(a, seq_budget) for name, a in kv.items()}
         return self._mlp(x + h), cache
 
-    def decode(self, x, cache, *, cache_index: int, ops: AttentionOps):
+    def decode(self, x, cache, *, cache_index: int, ops: AttentionOps,
+               long_context=False):
         if self.spec.mixer == "mamba":
             h, cache = self.mamba.decode(self.mixer_norm(x), cache)
         else:
-            h, cache = self.attn.decode(self.mixer_norm(x), cache,
-                                        cache_index=cache_index,
-                                        window=self.spec.window, ops=ops)
+            h, cache = self.attn.decode(self.mixer_norm(x), cache, cache_index=cache_index,
+                                        window=_window_for(self.cfg, self.spec, long_context),
+                                        ops=ops)
         return self._mlp(x + h), cache
 
     def make_cache(self, batch: int, seq_len: int):

@@ -1,15 +1,15 @@
-"""Model configuration for the families the port runs: dense GQA and
+"""Model configuration for every family of the reference: dense GQA and
 MHA decoders, MLA (minicpm3), the vision LM (phi-3-vision's backbone
 with its patch-embedding stub), the whisper encoder-decoder, Mamba-1
-SSMs and token-dropping MoE with an optional dense residual
-(llama4-maverick, arctic).
+SSMs, token-dropping MoE with an optional dense residual
+(llama4-maverick, arctic) and the hybrid interleave of Mamba, attention
+and MoE (jamba, with its ``long_context_window``).
 
 A model is a *block pattern* (a short tuple of ``BlockSpec``) repeated
 ``n_repeats`` times, as in the reference package; the port runs the
 layers as a loop over an ``nn.ModuleList``.  Ported blocks: attention
 (GQA or MLA) or mamba, then a dense MLP (SwiGLU or GELU), an MoE or
-none.  The hybrid family (jamba, with its ``long_context_window``) is
-rejected when the model is built.
+none.  ``param_counts`` counts parameters as the reference does.
 """
 
 from __future__ import annotations
@@ -66,7 +66,7 @@ class BlockSpec:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | vlm | audio
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -107,6 +107,8 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     remat: bool = False  # as the reference: LM training checkpoints each pattern repeat
     opt_state_dtype: str = "float32"  # AdamW moments: float32 | bfloat16 | int8
+    # sliding window applied to *attention* blocks only at long context
+    long_context_window: int | None = None
 
     max_seq_len: int = 4096
 
@@ -140,8 +142,110 @@ class ModelConfig:
     def pdtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
 
+    @property
+    def uses_attention(self) -> bool:
+        return any(b.mixer == "attn" for b in self.pattern)
+
+    @property
+    def uses_mamba(self) -> bool:
+        return any(b.mixer == "mamba" for b in self.pattern)
+
+    @property
+    def subquadratic(self) -> bool:
+        """True if the arch can run 500k-token decode (SSM/hybrid-window)."""
+        return self.family in ("ssm", "hybrid")
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # ---------------- parameter counting (for 6ND roofline) ------------ #
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.head_dim
+        if self.attention == "mla":
+            qr = self.q_lora_rank or self.d_model
+            p = 0
+            if self.q_lora_rank:
+                p += d * self.q_lora_rank
+            p += qr * self.n_heads * (self.qk_nope_head_dim + self.qk_rope_head_dim)
+            p += d * (self.kv_lora_rank + self.qk_rope_head_dim)
+            p += self.kv_lora_rank * self.n_heads * (self.qk_nope_head_dim + self.v_head_dim)
+            p += self.n_heads * self.v_head_dim * d
+            return p
+        q = d * self.n_heads * hd
+        kv = 2 * d * self.n_kv_heads * hd
+        o = self.n_heads * hd * d
+        return q + kv + o
+
+    def _dense_mlp_params(self, d_ff: int | None = None) -> int:
+        ff = d_ff or self.d_ff
+        mult = 3 if self.mlp_act == "swiglu" else 2
+        return mult * self.d_model * ff
+
+    def _moe_params(self) -> tuple[int, int]:
+        """(total, active) params of one MoE layer."""
+        if self.moe is None:
+            raise ValueError(f"{self.name}: MoE params need an MoE config")
+        e = self._dense_mlp_params()
+        total = self.moe.n_experts * e + self.d_model * self.moe.n_experts
+        active = self.moe.top_k * e
+        if self.moe.dense_residual:
+            r = self._dense_mlp_params(self.moe.dense_residual_ff or self.d_ff)
+            total += r
+            active += r
+        return total, active
+
+    def _mamba_params(self) -> int:
+        if self.ssm is None:
+            raise ValueError(f"{self.name}: Mamba params need an SSM config")
+        di, d = self.d_inner, self.d_model
+        s = self.ssm
+        dtr = s.resolved_dt_rank(d)
+        return (
+            d * 2 * di  # in_proj (x and gate)
+            + di * s.conv_width
+            + di * (dtr + 2 * s.state_dim)  # x_proj
+            + dtr * di  # dt_proj
+            + di * s.state_dim  # A_log
+            + di  # D
+            + di * d  # out_proj
+        )
+
+    def param_counts(self) -> tuple[int, int]:
+        """(total, active) parameters, the reference's count: the blocks
+        (an MoE's active share is its top_k experts and dense residual),
+        whisper's encoder and cross-attention, and the embeddings (one
+        table when tied), in both."""
+        total = active = 0
+        for b in self.pattern:
+            if b.mixer == "attn":
+                p = self._attn_params()
+                total += p
+                active += p
+            elif b.mixer == "mamba":
+                p = self._mamba_params()
+                total += p
+                active += p
+            if b.mlp == "dense":
+                p = self._dense_mlp_params()
+                total += p
+                active += p
+            elif b.mlp == "moe":
+                t, a = self._moe_params()
+                total += t
+                active += a
+        total *= self.n_repeats
+        active *= self.n_repeats
+        emb = self.vocab_size * self.d_model
+        emb_total = emb if self.tie_embeddings else 2 * emb
+        if self.is_encoder_decoder:
+            enc_per_layer = self._attn_params() + self._dense_mlp_params()
+            # decoder cross-attention
+            dec_cross = self._attn_params() * self.n_layers
+            total += enc_per_layer * self.n_encoder_layers + dec_cross
+            active += enc_per_layer * self.n_encoder_layers + dec_cross
+        total += emb_total
+        active += emb_total
+        return total, active
 
 
 def sinusoidal_positions(n: int, d: int, device=None,

@@ -108,10 +108,13 @@ class EncDec(nn.Module):
     def _dec_embed(self, tokens):
         return self.embed(tokens) + self._positions(tokens.shape[1])[None]
 
-    def train_loss(self, batch, *, ops: AttentionOps = DISPATCH):
+    def train_loss(self, batch, *, ops: AttentionOps = DISPATCH, long_context=False,
+                   block_skip=False):
         """batch: enc_frames (B,S_enc,d), tokens (B,S) int, targets (B,S)
         int [, loss_mask (B,S)].  Returns (loss, {"ce_loss", "aux_loss"}),
-        fp32 scalars."""
+        fp32 scalars.  ``long_context`` and ``block_skip`` are accepted and
+        discarded, as the reference's encoder-decoder discards them."""
+        del long_context, block_skip
         if ops.train is None:
             raise ValueError("train_loss needs AttentionOps with a train member")
         enc_out = self.encode(batch["enc_frames"], ops=ops, train=True)
@@ -130,11 +133,12 @@ class EncDec(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch, *, seq_budget: int | None = None,
-                ops: AttentionOps = DISPATCH):
+                ops: AttentionOps = DISPATCH, long_context=False):
         """Encode ``enc_frames`` and run the decoder over ``tokens``.
         Returns (last-token logits (B,V) fp32, caches): each layer's
         self-attention K/V zero-padded to ``seq_budget`` and its static
-        cross K/V of the encoder output."""
+        cross K/V of the encoder output.  ``long_context`` is ignored, as
+        in the reference."""
         enc_out = self.encode(batch["enc_frames"], ops=ops)
         tokens = batch["tokens"]
         seq_budget = max(seq_budget or 0, tokens.shape[1])
@@ -154,10 +158,11 @@ class EncDec(nn.Module):
 
     @torch.no_grad()
     def decode(self, batch, caches, *, cache_index: int,
-               ops: AttentionOps = DISPATCH):
+               ops: AttentionOps = DISPATCH, long_context=False):
         """batch: tokens (B,1).  One decoder token at position
         ``cache_index`` against each layer's self cache (written in place)
-        and its cross cache.  Returns (logits (B,V) fp32, caches)."""
+        and its cross cache.  Returns (logits (B,V) fp32, caches).
+        ``long_context`` is ignored, as in the reference."""
         x = self.embed(batch["tokens"]) + self._positions(1, cache_index)[None]
         for layer, c in zip(self.decoder, caches):
             h, c["self"] = layer.self_attn.decode(

@@ -8,8 +8,13 @@ package's shapes:
   prefill    -> (last-token logits (B,V) fp32, caches)
   decode     -> (logits (B,V) fp32, caches)   [caches updated in place]
 All take ``ops``, the attention and scan functions every layer calls:
-the kernels' dispatch by default (see ``repro_torch.kernels``).  A
-layer's cache is a KV cache (GQA), a latent cache (MLA) or a Mamba state.
+the kernels' dispatch by default (see ``repro_torch.kernels``), and
+``long_context`` (default False), which gives the attention layers
+``cfg.long_context_window`` as their window (jamba's; the reference's
+long-context decode), as the reference's entry points do.
+``train_loss`` also accepts the reference's ``block_skip`` and discards
+it: the reference's attention dispatch ignores it on both its branches.
+A layer's cache is a KV cache (GQA), a latent cache (MLA) or a Mamba state.
 A vision config (phi-3-vision) takes precomputed ``patch_embeds`` (B,P,d)
 in its batch, projected by ``patch_proj`` and placed before the text
 tokens, the reference's CLIP-frontend stub; its loss covers the text
@@ -37,11 +42,11 @@ from .layers import Embedding, dense_init, make_norm
 from .loss import fused_cross_entropy
 
 
-def _train_repeat(blocks, x, aux, ops: AttentionOps):
+def _train_repeat(blocks, x, aux, ops: AttentionOps, long_context: bool):
     """One repeat of the pattern (``len(cfg.pattern)`` consecutive
     blocks): returns (x, aux plus the blocks' aux losses)."""
     for blk in blocks:
-        x, a = blk.forward_train(x, ops=ops)
+        x, a = blk.forward_train(x, ops=ops, long_context=long_context)
         aux = aux + a
     return x, aux
 
@@ -85,10 +90,13 @@ class LM(nn.Module):
             x = torch.cat([pe, x], dim=1)
         return x
 
-    def train_loss(self, batch, *, ops: AttentionOps = DISPATCH):
+    def train_loss(self, batch, *, ops: AttentionOps = DISPATCH, long_context=False,
+                   block_skip=False):
         """batch: tokens (B,S) int, targets (B,S) int [, loss_mask (B,S),
         patch_embeds (B,P,d)].  Returns (loss + aux, {"ce_loss",
-        "aux_loss"}), fp32 scalars; the reference's ``forward_train``."""
+        "aux_loss"}), fp32 scalars; the reference's ``forward_train``.
+        ``block_skip`` is accepted and discarded."""
+        del block_skip
         if ops.train is None:
             raise ValueError("train_loss needs AttentionOps with a train member")
         x = self._embed_inputs(batch)
@@ -98,9 +106,9 @@ class LM(nn.Module):
         for r in range(0, len(self.blocks), n):
             if remat:  # keep the repeat's input, run its forward again in the backward
                 x, aux = checkpoint(_train_repeat, self.blocks[r:r + n], x, aux, ops,
-                                    use_reentrant=False)
+                                    long_context, use_reentrant=False)
             else:
-                x, aux = _train_repeat(self.blocks[r:r + n], x, aux, ops)
+                x, aux = _train_repeat(self.blocks[r:r + n], x, aux, ops, long_context)
         x = self.final_norm(x)
         if self._has_patches(batch):
             x = x[:, batch["patch_embeds"].shape[1]:]  # text positions only
@@ -110,14 +118,15 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch, *, seq_budget: int | None = None,
-                ops: AttentionOps = DISPATCH):
+                ops: AttentionOps = DISPATCH, long_context=False):
         """batch: tokens (B,S) int [, patch_embeds (B,P,d)].  Returns
         (last-token logits (B,V), caches)."""
         x = self._embed_inputs(batch)
         seq_budget = max(seq_budget or 0, x.shape[1])
         caches = []
         for blk in self.blocks:
-            x, c = blk.prefill(x, seq_budget=seq_budget, ops=ops)
+            x, c = blk.prefill(x, seq_budget=seq_budget, ops=ops,
+                               long_context=long_context)
             caches.append(c)
         x = self.final_norm(x)
         logits = self.head().unembed(x[:, -1:, :])
@@ -125,12 +134,12 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def decode(self, batch, caches, *, cache_index: int,
-               ops: AttentionOps = DISPATCH):
+               ops: AttentionOps = DISPATCH, long_context=False):
         """batch: tokens (B,1). Returns (logits (B,V), caches)."""
         x = self.embed(batch["tokens"])
         for i, blk in enumerate(self.blocks):
             x, caches[i] = blk.decode(x, caches[i], cache_index=cache_index,
-                                     ops=ops)
+                                     ops=ops, long_context=long_context)
         x = self.final_norm(x)
         return self.head().unembed(x)[:, 0], caches
 

@@ -5,12 +5,13 @@ port's modules.
 parameters (an :class:`~repro_torch.models.lm.LM`, or for an
 encoder-decoder config an :class:`~repro_torch.models.encdec.EncDec`) on
 the generator's device; ``train_loss``/``prefill``/``decode`` take those
-parameters first, as in the reference.  Ported families: ``dense`` (GQA,
-MHA and MLA decoders), ``moe`` (token-dropping MoE with a dense residual:
-llama4-maverick, arctic), ``ssm`` (Mamba-1, falcon-mamba), ``vlm``
-(phi-3-vision's backbone with its patch stub) and ``audio`` (whisper's
-encoder-decoder).  ``hybrid`` (jamba) is refused: it comes with jamba's
-slice of the port.
+parameters first, as in the reference.  Ported families, all of the
+reference's: ``dense`` (GQA, MHA and MLA decoders), ``moe``
+(token-dropping MoE with a dense residual: llama4-maverick, arctic),
+``ssm`` (Mamba-1, falcon-mamba), ``hybrid`` (jamba: Mamba and attention
+blocks, dense and MoE MLPs), ``vlm`` (phi-3-vision's backbone with its
+patch stub) and ``audio`` (whisper's encoder-decoder).  ``decode`` takes
+``long_context`` as the reference's does.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from .common import ModelConfig
 from .encdec import EncDec
 from .lm import LM
 
-FAMILIES = ("dense", "moe", "ssm", "vlm", "audio")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 @dataclass
@@ -41,15 +42,14 @@ def build(cfg: ModelConfig) -> ModelAPI:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported (ported: "
-            f"{', '.join(FAMILIES)}); the hybrid family (jamba) comes with "
-            "jamba's slice")
+            f"{', '.join(FAMILIES)})")
     model = EncDec if cfg.is_encoder_decoder else LM
     return ModelAPI(
         cfg=cfg,
         init=lambda g: model(cfg, g),
         train_loss=lambda p, b, **kw: p.train_loss(b, **kw),
         prefill=lambda p, b, **kw: p.prefill(b, **kw),
-        decode=lambda p, b, c, **kw: p.decode(
-            b, c, cache_index=int(b["cache_index"]), **kw),
+        decode=lambda p, b, c, long_context=False, **kw: p.decode(
+            b, c, cache_index=int(b["cache_index"]), long_context=long_context, **kw),
         make_caches=lambda p, bsz, s: p.make_caches(bsz, s),
     )

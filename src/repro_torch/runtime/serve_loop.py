@@ -33,6 +33,7 @@ class ServeConfig:
     max_new_tokens: int = 8
     prompt_len: int = 16
     batch_per_task: int = 4
+    greedy: bool = True  # the generate program is greedy; nothing reads this
 
 
 def make_generate_program(api: ModelAPI, sc: ServeConfig, params) -> Program:

@@ -83,10 +83,13 @@ def loss_and_grads(api: ModelAPI, model, batch, *,
     return loss.detach(), metrics, dict(zip(named, grads))
 
 
-def make_train_step(api: ModelAPI, tc: TrainConfig) -> Callable:
+def make_train_step(api: ModelAPI, tc: TrainConfig, *,
+                    block_skip: bool = False) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``; metrics are 0-d
     tensors (loss, grad_norm, lr; ce_loss and aux_loss without
-    accumulation)."""
+    accumulation).  ``block_skip`` is the reference's keyword, accepted
+    and discarded: its attention dispatch ignores it on both branches."""
+    del block_skip
     lr_fn = make_lr_fn(tc)
     cfg = api.cfg
 

@@ -379,8 +379,31 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(device):
     q = _randn((1, 8, 4, 128), torch.float32, device, 9)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_fwd(q, q.transpose(1, 2).contiguous().transpose(1, 2), q)
-    with pytest.raises(NotImplementedError):
-        kernels.flash_attention_dispatch(q, q, q, window=4)
+
+
+def test_windowed_dispatch_runs_the_plain_windowed_path(device):
+    """A windowed call (jamba's attention at long context) has no kernel:
+    on the card the dispatch runs ``chunked_attention`` (prefill and
+    training) and ``decode_attention_xla`` (decode), as the reference
+    sends windowed calls to its non-Pallas path, and counts no launch.
+    An unwindowed call still launches its kernel."""
+    from repro_torch.models.attention import chunked_attention, decode_attention_xla
+
+    q = _randn((2, 40, 8, 128), torch.bfloat16, device, 9)
+    k = _randn((2, 40, 2, 128), torch.bfloat16, device, 10)
+    v = _randn((2, 40, 2, 128), torch.bfloat16, device, 11)
+    before = {kern.name: kern.launches for kern in kernels.KERNELS}
+    ref = chunked_attention(q, k, v, causal=True, window=16)
+    for call in (kernels.flash_attention_dispatch, kernels.flash_attention_train_dispatch):
+        assert torch.equal(call(q, k, v, causal=True, window=16), ref)
+    qd = q[:, :1]
+    got = kernels.decode_attention_dispatch(qd, k, v, cache_index=30, window=16)
+    assert torch.equal(got, decode_attention_xla(qd, k, v, cache_index=30, window=16))
+    assert {kern.name: kern.launches for kern in kernels.KERNELS} == before
+    assert not torch.equal(ref, chunked_attention(q, k, v, causal=True))  # it bites
+    flash = forward_kernel(torch.bfloat16)
+    kernels.flash_attention_dispatch(q, k, v, causal=True)
+    assert flash.launches == before[flash.name] + 1
 
 
 def test_bf16_flash_raises_on_a_head_dim_it_does_not_take(device):

@@ -423,9 +423,15 @@ def test_remat_is_carried_for_serving_and_trains_to_the_same_gradients(models):
 
 
 def test_hybrid_family_is_still_refused():
-    cfg = tcfgs.reduced(tcfgs.get("arctic_480b")).replace(family="hybrid")
-    with pytest.raises(NotImplementedError, match="jamba"):
-        tbuild(cfg)
+    """Since jamba's slice the hybrid family builds; a family outside the
+    registry's ``FAMILIES`` is still refused."""
+    from repro_torch.models.registry import FAMILIES
+
+    cfg = tcfgs.reduced(tcfgs.get("arctic_480b"))
+    assert "hybrid" in FAMILIES
+    tbuild(cfg.replace(family="hybrid"))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tbuild(cfg.replace(family="diffusion"))
 
 
 def test_serve_launcher_serves_llama4_on_the_cpu():

@@ -136,6 +136,20 @@ def test_generate_program_hands_the_whole_payload_to_prefill():
     assert tuple(out["generated"].shape) == (2, 2)
 
 
+def test_serve_config_has_the_references_fields_and_defaults():
+    """``ServeConfig(greedy=True)`` constructs in both packages, whose
+    dataclasses name the same fields with the same defaults."""
+    import dataclasses
+
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(ServeConfig) == fields(JServeConfig)
+    assert ("greedy", True) in fields(ServeConfig)
+    assert ServeConfig(greedy=True) == ServeConfig()
+    JServeConfig(greedy=True)
+
+
 def test_port_imports_neither_jax_nor_repro():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
