@@ -9,7 +9,8 @@ training of falcon-mamba-7b; serving and sync training of minicpm3-4b,
 phi-3-vision-4.2b and whisper-tiny; serving and sync training of the MoE
 family, llama4-maverick and arctic; serving jamba-1.5-large-398b, the
 hybrid of Mamba, attention and MoE, and one request of it at long
-context — and holds every hand-written kernel of those paths against its
+context; a training step and serving of minicpm3-4b and phi-3-vision-4.2b
+in fp32 — and holds every hand-written kernel of those paths against its
 plain PyTorch version.  Phases, in order; any
 failure raises and exits non-zero:
 
@@ -20,15 +21,17 @@ failure raises and exits non-zero:
    libraries (flash forward, backward dq and dk/dv, each in bf16 and in
    fp32; failing if either is 0) and the asynchronous-copy (``LDGSTS``)
    instructions in the decode and scan libraries (failing if 0), print the
-   fp32 backward pair's, decode's and the scan's dynamic shared memory a
-   block, and print the card's name and power limit;
+   fp32 forward's and backward pair's dynamic shared memory a block at
+   each (D, Dv) they take, decode's and the scan's, and print the card's
+   name and power limit;
 2. each attention kernel against its plain version on the card, on the
    same inputs, at every shape its paths give it (``FLASH_SHAPES``,
    ``DECODE_SHAPES``): qwen3's serve shapes (B=4, H=16, K=8, D=128, Sq =
    Skv = 512, a 576-slot cache) in bf16 and fp32 (flash goes to the Hopper
    kernel of its dtype: fp32 products as three tf32 products each); the
-   bf16 flash forward at (D, Dv) = (96, 64) (minicpm3's MLA prefill: B=4,
-   S=512, H=K=40) and (96, 96) (phi-3's, H=K=32, S=512 and 768), and at
+   flash forward at (D, Dv) = (96, 64) (minicpm3's MLA prefill: B=4,
+   S=512, H=K=40) and (96, 96) (phi-3's, H=K=32, S=512 and 768) in bf16
+   and fp32 (phase 20's), and the bf16 one at
    whisper's D=64, H=K=6: non-causal encoder (1500 x 1500) and
    cross-attention (64 x 1500), causal decoder self-attention (64 x 64);
    decode at D=96 on phi-3's 544-slot cache in bf16 and fp32 and at D=64 on
@@ -58,8 +61,9 @@ failure raises and exits non-zero:
    backward at every shape a training path gives them (``BWD_SHAPES``):
    qwen3's (B=4, H=16, K=8, D=128, S=512) in bf16 (the Hopper bf16 pair)
    and fp32 (the Hopper fp32 pair: three tf32 products for each
-   product); in bf16 minicpm3's MLA at (D, Dv) = (96, 64) (B=4, S=512,
-   H=K=40), phi-3's (96, 96) (H=K=32, S=512 and 768) and whisper's D=64,
+   product); minicpm3's MLA at (D, Dv) = (96, 64) (B=4, S=512, H=K=40)
+   and phi-3's (96, 96) (H=K=32, S=512 and 768) in bf16 and fp32 (phase
+   20's), in bf16 whisper's D=64,
    H=K=6: non-causal encoder (1500 x 1500) and cross-attention (448 x
    1500), causal decoder self-attention (448 x 448); the MoE family's odd
    GQA groups at D=128 (B=4, S=512, K=8: H=40, G=5, llama4; H=56, G=7,
@@ -219,7 +223,19 @@ failure raises and exits non-zero:
     times the largest kernels-vs-plain gap; and, the served model
     freed, each decode step within ``CONSISTENCY_TOL`` of a prefill of
     the longer prompt, in fp32 with 2 experts at a capacity that drops
-    nothing (``JAMBA_FP32_EXPERTS``).
+    nothing (``JAMBA_FP32_EXPERTS``);
+20. (everything freed) minicpm3-4b (MLA, (D, Dv) = (96, 64)) and
+    phi-3-vision-4.2b ((96, 96)) in fp32 at full width, depth cut to
+    ``TRAIN_LAYERS`` = 8 as phase 7 cuts qwen3, seeded weights, one family
+    at a time: one training step's loss and gradients through the kernels
+    and through the plain versions on a ``FamilyBatches`` batch (phi-3's
+    256 seeded patches + 512 tokens), held to ``TRAIN_LIMITS[fp32]``;
+    then a prefill and 4 decode steps of ``FP32_FAMILY_BATCHES`` batches,
+    the same greedy token fed to both, logits held to ``CONSISTENCY_TOL``.
+    The counts are zeroed just before each and read just after: one fp32
+    flash forward, dq and dk/dv launch a layer in the step; one fp32 flash
+    forward a layer a prefill and, for phi-3, one decode launch a layer a
+    step; no bf16 kernel.  Peak memory is printed.
 
 The line before the last is a JSON object with each kernel's numbers, one
 row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
@@ -234,7 +250,11 @@ the bf16 flash forward and decode (``flash_attention_fwd_g5``, ``..._g7``,
 (``flash_attention_bwd_{dq,dkv}_{g5,g7}``), and phase 19's G = 8 of the
 flash forward and decode (``flash_attention_fwd_g8``,
 ``decode_attention_fwd_g8``) and d_inner = 16384 of the scan
-(``mamba_scan_d16384``); the last
+(``mamba_scan_d16384``), and phase 20's fp32 forward
+(``flash_attention_fwd_fp32_d96_dv64``, ``..._fp32_d96`` at S = 768) and
+pair (``flash_attention_bwd_{dq,dkv}_fp32_{d96_dv64,d96}``), their launches
+those of phase 20's runs (the forward's: training step and serving
+summed); the last
 line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event times on
 this card without flushing the 50 MB L2 cache (the serve and training
 paths find their inputs freshly written): for every kernel, its library
@@ -434,6 +454,15 @@ JAMBA_LONG_PROMPT, JAMBA_LONG_STEPS = 4096, 4
 BITES = 10
 JAMBA_FP32_EXPERTS = 2
 CONSISTENCY_TOL = 2e-3
+# Phase 20: the D = 96 families in fp32, the fp32 flash kernels' path at
+# (96, 64) (minicpm3's MLA) and (96, 96) (phi-3), at full width with the
+# depth cut to TRAIN_LAYERS as phase 7 cuts qwen3.  One training step's loss
+# and gradients, kernels vs plain versions, held to TRAIN_LIMITS[fp32]; a
+# prefill and 4 decode steps of each of FP32_FAMILY_BATCHES batches held to
+# CONSISTENCY_TOL (the reference's decode-logit tolerance) on the largest
+# and the mean |logits difference|: in fp32 only summation order differs.
+FP32_FAMILIES = ("minicpm3_4b", "phi3_vision_4p2b")
+FP32_FAMILY_BATCHES = 2
 # Phase 2's shapes: each path's attention calls as its serve run makes them.
 # Flash: label -> (B, Sq, Skv, H, K, D, Dv, causal, dtypes), each also at a
 # ragged Sq = 13 (and Skv = 13 where Skv = Sq).  Decode: label -> (B, H, K,
@@ -442,10 +471,13 @@ CONSISTENCY_TOL = 2e-3
 FLASH_SHAPES = {
     "qwen3": (PER_TASK, PROMPT, PROMPT, 16, 8, 128, 128, True,
               (torch.bfloat16, torch.float32)),
-    "minicpm3 MLA": (PER_TASK, PROMPT, PROMPT, 40, 40, 96, 64, True, (torch.bfloat16,)),
-    "phi-3": (PER_TASK, PROMPT, PROMPT, 32, 32, 96, 96, True, (torch.bfloat16,)),
+    # bf16: phases 15-16; fp32: phase 20
+    "minicpm3 MLA": (PER_TASK, PROMPT, PROMPT, 40, 40, 96, 64, True,
+                     (torch.bfloat16, torch.float32)),
+    "phi-3": (PER_TASK, PROMPT, PROMPT, 32, 32, 96, 96, True,
+              (torch.bfloat16, torch.float32)),
     "phi-3 with patches": (PER_TASK, PROMPT + PATCHES, PROMPT + PATCHES, 32, 32, 96, 96,
-                           True, (torch.bfloat16,)),
+                           True, (torch.bfloat16, torch.float32)),
     "whisper encoder": (PER_TASK, 1500, 1500, 6, 6, 64, 64, False, (torch.bfloat16,)),
     "whisper cross": (PER_TASK, WHISPER_PROMPT, 1500, 6, 6, 64, 64, False,
                       (torch.bfloat16,)),
@@ -488,6 +520,9 @@ JSON_ROWS = {
     "decode_g7": ("decode", "arctic G=7", (torch.bfloat16,)),
     "g8": ("flash", "jamba G=8", (torch.bfloat16,)),
     "decode_g8": ("decode", "jamba G=8", (torch.bfloat16,)),
+    # phase 20's fp32 forward: minicpm3's prefill, phi-3's with patches
+    "fp32_d96_dv64": ("flash", "minicpm3 MLA", (torch.float32,)),
+    "fp32_d96": ("flash", "phi-3 with patches", (torch.float32,)),
 }
 # Phase 16: sync training of phase 15's families at full width, one at a
 # time, FAMILY_TRAIN_BATCH sequences of TRAIN_SEQ tokens (phi-3: after
@@ -529,12 +564,13 @@ REMAT_GRAD_TOL = 1e-6
 BWD_SHAPES = {
     "qwen3": (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 8, 128, 128, True,
               (torch.bfloat16, torch.float32)),
+    # bf16: phase 16; fp32: phase 20
     "minicpm3 MLA": (FAMILY_TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 40, 40, 96, 64, True,
-                     (torch.bfloat16,)),
+                     (torch.bfloat16, torch.float32)),
     "phi-3": (FAMILY_TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 96, 96, True,
-              (torch.bfloat16,)),
+              (torch.bfloat16, torch.float32)),
     "phi-3 with patches": (FAMILY_TRAIN_BATCH, TRAIN_SEQ + PATCHES, TRAIN_SEQ + PATCHES, 32,
-                           32, 96, 96, True, (torch.bfloat16,)),
+                           32, 96, 96, True, (torch.bfloat16, torch.float32)),
     "whisper encoder": (FAMILY_TRAIN_BATCH, 1500, 1500, 6, 6, 64, 64, False,
                         (torch.bfloat16,)),
     "whisper cross": (FAMILY_TRAIN_BATCH, WHISPER_TRAIN_SEQ, 1500, 6, 6, 64, 64, False,
@@ -727,12 +763,13 @@ def say_async_smem(decode, scan):
 
 
 def say_smem(kern):
-    """The dynamic shared memory a block of ``kern`` takes at each head dim
-    (its library's ``<symbol>_smem`` entry), beside the 227 KB a block may
-    have."""
-    fn = kernel_entry(kern, "_smem", 1)
+    """The dynamic shared memory a block of ``kern`` takes at each pair of
+    head dims it takes (its library's ``<symbol>_smem`` entry, (D, Dv)),
+    beside the 227 KB a block may have."""
+    fn = kernel_entry(kern, "_smem", 2)
     say(f"  {kern.source.name} shared memory a block: " + ", ".join(
-        f"D={d} {fn(d):,} B" for d in (32, 64, 128)) + " (at most 232,448 B)")
+        f"({d}, {dv}) {fn(d, dv):,} B" for d, dv in
+        ((32, 32), (64, 64), (96, 96), (96, 64), (128, 128))) + " (at most 232,448 B)")
 
 
 def fmt_ms(ms) -> str:
@@ -2228,6 +2265,94 @@ def moe_train_phase(arch, dev, kernels):
     return launches
 
 
+def fp32_family_phase(arch, dev, kernels):
+    """Phase 20 for one D = 96 family in fp32: full width, depth cut to
+    TRAIN_LAYERS, seeded weights.  (a) one training step on a FamilyBatches
+    batch through the kernels and through the plain versions
+    (``train_step_agreement``, TRAIN_LIMITS[fp32]); (b) a prefill and 4
+    decode steps of each of FP32_FAMILY_BATCHES batches (phi-3's with
+    PATCHES seeded patch embeddings), the same greedy token fed to both
+    paths, logits held to CONSISTENCY_TOL.  Every count is zeroed just
+    before each and read just after: (a) one fp32 flash forward, dq and
+    dk/dv launch a layer; (b) one fp32 flash forward a layer a prefill and,
+    for phi-3, one decode launch a layer a step (minicpm3's decode is the
+    absorbed form); no bf16 kernel.  Returns the launches of (a) and (b)
+    summed."""
+    import repro_torch.configs as cfgs
+    from repro_torch.kernels import decode_attention as decode
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import build
+
+    full = cfgs.get(arch)
+    cfg = full.replace(n_layers=TRAIN_LAYERS, param_dtype="float32", compute_dtype="float32")
+    dims = ((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim)
+            if cfg.attention == "mla" else (cfg.head_dim, cfg.head_dim))
+    vision = cfg.frontend == "vision"
+    api = build(cfg)
+    t0 = time.perf_counter()
+    model = api.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    say(f"  {cfg.name} in float32: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, (D, Dv) = {dims}, {n / 1e9:.3f} B params ({4 * n / 1e9:.2f} GB), "
+        f"initialised in {time.perf_counter() - t0:.2f} s")
+    say("  reduced: " + json.dumps([f"n_layers {full.n_layers} -> {cfg.n_layers} (phase 7's "
+                                    "depth), widths and head dims as published"]))
+
+    def counted(fn):
+        for kern in kernels.KERNELS:
+            kern.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        return {kern.name: kern.launches for kern in kernels.KERNELS}
+
+    def expect(label, launches, want):
+        say(f"  launches on the fp32 {label}: {launches}")
+        if launches != want:
+            raise AssertionError(f"{cfg.name} fp32 {label}: launches {launches}, "
+                                 f"expected {want}")
+
+    model.requires_grad_(True)
+    model.head().drop_f32()
+    ds = FamilyBatches(cfg, TRAIN_SEQ, FAMILY_TRAIN_BATCH, SEED)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(0).items()}
+    torch.cuda.reset_peak_memory_stats()
+    train = counted(lambda: train_step_agreement(api, model, batch, kernels.PLAIN,
+                                                 TRAIN_LIMITS[torch.float32]))
+    want = {kern.name: 0 for kern in kernels.KERNELS}
+    for name in FP32_TRAIN_KERNELS:
+        want[name] = cfg.n_layers
+    expect("training step", train, want)
+    say(f"  training step peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        f"(batch {FAMILY_TRAIN_BATCH} x {batch['tokens'].shape[1]} tokens"
+        f"{f' after {PATCHES} patches' if vision else ''})")
+    model.requires_grad_(False)
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    batches = []
+    for i in range(FP32_FAMILY_BATCHES):
+        g = np.random.default_rng(SEED + 1 + i)
+        b = {"tokens": torch.as_tensor(g.integers(0, cfg.vocab_size, (PER_TASK, PROMPT))).to(dev)}
+        if vision:
+            b["patch_embeds"] = randn((PER_TASK, PATCHES, cfg.d_model), torch.float32,
+                                      SEED + 70 + i)
+        batches.append((b, PROMPT + (PATCHES if vision else 0)))
+    steps = 4
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        serve = counted(lambda: kernels_vs_plain(
+            api, model, kernels.PLAIN, batches, batches[0][1] + FAMILY_NEW, steps,
+            (CONSISTENCY_TOL, CONSISTENCY_TOL)))
+    want = {kern.name: 0 for kern in kernels.KERNELS}
+    want[flash.SM90_FP32_KERNEL.name] = len(batches) * cfg.n_layers
+    want[decode.KERNEL.name] = 0 if cfg.attention == "mla" else len(batches) * steps * cfg.n_layers
+    expect("prefill and decode", serve, want)
+    say(f"  serving peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return {name: train[name] + serve[name] for name in train}
+
+
 def compare_grads(got, ref, num, den, quiet=False):
     """Per parameter group (``group_of``), ||num|| / ||den||; prints each
     unless ``quiet`` (then per parameter) and returns the largest."""
@@ -2576,7 +2701,8 @@ def main() -> int:
         say_sass(kern)
     for kern in (decode.KERNEL, scan.KERNEL):
         say_sass(kern, ("LDGSTS",))
-    for kern in (flash.DQ_SM90_FP32_KERNEL, flash.DKV_SM90_FP32_KERNEL):
+    for kern in (flash.SM90_FP32_KERNEL, flash.DQ_SM90_FP32_KERNEL,
+                 flash.DKV_SM90_FP32_KERNEL):
         say_smem(kern)
     say_async_smem(decode, scan)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2779,6 +2905,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("phase 20: minicpm3-4b (MLA) and phi-3-vision-4.2b in fp32, depth cut: one "
+          "training step and serving, kernels vs plain versions")
+    fp32_launches_d96 = {}
+    for arch in FP32_FAMILIES:
+        fp32_launches_d96[arch] = fp32_family_phase(arch, dev, kernels)
+        gc.collect()
+        torch.cuda.empty_cache()
+        say(f"  {arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+
     say(f"all phases in {time.perf_counter() - START:.1f} s")
     # the kernels line: (name, kernel, its times, its largest |error|, the
     # Pallas call it replaces, the launch counts of the path that reports it)
@@ -2810,6 +2945,11 @@ def main() -> int:
                    k_rows[f"decode_{sfx}"]["err"], f"{decode_py}:116", family_launches[arch])]
     table.append(("mamba_scan_d16384", scan.KERNEL, jscan_row, jscan_err,
                   "src/repro/kernels/mamba_scan/mamba_scan.py:83", family_launches[JAMBA]))
+    # phase 20's fp32 forward at (96, 64) and (96, 96)
+    for sfx, arch in (("d96_dv64", "minicpm3_4b"), ("d96", "phi3_vision_4p2b")):
+        r = k_rows[f"fp32_{sfx}"]
+        table.append((f"flash_attention_fwd_fp32_{sfx}", flash.SM90_FP32_KERNEL, r, r["err"],
+                      f"{flash_py}:127", fp32_launches_d96[arch]))
     # the backward rows: one BWD_SHAPES label and dtype each, with the
     # launches of the training run that gives the pair that shape
     for sfx, label, dt, count in (
@@ -2819,7 +2959,10 @@ def main() -> int:
             ("_d96", "phi-3 with patches", torch.bfloat16, trained["phi3_vision_4p2b"]),
             ("_whisper", "whisper encoder", torch.bfloat16, trained["whisper_tiny"]),
             ("_g5", "llama4 G=5", torch.bfloat16, trained["llama4_maverick_400b_a17b"]),
-            ("_g7", "arctic G=7", torch.bfloat16, trained["arctic_480b"])):
+            ("_g7", "arctic G=7", torch.bfloat16, trained["arctic_480b"]),
+            ("_fp32_d96_dv64", "minicpm3 MLA", torch.float32, fp32_launches_d96["minicpm3_4b"]),
+            ("_fp32_d96", "phi-3 with patches", torch.float32,
+             fp32_launches_d96["phi3_vision_4p2b"])):
         for part, kern, line in zip(("dq", "dkv"), flash.backward_kernels(dt), (280, 307)):
             r = bwd[(label, dt)][part]
             table.append((f"flash_attention_bwd_{part}{sfx}", kern, r, r["err"],

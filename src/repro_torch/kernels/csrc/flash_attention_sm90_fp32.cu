@@ -10,9 +10,10 @@
 // D^-0.5, the top-left causal mask k_pos <= q_pos (both from 0, so Sq !=
 // Skv keeps the reference's meaning), kv tiles wholly above the diagonal
 // skipped, l clamped at 1e-37, outputs out (B,Sq,H,D) and lse = m + log(l)
-// (B,H,Sq), both fp32, natural log.  Inputs: q (B,Sq,H,D), k and v
-// (B,Skv,K,D), contiguous fp32 on 16-byte boundaries, D in {32, 64, 128},
-// any Sq and Skv.
+// (B,H,Sq), both fp32, natural log.  Inputs: q (B,Sq,H,D), k (B,Skv,K,D)
+// and v (B,Skv,K,Dv), contiguous fp32 on 16-byte boundaries, D == Dv in
+// {32, 64, 96, 128} or (D, Dv) = (96, 64) (MLA's prefill and training), any
+// Sq and Skv; out is (B,Sq,H,Dv).
 //
 // Bound on an H100 SXM (3.35 TB/s; 495 TFLOP/s tf32 dense): at the serve
 // shape (B=4, H=16, K=8, D=128, Sq=Skv=512, causal) the function is 4*D
@@ -20,7 +21,10 @@
 // (q, k, v read once, out and lse written once: 15.1 us).  On the CUDA
 // cores (67 TFLOP/s) the flops take 64 us; the cheapest tensor-core form
 // that passes the fp32 check below is three tf32 products for each, 12.9
-// GFLOP: 26.1 us.  Operations bound it.
+// GFLOP: 26.1 us.  Operations bound it, at D = 96 too: minicpm3's (96, 64)
+// (B=4, S=512, H=K=40) is 6.72 GFLOP, 20.2 issued, 40.7 us (105 MB: 31.4
+// us); phi-3's (96, 96) after 256 patches (S=768, H=K=32) 14.5 GFLOP, 43.5
+// issued, 87.9 us.
 //
 // Why three terms.  The tensor cores read fp32 operands as tf32 (10 of the
 // 23 mantissa bits).  Each product is issued as a_hi b_hi + a_hi b_lo +
@@ -51,17 +55,21 @@
 // training step through the kernels against the plain versions) then read
 // a largest relative gradient difference of 2.2e-5 against its 1e-5
 // limit.  Each tile's PV is summed in a fresh accumulator, which holds only
-// that tile's part, and added to O in fp32 registers; at D=128 in two
-// halves of 64 columns, to keep within 255 registers.
+// that tile's part, and added to O in fp32 registers; at Dv=128 in two
+// halves of 64 columns, to keep within 255 registers, and at Dv=96 in two
+// of 48 (m64n48k8, the form the dk/dv pass's halves take at 96: one tf32
+// RS form more, not two, and fewer registers than Dv=128 takes).
 //
 // Design, constraint by constraint:
 // - Tensor cores: one warpgroup (128 threads) a block owns 64 query rows of
 //   one q-head.  S = Q K^T is m64n32k8 tf32 wgmmas, A (Q) and B (K) read
 //   from shared memory, K-major: the cross terms Q_hi K_lo and Q_lo K_hi
 //   first, then Q_hi K_hi, into one fp32 accumulator.  O += P V is m64nNk8
-//   tf32 wgmmas in the RS form (N = 64 at D=128, else D): A is P from
+//   tf32 wgmmas in the RS form (N = Dv / NH: NH = 2 parts at Dv > 64,
+//   else 1): A is P from
 //   registers, B is V^T from shared memory; P_hi V^T_lo, P_lo V^T_hi, then
-//   P_hi V^T_hi into a fresh accumulator, added to O.
+//   P_hi V^T_hi into a fresh accumulator, added to O.  QK^T reduces over
+//   D, PV over the keys; V, V^T and O are Dv wide.
 // - No transpose-B in tf32: the transpose immediate that the bf16 kernel
 //   uses to read V is for 16-bit types only, and V's reduction axis (keys)
 //   is not contiguous.  After each V tile lands, the warps write V^T hi and
@@ -87,14 +95,16 @@
 //   one block an SM.  Two warpgroups on two q-heads of a kv-head, as the
 //   bf16 kernel has, would need another 64 KB of Q and do not fit.  fp32
 //   rows of 32 columns are one 128-byte swizzle atom (sm90.cuh's Geo<D, 4>);
-//   D=128 is four atoms, each on a 1024-byte boundary; V^T is D rows of one
-//   atom.  The split writes hi and lo at the offsets it read x from, so it
+//   D=128 is four atoms, D=96 three, each on a 1024-byte boundary (every
+//   tile at D=96 is a multiple of 1024 bytes: 24,576 at 64 rows, 12,288 at
+//   32); V^T is Dv rows of one atom.  At (96, 96) 132 KB, at (96, 64)
+//   116 KB (the library's _smem entry gives each).  The split writes hi and lo at the offsets it read x from, so it
 //   never decodes the swizzle; only the V^T writes do.
 // - Softmax in the accumulator's layout, as in the bf16 kernel: row max and
 //   sum over the 4 threads of a quad; scores pre-scaled by D^-0.5 log2(e),
 //   p = exp2(s - m); lse = m ln2 + log(l).
-// - Registers: S (16), O (D/2), the tile's part of O (D/4 at D=128, else
-//   D/2), P_hi and P_lo (32) a thread (phase 1 of chip_smoke.py prints
+// - Registers: S (16), O (Dv/2), the tile's part of O (Dv/2 / NH), P_hi
+//   and P_lo (32) a thread (phase 1 of chip_smoke.py prints
 //   ptxas -v, spills included).
 // - Grid: (H, B, 64-row query tiles), the query tile on z and reversed:
 //   blocks are dispatched x fastest, so the longest causal tiles go first.
@@ -117,46 +127,46 @@ constexpr int BQ = 64;     // query rows of the warpgroup
 constexpr int BK = 32;     // keys per tile
 constexpr int STAGES = 2;  // K/V ring
 
-// Byte offsets of the block's buffers from a 1024-byte boundary.  V^T is D
-// rows of BK keys: as many bytes as a K tile.
-template <int D>
+// Byte offsets of the block's buffers from a 1024-byte boundary.  V^T is DV
+// rows of BK keys: as many bytes as a V tile.
+template <int D, int DV>
 struct Smem {
   using G = Geo<D, 4>;
+  using GV = Geo<DV, 4>;
+  static constexpr int STAGE = G::tile_bytes(BK) + GV::tile_bytes(BK);  // K, then V
   static constexpr int Q = 0;  // hi in place
   static constexpr int Q_LO = Q + G::tile_bytes(BQ);
-  static constexpr int KV = Q_LO + G::tile_bytes(BQ);  // stage s: K, then V
-  static constexpr int K_LO = KV + STAGES * 2 * G::tile_bytes(BK);
+  static constexpr int KV = Q_LO + G::tile_bytes(BQ);  // the ring's stages
+  static constexpr int K_LO = KV + STAGES * STAGE;
   static constexpr int VT_HI = K_LO + G::tile_bytes(BK);
-  static constexpr int VT_LO = VT_HI + G::tile_bytes(BK);
-  static constexpr int BYTES = VT_LO + G::tile_bytes(BK);
-  __host__ __device__ static constexpr int k_tile(int s) {
-    return KV + 2 * s * G::tile_bytes(BK);
-  }
+  static constexpr int VT_LO = VT_HI + GV::tile_bytes(BK);
+  static constexpr int BYTES = VT_LO + GV::tile_bytes(BK);
+  __host__ __device__ static constexpr int k_tile(int s) { return KV + s * STAGE; }
 };
 
 // Tile j of K and V into ring stage j % STAGES, completing on that stage's
 // barrier (fbar + 8 s).
-template <int D>
+template <int D, int DV>
 __device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap* tv,
                                         uint32_t base, uint32_t fbar, int kh, int b, int j) {
   const int s = j % STAGES;
-  const uint32_t k_dst = base + Smem<D>::k_tile(s);
-  tma_load_pair<D, D, 4>(tk, tv, k_dst, k_dst + Geo<D, 4>::tile_bytes(BK), kh, j * BK, b, BK,
-                      fbar + 8 * s);
+  const uint32_t k_dst = base + Smem<D, DV>::k_tile(s);
+  tma_load_pair<D, DV, 4>(tk, tv, k_dst, k_dst + Geo<D, 4>::tile_bytes(BK), kh, j * BK, b, BK,
+                          fbar + 8 * s);
 }
 
-// V's tile (BK keys x D, column atoms of BK rows x 128 bytes, as TMA wrote
-// it) as V^T hi and lo: D rows of BK keys in one atom, 128-byte swizzle,
+// V's tile (BK keys x DV, column atoms of BK rows x 128 bytes, as TMA wrote
+// it) as V^T hi and lo: DV rows of BK keys in one atom, 128-byte swizzle,
 // key 8g + 2i + e at k slot 8g + 4e + i.  A warp takes 32 columns d (a
 // lane each) of 4 keys of one parity a step: its reads cover a row of V,
 // its 16-byte writes 32 rows of V^T, conflict-free both.
-template <int D>
+template <int DV>
 __device__ __forceinline__ void transpose_v(const uint8_t* v, uint8_t* vt_hi, uint8_t* vt_lo) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
-  for (int u = warp; u < D / 4; u += 4) {
+  for (int u = warp; u < DV / 4; u += 4) {
     const int atom = u / 8, g = u % 8 / 2, e = u % 2;
-    const uint8_t* src = v + atom * Geo<D, 4>::atom_bytes(BK) + (lane % 4) * 4;
+    const uint8_t* src = v + atom * Geo<DV, 4>::atom_bytes(BK) + (lane % 4) * 4;
     float x[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -172,7 +182,7 @@ __device__ __forceinline__ void transpose_v(const uint8_t* v, uint8_t* vt_hi, ui
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(WG, 1)
 flash_fwd_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -180,11 +190,11 @@ flash_fwd_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
                            float* __restrict__ lse, int Sq, int Skv, int H, int K,
                            float scale_log2, int causal) {
   using G = Geo<D, 4>;
-  using L = Smem<D>;
+  using L = Smem<D, DV>;
   constexpr int KSTEPS = D / 8;   // k8 slices of QK^T
   constexpr int PSTEPS = BK / 8;  // k8 slices of PV
-  constexpr int OREG = D / 2;     // O accumulator registers per thread
-  constexpr int NH = D == 128 ? 2 : 1;  // parts of O a tile's PV is summed in
+  constexpr int OREG = DV / 2;    // O accumulator registers per thread
+  constexpr int NH = DV > 64 ? 2 : 1;  // parts of O a tile's PV is summed in: n64, n48
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + STAGES];
 
@@ -216,7 +226,7 @@ flash_fwd_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int c = 0; c < G::NATOM; ++c)
       tma_load(base + L::Q + c * G::atom_bytes(BQ), &tq, c * G::ATOM, h, q0, b, qbar);
-    load_kv<D>(&tk, &tv, base, fbar, kh, b, 0);
+    load_kv<D, DV>(&tk, &tv, base, fbar, kh, b, 0);
   }
 
   // this thread's two rows and its first column in every 8-column chunk
@@ -235,16 +245,16 @@ flash_fwd_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
     // every thread is past tile j-1's products and has fenced its writes:
     // stage (j+1) % STAGES and the split buffers may be refilled
     __syncthreads();
-    if (tid == 0 && j + 1 < n_tiles) load_kv<D>(&tk, &tv, base, fbar, kh, b, j + 1);
+    if (tid == 0 && j + 1 < n_tiles) load_kv<D, DV>(&tk, &tv, base, fbar, kh, b, j + 1);
     mbar_wait(fbar + 8 * s, (j / STAGES) & 1);
     const int k_tile = L::k_tile(s), v_tile = k_tile + G::tile_bytes(BK);
     split_tile_tf32(gbase + k_tile, gbase + L::K_LO, G::tile_bytes(BK));
-    transpose_v<D>(gbase + v_tile, gbase + L::VT_HI, gbase + L::VT_LO);
+    transpose_v<DV>(gbase + v_tile, gbase + L::VT_HI, gbase + L::VT_LO);
     fence_proxy_async();
     __syncthreads();
 
     // S = Q_hi K_lo^T + Q_lo K_hi^T + Q_hi K_hi^T: K-major A and B, k8
-    // slices walk the row inside an atom
+    // slices walk the row inside an atom, then the next atom
     float sc[BK / 2];
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;  // overwritten: the first slice has scale_d 0
@@ -317,29 +327,29 @@ flash_fwd_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
     }
 
     // O += P_hi V^T_lo + P_lo V^T_hi + P_hi V^T_hi, the tile's product in a
-    // fresh accumulator added to O in fp32, for NH parts of D columns (V^T
-    // rows, 8 of them 1024 bytes apart); the k8 slice kk is 32 bytes into
-    // the atom
+    // fresh accumulator added to O in fp32, for NH parts of DV columns (V^T
+    // rows, 8 of them 1024 bytes apart, so a part of 48 starts on a
+    // 1024-byte boundary too); the k8 slice kk is 32 bytes into the atom
 #pragma unroll
     for (int part = 0; part < NH; ++part) {
       float ot[OREG / NH];
 #pragma unroll
       for (int i = 0; i < OREG / NH; ++i) ot[i] = 0.f;
-      const uint32_t vt_lo = base + L::VT_LO + part * (D / NH) * 128;
-      const uint32_t vt_hi = base + L::VT_HI + part * (D / NH) * 128;
+      const uint32_t vt_lo = base + L::VT_LO + part * (DV / NH) * 128;
+      const uint32_t vt_hi = base + L::VT_HI + part * (DV / NH) * 128;
       pin(ot);
       pin(p_hi);
       pin(p_lo);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < PSTEPS; ++kk)
-        wgmma_rs_tf32(ot, p_hi[kk], desc_k_tf32<BK>(vt_lo, D, kk));
+        wgmma_rs_tf32(ot, p_hi[kk], desc_k_tf32<BK>(vt_lo, DV, kk));
 #pragma unroll
       for (int kk = 0; kk < PSTEPS; ++kk)
-        wgmma_rs_tf32(ot, p_lo[kk], desc_k_tf32<BK>(vt_hi, D, kk));
+        wgmma_rs_tf32(ot, p_lo[kk], desc_k_tf32<BK>(vt_hi, DV, kk));
 #pragma unroll
       for (int kk = 0; kk < PSTEPS; ++kk)
-        wgmma_rs_tf32(ot, p_hi[kk], desc_k_tf32<BK>(vt_hi, D, kk));
+        wgmma_rs_tf32(ot, p_hi[kk], desc_k_tf32<BK>(vt_hi, DV, kk));
       wgmma_commit();
       wgmma_wait_all();
       pin(ot);
@@ -358,7 +368,7 @@ flash_fwd_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
   }
 #pragma unroll
   for (int i = 0; i < OREG; ++i) o[i] /= l[(i >> 1) & 1];
-  store_rows_f32<D>(out, o, q0, Sq, H, h, b);
+  store_rows_f32<DV>(out, o, q0, Sq, H, h, b);
   if (lane % 4 == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -368,24 +378,30 @@ flash_fwd_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
+// Dynamic shared memory a block of the <D, DV> instantiation takes: the
+// buffers, and room to align them to 1024 bytes.
+template <int D, int DV>
+constexpr int smem_bytes() {
+  return Smem<D, DV>::BYTES + 1024;
+}
+
+template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* lse, int B,
                    int Sq, int Skv, int H, int K, int causal, cudaStream_t stream) {
   CUtensorMap maps[3];
   if (!(make_map<D, 4>(&maps[0], q, B, Sq, H, BQ) && make_map<D, 4>(&maps[1], k, B, Skv, K, BK) &&
-        make_map<D, 4>(&maps[2], v, B, Skv, K, BK)))
+        make_map<DV, 4>(&maps[2], v, B, Skv, K, BK)))
     return cudaErrorInvalidValue;
-  // the buffers, and room to align them to 1024 bytes
-  constexpr int smem = Smem<D>::BYTES + 1024;
+  constexpr int smem = smem_bytes<D, DV>();
   static bool configured = false;  // once per instantiation (a repeat is harmless)
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_sm90_fp32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_fwd_sm90_fp32_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
-  flash_fwd_sm90_fp32_kernel<D><<<grid, WG, smem, stream>>>(
+  flash_fwd_sm90_fp32_kernel<D, DV><<<grid, WG, smem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<float*>(out), static_cast<float*>(lse), Sq, Skv,
       H, K, LOG2E / sqrtf(static_cast<float>(D)), causal);
   return cudaGetLastError();
@@ -393,20 +409,38 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, void*
 
 }  // namespace
 
-// q (B,Sq,H,D), k/v (B,Skv,K,D) contiguous fp32 with 16-byte aligned
-// pointers; out (B,Sq,H,D) fp32, lse (B,H,Sq) fp32.  Returns the
+// q (B,Sq,H,D), k (B,Skv,K,D), v (B,Skv,K,Dv) contiguous fp32 with 16-byte
+// aligned pointers; out (B,Sq,H,Dv) fp32, lse (B,H,Sq) fp32.  Returns the
 // cudaError_t of the launch (cudaErrorInvalidValue when a tensor map cannot
-// be made, D is not 32, 64 or 128, or Dv != D).
+// be made, or (D, Dv) is neither D == Dv in {32, 64, 96, 128} nor (96, 64)).
 extern "C" int repro_flash_attention_fwd_sm90_fp32(const void* q, const void* k,
                                                    const void* v, void* out, void* lse, int B,
                                                    int Sq, int Skv, int H, int K, int D,
                                                    int Dv, int causal, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 96 && Dv == 64)
+    return launch<96, 64>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
   if (Dv != D) return cudaErrorInvalidValue;
   switch (D) {
-    case 32: return launch<32>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
-    case 64: return launch<64>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
-    case 128: return launch<128>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
+    case 32: return launch<32, 32>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
+    case 64: return launch<64, 64>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
+    case 96: return launch<96, 96>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
+    case 128: return launch<128, 128>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory a block of the (D, Dv) instantiation takes, in
+// bytes (0 for a pair the entry refuses): what phase 1 of chip_smoke.py
+// prints.
+extern "C" int repro_flash_attention_fwd_sm90_fp32_smem(int D, int Dv) {
+  if (D == 96 && Dv == 64) return smem_bytes<96, 64>();
+  if (Dv != D) return 0;
+  switch (D) {
+    case 32: return smem_bytes<32, 32>();
+    case 64: return smem_bytes<64, 64>();
+    case 96: return smem_bytes<96, 96>();
+    case 128: return smem_bytes<128, 128>();
+    default: return 0;
   }
 }

@@ -11,15 +11,19 @@
 // h*K/H.  Dvec = rowsum(dO * O), a `jnp` expression before the reference's
 // launch (l.274), is this kernel's prologue: each block computes it for its
 // own rows and writes it out for the dk/dv pass (flash_bwd_dkv_sm90_fp32.cu),
-// which runs after this one on the same stream.  Inputs: q, out, dO
-// (B,Sq,H,D), k, v (B,Skv,K,D), contiguous fp32 on 16-byte boundaries; lse
-// (B,H,Sq) fp32; D in {32, 64, 128}, any Sq and Skv.
+// which runs after this one on the same stream.  Inputs: q (B,Sq,H,D),
+// out, dO (B,Sq,H,Dv), k (B,Skv,K,D), v (B,Skv,K,Dv), contiguous fp32 on
+// 16-byte boundaries; lse (B,H,Sq) fp32; D == Dv in {32, 64, 96, 128} or
+// (D, Dv) = (96, 64) (MLA), any Sq and Skv.
 //
 // Bound on an H100 SXM (3.35 TB/s; 495 TFLOP/s tf32 dense): at the training
 // shape (B=4, H=16, K=8, D=128, S=512, causal) the function is 6 D flops for
 // each of the 8.4 M visible (q, k) pairs, 6.45 GFLOP, issued as three tf32
 // products each: 19.4 GFLOP, 39.1 us; it moves 84 MB (q, k, v, O, dO, lse
-// read once; dq, Dvec written once): 25 us.  Operations bound it.
+// read once; dq, Dvec written once): 25 us.  Operations bound it; at
+// minicpm3's (96, 64) (B=4, S=512, H=K=40; 4 D + 2 Dv a pair) 10.8 GFLOP,
+// 32.3 issued, 65.2 us (158 MB: 47 us); at phi-3's (96, 96), S=768, H=K=32,
+// 21.8 GFLOP, 65.3 issued, 132 us.
 //
 // Why three terms.  Each product is a_hi b_lo + a_lo b_hi + a_hi b_hi, with
 // x_hi = x with its low 13 mantissa bits cleared and x_lo = the same of
@@ -48,7 +52,8 @@
 // many tiles drifts (the fp32 forward's lesson, flash_attention_sm90_fp32.cu).
 // Each tile's dS K is summed in a fresh accumulator, which holds only that
 // tile's part, and added to dQ in fp32 registers; at D=128 in two halves of
-// 64 columns, to keep within 255 registers.
+// 64 columns, to keep within 255 registers, and at D=96 in two of 48
+// (m64n48k8, as the forward's O at Dv=96).
 //
 // Design, constraint by constraint:
 // - Tensor cores: one warpgroup (128 threads) a block owns 64 query rows of
@@ -56,7 +61,9 @@
 //   m64n32k8 tf32 wgmmas with A (Q or dO) and B (K or V) from shared
 //   memory, K-major as they lie.  The dP accumulator, turned into dS in
 //   place and split into hi and lo, is the A fragment of the RS wgmma
-//   dQ += dS K (m64nNk8, N = 64 at D=128, else D).
+//   dQ += dS K (m64nNk8, N = D / NH: NH = 2 parts at D > 64, else 1).  S
+//   reduces over D, dP over Dv; Q, K, K^T and dQ are D wide, dO and V Dv
+//   wide.
 // - No transpose-B in tf32: its B operand is K^T (keys contiguous).  After
 //   each K tile lands the warps write K's hi in place, K_lo beside it, and
 //   K^T hi and lo (D rows of 32 keys, 128-byte swizzle) in one pass
@@ -69,7 +76,10 @@
 //   2t + 1), so each ds meets its own k.
 // - Shared memory at D=128 (227 KB is the most a block may take): Q (hi in
 //   place) and Q_lo 64 KB; dO and dO_lo 64 KB; K and K_lo 32 KB; V and V_lo
-//   32 KB; K^T hi and lo 32 KB: 224 KB, one K/V stage.  So the TMA of tile
+//   32 KB; K^T hi and lo 32 KB: 224 KB, one K/V stage (at (96, 96) 168 KB,
+//   at (96, 64) 144 KB: D=96 is three 128-byte atoms a row, and every tile
+//   a multiple of 1024 bytes; the library's _smem entry gives each).  So
+//   the TMA of tile
 //   j+1 starts once tile j's S and dP products have read K and V, and runs
 //   under tile j's dS and its dS K product (K^T has its own buffers).
 // - Memory: q, k, v and dO are 4-D tensor maps (D, heads, S, B) of fp32
@@ -83,7 +93,7 @@
 //   not -inf, against a finite lse, so keys >= Skv, rows >= Sq and (when
 //   causal) keys past the row get p = 0 and ds = 0 explicitly, on the tiles
 //   that reach an edge; tiles wholly above the diagonal are skipped.
-// - Registers: dQ D/2 fp32 a thread, the fresh half 32, S and dP 16 each,
+// - Registers: dQ D/2 fp32 a thread, the fresh part D/2 / NH, S and dP 16 each,
 //   dS hi and lo 32 (phase 1 of chip_smoke.py prints ptxas -v, spills
 //   included).  The split transpose addresses shared memory by 32-bit
 //   addresses (sm90.cuh's lds_f32, sts_u32): through generic pointers and
@@ -110,24 +120,25 @@ constexpr int BQ = 64;  // query rows of the warpgroup
 constexpr int BK = 32;  // keys per tile
 
 // Byte offsets of the block's buffers from a 1024-byte boundary.  K^T is D
-// rows of BK keys: as many bytes as a K tile.
-template <int D>
+// rows of BK keys: as many bytes as a K tile.  dO and V are DV wide.
+template <int D, int DV>
 struct Smem {
   using G = Geo<D, 4>;
+  using GV = Geo<DV, 4>;
   static constexpr int Q = 0;  // hi in place
   static constexpr int Q_LO = Q + G::tile_bytes(BQ);
   static constexpr int DO = Q_LO + G::tile_bytes(BQ);  // hi in place
-  static constexpr int DO_LO = DO + G::tile_bytes(BQ);
-  static constexpr int K = DO_LO + G::tile_bytes(BQ);  // hi in place
-  static constexpr int V = K + G::tile_bytes(BK);      // hi in place
-  static constexpr int K_LO = V + G::tile_bytes(BK);
+  static constexpr int DO_LO = DO + GV::tile_bytes(BQ);
+  static constexpr int K = DO_LO + GV::tile_bytes(BQ);  // hi in place
+  static constexpr int V = K + G::tile_bytes(BK);       // hi in place
+  static constexpr int K_LO = V + GV::tile_bytes(BK);
   static constexpr int V_LO = K_LO + G::tile_bytes(BK);
-  static constexpr int KT_HI = V_LO + G::tile_bytes(BK);
+  static constexpr int KT_HI = V_LO + GV::tile_bytes(BK);
   static constexpr int KT_LO = KT_HI + G::tile_bytes(BK);
   static constexpr int BYTES = KT_LO + G::tile_bytes(BK);
 };
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(WG, 1)
 flash_bwd_dq_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
@@ -138,11 +149,13 @@ flash_bwd_dq_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
                               float* __restrict__ dq, int Sq, int Skv, int H, int K,
                               float scale_log2, float scale, int causal) {
   using G = Geo<D, 4>;
-  using L = Smem<D>;
-  constexpr int KSTEPS = D / 8;         // k8 slices of Q K^T and dO V^T
-  constexpr int PSTEPS = BK / 8;        // k8 slices of dS K
-  constexpr int OREG = D / 2;           // dQ accumulator registers a thread
-  constexpr int NH = D == 128 ? 2 : 1;  // parts of dQ a tile's dS K is summed in
+  using GV = Geo<DV, 4>;
+  using L = Smem<D, DV>;
+  constexpr int KSTEPS = D / 8;        // k8 slices of Q K^T
+  constexpr int VSTEPS = DV / 8;       // k8 slices of dO V^T
+  constexpr int PSTEPS = BK / 8;       // k8 slices of dS K
+  constexpr int OREG = D / 2;          // dQ accumulator registers a thread
+  constexpr int NH = D > 64 ? 2 : 1;   // parts of dQ a tile's dS K is summed in: n64, n48
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2];
   __shared__ float dvec_s[BQ];
@@ -169,8 +182,8 @@ flash_bwd_dq_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
   if (tid == 0) {
-    tma_load_pair<D, D, 4>(&tq, &tg, base + L::Q, base + L::DO, h, q0, b, BQ, qbar);
-    tma_load_pair<D, D, 4>(&tk, &tv, base + L::K, base + L::V, kh, 0, b, BK, kvbar);
+    tma_load_pair<D, DV, 4>(&tq, &tg, base + L::Q, base + L::DO, h, q0, b, BQ, qbar);
+    tma_load_pair<D, DV, 4>(&tk, &tv, base + L::K, base + L::V, kh, 0, b, BK, kvbar);
   }
 
   // prologue: Dvec = rowsum(dO * O) for the block's 64 rows, two threads a
@@ -179,9 +192,9 @@ flash_bwd_dq_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
     const int row = tid / 2, half = tid % 2, qp = q0 + row;
     float part = 0.f;
     if (qp < Sq) {
-      const size_t off = ((static_cast<size_t>(b) * Sq + qp) * H + h) * D + half * (D / 2);
+      const size_t off = ((static_cast<size_t>(b) * Sq + qp) * H + h) * DV + half * (DV / 2);
 #pragma unroll
-      for (int c = 0; c < D / 2; c += 4) {
+      for (int c = 0; c < DV / 2; c += 4) {
         const float4 ov = *reinterpret_cast<const float4*>(out + off + c);
         const float4 gv = *reinterpret_cast<const float4*>(g + off + c);
         part = fmaf(gv.x, ov.x, part);
@@ -215,7 +228,7 @@ flash_bwd_dq_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
 
   mbar_wait(qbar, 0);
   split_tile_tf32(gbase + L::Q, gbase + L::Q_LO, G::tile_bytes(BQ));
-  split_tile_tf32(gbase + L::DO, gbase + L::DO_LO, G::tile_bytes(BQ));
+  split_tile_tf32(gbase + L::DO, gbase + L::DO_LO, GV::tile_bytes(BQ));
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * BK;
     // every thread is past tile j-1's dS K product: K^T may be rewritten
@@ -223,12 +236,12 @@ flash_bwd_dq_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(kvbar, j & 1);
     transpose_split_tf32<D, BK>(base + L::K, base + L::K, base + L::K_LO, base + L::KT_HI,
                                 base + L::KT_LO);
-    split_tile_tf32(gbase + L::V, gbase + L::V_LO, G::tile_bytes(BK));
+    split_tile_tf32(gbase + L::V, gbase + L::V_LO, GV::tile_bytes(BK));
     fence_proxy_async();
     __syncthreads();
 
     // S = Q_hi K_lo^T + Q_lo K_hi^T + Q_hi K_hi^T, dP the same of dO and V:
-    // K-major A and B, k8 slices walk the row inside an atom
+    // K-major A and B, k8 slices walk the row inside an atom, then the next
     float sc[BK / 2], dp[BK / 2];
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {  // overwritten: the first slice has scale_d 0
@@ -250,17 +263,17 @@ flash_bwd_dq_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_ss_tf32(sc, desc_k_tf32<D>(base + L::Q, BQ, kk),
                     desc_k_tf32<D>(base + L::K, BK, kk), 1);
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk)
-      wgmma_ss_tf32(dp, desc_k_tf32<D>(base + L::DO, BQ, kk),
-                    desc_k_tf32<D>(base + L::V_LO, BK, kk), kk > 0);
+    for (int kk = 0; kk < VSTEPS; ++kk)
+      wgmma_ss_tf32(dp, desc_k_tf32<DV>(base + L::DO, BQ, kk),
+                    desc_k_tf32<DV>(base + L::V_LO, BK, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk)
-      wgmma_ss_tf32(dp, desc_k_tf32<D>(base + L::DO_LO, BQ, kk),
-                    desc_k_tf32<D>(base + L::V, BK, kk), 1);
+    for (int kk = 0; kk < VSTEPS; ++kk)
+      wgmma_ss_tf32(dp, desc_k_tf32<DV>(base + L::DO_LO, BQ, kk),
+                    desc_k_tf32<DV>(base + L::V, BK, kk), 1);
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk)
-      wgmma_ss_tf32(dp, desc_k_tf32<D>(base + L::DO, BQ, kk),
-                    desc_k_tf32<D>(base + L::V, BK, kk), 1);
+    for (int kk = 0; kk < VSTEPS; ++kk)
+      wgmma_ss_tf32(dp, desc_k_tf32<DV>(base + L::DO, BQ, kk),
+                    desc_k_tf32<DV>(base + L::V, BK, kk), 1);
     wgmma_commit();
     wgmma_wait_all();
     pin(sc);
@@ -269,7 +282,7 @@ flash_bwd_dq_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
     // every warp's products have read K and V: tile j+1 may come in
     __syncthreads();
     if (tid == 0 && j + 1 < n_tiles)
-      tma_load_pair<D, D, 4>(&tk, &tv, base + L::K, base + L::V, kh, k0 + BK, b, BK, kvbar);
+      tma_load_pair<D, DV, 4>(&tk, &tv, base + L::K, base + L::V, kh, k0 + BK, b, BK, kvbar);
 
     // dS in dP's registers, in the accumulator's layout: dp[4i + e] is row
     // (e < 2 ? r0 : r1), key column k0 + 8i + c0 + (e & 1)
@@ -290,8 +303,8 @@ flash_bwd_dq_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
 
     // dQ += dS_hi K^T_lo + dS_lo K^T_hi + dS_hi K^T_hi, the tile's product
     // in a fresh accumulator added to dQ in fp32, for NH parts of D columns
-    // (K^T rows, 8 of them 1024 bytes apart); the k8 slice kk is 32 bytes
-    // into the atom
+    // (K^T rows, 8 of them 1024 bytes apart, so a part of 48 starts on a
+    // 1024-byte boundary too); the k8 slice kk is 32 bytes into the atom
 #pragma unroll
     for (int part = 0; part < NH; ++part) {
       float t[OREG / NH];
@@ -325,26 +338,34 @@ flash_bwd_dq_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
   store_rows_f32<D>(dq, dq_acc, q0, Sq, H, h, b);
 }
 
-template <int D>
+// Dynamic shared memory a block of the <D, DV> instantiation takes: the
+// buffers, and room to align them to 1024 bytes.
+template <int D, int DV>
+constexpr int smem_bytes() {
+  return Smem<D, DV>::BYTES + 1024;
+}
+
+template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
                    const void* g, const void* lse, void* dvec, void* dq, int B, int Sq,
                    int Skv, int H, int K, int causal, cudaStream_t stream) {
   CUtensorMap maps[4];
   if (!(make_map<D, 4>(&maps[0], q, B, Sq, H, BQ) && make_map<D, 4>(&maps[1], k, B, Skv, K, BK) &&
-        make_map<D, 4>(&maps[2], v, B, Skv, K, BK) && make_map<D, 4>(&maps[3], g, B, Sq, H, BQ)))
+        make_map<DV, 4>(&maps[2], v, B, Skv, K, BK) &&
+        make_map<DV, 4>(&maps[3], g, B, Sq, H, BQ)))
     return cudaErrorInvalidValue;
-  // the buffers, and room to align them to 1024 bytes
-  constexpr int smem = Smem<D>::BYTES + 1024;
+  constexpr int smem = smem_bytes<D, DV>();
   static bool configured = false;  // once per instantiation (a repeat is harmless)
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_sm90_fp32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_bwd_dq_sm90_fp32_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const float root = sqrtf(static_cast<float>(D));
   const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
-  flash_bwd_dq_sm90_fp32_kernel<D><<<grid, WG, smem, stream>>>(
+  flash_bwd_dq_sm90_fp32_kernel<D, DV><<<grid, WG, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(out),
       static_cast<const float*>(g), static_cast<const float*>(lse), static_cast<float*>(dvec),
       static_cast<float*>(dq), Sq, Skv, H, K, LOG2E / root, 1.0f / root, causal);
@@ -353,33 +374,41 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
 
 }  // namespace
 
-// q, out, g (B,Sq,H,D), k/v (B,Skv,K,D) contiguous fp32 with 16-byte aligned
-// pointers, lse (B,H,Sq) fp32 from the forward; writes dq (B,Sq,H,D) and
-// dvec (B,H,Sq), fp32.  Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue when a tensor map cannot be made, Dv is not D, or D
-// is not 32, 64 or 128: the fp32 pair takes D == Dv alone).
+// q (B,Sq,H,D), out, g (B,Sq,H,Dv), k (B,Skv,K,D), v (B,Skv,K,Dv)
+// contiguous fp32 with 16-byte aligned pointers, lse (B,H,Sq) fp32 from the
+// forward; writes dq (B,Sq,H,D) and dvec (B,H,Sq), fp32.  Returns the
+// cudaError_t of the launch (cudaErrorInvalidValue when a tensor map cannot
+// be made, or (D, Dv) is neither D == Dv in {32, 64, 96, 128} nor (96, 64)).
 extern "C" int repro_flash_bwd_dq_sm90_fp32(const void* q, const void* k, const void* v,
                                             const void* out, const void* g, const void* lse,
                                             void* dvec, void* dq, int B, int Sq, int Skv,
                                             int H, int K, int D, int Dv, int causal,
                                             void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 96 && Dv == 64)
+    return launch<96, 64>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
   if (Dv != D) return cudaErrorInvalidValue;
   switch (D) {
-    case 32: return launch<32>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
-    case 64: return launch<64>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
-    case 128: return launch<128>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
+    case 32: return launch<32, 32>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
+    case 64: return launch<64, 64>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
+    case 96: return launch<96, 96>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
+    case 128:
+      return launch<128, 128>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Dynamic shared memory a block of the D instantiation takes, in bytes (0
-// for another D): what phase 1 of chip_smoke.py prints.
-extern "C" int repro_flash_bwd_dq_sm90_fp32_smem(int D) {
+// Dynamic shared memory a block of the (D, Dv) instantiation takes, in
+// bytes (0 for a pair the entry refuses): what phase 1 of chip_smoke.py
+// prints.
+extern "C" int repro_flash_bwd_dq_sm90_fp32_smem(int D, int Dv) {
+  if (D == 96 && Dv == 64) return smem_bytes<96, 64>();
+  if (Dv != D) return 0;
   switch (D) {
-    case 32: return Smem<32>::BYTES + 1024;
-    case 64: return Smem<64>::BYTES + 1024;
-    case 128: return Smem<128>::BYTES + 1024;
+    case 32: return smem_bytes<32, 32>();
+    case 64: return smem_bytes<64, 64>();
+    case 96: return smem_bytes<96, 96>();
+    case 128: return smem_bytes<128, 128>();
     default: return 0;
   }
 }

@@ -347,6 +347,24 @@ __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[16], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// n48: a 96-column output summed in two parts (the fp32 forward's O and the
+// dq pass's dQ at 96 columns), or half of one (the dk/dv pass's dK and dV,
+// one warpgroup a half, at 96 columns).
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[24], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32], const uint32_t (&a)[4],
                                               uint64_t db) {
   asm volatile(
@@ -473,7 +491,8 @@ __device__ __forceinline__ void sts_v4(uint32_t addr, const uint32_t (&x)[4]) {
 // src's layout; and transposed, D rows of ROWS values in Geo<ROWS, 4>'s
 // layout (one atom row: 128 bytes with the 128-byte swizzle at ROWS = 32,
 // 64 bytes with the 64-byte swizzle at ROWS = 16), hi at `t_hi` and lo at
-// `t_lo`.  Each 8-row group is permuted on the way: row 8g + 2i + e goes to
+// `t_lo`.  D is any multiple of 32 (D = 96: three column atoms).  Each
+// 8-row group is permuted on the way: row 8g + 2i + e goes to
 // k slot 8g + 4e + i, so that an RS wgmma's A fragment taken pairwise from
 // an accumulator's registers meets its own rows (flash_attention_sm90_fp32.cu's
 // V^T).  A warp takes 32 columns (a lane each) of 4 rows of one parity a

@@ -92,6 +92,20 @@ FLASH_BF16_SHAPES = [
     (4, 13, 13, 6, 6, 64, 64, True),
 ]
 
+# the fp32 kernels at D = 96: minicpm3's MLA (96, 64) and phi-3's (96, 96),
+# at their serve and training shapes, ragged, Sq != Skv and G = 2;
+# (B, Sq, Skv, H, K, D, Dv, causal)
+FP32_D96_SHAPES = [
+    (4, 512, 512, 40, 40, 96, 64, True),  # minicpm3's MLA
+    (2, 13, 13, 40, 40, 96, 64, True),
+    (1, 100, 37, 4, 2, 96, 64, False),
+    (1, 64, 160, 4, 1, 96, 64, True),  # Sq < Skv
+    (4, 512, 512, 32, 32, 96, 96, True),  # phi-3
+    (4, 768, 768, 32, 32, 96, 96, True),  # with 256 patch embeddings
+    (1, 13, 13, 32, 32, 96, 96, True),
+    (2, 130, 70, 8, 4, 96, 96, True),  # G = 2
+]
+
 # the odd GQA groups of the MoE family at D = 128, one q-head a block:
 # llama4-maverick H = 40, K = 8 (G = 5), arctic H = 56, K = 8 (G = 7);
 # (B, Sq, Skv, H, K, D, Dv, causal)
@@ -476,11 +490,35 @@ def test_fp32_bwd_keeps_what_lies_below_tf32(device):
 
 
 def test_fp32_flash_raises_on_a_head_dim_it_does_not_take(device):
-    q = _randn((1, 8, 4, 96), torch.float32, device, 9)
+    """(96, 32), D = 16 (the reduced test configs') and D = 80: none is
+    taken, none launches."""
     before = FLASH.launches
-    with pytest.raises(ValueError, match="head dims"):
-        flash_attention_fwd(q, q, q)
+    for D, Dv in ((96, 32), (16, 16), (80, 80)):
+        q = _randn((1, 8, 4, D), torch.float32, device, 9)
+        v = _randn((1, 8, 4, Dv), torch.float32, device, 10)
+        with pytest.raises(ValueError, match=f"head dims D={D}, Dv={Dv}"):
+            flash_attention_fwd(q, q, v)
     assert FLASH.launches == before
+
+
+@pytest.mark.parametrize("case", FP32_D96_SHAPES)
+def test_fp32_flash_kernel_at_d96(case, device):
+    """The fp32 forward at (96, 64) and (96, 96): three 128-byte atoms a
+    row of Q and K, V and O 64 or 96 wide (O summed in two parts of 48 at
+    96), held to the plain version as the fp32 cases above."""
+    B, Sq, Skv, H, K, D, Dv, causal = case
+    q = _randn((B, Sq, H, D), torch.float32, device, 0)
+    k = _randn((B, Skv, K, D), torch.float32, device, 1)
+    v = _randn((B, Skv, K, Dv), torch.float32, device, 2)
+    other = forward_kernel(torch.bfloat16)
+    before = (FLASH.launches, other.launches)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (FLASH.launches, other.launches) == (before[0] + 1, before[1])
+    ref, ref_lse = flash_attention_plain(q, k, v, causal=causal)
+    assert tuple(out.shape) == (B, Sq, H, Dv) and out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
 
 
 def test_fp32_flash_raises_on_inputs_tma_cannot_read(device):
@@ -599,8 +637,50 @@ def test_bf16_bwd_kernels_at_mla_phi3_and_whisper_shapes(case, device):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("D, Dv", [(96, 96), (96, 64), (64, 96)])
+@pytest.mark.parametrize("D, Dv", [(96, 32), (16, 16), (64, 96)])
+def test_fp32_entries_return_an_error_outside_the_rule(D, Dv, device):
+    """Below the wrappers' check, each fp32 library's C entry refuses a
+    (D, Dv) it has no instantiation for: it returns cudaErrorInvalidValue
+    (1) and launches nothing."""
+    p = torch.zeros(64, device=device).data_ptr()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    assert FLASH._loaded()(p, p, p, p, p, 1, 8, 8, 4, 2, D, Dv, 1, stream) == 1
+    for kern in backward_kernels(torch.float32):
+        assert kern._loaded()(*[p] * 8, 1, 8, 8, 4, 2, D, Dv, 1, stream) == 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", FP32_D96_SHAPES)
+def test_fp32_bwd_kernels_at_d96(case, device):
+    """The fp32 pair at (96, 64) and (96, 96): dQ summed in two parts of 48
+    at D = 96, dK and dV one half of D or Dv a warpgroup (n48 at 96), Q^T
+    and dO^T transposed at 96 and 64 rows; held to the plain backward as the
+    fp32 cases above, a second launch bit-identical."""
+    B, Sq, Skv, H, K, D, Dv, causal = case
+    q = _randn((B, Sq, H, D), torch.float32, device, 10)
+    k = _randn((B, Skv, K, D), torch.float32, device, 11)
+    v = _randn((B, Skv, K, Dv), torch.float32, device, 12)
+    g = _randn((B, Sq, H, Dv), torch.float32, device, 13)
+    out, lse = flash_attention_plain(q, k, v, causal=causal)
+    out = out.contiguous()
+    kerns = backward_kernels(torch.float32) + backward_kernels(torch.bfloat16)
+    before = [kern.launches for kern in kerns]
+    got = flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in kerns] == [n + (i < 2) for i, n in enumerate(before)]
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal)
+    for name, a, b, like in zip(("dq", "dk", "dv"), got, ref, (q, k, v)):
+        assert a.shape == like.shape and a.dtype == torch.float32, name
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg=name)
+    again = flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D, Dv", [(96, 32), (64, 96), (16, 16)])
 def test_fp32_bwd_raises_at_head_dims_only_bf16_takes(D, Dv, device):
+    """Head dims the fp32 pair does not take (nor, now that both take
+    (96, 96) and (96, 64), the bf16 pair): it raises, launching nothing."""
     q = _randn((1, 8, 4, D), torch.float32, device, 9)
     k = _randn((1, 8, 2, D), torch.float32, device, 10)
     v = _randn((1, 8, 2, Dv), torch.float32, device, 11)

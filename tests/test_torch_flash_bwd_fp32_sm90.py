@@ -15,7 +15,10 @@ order); each tile's or step's product is summed apart and added to the
 running sum in fp32 (the kernels' fresh accumulators).  The kernels pair
 dS's (and P^T's) registers with K^T's keys (dO^T's and Q^T's queries)
 through an 8-row permutation (``_transposed_slot``); the model takes each
-of those products over its rows in that order.
+of those products over its rows in that order.  V, dO, dV and the
+transposed dO^T are Dv wide, Q, K, dQ, dK and Q^T D wide (MLA's (96, 64));
+at D = 96 a row is three 128-byte atoms, and the layout tests below mirror
+the kernels' loops and offsets at each width.
 
 The element check is chip_smoke.py's for fp32 gradients: |got - ref| <=
 1e-4 (BWD_ATOL, with no relative part in fp32).  Phase 7 of chip_smoke.py
@@ -30,7 +33,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_flash_fp32_sm90 import _a_slot_key, _key_order, _product, _tf32
+from test_torch_flash_fp32_sm90 import (_a_slot_key, _key_order, _product, _tf32,
+                                        _tma_offset)
 
 from repro.kernels.flash_attention.flash_attention import \
     flash_attention_bwd as jax_bwd
@@ -64,21 +68,27 @@ LOG2E = np.float32(1.4426950408889634)
 PRODUCTS = ("s", "dp", "dq", "dv", "dk")
 
 CASES = [
-    # (B, Sq, Skv, H, K, D, causal)
-    (1, 512, 512, 4, 2, 128, True),
-    (2, 13, 13, 4, 2, 64, True),
-    (1, 130, 70, 4, 4, 32, True),
-    (1, 100, 37, 4, 2, 64, False),
-    (1, 96, 160, 4, 1, 32, True),
+    # (B, Sq, Skv, H, K, D, Dv, causal)
+    (1, 512, 512, 4, 2, 128, 128, True),
+    (2, 13, 13, 4, 2, 64, 64, True),
+    (1, 130, 70, 4, 4, 32, 32, True),
+    (1, 100, 37, 4, 2, 64, 64, False),
+    (1, 96, 160, 4, 1, 32, 32, True),
+    # D = 96: phi-3's (96, 96), minicpm3's MLA (96, 64)
+    (1, 256, 256, 4, 2, 96, 96, True),
+    (2, 13, 13, 4, 2, 96, 96, True),     # ragged
+    (1, 256, 256, 4, 2, 96, 64, True),
+    (1, 96, 160, 4, 1, 96, 64, True),    # Sq < Skv
+    (1, 100, 37, 4, 2, 96, 64, False),   # non-causal, Sq > Skv
 ]
 
 
 def _numpy_inputs(case, seed=0):
-    B, Sq, Skv, H, K, D, _ = case
+    B, Sq, Skv, H, K, D, Dv, _ = case
     rng = np.random.default_rng(seed)
     return tuple(rng.standard_normal(shape, np.float32)
-                 for shape in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D),
-                               (B, Sq, H, D)))
+                 for shape in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, Dv),
+                               (B, Sq, H, Dv)))
 
 
 def _inputs(case, seed=0):
@@ -89,18 +99,19 @@ def _inputs(case, seed=0):
 
 
 def fp32_bwd_model(q, k, v, out, lse, g, *, causal=True, terms=None):
-    """The kernels' arithmetic on fp32 q, dO (B,Sq,H,D), k, v (B,Skv,K,D),
-    the forward's out and lse: returns (dq, dk, dv), fp32.  ``terms`` maps
+    """The kernels' arithmetic on fp32 q (B,Sq,H,D), dO (B,Sq,H,Dv), k
+    (B,Skv,K,D), v (B,Skv,K,Dv), the forward's out and lse: returns (dq, dk,
+    dv), fp32.  ``terms`` maps
     a product of ``PRODUCTS`` to its tf32 terms (3 unless given; 2 drops
     a_hi b_lo, 1 keeps a_hi b_hi alone)."""
     terms = {**dict.fromkeys(PRODUCTS, 3), **(terms or {})}
     B, Sq, H, D = q.shape
-    Skv, K = k.shape[1], k.shape[2]
+    Skv, K, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // K
     root = np.sqrt(np.float32(D), dtype=np.float32)
     scale_log2, scale = float(LOG2E / root), float(np.float32(1.0) / root)
     qf = q.reshape(B, Sq, K, G, D)
-    gf = g.reshape(B, Sq, K, G, D)
+    gf = g.reshape(B, Sq, K, G, Dv)
     # Dvec in the dq kernel's prologue; lse as a base-2 exponent
     dvec = (g * out).sum(-1).permute(0, 2, 1).reshape(B, K, G, Sq)
     l2 = (lse * float(LOG2E)).reshape(B, K, G, Sq)
@@ -123,7 +134,7 @@ def fp32_bwd_model(q, k, v, out, lse, g, *, causal=True, terms=None):
                            terms["dq"])
 
     dk = torch.zeros(B, Skv, K, D)
-    dv = torch.zeros(B, Skv, K, D)
+    dv = torch.zeros(B, Skv, K, Dv)
     for q0 in range(0, Sq, DKV_BQ):
         for gi in range(G):
             rows = slice(q0, q0 + DKV_BQ)
@@ -188,7 +199,7 @@ def test_inputs_below_tf32_precision_move_the_gradients():
     inputs that differ only below tf32's mantissa: the gradients of the two
     differ well beyond the check, so a kernel that dropped the lo terms
     fails there; the model holds both."""
-    case = (1, 256, 256, 4, 2, 128, True)
+    case = (1, 256, 256, 4, 2, 128, 128, True)
     full = [torch.from_numpy(x) for x in _numpy_inputs(case, seed=3)]
     hi = [_tf32(x) for x in full]
     refs, models = [], []
@@ -258,9 +269,84 @@ def test_transposed_tiles_are_the_swizzled_k_major_layout(rows):
             assert sorted(b + i for b in banks for i in range(4)) == list(range(32))
 
 
+def _transpose_split(d, rows):
+    """sm90.cuh's transpose_split_tf32<D, ROWS> over one tile, warp step by
+    warp step and lane by lane: for each element, (the byte it reads from
+    the tile TMA wrote, the (row, column) ``_tma_offset`` puts there, the
+    byte of the transposed tile it writes, the transposed (row, k slot) of
+    that byte)."""
+    rb = rows * 4
+    seen = []
+    for u in range(d * rows // 128):
+        atom, g, e = u // (rows // 4), u % (rows // 4) // 2, u % 2
+        for lane in range(32):
+            col = atom * rows * 128 + (lane % 4) * 4
+            dd = 32 * atom + lane
+            toff = dd * rb + ((2 * g + e) ^ ((dd * rb >> 7) & (rb // 16 - 1))) * 16
+            for i in range(4):
+                row = 8 * g + 2 * i + e
+                src = col + row * 128 + ((lane // 4) ^ (row % 8)) * 16
+                seen.append((src, (row, dd), toff + 4 * i, (dd, 8 * g + 4 * e + i)))
+    return seen
+
+
+@pytest.mark.parametrize("d, rows", [(96, DQ_BK), (96, DKV_BQ), (64, DKV_BQ), (128, DKV_BQ)])
+def test_split_transpose_reads_each_atom_and_writes_the_swizzled_layout(d, rows):
+    """transpose_split_tf32 at three atoms (K^T in dq, Q^T in dk/dv at D =
+    96) and at MLA's dO^T (64 rows): every element of the tile is read
+    once, from where TMA wrote it, and lands at its permuted k slot in the
+    swizzled K-major layout the descriptors read (the byte-level check of
+    test_transposed_tiles_are_the_swizzled_k_major_layout, at this many
+    rows); every byte of the transposed tile is written once."""
+    rb = rows * 4
+    bits = 3 if rb == 128 else 2
+    seen = _transpose_split(d, rows)
+    assert len(seen) == d * rows
+    reads = {src: what for src, what, _, _ in seen}
+    assert len(reads) == d * rows
+    assert all(_tma_offset(row, col, rows) == src for src, (row, col) in reads.items())
+    for _, (row, col), dst, (t_row, slot) in seen:
+        assert t_row == col and slot == _transposed_slot(row)
+        off = t_row * rb + slot * 4
+        assert dst == off ^ (((off >> 7) & ((1 << bits) - 1)) << 4)
+    assert sorted(dst for *_, dst, _ in seen) == list(range(0, d * rb, 4))
+
+
+@pytest.mark.parametrize("d, dv", [(32, 32), (64, 64), (96, 96), (96, 64), (128, 128)])
+def test_transposed_halves_and_parts_start_on_the_swizzle_period(d, dv):
+    """Where a wgmma descriptor starts inside a transposed tile, it starts
+    on the swizzle's period (8 rows), so no base offset is needed: dk/dv's
+    warpgroup halves of Q^T (D/2 rows) and dO^T (Dv/2 rows) of 64-byte rows
+    (period 512 bytes; 3,072 bytes in at D = 96), each half a form of
+    sm90.cuh (n48 at 96); dq's parts of K^T (NH = 2 at D > 64: 48 rows at
+    96) of 128-byte rows (period 1024).  And every buffer of both kernels
+    lies on a 1024-byte boundary, their shared memory at 128 columns the
+    224 KB their sources state."""
+    for width in (d, dv):
+        half = width // 2
+        assert half in (16, 32, 48, 64)
+        assert half * DKV_BQ * 4 % 512 == 0
+    parts = 2 if d > 64 else 1
+    assert d // parts in (16, 32, 48, 64)
+    assert all(p * (d // parts) * DQ_BK * 4 % 1024 == 0 for p in range(parts))
+
+    def tile(width, rows):
+        return rows * width * 4
+
+    dq = [tile(d, 64), tile(d, 64), tile(dv, 64), tile(dv, 64), tile(d, DQ_BK),
+          tile(dv, DQ_BK), tile(d, DQ_BK), tile(dv, DQ_BK), tile(d, DQ_BK), tile(d, DQ_BK)]
+    dkv = [tile(d, 64), tile(d, 64), tile(dv, 64), tile(dv, 64), tile(d, DKV_BQ),
+           tile(dv, DKV_BQ)] + [tile(w, DKV_BQ) for w in (d, d, dv, dv, d, d, dv, dv)]
+    dkv.append(2 * 2 * (DKV_BQ // 2) * 128 * 4)  # the swap of S^T and dP^T halves
+    for sizes in (dq, dkv):
+        assert all(sum(sizes[:i]) % 1024 == 0 for i in range(len(sizes) + 1))
+    if (d, dv) == (128, 128):
+        assert sum(dq) == sum(dkv) == 224 * 1024
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_model_matches_pallas_reference(case):
-    B, Sq, Skv, H, K, D, causal = case
+    B, Sq, Skv, H, K, D, Dv, causal = case
     qn, kn, vn, gn = _numpy_inputs(case, seed=1)
     qj, kj, vj, gj = (jnp.asarray(x) for x in (qn, kn, vn, gn))
     bq = 64 if Sq % 64 == 0 else Sq

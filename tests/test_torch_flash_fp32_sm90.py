@@ -11,7 +11,10 @@ log2(e); an online softmax over 32-key tiles with p = exp2(s - m), each
 tile's PV summed apart and added to the running O in fp32; l summed from
 the fp32 p; lse = m ln2 + log(l).  The kernel pairs P's registers with
 V^T's keys through an 8-key permutation (``_a_slot_key``, ``_vt_slot_key``);
-the model takes each PV product over the keys in that order.
+the model takes each PV product over the keys in that order.  At D = 96
+a row of Q and K is three 128-byte swizzle atoms, and V, V^T and O may be
+narrower than Q and K (MLA's Dv = 64); the layout tests below mirror the
+kernel's loops and offsets at each width.
 
 The element check is chip_smoke.py's fp32 one, and the reference suite's
 fp32 tolerance: |got - ref| <= 2e-5 for out and lse.  Against the Pallas
@@ -47,20 +50,26 @@ BK = 32  # keys per tile, as in the kernel
 ATOL = 2e-5
 
 CASES = [
-    # (B, Sq, Skv, H, K, D, causal)
-    (1, 512, 512, 4, 2, 128, True),
-    (2, 13, 13, 4, 2, 64, True),     # ragged
-    (1, 130, 70, 4, 4, 32, True),    # Sq > Skv
-    (1, 64, 160, 4, 1, 32, True),    # Sq < Skv
-    (1, 100, 37, 4, 2, 64, False),   # non-causal
+    # (B, Sq, Skv, H, K, D, Dv, causal)
+    (1, 512, 512, 4, 2, 128, 128, True),
+    (2, 13, 13, 4, 2, 64, 64, True),     # ragged
+    (1, 130, 70, 4, 4, 32, 32, True),    # Sq > Skv
+    (1, 64, 160, 4, 1, 32, 32, True),    # Sq < Skv
+    (1, 100, 37, 4, 2, 64, 64, False),   # non-causal
+    # D = 96: phi-3's (96, 96), minicpm3's MLA (96, 64)
+    (1, 256, 256, 4, 2, 96, 96, True),
+    (2, 13, 13, 4, 2, 96, 96, True),     # ragged
+    (1, 256, 256, 4, 2, 96, 64, True),
+    (1, 64, 160, 4, 1, 96, 64, True),    # Sq < Skv
+    (1, 100, 37, 4, 2, 96, 64, False),   # non-causal, Sq > Skv
 ]
 
 
 def _inputs(case, seed=0):
-    B, Sq, Skv, H, K, D, _ = case
+    B, Sq, Skv, H, K, D, Dv, _ = case
     rng = np.random.default_rng(seed)
     return tuple(rng.standard_normal(shape, np.float32)
-                 for shape in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D)))
+                 for shape in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, Dv)))
 
 
 def _tf32(x):
@@ -111,16 +120,16 @@ def _key_order(n):
 
 
 def fp32_model(q, k, v, *, causal=True, s_terms=3, o_terms=3):
-    """The kernel's arithmetic on fp32 q (B,Sq,H,D), k and v (B,Skv,K,D):
-    returns (out, lse), fp32."""
+    """The kernel's arithmetic on fp32 q (B,Sq,H,D), k (B,Skv,K,D) and v
+    (B,Skv,K,Dv): returns (out (B,Sq,H,Dv), lse), fp32."""
     B, Sq, H, D = q.shape
-    Skv, K = k.shape[1], k.shape[2]
+    Skv, K, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // K
     qf = q.reshape(B, Sq, K, G, D)
     scale_log2 = float(np.float32(np.log2(np.e) / np.sqrt(D)))
     m = torch.full((B, K, G, Sq), -2.0e38)
     l = torch.zeros((B, K, G, Sq))
-    o = torch.zeros((B, K, G, Sq, D))
+    o = torch.zeros((B, K, G, Sq, Dv))
     qpos = torch.arange(Sq)
     for k0 in range(0, Skv, BK):
         kt, vt = k[:, k0:k0 + BK], v[:, k0:k0 + BK]
@@ -137,7 +146,7 @@ def fp32_model(q, k, v, *, causal=True, s_terms=3, o_terms=3):
                                            vt[:, order], o_terms)
         m = m_new
     l = l.clamp_min(1e-37)
-    out = (o / l[..., None]).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+    out = (o / l[..., None]).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv)
     lse = (m * float(np.log(2.0)) + torch.log(l)).reshape(B, H, Sq)
     return out, lse
 
@@ -181,7 +190,7 @@ def test_inputs_below_tf32_precision_move_the_output():
     under 2^-11 of it.  The outputs of the two differ well beyond the
     check, so a kernel that dropped the lo terms, or read raw fp32 as
     something other than its split, fails there; the model holds both."""
-    case = (1, 256, 256, 4, 2, 128, True)
+    case = (1, 256, 256, 4, 2, 128, 128, True)
     full = [torch.from_numpy(x) for x in _inputs(case, seed=3)]
     hi = [_tf32(x) for x in full]
     assert all(torch.equal(_tf32(x), h) for x, h in zip(full, hi))
@@ -202,6 +211,91 @@ def test_p_registers_meet_their_own_v():
             assert _a_slot_key(t, slot) == _vt_slot_key(slot)
     assert sorted(_vt_slot_key(s) for s in range(8)) == list(range(8))
     assert sorted(_key_order(13)) == list(range(13))
+
+
+def _swizzle128(off):
+    """CuTe's Swizzle<3,4,3> on a byte offset: the 128-byte swizzle TMA
+    writes and a wgmma descriptor of layout 1 reads (16-byte chunk c of a
+    128-byte row r at chunk c ^ (r % 8), from a 1024-byte boundary)."""
+    return off ^ (((off >> 7) & 7) << 4)
+
+
+def _tma_offset(row, col, rows):
+    """Byte offset at which TMA writes element (row, col) of an fp32 tile
+    of ``rows`` rows (sm90.cuh's Geo<D, 4>): column atom col // 32, each
+    ``rows`` x 128 bytes, the 128-byte swizzle inside it."""
+    return col // 32 * rows * 128 + _swizzle128(row * 128 + col % 32 * 4)
+
+
+def _transpose_v(dv):
+    """The kernel's transpose_v<DV> over one BK-key tile of V, warp by warp
+    and lane by lane: for each element, (the byte it reads from V's tile,
+    the (key, column) TMA wrote there by ``_tma_offset``, the byte of V^T
+    it writes, V^T's (row, k slot) of that byte)."""
+    seen = []
+    for warp in range(4):
+        for u in range(warp, dv // 4, 4):
+            atom, g, e = u // 8, u % 8 // 2, u % 2
+            for lane in range(32):
+                d = 32 * atom + lane
+                chunk = (2 * g + e) ^ (d % 8)
+                for i in range(4):
+                    key = 8 * g + 2 * i + e
+                    src = (atom * BK * 128 + (lane % 4) * 4 + key * 128
+                           + ((lane // 4) ^ (key % 8)) * 16)
+                    dst = d * 128 + chunk * 16 + 4 * i
+                    seen.append((src, (key, d), dst, (d, 4 * (2 * g + e) + i)))
+    return seen
+
+
+@pytest.mark.parametrize("dv", [32, 64, 96, 128])
+def test_transpose_v_reads_every_element_once_and_writes_the_swizzled_vt(dv):
+    """transpose_v<DV> at every width, three atoms (96) and MLA's 64
+    included: each element of V's tile is read once, from where TMA put it;
+    V^T's byte for it is the 128-byte-swizzled K-major layout of (d, slot),
+    the slot the 8-key permutation gives its key; every byte of V^T is
+    written once."""
+    seen = _transpose_v(dv)
+    assert len(seen) == dv * BK
+    reads = {src: what for src, what, _, _ in seen}
+    assert len(reads) == dv * BK
+    assert all(_tma_offset(key, d, BK) == src for src, (key, d) in reads.items())
+    for _, (key, d), dst, (row, slot) in seen:
+        assert row == d and _vt_slot_key(slot % 8) == key % 8 and slot // 8 == key // 8
+        assert dst == _swizzle128(row * 128 + slot * 4)
+    assert sorted(dst for *_, dst, _ in seen) == list(range(0, dv * 128, 4))
+
+
+@pytest.mark.parametrize("d, dv", [(32, 32), (64, 64), (96, 96), (96, 64), (128, 128)])
+def test_tiles_and_parts_start_on_the_swizzle_period(d, dv):
+    """The shared-memory offsets the kernel computes (its Smem<D, DV>) put
+    every tile on a 1024-byte boundary, the 128-byte swizzle's period, at
+    every width; QK^T's k8 slices walk three atoms at D = 96 as
+    desc_k_tf32 finds them; O's parts of Dv / NH columns (NH = 2 at Dv >
+    64: 64 at 128, 48 at 96) start on that boundary in V^T too; and the
+    block's shared memory at 128 columns is the 176 KB the source states."""
+    bq, stages = 64, 2
+
+    def tile(width, rows):
+        return rows * width * 4
+
+    q_lo = tile(d, bq)
+    kv = q_lo + tile(d, bq)
+    stage = tile(d, BK) + tile(dv, BK)
+    k_lo = kv + stages * stage
+    vt_hi = k_lo + tile(d, BK)
+    vt_lo = vt_hi + tile(dv, BK)
+    size = vt_lo + tile(dv, BK)
+    for off in (q_lo, kv, kv + tile(d, BK), kv + stage, k_lo, vt_hi, vt_lo, size):
+        assert off % 1024 == 0, off
+    for kk in range(d // 8):  # desc_k_tf32<D>: atom kk * 8 / 32, 32 bytes a slice
+        atom, off = kk * 8 // 32, kk * 8 % 32 * 4
+        assert (atom, off) == divmod(_tma_offset(0, 8 * kk, bq), bq * 128)
+    parts = 2 if dv > 64 else 1
+    assert dv // parts in (16, 32, 48, 64)  # the m64nNk8 tf32 forms of sm90.cuh
+    assert all(p * (dv // parts) * 128 % 1024 == 0 for p in range(parts))
+    if (d, dv) == (128, 128):
+        assert size == 176 * 1024
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -206,13 +206,14 @@ if __name__ == "__main__":
     ("flash_fwd", torch.bfloat16, 64, 96, False),
     ("flash_fwd", torch.bfloat16, 128, 64, False),
     ("flash_fwd", torch.bfloat16, 80, 80, False),
-    # the fp32 forward and the fp32 backward pair: D == Dv in {32, 64, 128}
+    # the fp32 forward and the fp32 backward pair: the bf16 kernels' pairs,
+    # phi-3's (96, 96) and MLA's (96, 64) included
     ("flash_fwd", torch.float32, 64, 64, True),
-    ("flash_fwd", torch.float32, 96, 96, False),
-    ("flash_fwd", torch.float32, 96, 64, False),
+    ("flash_fwd", torch.float32, 96, 96, True),
+    ("flash_fwd", torch.float32, 96, 64, True),
     ("flash_bwd", torch.bfloat16, 128, 128, True),
-    ("flash_bwd", torch.float32, 96, 96, False),
-    ("flash_bwd", torch.float32, 96, 64, False),
+    ("flash_bwd", torch.float32, 96, 96, True),
+    ("flash_bwd", torch.float32, 96, 64, True),
     ("flash_bwd", torch.float16, 96, 96, False),
     # decode: D == Dv in {32, 64, 96, 128}, both dtypes
     ("decode", torch.bfloat16, 96, 96, True),
@@ -228,6 +229,17 @@ if __name__ == "__main__":
     ("flash_bwd", torch.bfloat16, 80, 80, False),
     ("flash_bwd", torch.float32, 128, 128, True),
     ("flash_bwd", torch.float32, 64, 64, True),
+    # still refused on CUDA, in both dtypes: (96, 32), and D = 16 (the
+    # reduced test configs' head dim, which runs on the CPU's plain versions)
+    ("flash_fwd", torch.float32, 96, 32, False),
+    ("flash_bwd", torch.float32, 96, 32, False),
+    ("flash_fwd", torch.bfloat16, 96, 32, False),
+    ("flash_fwd", torch.float32, 16, 16, False),
+    ("flash_bwd", torch.float32, 16, 16, False),
+    ("flash_fwd", torch.bfloat16, 16, 16, False),
+    ("flash_bwd", torch.bfloat16, 16, 16, False),
+    ("flash_fwd", torch.float32, 32, 32, True),
+    ("flash_bwd", torch.float32, 32, 32, True),
 ])
 def test_head_dim_rule_of_each_kernel(kernel, dtype, D, Dv, takes):
     from repro_torch.kernels import head_dims
