@@ -10,8 +10,9 @@ phi-3-vision-4.2b and whisper-tiny; serving and sync training of the MoE
 family, llama4-maverick and arctic; serving jamba-1.5-large-398b, the
 hybrid of Mamba, attention and MoE, and one request of it at long
 context; a training step and serving of minicpm3-4b and phi-3-vision-4.2b
-in fp32 — and holds every hand-written kernel of those paths against its
-plain PyTorch version.  Phases, in order; any
+in fp32; model programs batched through ``Service.execute_batch``; the
+port's two examples — and holds every hand-written kernel of those paths
+against its plain PyTorch version.  Phases, in order; any
 failure raises and exits non-zero:
 
 1. build the CUDA kernels from this checkout's sources (one ``nvcc`` per
@@ -236,6 +237,36 @@ failure raises and exits non-zero:
     flash forward, dq and dk/dv launch a layer in the step; one fp32 flash
     forward a layer a prefill and, for phi-3, one decode launch a layer a
     step; no bf16 kernel.  Peak memory is printed.
+21. model programs through ``Service.execute_batch``: N = BATCH_TASKS
+    tasks as one ``torch.func.vmap`` call, each kernel entry folded by its
+    vmap rule (``repro_torch/kernels/batched.py``) into one launch.  First
+    each entry under vmap at every serve shape of FLASH_SHAPES and
+    DECODE_SHAPES and the scan at falcon-mamba's and jamba's widths: one
+    launch and one rule call, held against N per-task launches of the same
+    kernel (flash and the scan bit for bit, decode within
+    BATCH_DECODE_TOL, its KV split counts printed).  Then full-size
+    qwen3-1.7B's generate program (4 requests a task, PROMPT-token
+    prompts, NEW new tokens) on one Service, the same tasks one at a time
+    and as one execute_batch, timed: the counts zeroed just before each
+    and read just after, the batched call's launches one task's (28 flash,
+    1,792 decode), each through one rule call; the batched prefill and
+    decode step timed and profiled beside phase 3's one task alone;
+    batched against per-task logits (``batched_logits``: a prefill and
+    BATCH_STEPS decode steps fed the same tokens, held to
+    BATCH_QWEN3_LIMITS); the farm through BasicClient on SERVICES
+    services at max_batch 4 and 1 (qwen3 cut to TRAIN_LAYERS layers,
+    BATCH_FARM_NEW new tokens; tok/s printed, a reading).  Then each of
+    BATCH_MODELS (qwen3 in fp32, falcon-mamba-7b and minicpm3-4b cut to
+    TRAIN_LAYERS layers, llama4-maverick to 2 with its top-k choices
+    pinned to the per-task run's): launches of a batched call equal one
+    task's, logits held to its limits, peak memory printed;
+22. the port's examples at their defaults, side by side, each in its own
+    process: ``examples/torch_serve_farm.py`` (two weighted tenants on
+    one FarmScheduler over qwen3-1.7B, a stream under a window of 8, a
+    service joining mid-run) and ``examples/torch_train_lm.py`` (300
+    AdamW steps on the Markov stream with a checkpoint restart, the loss
+    dropping by more than a nat); their output printed, either failing
+    fails the script.
 
 The line before the last is a JSON object with each kernel's numbers, one
 row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
@@ -607,6 +638,48 @@ SCAN_TOL = 1e-4
 # rounding, not the kernel.
 MAMBA_FULL_WIDTH_BATCHES = 4
 MAMBA_FULL_WIDTH_LIMITS = {torch.bfloat16: (0.45, 0.07), torch.float32: (2e-4, 3e-5)}
+# Phase 21: model programs under Service.execute_batch: BATCH_TASKS tasks of
+# PER_TASK requests as one torch.func.vmap call of the program, each kernel
+# entry folded by its vmap rule (repro_torch/kernels/batched.py) into the
+# kernel's batch axis, so that a batched call launches each kernel as often
+# as one task does.  qwen3-1.7B at full size (bf16, 28 layers, PROMPT-token
+# prompts, NEW new tokens) through the generate program: one execute_batch
+# and the same tasks one at a time on one Service, timed and profiled
+# (BATCH_TIMED_NEW decode steps a timed round); then BATCH_FARM_TASKS tasks
+# through BasicClient on SERVICES services at max_batch 4 and at 1, with
+# BATCH_FARM_NEW new tokens, qwen3 cut to TRAIN_LAYERS layers for that
+# reading (its one-at-a-time run, host-bound, is the phase's longest part).  Then each model of BATCH_MODELS, (arch, layers (None: full
+# depth), dtype, (largest, mean) |logits difference| limits), per task
+# against batched on the same prompts, the same tokens fed to both: a
+# prefill and BATCH_STEPS decode steps.  The bf16 limits were set before
+# the phase first ran, from the kernels-vs-plain limits of the same configs
+# (phases 4, 11, 15, 17) at their full depth: a batched GEMM has M = N B S
+# rows against B S, so cuBLAS may choose another algorithm and round
+# otherwise, and decode's KV split count changes with the folded batch:
+# one-ulp flips amplified by depth, as there; qwen3's a third above phase
+# 4's, for the split count.  fp32 (qwen3 cut to TRAIN_LAYERS): the
+# reference's decode-logit tolerance, where only summation order differs,
+# the witness that the bf16 gaps are rounding.  An MoE model's batched
+# top-k choices are pinned to its per-task run's (each path computes its own
+# gates and capacity drops), and the share of choices its own router makes
+# otherwise is held to ROUTING_LIMITS["pinned"], as phase 19 holds jamba's.
+BATCH_TASKS, BATCH_STEPS, BATCH_TIMED_NEW = 4, 4, 16
+BATCH_FARM_TASKS, BATCH_FARM_NEW = 16, 16
+BATCH_MODELS = (
+    ("qwen3_1p7b", TRAIN_LAYERS, torch.float32, (CONSISTENCY_TOL, CONSISTENCY_TOL)),
+    ("falcon_mamba_7b", TRAIN_LAYERS, torch.bfloat16,
+     MAMBA_FULL_WIDTH_LIMITS[torch.bfloat16]),
+    ("minicpm3_4b", TRAIN_LAYERS, torch.bfloat16, FAMILY_LIMITS["minicpm3_4b"]),
+    ("llama4_maverick_400b_a17b", MOE_LAYERS["llama4_maverick_400b_a17b"], torch.bfloat16,
+     FAMILY_LIMITS["llama4_maverick_400b_a17b"]),
+)
+BATCH_QWEN3_LIMITS = (0.12, 0.016)
+# Phase 21's direct check of each folded launch against BATCH_TASKS per-task
+# launches of the same kernel at phase 2's shapes: the flash forward and the
+# scan bit-identical (a block's work depends on its own batch row only),
+# decode within the reference's decode tolerance, |got - ref| <= tol + tol
+# |ref| (folding changes B, so the KV split count and the merge order).
+BATCH_DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # the scan's exponentials run on the multi-function unit: 16 a clock per SM
 # (NVIDIA's CUDA C++ programming guide, arithmetic instruction throughput,
 # compute capability 9.0); the card has 132 SMs
@@ -1038,7 +1111,7 @@ def profile_window(label, fn, reps):
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
         say(f"  profile {label}: the profiler recorded no device activity: not measured")
-        return
+        return None
     by_name: dict = {}
     for e in kern:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / reps
@@ -1048,16 +1121,18 @@ def profile_window(label, fn, reps):
         f"{len(kern) / reps:.0f} kernels")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         say(f"    {ms:.4f} ms  {name[:100]}")
+    return 1 - busy_ms / wall_ms
 
 
 def profile_task(api, params, tokens, new):
-    """Profile one prefill and one decode step of one task alone."""
+    """Profile one prefill and one decode step of one task alone; returns
+    their idle shares."""
     budget = PROMPT + new
-    profile_window("prefill of one task", lambda i: api.prefill(
+    idle = profile_window("prefill of one task", lambda i: api.prefill(
         params, {"tokens": tokens}, seq_budget=budget), 2)
     _, caches = api.prefill(params, {"tokens": tokens}, seq_budget=budget)
     nxt = tokens[:, -1:].to(torch.int32)
-    profile_window("decode step of one task", lambda i: api.decode(
+    return idle, profile_window("decode step of one task", lambda i: api.decode(
         params, {"tokens": nxt, "cache_index": PROMPT + i}, caches), 4)
 
 
@@ -1065,7 +1140,8 @@ def time_one_task(api, params, tokens, new):
     """Prefill ms and decode ms per step of one task alone on the card,
     CUDA events, median of TIMED_ROUNDS rounds after one untimed round
     (the path is host-bound and the host is shared: one round can read
-    several times the others); then one profiled prefill and decode step."""
+    several times the others); then one profiled prefill and decode step.
+    Returns the medians and the profiled idle shares."""
     times = []
     for r in range(TIMED_ROUNDS + 1):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -1092,7 +1168,9 @@ def time_one_task(api, params, tokens, new):
         f"{', '.join(f'{t:.3f}' for t in prefill_ms)}), decode "
         f"{np.median(decode_ms):.3f} ms per step (rounds "
         f"{', '.join(f'{t:.3f}' for t in decode_ms)})")
-    profile_task(api, params, tokens, new)
+    idle = profile_task(api, params, tokens, new)
+    return {"prefill_ms": float(np.median(prefill_ms)),
+            "decode_ms": float(np.median(decode_ms)), "idle": idle}
 
 
 class RoutingTap:
@@ -2671,6 +2749,459 @@ def tcp_phase(prompts, ref_gen, kernels):
             "kill": kill_wall}
 
 
+# --------------------------------------------------------------------- #
+# phase 21: model programs under Service.execute_batch
+# --------------------------------------------------------------------- #
+def counted_fold(kern, entry, fn, *args):
+    """``torch.func.vmap(fn)(*args)``, which must launch ``kern`` once and
+    call ``entry``'s vmap rule once."""
+    from repro_torch.kernels import batched
+
+    before, calls = kern.launches, batched.RULE_CALLS[entry]
+    out = torch.func.vmap(fn)(*args)
+    launched, ruled = kern.launches - before, batched.RULE_CALLS[entry] - calls
+    if launched != 1 or ruled != 1:
+        raise AssertionError(f"{entry} under vmap launched {kern.name} {launched} times "
+                             f"through {ruled} rule calls; expected 1 and 1")
+    return out
+
+
+def fold_checks(flash, decode, scan, widths):
+    """Phase 21's direct check: each kernel entry under torch.func.vmap on
+    BATCH_TASKS stacked tasks at every serve shape of FLASH_SHAPES and
+    DECODE_SHAPES, and the scan at ``widths`` (b = PER_TASK, s = PROMPT),
+    against BATCH_TASKS per-task launches of the same kernel: one folded
+    launch and one rule call each; flash and the scan bit-identical, decode
+    within BATCH_DECODE_TOL (its KV split counts printed)."""
+    n = BATCH_TASKS
+    for label, (B, sq, skv, H, K, D, Dv, causal, dtypes) in FLASH_SHAPES.items():
+        for dt in dtypes:
+            q = randn((n, B, sq, H, D), dt, 21)
+            k = randn((n, B, skv, K, D), dt, 22)
+            v = randn((n, B, skv, K, Dv), dt, 23)
+            out, lse = counted_fold(flash.forward_kernel(dt), "flash_attention_fwd",
+                                    lambda a, b, c: flash.flash_attention_fwd(
+                                        a, b, c, causal=causal), q, k, v)
+            per = [flash.flash_attention_fwd(q[i], k[i], v[i], causal=causal)
+                   for i in range(n)]
+            diff = max(max((out[i].float() - o.float()).abs().max().item(),
+                           (lse[i] - l).abs().max().item()) for i, (o, l) in enumerate(per))
+            same = all(torch.equal(out[i], o) and torch.equal(lse[i], l)
+                       for i, (o, l) in enumerate(per))
+            say(f"  folded flash {label} {str(dt)[6:]}: one launch at B={n * B} against "
+                f"{n} launches at B={B}: {'bit-identical' if same else 'DIFFERENT'} "
+                f"(out and lse, largest |diff| {diff:.3e})")
+            if not same:
+                raise AssertionError(f"folded flash {label} {dt} is not bit-identical to "
+                                     "its per-task launches")
+    splits = kernel_entry(decode.KERNEL, "_splits", 4)
+    for label, (B, H, K, D, slots, ci, dtypes) in DECODE_SHAPES.items():
+        for dt in dtypes:
+            qd = randn((n, B, 1, H, D), dt, 24)
+            kc = randn((n, B, slots, K, D), dt, 25)
+            vc = randn((n, B, slots, K, D), dt, 26)
+            got = counted_fold(decode.KERNEL, "decode_attention_fwd",
+                               lambda a, b, c: decode.decode_attention_fwd(
+                                   a, b, c, cache_index=ci), qd, kc, vc)
+            per = torch.stack([decode.decode_attention_fwd(qd[i], kc[i], vc[i],
+                                                           cache_index=ci)
+                               for i in range(n)])
+            tol = BATCH_DECODE_TOL[dt]
+            check(f"folded decode {label} {str(dt)[6:]} cache_index {ci}: one launch at "
+                  f"B={n * B} ({splits(n * B, H, K, ci)} KV splits) against {n} at B={B} "
+                  f"({splits(B, H, K, ci)} KV splits); bit-identical "
+                  f"{torch.equal(got, per)}", got, per, tol, tol)
+    for d, nstate in widths:
+        xs = [scan_inputs(PER_TASK, PROMPT, d, nstate, 30 + 10 * i) for i in range(n)]
+        A = xs[0][2]  # one A for every task, as the weights give it
+        x, dt, B, C = (torch.stack([t[j] for t in xs]) for j in (0, 1, 3, 4))
+        y, hf = counted_fold(scan.KERNEL, "mamba_scan",
+                             lambda a, b, c, e: scan.mamba_scan(a, b, A, c, e),
+                             x, dt, B, C)
+        per = [scan.mamba_scan_fwd(x[i], dt[i], A, B[i], C[i]) for i in range(n)]
+        same = all(torch.equal(y[i], a) and torch.equal(hf[i], b)
+                   for i, (a, b) in enumerate(per))
+        diff = max(max((y[i] - a).abs().max().item(), (hf[i] - b).abs().max().item())
+                   for i, (a, b) in enumerate(per))
+        say(f"  folded scan d={d}: one launch at b={n * PER_TASK} against {n} launches at "
+            f"b={PER_TASK}: {'bit-identical' if same else 'DIFFERENT'} (y and h_final, "
+            f"largest |diff| {diff:.3e})")
+        if not same:
+            raise AssertionError(f"folded scan d={d} is not bit-identical to its per-task "
+                                 "launches")
+        del x, dt, B, C, y, hf, per, xs
+    torch.cuda.synchronize()
+
+
+def launch_counts(kernels):
+    from repro_torch.kernels import batched
+
+    out = {kern.name: kern.launches for kern in kernels.KERNELS}
+    out.update({f"rule {k}": v for k, v in batched.RULE_CALLS.items()})
+    return out
+
+
+def zero_counts(kernels):
+    from repro_torch.kernels import batched
+
+    for kern in kernels.KERNELS:
+        kern.launches = 0
+    batched.reset_rule_calls()
+
+
+def one_task_launches(cfg, steps, kernels):
+    """A task's exact launches through prefill and ``steps`` decode steps:
+    one flash forward (of the compute dtype) an attention layer, one decode
+    an attention layer and step (none for MLA's absorbed decode), one scan
+    a Mamba layer; and the rule calls a batched call adds, one a launch."""
+    from repro_torch.kernels import decode_attention as decode
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import mamba_scan as scan
+
+    attn = sum(b.mixer == "attn" for b in cfg.pattern) * cfg.n_repeats
+    mamba = cfg.n_layers - attn
+    want = {kern.name: 0 for kern in kernels.KERNELS}
+    want[flash.forward_kernel(cfg.dtype).name] = attn
+    want[decode.KERNEL.name] = 0 if cfg.attention == "mla" else attn * steps
+    want[scan.KERNEL.name] = mamba
+    rules = {"rule flash_attention_fwd": attn,
+             "rule decode_attention_fwd": want[decode.KERNEL.name],
+             "rule mamba_scan": mamba}
+    return want, rules
+
+
+def batch_logits_program(api, params, steps):
+    """A task's prefill and ``steps`` decode steps fed the payload's
+    ``feed`` tokens: {"logits": (B, steps + 1, V), "choices": each MoE
+    routing's own top-k choices}.  With ``pins`` in the payload (another
+    run's choices, in call order) each routing takes the pinned choices in
+    place of its own and gathers its gates from its own probabilities."""
+    from repro_torch.core import Program
+    from repro_torch.models import moe
+
+    def fn(payload):
+        own, pins, choose = [], list(payload.get("pins", ())), moe.top_k
+
+        def top_k(probs, k):
+            gate, idx = choose(probs, k)
+            own.append(idx)
+            if pins:
+                idx = pins[len(own) - 1]
+                gate = probs.gather(-1, idx)
+            return gate, idx
+
+        moe.top_k = top_k
+        try:
+            logits, caches = api.prefill(params, {"tokens": payload["tokens"]},
+                                         seq_budget=PROMPT + steps)
+            out = [logits]
+            for i in range(steps):
+                logits, caches = api.decode(params, {"tokens": payload["feed"][:, i:i + 1],
+                                                     "cache_index": PROMPT + i}, caches)
+                out.append(logits)
+        finally:
+            moe.top_k = choose
+        return {"logits": torch.stack(out, 1), "choices": own}
+
+    return Program(fn, name=f"logits[{api.cfg.name}]")
+
+
+def batched_logits(label, api, params, dev, kernels, limits):
+    """Per task against batched on one Service: BATCH_TASKS tasks of
+    PER_TASK prompts through ``batch_logits_program`` one at a time, then
+    as one ``execute_batch``.  Each launch count of the batched call must
+    equal one task's (and the rule calls its launches); the |logits
+    difference| at the prefill and each decode step is held to ``limits``
+    (largest, mean over the tasks); an MoE model's batched choices are
+    pinned to the per-task ones, its own flips held to
+    ROUTING_LIMITS["pinned"].  Returns the batched call's launch counts."""
+    from repro_torch.core import Service
+
+    cfg = api.cfg
+    rng = np.random.default_rng(SEED + 21)
+    payloads = [{"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                        (PER_TASK, PROMPT))),
+                 "feed": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                      (PER_TASK, BATCH_STEPS)),
+                                         dtype=torch.int32)} for _ in range(BATCH_TASKS)]
+    prog = batch_logits_program(api, params, BATCH_STEPS)
+    svc = Service(None, device=dev)
+    want, rules = one_task_launches(cfg, BATCH_STEPS, kernels)
+    per = []
+    for i, p in enumerate(payloads):
+        zero_counts(kernels)
+        per.append(svc.execute(prog, p))
+        got = launch_counts(kernels)
+        if any(got[k] != v for k, v in want.items()) or any(got[k] for k in rules):
+            raise AssertionError(f"{label} task {i}: launches {got}, expected {want} and no "
+                                 "rule call")
+    if per[0]["choices"]:
+        for p, r in zip(payloads, per):
+            p["pins"] = r["choices"]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    bat = svc.execute_batch(prog, payloads)
+    wall = time.perf_counter() - t0
+    got = launch_counts(kernels)
+    say(f"  {label}: batched call of {BATCH_TASKS} tasks (prefill + {BATCH_STEPS} decode "
+        f"steps, {wall:.3f} s): launches {got}; one task's {want}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if any(got[k] != v for k, v in {**want, **rules}.items()):
+        raise AssertionError(f"{label}: a batched call's launches {got} differ from one "
+                             f"task's {want} (rule calls {rules})")
+    max_lim, mean_lim = limits
+    for s in range(BATCH_STEPS + 1):
+        a = torch.stack([r["logits"][:, s] for r in per])
+        b = torch.stack([r["logits"][:, s] for r in bat])
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"{label}: non-finite logits")
+        diff = (a - b).abs()
+        err, mean = diff.max().item(), diff.mean().item()
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        name = "prefill" if s == 0 else f"decode at {PROMPT + s - 1}"
+        say(f"    {name} logits, batched vs per task: max |diff| {err:.3e} (limit "
+            f"{max_lim:g}), mean |diff| {mean:.3e} (limit {mean_lim:g}), greedy tokens "
+            f"agree on {agree:.3f} of rows")
+        if not (err <= max_lim and mean <= mean_lim):
+            raise AssertionError(f"{label} {name}: batched logits disagree with per-task")
+    if per[0]["choices"]:
+        flips = total = 0
+        for r_per, r_bat in zip(per, bat):
+            for a, b in zip(r_per["choices"], r_bat["choices"]):
+                flips += int((a != b).sum())
+                total += a.numel()
+        say(f"    routing: {flips} of {total} (token, choice) top-k choices the batched "
+            f"router makes otherwise on the pinned path ({flips / total:.4f}; limit "
+            f"{ROUTING_LIMITS['pinned']})")
+        if flips / total > ROUTING_LIMITS["pinned"]:
+            raise AssertionError(f"{label}: the batched routing flips too many choices")
+    svc.drop_programs()
+    return got
+
+
+def time_batched(api, params, tokens, new, one):
+    """The batched prefill and decode step of ``tokens`` (N, B, PROMPT) on
+    the card as one torch.func.vmap call each, CUDA events, median of
+    TIMED_ROUNDS rounds of a prefill and ``new`` steps after an untimed
+    one; then one profiled of each, printed beside ``one`` (a task alone,
+    phase 3's ``time_one_task``)."""
+    n, budget = tokens.shape[0], PROMPT + new
+    prefill = torch.func.vmap(lambda t: api.prefill(params, {"tokens": t},
+                                                    seq_budget=budget))
+
+    def step(nxt, caches, ci):
+        return torch.func.vmap(lambda t, c: api.decode(
+            params, {"tokens": t, "cache_index": ci}, c)[0])(nxt, caches)
+
+    times = []
+    for r in range(TIMED_ROUNDS + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        logits, caches = prefill(tokens)
+        ev[1].record()
+        for i in range(new):
+            logits = step(torch.argmax(logits, -1).to(torch.int32)[..., None], caches,
+                          PROMPT + i)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if not torch.isfinite(logits).all():
+            raise AssertionError("non-finite batched logits")
+        if r:
+            times.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]) / new))
+    pre, dec = float(np.median([t[0] for t in times])), float(np.median([t[1] for t in times]))
+    idle_p = profile_window(f"batched prefill of {n} tasks", lambda i: prefill(tokens), 2)
+    _, caches = prefill(tokens)
+    nxt = tokens[..., -1:].to(torch.int32)
+    idle_d = profile_window(f"batched decode step of {n} tasks",
+                            lambda i: step(nxt, caches, PROMPT + i), 4)
+
+    def idle(x):
+        return "not measured" if x is None else f"{x:.3f}"
+
+    say(f"  {n} tasks batched, median of {TIMED_ROUNDS} rounds: prefill {pre:.3f} ms "
+        f"(rounds {', '.join(f'{t[0]:.3f}' for t in times)}; idle {idle(idle_p)}), decode "
+        f"{dec:.3f} ms per step ({new} steps; rounds "
+        f"{', '.join(f'{t[1]:.3f}' for t in times)}; idle {idle(idle_d)}); one task alone "
+        f"(phase 3): prefill {one['prefill_ms']:.3f} ms (idle {idle(one['idle'][0])}), "
+        f"decode {one['decode_ms']:.3f} ms per step (idle {idle(one['idle'][1])}); per task "
+        f"batched: prefill {pre / n:.3f} ms, decode {dec / n:.3f} ms per step")
+
+
+def batched_farm(cfg, dev):
+    """BATCH_FARM_TASKS tasks of PER_TASK prompts through BasicClient on
+    SERVICES fresh in-process services, at max_batch 4 (batches of 4 leased
+    and run by execute_batch; the adaptive controller off) and at 1, with
+    ``cfg`` cut to TRAIN_LAYERS layers: tok/s of each, a reading, not a
+    claim."""
+    from repro_torch.core import BasicClient, LookupService, Service
+    from repro_torch.models import build
+    from repro_torch.runtime.serve_loop import ServeConfig, make_generate_program
+
+    cfg = cfg.replace(n_layers=TRAIN_LAYERS)
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED))
+    say(f"  farm reading on {cfg.name} cut to {cfg.n_layers} layers; reduced: "
+        + json.dumps([f"n_layers 28 -> {cfg.n_layers} for the farm reading, widths as "
+                      "published"]))
+    lookup = LookupService()
+    services = [Service(lookup, device=dev) for _ in range(SERVICES)]
+    for svc in services:
+        svc.start()
+    prompts = np.random.default_rng(SEED + 22).integers(
+        0, api.cfg.vocab_size, (BATCH_FARM_TASKS * PER_TASK, PROMPT))
+    tasks = [{"tokens": torch.as_tensor(prompts[i:i + PER_TASK])}
+             for i in range(0, len(prompts), PER_TASK)]
+    program = make_generate_program(
+        api, ServeConfig(max_new_tokens=BATCH_FARM_NEW, prompt_len=PROMPT,
+                         batch_per_task=PER_TASK), params)
+    gens = {}
+    for mb in (4, 1):
+        out = []
+        client = BasicClient(program, None, tasks, out, lookup=lookup, max_batch=mb,
+                             adaptive_batching=False)
+        t0 = time.perf_counter()
+        client.compute(timeout=900)
+        wall = time.perf_counter() - t0
+        stats = client.stats()
+        gens[mb] = torch.cat([o["generated"].cpu() for o in out])
+        batches = (sum(b["batches_dispatched"] for b in stats["batching"].values())
+                   if "batching" in stats else stats["done"])
+        say(f"  farm, max_batch={mb}: {BATCH_FARM_TASKS} tasks x {PER_TASK} requests x "
+            f"{BATCH_FARM_NEW} new tokens in {wall:.3f} s: {gens[mb].numel() / wall:.1f} tok/s "
+            f"on {SERVICES} services; {stats['done']} tasks done in {batches} calls, "
+            f"{stats['reschedules']} reschedules")
+        if stats["done"] != BATCH_FARM_TASKS or tuple(gens[mb].shape) != (
+                BATCH_FARM_TASKS * PER_TASK, BATCH_FARM_NEW):
+            raise AssertionError(f"the farm at max_batch={mb} did not complete")
+    differ = int((gens[4] != gens[1]).sum())
+    say(f"  farm tokens, max_batch 4 vs 1: {differ} of {gens[1].numel()} differ (bf16 "
+        "near-ties; the logits are held below)")
+    free(services)
+    for svc in services:
+        svc.kill()
+
+
+def batched_serve_phase(dev, kernels, one):
+    """Phase 21 on qwen3-1.7B at full size: the generate program on one
+    Service, the same BATCH_TASKS tasks one at a time and as one
+    execute_batch (launches exact: one task's, through the rules), timed
+    and profiled; per task against batched logits; then the farm at
+    max_batch 4 and 1."""
+    import repro_torch.configs as cfgs
+    from repro_torch.core import Service
+    from repro_torch.models import build
+    from repro_torch.runtime.serve_loop import ServeConfig, make_generate_program
+
+    cfg = cfgs.get(ARCH)
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED))
+    svc = Service(None, device=dev)
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                   (BATCH_TASKS * PER_TASK, PROMPT))
+    payloads = [{"tokens": torch.as_tensor(prompts[i:i + PER_TASK])}
+                for i in range(0, len(prompts), PER_TASK)]
+    gen = make_generate_program(api, ServeConfig(max_new_tokens=NEW, prompt_len=PROMPT,
+                                                 batch_per_task=PER_TASK), params)
+    warm = make_generate_program(api, ServeConfig(max_new_tokens=2, prompt_len=PROMPT,
+                                                  batch_per_task=PER_TASK), params)
+    svc.execute(warm, payloads[0])
+    svc.execute_batch(warm, payloads)
+    want, rules = one_task_launches(cfg, NEW, kernels)
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    per = [svc.execute(gen, p) for p in payloads]
+    wall_per = time.perf_counter() - t0
+    got_per = launch_counts(kernels)
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    bat = svc.execute_batch(gen, payloads)
+    wall_bat = time.perf_counter() - t0
+    got = launch_counts(kernels)
+    tok = BATCH_TASKS * PER_TASK * NEW
+    say(f"  {cfg.name}: {BATCH_TASKS} tasks one at a time in {wall_per:.3f} s "
+        f"({tok / wall_per:.1f} tok/s), launches {got_per}")
+    say(f"  {cfg.name}: the same {BATCH_TASKS} tasks as one execute_batch in "
+        f"{wall_bat:.3f} s ({tok / wall_bat:.1f} tok/s), launches {got}; one task's {want}")
+    if any(got_per[k] != BATCH_TASKS * v for k, v in want.items()) or any(
+            got_per[k] for k in rules):
+        raise AssertionError("the per-task runs' launches changed")
+    if any(got[k] != v for k, v in {**want, **rules}.items()):
+        raise AssertionError("the batched call's launches are not one task's, through "
+                             "the rules")
+    differ = sum(int((a["generated"] != b["generated"]).sum()) for a, b in zip(per, bat))
+    gen_b = torch.cat([b["generated"].cpu() for b in bat])
+    if not (int(gen_b.min()) >= 0 and int(gen_b.max()) < cfg.vocab_size) or tuple(
+            gen_b.shape) != (BATCH_TASKS * PER_TASK, NEW):
+        raise AssertionError("batched generated tokens out of range or of the wrong shape")
+    say(f"  greedy tokens, batched vs per task: {differ} of {gen_b.numel()} differ (a bf16 "
+        "near-tie flips a token and what follows; the logits are held below)")
+    time_batched(api, params, torch.stack([p["tokens"] for p in payloads]).to(dev),
+                 BATCH_TIMED_NEW, one)
+    batched_logits(f"{cfg.name} bf16, {cfg.n_layers} layers", api, params, dev, kernels,
+                   BATCH_QWEN3_LIMITS)
+    svc.drop_programs()
+    del api, params, gen, warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    batched_farm(cfg, dev)
+
+
+def batched_family(arch, layers, dtype, limits, dev, kernels):
+    """Phase 21 on one model of BATCH_MODELS, at full width, depth cut to
+    ``layers``, in ``dtype``: per task against batched logits and launches
+    (``batched_logits``)."""
+    import repro_torch.configs as cfgs
+    from repro_torch.models import build
+
+    full = cfgs.get(arch)
+    cfg = full.replace(n_layers=layers)
+    if dtype == torch.float32:
+        cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    say(f"  {cfg.name} in {str(dtype)[6:]}: {cfg.n_layers} of {full.n_layers} layers, "
+        f"d_model {cfg.d_model}, {sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
+        "params; reduced: " + json.dumps([f"n_layers {full.n_layers} -> {cfg.n_layers} "
+                                          "for phase 21, widths as published"]))
+    batched_logits(f"{cfg.name} {str(dtype)[6:]}, {cfg.n_layers} layers", api, params, dev,
+                   kernels, limits)
+    del api, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def examples_phase():
+    """Phase 22: the port's two examples on the card at their defaults, as
+    a user runs them, side by side (one process each, the kernels this
+    checkout built; the serving farm is host-bound, the training run
+    device-bound): the serving farm's tenants and the training run's loss
+    drop."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    runs = {name: subprocess.Popen([sys.executable, str(ROOT / "examples" / name)], env=env,
+                                   cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                   text=True)
+            for name in ("torch_serve_farm.py", "torch_train_lm.py")}
+    failed = []
+    for name, proc in runs.items():
+        try:
+            out, err = proc.communicate(timeout=900)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        say(f"  examples/{name}: exit {proc.returncode} after {time.perf_counter() - t0:.1f} s")
+        for line in out.splitlines():
+            say(f"    {line}")
+        if proc.returncode != 0 or not out.rstrip().endswith("OK"):
+            say(err[-4000:])
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"examples failed: {failed}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2759,7 +3290,7 @@ def main() -> int:
     if launches[decode.KERNEL.name] < n_tasks * cfg.n_layers * NEW:
         raise AssertionError("decode kernel launched fewer times than decode needs")
 
-    time_one_task(api, params, torch.as_tensor(prompts[:PER_TASK]).to(dev), NEW)
+    one_task = time_one_task(api, params, torch.as_tensor(prompts[:PER_TASK]).to(dev), NEW)
 
     phase("phase 4: full width, kernels vs plain versions")
     full_width_phase(api, params, cfg, dev, kernels.PLAIN)
@@ -2913,6 +3444,20 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         say(f"  {arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+
+    phase("phase 21: model programs batched through Service.execute_batch (vmap, each "
+          "kernel folded)")
+    t21 = time.perf_counter()
+    fold_checks(flash, decode, scan, sorted({(c.d_inner, c.ssm.state_dim)
+                                             for c in (mcfg, jcfg)}))
+    batched_serve_phase(dev, kernels, one_task)
+    free(services)
+    for arch, layers, dtype, limits in BATCH_MODELS:
+        batched_family(arch, layers, dtype, limits, dev, kernels)
+    say(f"  phase 21 took {time.perf_counter() - t21:.1f} s")
+
+    phase("phase 22: the port's examples (serving farm, training run) on the card")
+    examples_phase()
 
     say(f"all phases in {time.perf_counter() - START:.1f} s")
     # the kernels line: (name, kernel, its times, its largest |error|, the

@@ -6,6 +6,14 @@ the reference package's Pallas ``decode_attention_fwd``: one query token
 per (batch, q-head) against the cache, positions past ``cache_index``
 (inclusive, one scalar for the batch) masked, GQA via h*K//H, fp32
 softmax, output in the cache dtype.
+
+Under ``torch.func.vmap`` (``Service.execute_batch``) the call goes
+through the custom op ``repro_torch::decode_attention_fwd``, whose vmap
+rule folds the tasks into B and launches once, at the one
+``cache_index`` of the whole batch (``kernels/batched.py``).  Folding
+changes B, so the kernel may split the cache into other KV splits and
+merge in another order than a task's own launch: the results agree
+within the decode tolerance, not bit for bit.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ import ctypes
 import torch
 
 from .. import head_dims
+from ..batched import fold, under_vmap, unfold
 from ..build import CudaKernel
 
 NEG_INF = -2.0e38
@@ -65,7 +74,14 @@ def decode_attention_fwd(q, k_cache, v_cache, *, cache_index: int):
     int (last valid position, inclusive).
 
     CPU tensors go to the plain version; CUDA tensors to the kernel,
-    which raises on what it does not take."""
+    which raises on what it does not take.  Under vmap the call goes
+    through the custom op, whose rule launches once for all the tasks."""
+    if under_vmap(q, k_cache, v_cache):
+        if torch.is_tensor(cache_index) and under_vmap(cache_index):
+            raise ValueError("decode_attention_fwd under vmap: input cache_index "
+                             "arrived batched; the kernel takes one cache_index "
+                             "for the whole batch and cannot fold it")
+        return _decode_op(q, k_cache, v_cache, int(cache_index))
     cache_index = int(cache_index)
     _check(q, k_cache, v_cache, cache_index)
     if q.device.type == "cpu":
@@ -83,6 +99,9 @@ def decode_attention_fwd(q, k_cache, v_cache, *, cache_index: int):
     B, _, H, D = q.shape
     _, S, K, Dv = v_cache.shape
     head_dims.check("decode_attention_fwd", "decode", q.dtype, D, Dv)
+    if B > 65535:
+        raise ValueError(f"decode_attention_fwd: batch {B} (q {tuple(q.shape)}) "
+                         "exceeds the grid's 65535")
     if not (q.is_contiguous() and k_cache.is_contiguous()
             and v_cache.is_contiguous()):
         raise ValueError("decode_attention_fwd: inputs must be contiguous")
@@ -96,3 +115,24 @@ def decode_attention_fwd(q, k_cache, v_cache, *, cache_index: int):
                       out.data_ptr(), B, S, H, K, D, cache_index,
                       _DTYPES[q.dtype], stream)
     return out
+
+
+@torch.library.custom_op(
+    "repro_torch::decode_attention_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k_cache, Tensor v_cache, int cache_index) -> Tensor")
+def _decode_op(q, k_cache, v_cache, cache_index):
+    return decode_attention_fwd(q, k_cache, v_cache, cache_index=cache_index)
+
+
+@_decode_op.register_fake
+def _(q, k_cache, v_cache, cache_index):
+    return q.new_empty((*q.shape[:3], v_cache.shape[3]), dtype=v_cache.dtype)
+
+
+@_decode_op.register_vmap
+def _(info, in_dims, q, k_cache, v_cache, cache_index):
+    n = info.batch_size
+    q, k_cache, v_cache = fold("decode_attention_fwd", n, ("q", "k_cache", "v_cache"),
+                               (q, k_cache, v_cache), in_dims[:3])
+    out = decode_attention_fwd(q, k_cache, v_cache, cache_index=cache_index)
+    return unfold(out, n), 0

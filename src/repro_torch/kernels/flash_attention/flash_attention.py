@@ -20,6 +20,10 @@ Pallas ``flash_attention_bwd``: p recomputed from the forward's lse,
 ``dk = ds^T Q``, ``dv = p^T dO``, all in fp32 (the bf16 kernels' products
 take bf16 operands, with p and ds split into two bf16 terms each, and sum
 in fp32; the fp32 kernels' products are three tf32 products each).
+
+Under ``torch.func.vmap`` (``Service.execute_batch``) the forward goes
+through the custom op ``repro_torch::flash_attention_fwd``, whose vmap
+rule folds the tasks into B and launches once (``kernels/batched.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import ctypes
 import torch
 
 from .. import head_dims
+from ..batched import fold, under_vmap, unfold
 from ..build import CudaKernel
 
 NEG_INF = -2.0e38
@@ -137,7 +142,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
 
     CPU tensors go to the plain version; CUDA tensors to the kernel of
     their dtype (``forward_kernel``), which raises on what it does not
-    take."""
+    take.  Under vmap the call goes through the custom op, whose rule
+    launches once for all the tasks."""
+    if under_vmap(q, k, v):
+        return _fwd_op(q, k, v, causal)
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
@@ -145,6 +153,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
     _check_tma("flash_attention_fwd", q, k, v)
     B, Sq, H, D = q.shape
     _, Skv, K, Dv = v.shape
+    if B > 65535:
+        raise ValueError(f"flash_attention_fwd: batch {B} (q {tuple(q.shape)}) "
+                         "exceeds the grid's 65535")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -153,6 +164,28 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), B, Sq, Skv, H, K, D, Dv, int(causal), stream)
     return out, lse
+
+
+@torch.library.custom_op(
+    "repro_torch::flash_attention_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal) -> (Tensor, Tensor)")
+def _fwd_op(q, k, v, causal):
+    return flash_attention_fwd(q, k, v, causal=causal)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, causal):
+    B, Sq, H, _ = q.shape
+    return (q.new_empty((B, Sq, H, v.shape[3])),
+            q.new_empty((B, H, Sq), dtype=torch.float32))
+
+
+@_fwd_op.register_vmap
+def _(info, in_dims, q, k, v, causal):
+    n = info.batch_size
+    q, k, v = fold("flash_attention_fwd", n, ("q", "k", "v"), (q, k, v), in_dims[:3])
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    return (unfold(out, n), unfold(lse, n)), (0, 0)
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, g, *, causal: bool = True):

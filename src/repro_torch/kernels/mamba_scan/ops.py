@@ -10,21 +10,42 @@ recomputed under ``torch.enable_grad()`` inside ``backward``.  That is the
 one place a plain version runs on the CUDA training path, by design, not
 as a fallback: a kernel that fails to build or launch in the forward
 raises.
+
+Under ``torch.func.vmap`` (``Service.execute_batch``) the Function's
+``vmap`` staticmethod is the scan's one vmap rule (``kernels/batched.py``):
+the tasks fold into b, and one ``_Scan.apply`` on the folded inputs
+launches the kernel once.  ``A`` is one (d, n) matrix for the whole batch
+and raises, by name, when it arrives batched.  The rule needs the
+``forward(x, ...)`` + ``setup_context`` form, which functorch asks of
+every ``autograd.Function`` it transforms.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..batched import fold, unfold
 from .mamba_scan import mamba_scan_fwd, mamba_scan_plain
+
+# the vmap rule's view of the inputs: each folds into b but A
+SCAN_INPUTS, SCAN_FIXED = ("x", "dt", "A", "B", "C", "h0"), ("A",)
 
 
 class _Scan(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dt, A, B, C, h0):
-        y, hf = mamba_scan_fwd(x, dt, A, B, C, h0)
-        ctx.save_for_backward(x, dt, A, B, C, h0)
-        return y, hf
+    def forward(x, dt, A, B, C, h0):
+        return mamba_scan_fwd(x, dt, A, B, C, h0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def vmap(info, in_dims, *inputs):
+        n = info.batch_size
+        y, hf = _Scan.apply(*fold("mamba_scan", n, SCAN_INPUTS, inputs, in_dims,
+                                  fixed=SCAN_FIXED))
+        return (unfold(y, n), unfold(hf, n)), (0, 0)
 
     @staticmethod
     def backward(ctx, gy, gh):

@@ -21,6 +21,13 @@ fp32.  ``dense_residual`` adds a dense MLP computed for every token
 (Arctic's dense-MoE hybrid; also llama4-maverick's shared expert).  The
 products are plain PyTorch: the reference's are XLA einsums, outside any
 Pallas kernel.
+
+Under ``torch.func.vmap`` (``Service.execute_batch``) routing, capacity
+and drops stay per task.  Only the expert products have a rule of their
+own (``expert_matmul``): vmap's rule for a batched (E, T, a) times the
+unbatched (E, a, b) weights copies the weights once per task (one of
+llama4-maverick's expert stacks is 10.7 GB in bf16), where folding the
+tasks' slots into T reads each expert once.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import math
 import torch
 from torch import nn
 
+from ..kernels.batched import under_vmap
 from .common import ModelConfig
 from .layers import dense_init, make_mlp
 
@@ -57,6 +65,37 @@ def top_k(probs: torch.Tensor, k: int):
     return probs.gather(-1, idx), idx
 
 
+def expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E, T, a) @ w (E, a, b) -> (E, T, b), one product an expert.
+    Under vmap with ``w`` unbatched (the weights) it goes through the op
+    ``repro_torch::expert_matmul``, whose rule folds the tasks into T."""
+    if under_vmap(x) and not under_vmap(w):
+        return _expert_matmul_op(x, w)
+    return x @ w
+
+
+@torch.library.custom_op("repro_torch::expert_matmul", mutates_args=(),
+                         schema="(Tensor x, Tensor w) -> Tensor")
+def _expert_matmul_op(x, w):
+    return x @ w
+
+
+@_expert_matmul_op.register_fake
+def _(x, w):
+    return x.new_empty((*x.shape[:-1], w.shape[-1]))
+
+
+@_expert_matmul_op.register_vmap
+def _(info, in_dims, x, w):
+    if in_dims[1] is not None:  # expert_matmul enters the op with w unbatched
+        raise ValueError("expert_matmul under vmap: the weights w arrived batched")
+    n = info.batch_size
+    x = x.movedim(in_dims[0], 1)
+    E, _, T, a = x.shape
+    out = x.reshape(E, n * T, a) @ w  # the tasks' slots side by side
+    return out.reshape(E, n, T, w.shape[-1]), 1
+
+
 class Experts(nn.Module):
     """E MLPs stacked along a leading expert axis, in ``pdtype``: ``wi``
     and (SwiGLU) ``wg`` of (E, d, ff), ``wo`` of (E, ff, d), each expert
@@ -75,10 +114,11 @@ class Experts(nn.Module):
         """x (E, T, d): T slots an expert -> (E, T, d)."""
         dt = self.dtype
         if self.act == "swiglu":
-            h = nn.functional.silu(x @ self.wg.to(dt)) * (x @ self.wi.to(dt))
+            h = (nn.functional.silu(expert_matmul(x, self.wg.to(dt)))
+                 * expert_matmul(x, self.wi.to(dt)))
         else:
-            h = nn.functional.gelu(x @ self.wi.to(dt), approximate="tanh")
-        return h @ self.wo.to(dt)
+            h = nn.functional.gelu(expert_matmul(x, self.wi.to(dt)), approximate="tanh")
+        return expert_matmul(h, self.wo.to(dt))
 
 
 class MoE(nn.Module):
