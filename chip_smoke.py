@@ -265,8 +265,27 @@ failure raises and exits non-zero:
     one FarmScheduler over qwen3-1.7B, a stream under a window of 8, a
     service joining mid-run) and ``examples/torch_train_lm.py`` (300
     AdamW steps on the Markov stream with a checkpoint restart, the loss
-    dropping by more than a nat); their output printed, either failing
-    fails the script.
+    dropping by more than a nat) and ``examples/torch_autotune.py``
+    (``sim://`` sweeps with the scripted cost model, their winners cached
+    and dispatched through on the card); their output printed, any one
+    failing fails the script;
+23. the autotuner (``repro_torch.tune``) on the card, within
+    TUNE_PHASE_LIMIT_S: the tuning space against the kernels (every bf16
+    forward instantiation built where the space's register rule admits
+    it and refused where not, each kernel's shared-memory query equal to
+    the space's ``smem_bytes``, no ptxas spill in what tuning adds, the
+    build time); every candidate of TUNE_SWEEPS held to its plain version
+    with phase 2's (phase 9's) element check, also at ragged shapes, and
+    configs the kernels refuse raising by name, from an argument and
+    from a cache entry; each sweep of TUNE_SWEEPS through a KernelTuner
+    over a farm of one service on the card, its summary printed, its
+    winner re-timed against the default in turns and no slower within
+    the spread; two same-seed ``sim://`` sweeps byte-identical; a
+    cache-hit probe within TUNE_PROBE_SHARE of phase 2's host time of a
+    wrapper call; qwen3-1.7B at full width, TUNE_SERVE_LAYERS layers,
+    served through ``launch/serve.py --tune-cache`` with the winners:
+    cache hits, a task's launches as phase 3's a layer, logits of the
+    tuned dispatch held to phase 4's limits against the untuned kernels.
 
 The line before the last is a JSON object with each kernel's numbers, one
 row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
@@ -285,7 +304,8 @@ flash forward and decode (``flash_attention_fwd_g8``,
 (``flash_attention_fwd_fp32_d96_dv64``, ``..._fp32_d96`` at S = 768) and
 pair (``flash_attention_bwd_{dq,dkv}_fp32_{d96_dv64,d96}``), their launches
 those of phase 20's runs (the forward's: training step and serving
-summed); the last
+summed); each row's ``knobs`` are its kernel's tunable launch parameters
+and the values the tuning space takes (none for fixed tiles).  The last
 line is ``{"ok": true, "device": {...}}``.  Times are CUDA-event times on
 this card without flushing the 50 MB L2 cache (the serve and training
 paths find their inputs freshly written): for every kernel, its library
@@ -685,6 +705,61 @@ BATCH_DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # compute capability 9.0); the card has 132 SMs
 MUFU_PER_CLOCK_SM, SMS = 16, 132
 SCAN_FLOP_PER_ELEMENT = 6  # dt*A, h*dA, dx*B, +, C*h, + per (b, s, d, n)
+# Phase 23: the autotuner (repro_torch.tune) on the card.  Its sweeps run
+# at the main paths' shapes: the bf16 flash forward's tiles at qwen3's
+# prefill (G = 2: two q-heads a block) and llama4's (G = 5: one); decode's
+# KV splits at qwen3's (B = 4 and B = 1, a 576-slot cache); the scan's
+# lanes a channel and the plain scan's chunk (its forward and backward) at
+# falcon-mamba's (b = 4, s = 512, d = 8192, n = 16).  label -> (family,
+# backend, dtype, shape).  Each sweep is a KernelTuner over a farm of one
+# in-process service on the card: candidates timed at once on one card
+# would time each other.  Its winner and the default are then re-timed
+# one after the other, TUNE_RETIMES times each in turns, and the winner's
+# median must be no slower than the default's plus the larger spread
+# (largest minus smallest) of the two: today's tiles were picked by hand
+# for this card, so "no slower" is the bar, not a speedup.
+TUNE_SWEEPS = {
+    "flash qwen3 G=2": ("flash_fwd", "cuda", "bfloat16",
+                        {"B": PER_TASK, "Sq": PROMPT, "Skv": PROMPT, "H": 16, "K": 8,
+                         "D": 128, "Dv": 128}),
+    "flash llama4 G=5": ("flash_fwd", "cuda", "bfloat16",
+                         {"B": PER_TASK, "Sq": PROMPT, "Skv": PROMPT, "H": 40, "K": 8,
+                          "D": 128, "Dv": 128}),
+    "decode qwen3 B=4": ("decode", "cuda", "bfloat16",
+                         {"B": PER_TASK, "S": PROMPT + NEW, "H": 16, "K": 8, "D": 128,
+                          "Dv": 128}),
+    "decode qwen3 B=1": ("decode", "cuda", "bfloat16",
+                         {"B": 1, "S": PROMPT + NEW, "H": 16, "K": 8, "D": 128, "Dv": 128}),
+    "scan lanes falcon-mamba": ("mamba", "cuda", "float32",
+                                {"b": PER_TASK, "s": PROMPT, "d": 8192, "n": 16}),
+    "scan chunk falcon-mamba": ("mamba", "torch", "float32",
+                                {"b": PER_TASK, "s": PROMPT, "d": 8192, "n": 16}),
+}
+TUNE_RETIMES = 5
+# Ragged shapes every flash candidate also runs at (besides its sweep
+# shape): a second row warpgroup whose rows run past Sq, a 128-key tile
+# past Skv, non-causal.  (B, Sq, Skv, causal)
+TUNE_RAGGED_FLASH = ((2, 13, 13, True), (2, 200, 200, True), (1, 130, 70, False))
+# A cache-hit probe of the tuning cache, as a wrapper pays it, may cost at
+# most this share of phase 2's host time of a wrapper call (the
+# reference's dispatch-overhead gate, benchmarks/autotune.py).
+TUNE_PROBE_SHARE = 0.03
+# qwen3-1.7B served through ``launch/serve.py --tune-cache`` at full width
+# with its depth cut to TUNE_SERVE_LAYERS (the serve's launches and tokens
+# do not depend on depth beyond counts; phase 3 served all 28 layers):
+# TUNE_SERVE_NEW new tokens for REQUESTS prompts; then prefill and one
+# decode step through the tuned dispatch against the untuned kernels,
+# |logits difference| held to phase 4's limits on TUNE_LOGIT_BATCHES
+# batches.
+TUNE_SERVE_LAYERS, TUNE_SERVE_NEW, TUNE_LOGIT_BATCHES = 4, 8, 2
+TUNE_PHASE_LIMIT_S = 90
+# the kernels line's tunable launch parameters of each kernel, the values
+# its tuning space takes (repro_torch/tune/space.py); fixed tiles take none
+TUNABLE_KNOBS = {"flash_attention_sm90": {"block_q": [64, 128], "block_k": [64, 128]},
+                 "decode_attention_sm90": {"splits": [1, 2, 4, 8]},
+                 "mamba_scan_sm90": {"lanes": [1, 2, 4]}}
+# the (D, Dv) pairs the bf16 and fp32 attention kernels take
+HEAD_PAIRS = ((32, 32), (64, 64), (96, 96), (96, 64), (128, 128))
 
 
 START = time.perf_counter()
@@ -775,12 +850,11 @@ def check(name, got, ref, rtol, atol=ATOL) -> float:
     return err
 
 
-def say_registers(log):
-    """One line per kernel instantiation from ``ptxas -v``: registers,
-    spills and static shared memory, under a short name such as
-    ``decode_sm90_kernel<bf16, 128, 2>`` (dtype, then the integer template
-    arguments) or ``scan_sm90_kernel<1, 16>``."""
-    name, spill = None, ""
+def ptxas_records(log):
+    """{short name: (registers, spill store bytes, spill line, static
+    shared memory note)} of every kernel instantiation in one ``ptxas -v``
+    log, under the short names ``say_registers`` prints."""
+    records, name, spill = {}, None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function .*?([a-z][a-z_]*(?:_sm90)?_kernel)I"
                       r"(13__nv_bfloat16|f)((?:Li\d+E)+)", line)
@@ -794,11 +868,22 @@ def say_registers(log):
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line and name:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
             smem = re.search(r"(\d+) bytes smem", line)
-            smem = f"; {smem.group(1)} bytes static shared memory" if smem else ""
-            say(f"  {name}: {regs} registers; {spill}{smem}")
+            stores = re.search(r"(\d+) bytes spill stores", spill)
+            records[name] = (regs, int(stores.group(1)) if stores else 0, spill,
+                             f"; {smem.group(1)} bytes static shared memory" if smem else "")
             name = None
+    return records
+
+
+def say_registers(log):
+    """One line per kernel instantiation from ``ptxas -v``: registers,
+    spills and static shared memory, under a short name such as
+    ``decode_sm90_kernel<bf16, 128, 2>`` (dtype, then the integer template
+    arguments) or ``scan_sm90_kernel<1, 16>`` (``ptxas_records``)."""
+    for name, (regs, _, spill, smem) in ptxas_records(log).items():
+        say(f"  {name}: {regs} registers; {spill}{smem}")
 
 
 def say_sass(kern, ops=("HGMMA", "UTMALDG")):
@@ -830,9 +915,9 @@ def say_async_smem(decode, scan):
     say(f"  {decode.KERNEL.source.name} K/V ring a block: " + ", ".join(
         f"D={d} {name} {ring(d, code):,} B" for d in (32, 64, 96, 128)
         for name, code in (("f32", 0), ("bf16", 1))))
-    tiles = kernel_entry(scan.KERNEL, "_smem", 1)
-    say(f"  {scan.KERNEL.source.name} tile ring a block: " + ", ".join(
-        f"n={n} {tiles(n):,} B" for n in (4, 8, 16, 32)))
+    tiles = kernel_entry(scan.KERNEL, "_smem", 2)
+    say(f"  {scan.KERNEL.source.name} tile ring a block (the untuned lanes): " + ", ".join(
+        f"n={n} {tiles(n, 0):,} B" for n in (4, 8, 16, 32)))
 
 
 def say_smem(kern):
@@ -3173,17 +3258,18 @@ def batched_family(arch, layers, dtype, limits, dev, kernels):
 
 
 def examples_phase():
-    """Phase 22: the port's two examples on the card at their defaults, as
-    a user runs them, side by side (one process each, the kernels this
+    """Phase 22: the port's three examples on the card at their defaults,
+    as a user runs them, side by side (one process each, the kernels this
     checkout built; the serving farm is host-bound, the training run
-    device-bound): the serving farm's tenants and the training run's loss
-    drop."""
+    device-bound): the serving farm's tenants, the training run's loss
+    drop, the autotuner's sim:// sweeps and its dispatch through the
+    cache."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     runs = {name: subprocess.Popen([sys.executable, str(ROOT / "examples" / name)], env=env,
                                    cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                    text=True)
-            for name in ("torch_serve_farm.py", "torch_train_lm.py")}
+            for name in ("torch_serve_farm.py", "torch_train_lm.py", "torch_autotune.py")}
     failed = []
     for name, proc in runs.items():
         try:
@@ -3200,6 +3286,421 @@ def examples_phase():
             failed.append(name)
     if failed:
         raise AssertionError(f"examples failed: {failed}")
+
+
+def flash_name(D, Dv, heads, bq, bk):
+    return f"flash_fwd_sm90_kernel<{D}, {Dv}, {heads}, {bq // 64}, {bk}>"
+
+
+def tune_space_checks(flash, decode, scan, logs, build_s):
+    """Phase 23, part 1: the tuning space against the kernels.  For every
+    (D, Dv), q-heads a block and tiles of the bf16 forward, the library's
+    shared-memory query is the space's ``smem_bytes`` where the space's
+    rule builds the instantiation and -1 where it does not; the fp32
+    forward's and backward pair's, decode's and the scan's queries equal
+    ``smem_bytes`` at every config they take; ptxas reports no spill for
+    any instantiation tuning adds (the untuned tiles' own figures printed
+    beside them)."""
+    from repro_torch.tune import space
+
+    say(f"  kernels built in {build_s:.2f} s (phase 1), the bf16 forward's "
+        "instantiations for its tunable tiles included")
+    records = {}
+    for log in logs.values():
+        records.update(ptxas_records(log))
+    fwd = kernel_entry(flash.SM90_KERNEL, "_smem", 5)
+    built = []
+    for D, Dv in HEAD_PAIRS:
+        for heads in (1, 2):
+            shape = {"Sq": PROMPT, "Skv": PROMPT, "H": heads, "K": 1, "D": D, "Dv": Dv}
+            for bq in (64, 128):
+                for bk in (64, 128):
+                    cfg = {"block_q": bq, "block_k": bk}
+                    ok = space.flash_instantiated(D, Dv, heads, bq, bk)
+                    want = space.smem_bytes("flash_fwd", shape, cfg, "bfloat16") if ok else -1
+                    got = fwd(D, Dv, heads, bq, bk)
+                    if got != want:
+                        raise AssertionError(f"bf16 flash forward ({D}, {Dv}), {heads} heads, "
+                                             f"{cfg}: the library's shared memory {got}, the "
+                                             f"space's {want}")
+                    if ok:
+                        built.append((D, Dv, heads, bq, bk, got))
+    say(f"  bf16 flash forward: {len(built)} instantiations built of {len(HEAD_PAIRS) * 16}, "
+        "each one's shared memory the space's smem_bytes, the others refused by both: " +
+        ", ".join(f"({D}, {Dv}) x{h} {bq}x{bk} {b:,} B" for D, Dv, h, bq, bk, b in built
+                  if (bq, bk) != (64, 64)))
+    fp32 = [kernel_entry(k, "_smem", 2) for k in (flash.SM90_FP32_KERNEL,
+                                                  flash.DQ_SM90_FP32_KERNEL,
+                                                  flash.DKV_SM90_FP32_KERNEL)]
+    for D, Dv in HEAD_PAIRS:
+        shape = {"H": 1, "K": 1, "D": D, "Dv": Dv}
+        got = (fp32[0](D, Dv), max(fp32[1](D, Dv), fp32[2](D, Dv)))
+        want = (space.smem_bytes("flash_fwd", shape, space.fixed_tiles("flash_fwd", "float32"),
+                                 "float32"),
+                space.smem_bytes("flash_bwd", shape, space.fixed_tiles("flash_bwd", "float32"),
+                                 "float32"))
+        if got != want:
+            raise AssertionError(f"fp32 ({D}, {Dv}): the libraries' shared memory {got}, "
+                                 f"the space's {want}")
+    ring = kernel_entry(decode.KERNEL, "_smem", 2)
+    for D in (32, 64, 96, 128):
+        for name, code in (("float32", 0), ("bfloat16", 1)):
+            want = space.smem_bytes("decode", {"D": D}, {"splits": 1}, name)
+            if ring(D, code) != want:
+                raise AssertionError(f"decode D={D} {name}: ring {ring(D, code)}, space {want}")
+    tiles = kernel_entry(scan.KERNEL, "_smem", 2)
+    for n in (4, 8, 16, 32):
+        for lanes in (0, 1, 2, 3, 4):
+            try:
+                space.validate_config("mamba", {"n": n}, {"lanes": lanes or
+                                                           space.scan_geometry(n)[0]}, "cuda")
+                want = space.smem_bytes("mamba", {"n": n}, {"lanes": lanes})
+            except space.KernelConfigError:
+                want = -1
+            if tiles(n, lanes) != want:
+                raise AssertionError(f"scan n={n} lanes={lanes}: ring {tiles(n, lanes)}, "
+                                     f"space {want}")
+    say("  fp32 forward and backward pair, decode, scan: each library's shared memory the "
+        "space's smem_bytes at every config it takes")
+    if not records:
+        raise AssertionError("no ptxas report: phase 1 found the kernels built already")
+    # (instantiation, whether tuning adds it): every bf16 forward built,
+    # the scan's three at n = 16, decode's at the sweeps' shape
+    reach = ([(flash_name(D, Dv, h, bq, bk), (bq, bk) != (64, 64))
+              for D, Dv, h, bq, bk, _ in built]
+             + [(f"scan_sm90_kernel<{lanes}, {16 // lanes}>", lanes == 4)
+                for lanes in (1, 2, 4)]
+             + [("decode_sm90_kernel<bf16, 128, 2>", False)])
+    spilled = []
+    for name, new in reach:
+        regs, stores, _, _ = records[name]
+        say(f"  {name}: {regs} registers, {stores} bytes spill stores "
+            f"({'tuning adds it' if new else 'untuned'})")
+        if new and stores:
+            spilled.append(name)
+    if spilled:
+        raise AssertionError(f"instantiations tuning adds spill: {spilled}")
+
+
+def tune_candidates_check(flash, decode, scan):
+    """Phase 23, part 2: every candidate a sweep may time, launched at its
+    sweep's shape (and flash at TUNE_RAGGED_FLASH, decode on a ragged
+    24-slot cache, the scan at ragged and other state sizes), held to its
+    plain version with phase 2's (phase 9's) element check; the plain
+    scan's chunks, forward against the kernel and gradients against the
+    default chunk's; then a config the kernel refuses raises, named, from
+    an explicit argument and from a cache entry, and launches nothing."""
+    from repro_torch.tune import (KernelConfigError, TuningCache, search_space,
+                                  set_cache)
+
+    bf = torch.bfloat16
+    for label, (kernel, backend, dtype, shape) in TUNE_SWEEPS.items():
+        cands, pruned = search_space(kernel, shape, dtype, backend)
+        say(f"  {label}: {len(cands)} candidates {cands}, {pruned} pruned")
+        if kernel == "flash_fwd":
+            sizes = [(shape["B"], shape["Sq"], shape["Skv"], True)] + list(TUNE_RAGGED_FLASH)
+            for B, sq, skv, causal in sizes:
+                q = randn((B, sq, shape["H"], shape["D"]), bf, 61)
+                k = randn((B, skv, shape["K"], shape["D"]), bf, 62)
+                v = randn((B, skv, shape["K"], shape["Dv"]), bf, 63)
+                ref, ref_lse = flash.flash_attention_plain(q, k, v, causal=causal)
+                for c in cands:
+                    before = flash.SM90_KERNEL.launches
+                    out, lse = flash.flash_attention_fwd(q, k, v, causal=causal, **c)
+                    if flash.SM90_KERNEL.launches != before + 1:
+                        raise AssertionError(f"{label} {c} did not launch once")
+                    tag = f"{label} {c} B={B} Sq={sq} Skv={skv} {'causal' if causal else ''}"
+                    check(tag + " out", out, ref, RTOL[bf])
+                    check(tag + " lse", lse, ref_lse, 0.0)
+        elif kernel == "decode":
+            B, H, K, D = shape["B"], shape["H"], shape["K"], shape["D"]
+            for slots, ci in ((shape["S"], shape["S"] - 1), (24, 11)):
+                qd, kc, vc = (randn(s, bf, 64 + i) for i, s in enumerate(
+                    ((B, 1, H, D), (B, slots, K, D), (B, slots, K, D))))
+                ref = decode.decode_attention_plain(qd, kc, vc, cache_index=ci)
+                for c in cands:
+                    got = decode.decode_attention_fwd(qd, kc, vc, cache_index=ci, **c)
+                    check(f"{label} {c} S={slots} cache_index {ci}", got, ref, RTOL[bf])
+        elif backend == "cuda":  # the scan's lanes
+            runs = [((shape["b"], shape["s"], shape["d"], shape["n"]), cands),
+                    ((2, 13, 96, 16), cands), ((2, 13, 96, 8), cands),
+                    ((2, 13, 96, 32), search_space("mamba", {"n": 32}, backend="cuda")[0])]
+            for dims, cs in runs:
+                inputs = scan_inputs(*dims, 71)
+                ref = scan.mamba_scan_plain(*inputs)
+                for c in cs:
+                    got = scan.mamba_scan_fwd(*inputs, **c)
+                    for name, a, r in zip(("y", "h_final"), got, ref):
+                        check(f"{label} {c} {dims} {name}", a, r, SCAN_TOL, SCAN_TOL)
+        else:  # the plain scan's chunks
+            inputs = scan_inputs(shape["b"], shape["s"], shape["d"], shape["n"], 71)
+            y_k, h_k = scan.mamba_scan_fwd(*inputs)
+            base = None
+            for c in [{"chunk": 256}] + cands:
+                leaves = [t.detach().requires_grad_() for t in inputs]
+                y, h = scan.mamba_scan_plain(*leaves, **c)
+                grads = torch.autograd.grad(y.sum() + h.sum(), leaves)
+                check(f"{label} {c} y vs the kernel", y.detach(), y_k, SCAN_TOL, SCAN_TOL)
+                check(f"{label} {c} h_final vs the kernel", h.detach(), h_k, SCAN_TOL,
+                      SCAN_TOL)
+                if base is None:
+                    base = grads
+                    continue
+                for name, g, g0 in zip(("x", "dt", "A", "B", "C"), grads, base):
+                    rel = ((g - g0).norm() / g0.norm()).item()
+                    if not rel <= 1e-3:
+                        raise AssertionError(f"{label} {c}: grad {name} {rel:.2e} from "
+                                             "chunk 256's (limit 1e-3)")
+                del leaves, y, h, grads
+            del base
+    torch.cuda.synchronize()
+    # refused configs raise, named, and launch nothing
+    q = randn((PER_TASK, PROMPT, 16, 128), bf, 61)
+    k = randn((PER_TASK, PROMPT, 8, 128), bf, 62)
+    refused = [("flash block_q=128 at G=2, D=128 (not built)",
+                lambda: flash.flash_attention_fwd(q, k, k, block_q=128, block_k=64)),
+               ("flash block_q=0", lambda: flash.flash_attention_fwd(q, k, k, block_q=0)),
+               ("decode splits=16", lambda: decode.decode_attention_fwd(
+                   q[:, :1].contiguous(), k, k, cache_index=PROMPT - 1, splits=16)),
+               ("scan lanes=3", lambda: scan.mamba_scan_fwd(
+                   *scan_inputs(2, 13, 96, 16, 71), lanes=3))]
+    cache = TuningCache()
+    cache.put("flash_fwd", {"B": PER_TASK, "Sq": PROMPT, "Skv": PROMPT, "H": 16, "K": 8,
+                            "D": 128, "Dv": 128}, "bfloat16", "cuda",
+              {"block_q": 128, "block_k": 64}, 1.0, save=False)
+    prev = set_cache(cache)
+    try:
+        refused.append(("a cache entry of flash block_q=128 at G=2, D=128",
+                        lambda: flash.flash_attention_fwd(q, k, k)))
+        for what, call in refused:
+            before = [kern.launches for kern in (flash.SM90_KERNEL, decode.KERNEL, scan.KERNEL)]
+            try:
+                call()
+            except KernelConfigError as e:
+                say(f"  refused, as it must be: {what}: {e}")
+            else:
+                raise AssertionError(f"{what} was not refused")
+            if [kern.launches for kern in (flash.SM90_KERNEL, decode.KERNEL,
+                                           scan.KERNEL)] != before:
+                raise AssertionError(f"{what} launched a kernel")
+    finally:
+        set_cache(prev)
+
+
+def tune_sweeps(dev, cache_path):
+    """Phase 23, part 3: each of TUNE_SWEEPS on the card through a
+    KernelTuner over a farm of one in-process service, its summary printed
+    and its winner cached at ``cache_path``; then the winner and the
+    default re-timed one after the other, in turns, and the winner held no
+    slower than the default within the re-timing's spread; every candidate
+    re-timed once beside them.  Returns {label: (TuneResult, winner median
+    us, default median us, {candidate: us})}."""
+    from repro_torch.core import LookupService, Service
+    from repro_torch.tune import KernelTuner, TuningCache, search_space
+    from repro_torch.tune.measure import build_fn, make_inputs, time_fn
+
+    lookup = LookupService()
+    Service(lookup, device=dev).start()
+    out = {}
+    with KernelTuner(lookup, cache=TuningCache(cache_path)) as tuner:
+        for label, (kernel, backend, dtype, shape) in TUNE_SWEEPS.items():
+            t0 = time.perf_counter()
+            r = tuner.tune(kernel, shape, dtype, backend, seed=SEED)
+            say(f"  sweep {label} ({time.perf_counter() - t0:.1f} s): "
+                f"{json.dumps(r.summary())}")
+            if r.failed:
+                raise AssertionError(f"sweep {label}: {r.failed} candidates failed")
+            args = make_inputs(kernel, shape, dtype, SEED)
+            fns = {"winner": build_fn(kernel, r.config, backend),
+                   "default": build_fn(kernel, r.default_config, backend)}
+            times = {"winner": [], "default": []}
+            for i in range(TUNE_RETIMES):
+                for name in (("winner", "default") if i % 2 == 0 else ("default", "winner")):
+                    times[name].append(time_fn(fns[name], args, reps=5))
+            med = {name: float(np.median(ts)) for name, ts in times.items()}
+            spread = max(max(ts) - min(ts) for ts in times.values())
+            say(f"    re-timed in turns ({TUNE_RETIMES} each, best of 5): winner {r.config} "
+                f"median {med['winner']:.2f} us, default {r.default_config} median "
+                f"{med['default']:.2f} us ({med['default'] / med['winner']:.3f}x), spread "
+                f"{spread:.2f} us")
+            if med["winner"] > med["default"] + spread:
+                raise AssertionError(f"sweep {label}: the winner is slower than the default "
+                                     "beyond the re-timing's spread")
+            each = {json.dumps(cfg, sort_keys=True): time_fn(build_fn(kernel, cfg, backend),
+                                                             args, reps=5)
+                    for cfg in search_space(kernel, shape, dtype, backend)[0]}
+            say("    every candidate re-timed once (best of 5): " + ", ".join(
+                f"{cfg} {us:.2f} us" for cfg, us in each.items()))
+            out[label] = (r, med["winner"], med["default"], each)
+            del args, fns
+            torch.cuda.empty_cache()
+    return out
+
+
+def tune_determinism():
+    """Phase 23, part 4: two same-seed ``sim://`` sweeps with the scripted
+    cost model, of the reference's own sweep (``xla_flash``) and of the
+    port's knobs, give byte-identical summaries."""
+    from repro_torch.sim import SimCluster
+    from repro_torch.tune import KernelTuner, TuningCache
+
+    sweeps = [("xla_flash", "torch", "float32",
+               {"B": 1, "Sq": 1024, "Skv": 1024, "H": 8, "K": 2, "D": 64, "Dv": 64})]
+    sweeps += [TUNE_SWEEPS[label] for label in ("flash llama4 G=5", "decode qwen3 B=4",
+                                                "scan lanes falcon-mamba")]
+    for kernel, backend, dtype, shape in sweeps:
+        runs = []
+        for _ in range(2):
+            with SimCluster(speed_factors=[1, 1, 2, 4], seed=7) as cluster:
+                with cluster.make_scheduler(max_batch=4) as sched:
+                    r = KernelTuner(scheduler=sched, cache=TuningCache()).tune(
+                        kernel, shape, dtype, backend, cost_model="scripted", seed=3)
+            runs.append(json.dumps(r.summary(), sort_keys=True))
+        say(f"  sim:// {kernel} ({backend}) twice, seed 3: summaries "
+            f"{'byte-identical' if runs[0] == runs[1] else 'DIFFERENT'}: {runs[0]}")
+        if runs[0] != runs[1]:
+            raise AssertionError(f"same-seed sim:// sweeps of {kernel} differ")
+
+
+def tune_probe_cost(flash, decode, host_us, calls=200_000):
+    """Phase 23, part 5: the cache-hit probe a wrapper pays on every call
+    (its ConfigProbe on the call's raw dims) in host µs, held to
+    TUNE_PROBE_SHARE of phase 2's host µs of a wrapper call."""
+    import importlib
+
+    from repro_torch.tune import TuningCache, set_cache
+
+    # the wrappers' modules (the packages' names are shadowed by functions)
+    flash = importlib.import_module(flash.__name__ + ".flash_attention")
+    decode = importlib.import_module(decode.__name__ + ".decode_attention")
+    cache = TuningCache()
+    B, S, H, K, D = PER_TASK, PROMPT + NEW, 16, 8, 128
+    cache.put("decode", {"B": B, "S": S, "H": H, "K": K, "D": D, "Dv": D}, "bfloat16",
+              "cuda", {"splits": 4}, 1.0, save=False)
+    cache.put("flash_fwd", {"B": B, "Sq": PROMPT, "Skv": PROMPT, "H": H, "K": K, "D": D,
+                            "Dv": D}, "bfloat16", "cuda", {"block_q": 64, "block_k": 128},
+              1.0, save=False)
+    prev = set_cache(cache)
+    bf, Sq = torch.bfloat16, PROMPT
+    try:
+        worst = 0.0
+        for name in ("decode", "flash"):
+            probe = decode._SPLITS_PROBE if name == "decode" else flash._TILES_PROBE
+            probe((B, S, H, K, D, D) if name == "decode" else (B, Sq, Sq, H, K, D, D), bf)
+            hits = cache.hits
+            t0 = time.perf_counter()
+            if name == "decode":  # the tuple built at each call, as a wrapper builds it
+                for _ in range(calls):
+                    probe((B, S, H, K, D, D), bf)
+            else:
+                for _ in range(calls):
+                    probe((B, Sq, Sq, H, K, D, D), bf)
+            us = (time.perf_counter() - t0) / calls * 1e6
+            if cache.hits - hits != calls:
+                raise AssertionError(f"{name} probe: {cache.hits - hits} hits of {calls}")
+            say(f"  {name} cache-hit probe: {us:.3f} us a call, {us / host_us:.4f} of phase "
+                f"2's {host_us:.1f} us a wrapper call (limit {TUNE_PROBE_SHARE})")
+            worst = max(worst, us / host_us)
+        if worst > TUNE_PROBE_SHARE:
+            raise AssertionError("a cache-hit probe costs more than its share of a call")
+    finally:
+        set_cache(prev)
+
+
+def tune_serve(cfg, dev, kernels, cache_path, phase3_launches, sweeps):
+    """Phase 23, part 6: qwen3-1.7B at full width, TUNE_SERVE_LAYERS
+    layers, served through ``launch/serve.py --tune-cache`` with the
+    sweeps' winners: the cache reports hits, the kernels launch as phase 3
+    does a task and layer; then prefill and a decode step through the
+    tuned dispatch against the untuned kernels (explicit default tiles
+    and splits), |logits difference| held to phase 4's limits; and the
+    same through a cache of each serve sweep's fastest candidate other
+    than the default."""
+    from repro_torch.kernels import AttentionOps
+    from repro_torch.kernels import decode_attention as decode
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.tune import TuningCache, get_cache, set_cache
+
+    zero_counts(kernels)
+    serve.main(["--arch", cfg.name, "--layers", str(TUNE_SERVE_LAYERS), "--requests",
+                str(REQUESTS), "--prompt-len", str(PROMPT), "--new-tokens",
+                str(TUNE_SERVE_NEW), "--batch-per-task", str(PER_TASK), "--tune-cache",
+                cache_path])
+    cache = get_cache()
+    got = launch_counts(kernels)
+    tasks = REQUESTS // PER_TASK
+    want = {name: 0 for name in got}
+    want[flash.SM90_KERNEL.name] = tasks * TUNE_SERVE_LAYERS
+    want[decode.KERNEL.name] = tasks * TUNE_SERVE_LAYERS * TUNE_SERVE_NEW
+    say(f"  served through the cache: {cache.hits} hits, {cache.misses} misses; launches "
+        f"{got} (phase 3, 28 layers, {NEW} new tokens: "
+        f"{ {k: v for k, v in phase3_launches.items() if v} })")
+    if cache.hits < 1:
+        raise AssertionError("serving through --tune-cache read no tuned config")
+    if got != want:
+        raise AssertionError(f"launches through the cache {got}, expected {want}: one "
+                             "flash a layer, one decode a layer and step, as phase 3")
+    api = build(cfg.replace(n_layers=TUNE_SERVE_LAYERS))
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED))
+    try:
+        untuned = AttentionOps(
+            lambda q, k, v, *, causal=True, window=None: flash.flash_attention_fwd(
+                q, k, v, causal=causal, block_q=64, block_k=64)[0],
+            lambda q, kc, vc, *, cache_index, window=None: decode.decode_attention_fwd(
+                q, kc, vc, cache_index=cache_index, splits=0))
+        prompts = [{"tokens": torch.as_tensor(np.random.default_rng(SEED + 1 + i).integers(
+            0, cfg.vocab_size, (PER_TASK, PROMPT))).to(dev)} for i in range(TUNE_LOGIT_BATCHES)]
+        hits = cache.hits
+        kernels_vs_plain(api, params, untuned, [(b, PROMPT) for b in prompts], PROMPT + NEW,
+                         1, (FULL_WIDTH_MAX_ERR, FULL_WIDTH_MEAN_ERR))
+        say(f"  tuned dispatch vs the untuned kernels: {cache.hits - hits} cache hits")
+        # the winners may be the defaults: the same through a cache of each
+        # serve sweep's fastest candidate other than the default, so that
+        # the served path runs tiles and splits of its own
+        other = TuningCache()
+        for label in ("flash qwen3 G=2", "decode qwen3 B=4", "decode qwen3 B=1"):
+            kernel, backend, dtype, shape = TUNE_SWEEPS[label]
+            r, _, _, each = sweeps[label]
+            runner = min((us, cfg) for cfg, us in each.items()
+                         if json.loads(cfg) != r.default_config)[1]
+            other.put(kernel, shape, dtype, backend, json.loads(runner), 0.0, save=False)
+        set_cache(other)
+        before = {k.name: k.launches for k in (flash.SM90_KERNEL, decode.KERNEL)}
+        say(f"  the same with the runners-up {list(other.entries())}:")
+        kernels_vs_plain(api, params, untuned, [(b, PROMPT) for b in prompts], PROMPT + NEW,
+                         1, (FULL_WIDTH_MAX_ERR, FULL_WIDTH_MEAN_ERR))
+        ran = {k.name: k.launches - before[k.name] for k in (flash.SM90_KERNEL, decode.KERNEL)}
+        say(f"  runners-up through the cache: {other.hits} hits, launches {ran}")
+        if other.hits < 1:
+            raise AssertionError("the runners-up's cache was not read")
+    finally:
+        set_cache(None)
+        del api, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def tune_phase(cfg, dev, kernels, flash, decode, scan, logs, build_s, host_us,
+               phase3_launches):
+    """Phase 23: the autotuner on the card (parts 1-6 above); returns the
+    sweeps' results."""
+    t0 = time.perf_counter()
+    tune_space_checks(flash, decode, scan, logs, build_s)
+    tune_candidates_check(flash, decode, scan)
+    cache_path = str(ROOT / "build" / "chip_smoke_tune.json")
+    if os.path.exists(cache_path):
+        os.remove(cache_path)
+    sweeps = tune_sweeps(dev, cache_path)
+    tune_determinism()
+    tune_probe_cost(flash, decode, host_us)
+    tune_serve(cfg, dev, kernels, cache_path, phase3_launches, sweeps)
+    took = time.perf_counter() - t0
+    say(f"  phase 23 took {took:.1f} s (limit {TUNE_PHASE_LIMIT_S} s)")
+    if took > TUNE_PHASE_LIMIT_S:
+        raise AssertionError("phase 23 took longer than its limit")
+    return sweeps
 
 
 def main() -> int:
@@ -3222,7 +3723,8 @@ def main() -> int:
     phase("phase 1: build")
     t0 = time.perf_counter()
     logs = build_all(kernels.KERNELS)
-    say(f"  kernels built in {time.perf_counter() - t0:.2f} s "
+    build_s = time.perf_counter() - t0
+    say(f"  kernels built in {build_s:.2f} s "
         f"({', '.join(sorted(logs)) or 'already built'})")
     for log in logs.values():
         say_registers(log)
@@ -3456,8 +3958,13 @@ def main() -> int:
         batched_family(arch, layers, dtype, limits, dev, kernels)
     say(f"  phase 21 took {time.perf_counter() - t21:.1f} s")
 
-    phase("phase 22: the port's examples (serving farm, training run) on the card")
+    phase("phase 22: the port's examples (serving farm, training run, autotuner) on the "
+          "card")
     examples_phase()
+
+    phase("phase 23: the autotuner (repro_torch.tune) on the card")
+    tune_phase(cfg, dev, kernels, flash, decode, scan, logs, build_s,
+               k_rows["flash"]["host_us"], launches)
 
     say(f"all phases in {time.perf_counter() - START:.1f} s")
     # the kernels line: (name, kernel, its times, its largest |error|, the
@@ -3516,7 +4023,7 @@ def main() -> int:
              "replaces": replaces, "launches": count[kern.name], "max_abs_err": err,
              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-             "library": r.get("library")}
+             "library": r.get("library"), "knobs": TUNABLE_KNOBS.get(kern.name, {})}
             for name, kern, r, err, replaces, count in table]
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

@@ -6,8 +6,18 @@ flash backward's dq and dk/dv passes (tensor-core kernels for bf16 and for
 fp32, the fp32 ones' products three tf32 products each), and the Mamba-1
 selective scan.
 
-There is no tuning cache yet: block sizes are fixed in the kernels.  A
-windowed attention call (jamba's attention layers at long context) runs
+The tuning cache (``repro_torch.tune``) picks launch parameters where
+the caller names none: the bf16 flash forward's tiles (``flash_fwd``),
+decode's KV splits (``decode``) and the scan's lanes a channel
+(``mamba``), all under the backend key ``"cuda"``; and the chunks of the
+plain paths the card runs, ``chunked_attention``'s (``xla_flash``) and
+the scan backward's ``mamba_scan_plain`` (``mamba``), under ``"torch"``.
+With no cache installed, or on a miss, every kernel launches its untuned
+geometry.  The fp32 forward and the backward pairs run fixed tiles.  A
+folded call of ``Service.execute_batch`` reads the cache at its folded
+batch.
+
+A windowed attention call (jamba's attention layers at long context) runs
 the model's plain windowed path on every device, as the reference sends
 every windowed call to its non-Pallas path: ``chunked_attention`` for
 prefill and training, ``decode_attention_xla`` for decode.  It launches
@@ -29,6 +39,8 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+from ..tune.cache import ConfigProbe
+from ..tune.space import default_config
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import mamba_scan as _scan
@@ -52,12 +64,27 @@ class AttentionOps(NamedTuple):
     scan: Callable | None = None
 
 
+_CHUNKS_PROBE = ConfigProbe("xla_flash", ("B", "Sq", "Skv", "H", "K", "D", "Dv"),
+                            "torch", default_config("xla_flash", "torch"))
+
+
+def _chunked(q, k, v, causal, window):
+    """The windowed path: ``chunked_attention`` at the tuning cache's
+    chunks for this shape (``xla_flash``, ``"torch"``), as the reference's
+    windowed dispatch reads its ``"xla"`` entries."""
+    from repro_torch.models.attention import chunked_attention
+
+    B, Sq, H, D = q.shape
+    _, Skv, K, Dv = v.shape
+    cfg = _CHUNKS_PROBE((B, Sq, Skv, H, K, D, Dv), q.dtype)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             q_chunk=cfg["q_chunk"], kv_chunk=cfg["kv_chunk"])
+
+
 def flash_attention_dispatch(q, k, v, *, causal=True, window=None):
     """(B,Sq,H,D) x (B,Skv,K,D) -> (B,Sq,H,Dv)."""
     if window is not None:
-        from repro_torch.models.attention import chunked_attention
-
-        return chunked_attention(q, k, v, causal=causal, window=window)
+        return _chunked(q, k, v, causal, window)
     return _flash.flash_attention_fwd(q, k, v, causal=causal)[0]
 
 
@@ -75,9 +102,7 @@ def decode_attention_dispatch(q, k_cache, v_cache, *, cache_index, window=None):
 def flash_attention_train_dispatch(q, k, v, *, causal=True, window=None):
     """Differentiable (B,Sq,H,D) x (B,Skv,K,D) -> (B,Sq,H,Dv)."""
     if window is not None:
-        from repro_torch.models.attention import chunked_attention
-
-        return chunked_attention(q, k, v, causal=causal, window=window)
+        return _chunked(q, k, v, causal, window)
     return _flash.flash_attention(q, k, v, causal=causal)
 
 

@@ -21,10 +21,12 @@
 // q-head of its kv-head (up to GP = 8 of them a block), so K and V are read
 // from memory once, not once per q-head.  The splits of one (b, kv-head) are
 // one thread-block cluster (grid (splits, K * head groups, B), cluster
-// (splits, 1, 1)); `splits` is chosen per call (`choose_splits`) so that the
-// grid covers the device's SMs (132 on an H100 SXM) about twice, at most 8
-// (the portable cluster size)
-// and no split shorter than one 32-key tile.  Each block takes a contiguous
+// (splits, 1, 1)); `splits` is a launch parameter (the tuning cache's
+// `decode` entries, repro_torch/tune/space.py), and when the caller passes
+// 0 it is chosen per call (`choose_splits`) so that the grid covers the
+// device's SMs (132 on an H100 SXM) about twice: at most 8 (the portable
+// cluster size) and no split shorter than one 32-key tile, the bounds an
+// explicit count must keep too.  Each block takes a contiguous
 // range of the valid keys and streams it through shared memory in 32-key
 // tiles of K and V with 16-byte cp.async copies, in a ring of 2-4 stages
 // (64 KB), so that all of a short split's tiles are in flight at once.  Each
@@ -322,9 +324,18 @@ cudaError_t sm_count(int* sms) {
                             : cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
+// The KV splits of a call: `splits`, or choose_splits's when it is 0; -1
+// when an explicit count is outside 1..8 or leaves a split shorter than a
+// tile.
+int resolve_splits(int splits, int B, int H, int K, int n_keys, int sms) {
+  if (splits == 0) return choose_splits(B, H, K, n_keys, sms);
+  const int tiles = n_keys / TK;
+  return splits < 1 || splits > MAX_SPLITS || splits > (tiles > 1 ? tiles : 1) ? -1 : splits;
+}
+
 template <typename T, int D, int GP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int S,
-                   int H, int K, int cache_index, cudaStream_t stream) {
+                   int H, int K, int cache_index, int splits_asked, cudaStream_t stream) {
   using R = Ring<T, D>;
   static bool configured = false;  // once per instantiation (a repeat is harmless)
   if (!configured) {
@@ -337,7 +348,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   const cudaError_t qerr = sm_count(&sms);
   if (qerr != cudaSuccess) return qerr;
   const int n_keys = cache_index + 1;
-  const int splits = choose_splits(B, H, K, n_keys, sms);
+  const int splits = resolve_splits(splits_asked, B, H, K, n_keys, sms);
+  if (splits < 0) return cudaErrorInvalidValue;
   const int G = H / K;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, K * ((G + GP - 1) / GP), B);
@@ -360,23 +372,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 
 template <typename T, int D>
 cudaError_t dispatch_g(const void* q, const void* k, const void* v, void* out, int B, int S,
-                       int H, int K, int cache_index, cudaStream_t stream) {
+                       int H, int K, int cache_index, int splits, cudaStream_t stream) {
   switch (heads_a_block(H / K)) {
-    case 1: return launch<T, D, 1>(q, k, v, out, B, S, H, K, cache_index, stream);
-    case 2: return launch<T, D, 2>(q, k, v, out, B, S, H, K, cache_index, stream);
-    case 4: return launch<T, D, 4>(q, k, v, out, B, S, H, K, cache_index, stream);
-    default: return launch<T, D, 8>(q, k, v, out, B, S, H, K, cache_index, stream);
+    case 1: return launch<T, D, 1>(q, k, v, out, B, S, H, K, cache_index, splits, stream);
+    case 2: return launch<T, D, 2>(q, k, v, out, B, S, H, K, cache_index, splits, stream);
+    case 4: return launch<T, D, 4>(q, k, v, out, B, S, H, K, cache_index, splits, stream);
+    default: return launch<T, D, 8>(q, k, v, out, B, S, H, K, cache_index, splits, stream);
   }
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, int B, int S,
-                       int H, int K, int D, int cache_index, cudaStream_t stream) {
+                       int H, int K, int D, int cache_index, int splits, cudaStream_t stream) {
   switch (D) {
-    case 32: return dispatch_g<T, 32>(q, k, v, out, B, S, H, K, cache_index, stream);
-    case 64: return dispatch_g<T, 64>(q, k, v, out, B, S, H, K, cache_index, stream);
-    case 96: return dispatch_g<T, 96>(q, k, v, out, B, S, H, K, cache_index, stream);
-    case 128: return dispatch_g<T, 128>(q, k, v, out, B, S, H, K, cache_index, stream);
+    case 32: return dispatch_g<T, 32>(q, k, v, out, B, S, H, K, cache_index, splits, stream);
+    case 64: return dispatch_g<T, 64>(q, k, v, out, B, S, H, K, cache_index, splits, stream);
+    case 96: return dispatch_g<T, 96>(q, k, v, out, B, S, H, K, cache_index, splits, stream);
+    case 128: return dispatch_g<T, 128>(q, k, v, out, B, S, H, K, cache_index, splits, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -385,25 +397,29 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, i
 
 // q (B,1,H,D), k/v caches (B,S,K,D) contiguous, the caches 16-byte aligned;
 // out (B,1,H,D) in the cache dtype.  0 <= cache_index < S, H a multiple of
-// K, B <= 65535.  dtype: 0 = float32, 1 = bfloat16.  Returns the
-// cudaError_t of the launch.
+// K, B <= 65535.  dtype: 0 = float32, 1 = bfloat16.  splits: the KV
+// splits a cluster, 1..8 and at most the 32-key tiles of the cache_index + 1
+// keys (one always), or 0 for choose_splits's.  Returns the cudaError_t of
+// the launch (cudaErrorInvalidValue for a split count outside those bounds).
 extern "C" int repro_decode_attention_fwd(const void* q, const void* k, const void* v,
                                           void* out, int B, int S, int H, int K, int D,
-                                          int cache_index, int dtype, void* stream) {
+                                          int cache_index, int dtype, int splits,
+                                          void* stream) {
   if (cache_index < 0 || cache_index >= S || B < 1 || B > 65535 || K < 1 || H % K)
     return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(k) % 16 || reinterpret_cast<uintptr_t>(v) % 16)
     return cudaErrorMisalignedAddress;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, out, B, S, H, K, D, cache_index, st);
+    return dispatch_d<float>(q, k, v, out, B, S, H, K, D, cache_index, splits, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, B, S, H, K, D, cache_index, st);
+    return dispatch_d<__nv_bfloat16>(q, k, v, out, B, S, H, K, D, cache_index, splits, st);
   return cudaErrorInvalidValue;
 }
 
 // The KV splits (the cluster size) a call at these sizes launches on the
-// current device; -1 when its SM count cannot be read.
+// current device when it passes splits 0; -1 when its SM count cannot be
+// read.
 extern "C" int repro_decode_attention_fwd_splits(int B, int H, int K, int cache_index) {
   int sms = 0;
   if (sm_count(&sms) != cudaSuccess) return -1;

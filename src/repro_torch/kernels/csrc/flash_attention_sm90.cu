@@ -73,13 +73,26 @@
 //   4 threads of a quad with shuffles; O is rescaled by corr every tile.
 //   Scores are pre-scaled by D^-0.5 log2(e) so p = exp2(s - m); lse is
 //   returned as m ln2 + log(l).
-// - Registers: S (32), O (DV/2) and the bf16 halves of P (32) per thread.
-//   Two-warpgroup blocks are held to 128 registers so that two blocks share
-//   an SM (phase 1 of chip_smoke.py prints ptxas -v, spills included).
-// - Grid: (q-head groups, batch, 64-row query tiles), the query tile on z
-//   and reversed: blocks are dispatched x fastest, so the longest causal
-//   tiles go first.  The causal work is triangular, and the serve shape has
-//   256 blocks of 2 warpgroups for 132 SMs.
+// - Registers: S (BK/2), O (DV/2) and the bf16 halves of P (BK/2) per
+//   thread.  Two-warpgroup blocks of the default tiles are held to 128
+//   registers so that two blocks share an SM (phase 1 of chip_smoke.py
+//   prints ptxas -v, spills included).
+// - Grid: (q-head groups, batch, query tiles), the query tile on z and
+//   reversed: blocks are dispatched x fastest, so the longest causal tiles
+//   go first.  The causal work is triangular, and the serve shape has 256
+//   blocks of 2 warpgroups for 132 SMs.
+// - Tiles as launch parameters (the tuning cache's `flash_fwd` entries,
+//   repro_torch/tune/space.py): block_q, the query rows of a q-head in a
+//   block, is 64 or 128 (RW = 1 or 2 warpgroups, each its own 64 rows);
+//   block_k, the keys of a K/V tile, is 64 or 128.  A block of RW row
+//   warpgroups walks the key tiles up to the furthest its last warpgroup
+//   needs under the causal mask; a warpgroup skips the tiles wholly above
+//   its own rows (a skipped tile would add exactly 0).  The defaults,
+//   64 x 64, are the kernel's first tiles and keep their launch bounds
+//   (NWG * 128 threads, 2 blocks an SM); every other instantiation takes
+//   (threads, 1) and is built only where a thread's registers fit
+//   (`admits`, the same rule as the space's flash_instantiated), so that
+//   none spills.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -97,13 +110,42 @@ using namespace sm90;
 using repro::NEG_INF;
 
 constexpr int BQ = 64;     // query rows of a warpgroup
-constexpr int BK = 64;     // keys per tile
 constexpr int STAGES = 2;  // K/V ring
+// the untuned tiles: one 64-row warpgroup a q-head, 64-key tiles
+constexpr int DEFAULT_BLOCK_Q = 64, DEFAULT_BLOCK_K = 64;
+// a thread's registers beyond the O accumulator and a 64-key tile's S and P
+// (repro_torch/tune/space.py's FLASH_REG_BASE)
+constexpr int REG_BASE = 100;
+
+// Minimum blocks an SM of the <NWG, RW, BK> instantiation's launch bounds:
+// today's tiles keep 2; the others 1.
+template <int RW, int BK>
+constexpr int min_blocks() {
+  return RW == 1 && BK == DEFAULT_BLOCK_K ? 2 : 1;
+}
+
+// Whether the <DV, NWG, RW, BK> instantiation is built: the default tiles
+// always; the others where a thread's registers (REG_BASE + DV/2 +
+// (BK - 64)/2) fit in what the launch bounds leave it.
+template <int DV, int NWG, int RW, int BK>
+constexpr bool admits() {
+  if (RW == 1 && BK == DEFAULT_BLOCK_K) return true;
+  const int threads = NWG * RW * WG;
+  const int cap = 65536 / (threads * min_blocks<RW, BK>());
+  return REG_BASE + DV / 2 + (BK - 64) / 2 <= (cap < 255 ? cap : 255);
+}
+
+// Dynamic shared memory of the <D, DV, NWG, RW, BK> instantiation: a Q tile
+// a warpgroup, the K/V ring, and room to align them to 1024 bytes.
+template <int D, int DV, int NWG, int RW, int BK>
+constexpr int smem_bytes() {
+  return NWG * RW * Geo<D>::tile_bytes(BQ) + STAGES * pair_bytes<D, DV>(BK) + 1024;
+}
 
 // Tile j of K (D columns) and V (DV) into ring stage j % STAGES (K at
 // skv + s pair_bytes(BK), V after it), completing on that stage's barrier
 // (fbar + 8 s).
-template <int D, int DV>
+template <int D, int DV, int BK>
 __device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap* tv,
                                         uint32_t skv, uint32_t fbar, int kh, int b, int j) {
   const int s = j % STAGES;
@@ -112,16 +154,19 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap
                        fbar + 8 * s);
 }
 
-// NWG warpgroups a block, each with its own q-head of the same kv-head and
-// the same 64 rows: they share every K/V tile.  Grid (H/NWG, B, q tiles).
-template <int D, int DV, int NWG>
-__global__ void __launch_bounds__(NWG * WG, 2)
+// NWG x RW warpgroups a block: NWG q-heads of the same kv-head, each over RW
+// x 64 rows, warpgroup w taking head w / RW and rows (w % RW) 64.. of the
+// block's; they share every K/V tile of BK keys.  Grid (H/NWG, B, query
+// tiles of RW x 64 rows).
+template <int D, int DV, int NWG, int RW, int BK>
+__global__ void __launch_bounds__(NWG * RW * WG, min_blocks<RW, BK>())
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Sq,
                       int Skv, int H, int K, float scale_log2, int causal) {
   using G = Geo<D>;
+  constexpr int NQ = NWG * RW;     // Q tiles (warpgroups) of the block
   constexpr int KSTEPS = D / 16;   // k16 slices of QK^T
   constexpr int PSTEPS = BK / 16;  // k16 slices of PV
   constexpr int OREG = DV / 2;     // O accumulator registers per thread
@@ -130,7 +175,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
   const uint32_t sq0 = (smem_u32(smem_raw) + 1023u) & ~1023u;  // warpgroup w's Q tile
   // stage s: K at skv + s pair_bytes(BK), V after it
-  const uint32_t skv = sq0 + NWG * G::tile_bytes(BQ);
+  const uint32_t skv = sq0 + NQ * G::tile_bytes(BQ);
   const uint32_t qbar = smem_u32(&bars[0]);
   const uint32_t fbar = smem_u32(&bars[1]);  // stage s: fbar + 8 s
 
@@ -138,12 +183,13 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg = tid / WG, warp = tid / 32 % 4, lane = tid % 32;
   // blocks are dispatched x fastest, z slowest: the longest causal q tiles
   // (the last) go first
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
-  const int h0 = blockIdx.x * NWG, h = h0 + wg, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * (RW * BQ);
+  const int qw = q0 + (wg % RW) * BQ;  // this warpgroup's first row
+  const int h0 = blockIdx.x * NWG, h = h0 + wg / RW, b = blockIdx.y;
   const int kh = h0 * K / H;  // the same for the block's NWG heads
   const uint32_t sq = sq0 + wg * G::tile_bytes(BQ);
-  // causal: keys past the tile's last row are masked for every row
-  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
+  // causal: keys past the block's last row are masked for every row
+  const int kv_end = causal ? min(Skv, q0 + RW * BQ) : Skv;
   const int n_tiles = (kv_end + BK - 1) / BK;
 
   if (tid == 0) {
@@ -154,18 +200,18 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(qbar, NWG * G::tile_bytes(BQ));
+    mbar_expect_tx(qbar, NQ * G::tile_bytes(BQ));
 #pragma unroll
-    for (int w = 0; w < NWG; ++w)
+    for (int w = 0; w < NQ; ++w)
 #pragma unroll
       for (int c = 0; c < G::NATOM; ++c)
         tma_load(sq0 + w * G::tile_bytes(BQ) + c * G::atom_bytes(BQ), &tq, c * G::ATOM,
-                 h0 + w, q0, b, qbar);
-    load_kv<D, DV>(&tk, &tv, skv, fbar, kh, b, 0);
+                 h0 + w / RW, q0 + (w % RW) * BQ, b, qbar);
+    load_kv<D, DV, BK>(&tk, &tv, skv, fbar, kh, b, 0);
   }
 
   // this thread's two rows and its first column in every 8-column chunk
-  const int r0 = q0 + 16 * warp + lane / 4, r1 = r0 + 8;
+  const int r0 = qw + 16 * warp + lane / 4, r1 = r0 + 8;
   const int c0 = 2 * (lane % 4);
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   float o[OREG];
@@ -179,7 +225,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // every warp of the block is past tile j-1's products: its stage may be
     // refilled
     __syncthreads();
-    if (tid == 0 && j + 1 < n_tiles) load_kv<D, DV>(&tk, &tv, skv, fbar, kh, b, j + 1);
+    if (tid == 0 && j + 1 < n_tiles) load_kv<D, DV, BK>(&tk, &tv, skv, fbar, kh, b, j + 1);
+    // a tile wholly above this warpgroup's rows (only below the block's last
+    // warpgroup, which waits on every tile) would add exactly 0
+    if (RW > 1 && causal && k0 > qw + BQ - 1) continue;
     mbar_wait(fbar + 8 * s, (j / STAGES) & 1);
     const uint32_t k_tile = skv + s * pair_bytes<D, DV>(BK), v_tile = k_tile + G::tile_bytes(BK);
 
@@ -198,7 +247,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
     // online softmax in the accumulator's layout: sc[4i + e] is row (e < 2 ?
     // r0 : r1), column 8i + c0 + (e & 1)
-    const bool mask = k0 + BK > Skv || (causal && k0 + BK - 1 > q0);
+    const bool mask = k0 + BK > Skv || (causal && k0 + BK - 1 > qw);
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
@@ -283,82 +332,137 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D, int DV>
+template <int D, int DV, int BK>
 bool make_maps(CUtensorMap* maps, const void* q, const void* k, const void* v, int B,
                int Sq, int Skv, int H, int K) {
   return make_map<D>(&maps[0], q, B, Sq, H, BQ) && make_map<D>(&maps[1], k, B, Skv, K, BK) &&
          make_map<DV>(&maps[2], v, B, Skv, K, BK);
 }
 
-template <int D, int DV, int NWG>
-cudaError_t launch_nwg(const CUtensorMap* maps, void* out, void* lse, int B, int Sq, int Skv,
-                       int H, int K, int causal, cudaStream_t stream) {
-  // NWG Q tiles, the K/V ring, and room to align them to 1024 bytes
-  constexpr int smem = NWG * Geo<D>::tile_bytes(BQ) + STAGES * pair_bytes<D, DV>(BK) + 1024;
-  static bool configured = false;  // once per instantiation (a repeat is harmless)
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_sm90_kernel<D, DV, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
+struct Call {
+  const void *q, *k, *v;
+  void *out, *lse;
+  int B, Sq, Skv, H, K, causal;
+  cudaStream_t stream;
+};
+
+template <int D, int DV, int NWG, int RW, int BK>
+cudaError_t launch_tiles(const Call& c) {
+  if constexpr (!admits<DV, NWG, RW, BK>()) {
+    return cudaErrorInvalidValue;  // not built: its registers would not fit
+  } else {
+    CUtensorMap maps[3];
+    if (!make_maps<D, DV, BK>(maps, c.q, c.k, c.v, c.B, c.Sq, c.Skv, c.H, c.K))
+      return cudaErrorInvalidValue;
+    constexpr int smem = smem_bytes<D, DV, NWG, RW, BK>();
+    static bool configured = false;  // once per instantiation (a repeat is harmless)
+    if (!configured) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(flash_fwd_sm90_kernel<D, DV, NWG, RW, BK>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      configured = true;
+    }
+    const dim3 grid(c.H / NWG, c.B, (c.Sq + RW * BQ - 1) / (RW * BQ));
+    flash_fwd_sm90_kernel<D, DV, NWG, RW, BK><<<grid, NWG * RW * WG, smem, c.stream>>>(
+        maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(c.out),
+        static_cast<float*>(c.lse), c.Sq, c.Skv, c.H, c.K,
+        LOG2E / sqrtf(static_cast<float>(D)), c.causal);
+    return cudaGetLastError();
   }
-  const dim3 grid(H / NWG, B, (Sq + BQ - 1) / BQ);
-  flash_fwd_sm90_kernel<D, DV, NWG><<<grid, NWG * WG, smem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
-      Sq, Skv, H, K, LOG2E / sqrtf(static_cast<float>(D)), causal);
-  return cudaGetLastError();
+}
+
+// The instantiation of block_q x block_k; NWG q-heads a block.
+template <int D, int DV, int NWG>
+cudaError_t launch_nwg(const Call& c, int block_q, int block_k) {
+  if (block_q == 64 && block_k == 64) return launch_tiles<D, DV, NWG, 1, 64>(c);
+  if (block_q == 64 && block_k == 128) return launch_tiles<D, DV, NWG, 1, 128>(c);
+  if (block_q == 128 && block_k == 64) return launch_tiles<D, DV, NWG, 2, 64>(c);
+  if (block_q == 128 && block_k == 128) return launch_tiles<D, DV, NWG, 2, 128>(c);
+  return cudaErrorInvalidValue;
 }
 
 // Two q-heads a block when they share a kv-head (H/K even), else one.
 template <int D, int DV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* lse, int B,
-                   int Sq, int Skv, int H, int K, int causal, cudaStream_t stream) {
-  CUtensorMap maps[3];
-  if (!make_maps<D, DV>(maps, q, k, v, B, Sq, Skv, H, K)) return cudaErrorInvalidValue;
-  if ((H / K) % 2 == 0)
-    return launch_nwg<D, DV, 2>(maps, out, lse, B, Sq, Skv, H, K, causal, stream);
-  return launch_nwg<D, DV, 1>(maps, out, lse, B, Sq, Skv, H, K, causal, stream);
+cudaError_t launch(const Call& c, int block_q, int block_k) {
+  if ((c.H / c.K) % 2 == 0) return launch_nwg<D, DV, 2>(c, block_q, block_k);
+  return launch_nwg<D, DV, 1>(c, block_q, block_k);
+}
+
+template <int D, int DV, int NWG>
+int smem_nwg(int block_q, int block_k) {
+  if (block_q == 64 && block_k == 64) return smem_bytes<D, DV, NWG, 1, 64>();
+  if (block_q == 64 && block_k == 128)
+    return admits<DV, NWG, 1, 128>() ? smem_bytes<D, DV, NWG, 1, 128>() : -1;
+  if (block_q == 128 && block_k == 64)
+    return admits<DV, NWG, 2, 64>() ? smem_bytes<D, DV, NWG, 2, 64>() : -1;
+  if (block_q == 128 && block_k == 128)
+    return admits<DV, NWG, 2, 128>() ? smem_bytes<D, DV, NWG, 2, 128>() : -1;
+  return -1;
+}
+
+template <int D, int DV>
+int smem_dv(int heads, int block_q, int block_k) {
+  if (heads == 2) return smem_nwg<D, DV, 2>(block_q, block_k);
+  if (heads == 1) return smem_nwg<D, DV, 1>(block_q, block_k);
+  return -1;
 }
 
 }  // namespace
 
 // q (B,Sq,H,D), k (B,Skv,K,D), v (B,Skv,K,Dv) contiguous bf16 with 16-byte
-// aligned pointers; out (B,Sq,H,Dv) bf16, lse (B,H,Sq) fp32.  Returns the
-// cudaError_t of the launch (cudaErrorInvalidValue when a tensor map cannot
-// be made or (D, Dv) is not one of (32, 32), (64, 64), (96, 96), (128, 128),
-// (96, 64)).
+// aligned pointers; out (B,Sq,H,Dv) bf16, lse (B,H,Sq) fp32; block_q (64 or
+// 128: query rows of a q-head in a block) and block_k (64 or 128: keys a
+// tile).  Returns the cudaError_t of the launch (cudaErrorInvalidValue when
+// a tensor map cannot be made, (D, Dv) is not one of (32, 32), (64, 64),
+// (96, 96), (128, 128), (96, 64), or the tiles' instantiation is not built).
 extern "C" int repro_flash_attention_fwd_sm90(const void* q, const void* k, const void* v,
                                               void* out, void* lse, int B, int Sq, int Skv,
                                               int H, int K, int D, int Dv, int causal,
-                                              void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 96 && Dv == 64)
-    return launch<96, 64>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
+                                              int block_q, int block_k, void* stream) {
+  const Call c{q, k, v, out, lse, B, Sq, Skv, H, K, causal, static_cast<cudaStream_t>(stream)};
+  if (D == 96 && Dv == 64) return launch<96, 64>(c, block_q, block_k);
   if (D != Dv) return cudaErrorInvalidValue;
   switch (D) {
-    case 32: return launch<32, 32>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
-    case 64: return launch<64, 64>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
-    case 96: return launch<96, 96>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
-    case 128: return launch<128, 128>(q, k, v, out, lse, B, Sq, Skv, H, K, causal, st);
+    case 32: return launch<32, 32>(c, block_q, block_k);
+    case 64: return launch<64, 64>(c, block_q, block_k);
+    case 96: return launch<96, 96>(c, block_q, block_k);
+    case 128: return launch<128, 128>(c, block_q, block_k);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Makes the three tensor maps of one call `reps` times and launches
-// nothing: what a call spends on its descriptors, timed by the caller.
-// Returns 0, or cudaErrorInvalidValue when a map cannot be made.
+// A block's dynamic shared memory at (D, Dv), `heads` q-heads a block (1 or
+// 2) and block_q x block_k; -1 where that instantiation is not built.
+extern "C" int repro_flash_attention_fwd_sm90_smem(int D, int Dv, int heads, int block_q,
+                                                   int block_k) {
+  if (D == 96 && Dv == 64) return smem_dv<96, 64>(heads, block_q, block_k);
+  if (D != Dv) return -1;
+  switch (D) {
+    case 32: return smem_dv<32, 32>(heads, block_q, block_k);
+    case 64: return smem_dv<64, 64>(heads, block_q, block_k);
+    case 96: return smem_dv<96, 96>(heads, block_q, block_k);
+    case 128: return smem_dv<128, 128>(heads, block_q, block_k);
+    default: return -1;
+  }
+}
+
+// Makes the three tensor maps of one call at the default tiles `reps` times
+// and launches nothing: what a call spends on its descriptors, timed by the
+// caller.  Returns 0, or cudaErrorInvalidValue when a map cannot be made.
 extern "C" int repro_flash_sm90_describe(const void* q, const void* k, const void* v, int B,
                                          int Sq, int Skv, int H, int K, int D, int Dv,
                                          int reps) {
+  constexpr int BK = DEFAULT_BLOCK_K;
   CUtensorMap maps[3];
   for (int i = 0; i < reps; ++i) {
     const bool ok =
-        D == 96 && Dv == 64 ? make_maps<96, 64>(maps, q, k, v, B, Sq, Skv, H, K)
+        D == 96 && Dv == 64 ? make_maps<96, 64, BK>(maps, q, k, v, B, Sq, Skv, H, K)
         : D != Dv           ? false
-        : D == 32           ? make_maps<32, 32>(maps, q, k, v, B, Sq, Skv, H, K)
-        : D == 64           ? make_maps<64, 64>(maps, q, k, v, B, Sq, Skv, H, K)
-        : D == 96           ? make_maps<96, 96>(maps, q, k, v, B, Sq, Skv, H, K)
-        : D == 128          ? make_maps<128, 128>(maps, q, k, v, B, Sq, Skv, H, K)
+        : D == 32           ? make_maps<32, 32, BK>(maps, q, k, v, B, Sq, Skv, H, K)
+        : D == 64           ? make_maps<64, 64, BK>(maps, q, k, v, B, Sq, Skv, H, K)
+        : D == 96           ? make_maps<96, 96, BK>(maps, q, k, v, B, Sq, Skv, H, K)
+        : D == 128          ? make_maps<128, 128, BK>(maps, q, k, v, B, Sq, Skv, H, K)
                             : false;
     if (!ok) return cudaErrorInvalidValue;
   }

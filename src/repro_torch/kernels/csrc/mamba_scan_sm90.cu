@@ -1,5 +1,5 @@
 // Mamba-1 selective scan for Hopper, sm_90a: one thread a channel, tiles
-// of the inputs copied asynchronously.
+// of the inputs copied asynchronously (or 2 or 4 lanes a channel).
 //
 // Replaces the Pallas TPU kernel `_scan_kernel` reached through
 // `mamba_scan_pallas` in src/repro/kernels/mamba_scan/mamba_scan.py.
@@ -28,7 +28,11 @@
 // exponentials to keep the multi-function unit busy; the grid, 256 blocks
 // at the serve shape and 128 in training, is one wave on the 132 SMs.  (Two
 // lanes a channel at n = 16, 8 states each, were timed once against this
-// and were slower at the serve shape: PERF.md section 6.)
+// and were slower at the serve shape: PERF.md section 6.)  The lanes a
+// channel are a launch parameter (the tuning cache's `mamba` entries,
+// repro_torch/tune/space.py): 1, 2 or 4 at n <= 16, 2 at n <= 32; 0 is the
+// rule above (`geometry`).  With G lanes a block holds 128/G channels, each
+// lane NS states, and y is summed across the G lanes by shuffles.
 // Tiles of T = 16 time steps of x and dt (T x 128 channels) and of B and C
 // (T x n) are copied into shared memory with cp.async (16 bytes a copy
 // where the rows are 16-byte aligned, else 4) in a ring of 3 stages, so
@@ -197,7 +201,8 @@ scan_sm90_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         }
       }
       float acc = (part[0] + part[1]) + (part[2] + part[3]);
-      if (G == 2) acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+#pragma unroll
+      for (int o = 1; o < G; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
       if (live && g == 0) yb[static_cast<size_t>(t0 + tt) * d] = acc;
     };
     // a whole tile fully unrolled, so that the exponentials and shared-memory
@@ -247,18 +252,22 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// One lane a channel with n <= 16 states, rounded up to 4, 8 or 16; two
-// lanes of 16 states for n <= 32.
-void geometry(int n, int* G, int* NS) {
-  *G = n > 16 ? 2 : 1;
+// `lanes` lanes a channel (0: one lane with n <= 16 states, two lanes for
+// n <= 32), each with the channel's states split evenly, rounded up to 4, 8
+// or 16 a lane; false for lanes other than 1, 2 or 4 at n <= 16 and 2 at
+// n <= 32.
+bool geometry(int n, int lanes, int* G, int* NS) {
+  *G = lanes != 0 ? lanes : n > 16 ? 2 : 1;
+  if (n > 16 ? *G != 2 : (*G != 1 && *G != 2 && *G != 4)) return false;
   const int per_lane = (n + *G - 1) / *G;
   *NS = per_lane <= 4 ? 4 : per_lane <= 8 ? 8 : 16;
+  return true;
 }
 
 int run(const void* x, const void* dt, const void* A, const void* B, const void* C,
         const void* h0, void* y, void* hf, int b, int s, int d, int n, long long sxb,
         long long sxt, long long sdb, long long sdt, long long sbb, long long sbt,
-        long long scb, long long sct, void* stream) {
+        long long scb, long long sct, int lanes, void* stream) {
   if (b < 1 || b > 65535 || s < 1 || d < 1 || n < 1 || n > 32) return cudaErrorInvalidValue;
   const Args a{static_cast<const float*>(x), static_cast<const float*>(dt),
                static_cast<const float*>(A), static_cast<const float*>(B),
@@ -267,9 +276,10 @@ int run(const void* x, const void* dt, const void* A, const void* B, const void*
                sxb, sxt, sdb, sdt, sbb, sbt, scb, sct};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int G, NS;
-  geometry(n, &G, &NS);
+  if (!geometry(n, lanes, &G, &NS)) return cudaErrorInvalidValue;
   if (G == 1) return NS == 4 ? launch<1, 4>(a, st) : NS == 8 ? launch<1, 8>(a, st)
                                                              : launch<1, 16>(a, st);
+  if (G == 4) return launch<4, 4>(a, st);  // n <= 16: four states a lane
   return NS == 4 ? launch<2, 4>(a, st) : NS == 8 ? launch<2, 8>(a, st) : launch<2, 16>(a, st);
 }
 
@@ -278,21 +288,24 @@ int run(const void* x, const void* dt, const void* A, const void* B, const void*
 // x, dt (b,s,d) and B, C (b,s,n): fp32 with unit stride along the last axis,
 // batch and time strides given (in elements).  A (d,n), h0 (b,d,n) or null:
 // contiguous fp32.  Outputs y (b,s,d) and hf (b,d,n): contiguous fp32.
-// 1 <= n <= 32, b <= 65535.  Returns the cudaError_t of the launch.
+// 1 <= n <= 32, b <= 65535; lanes a channel 1, 2 or 4 at n <= 16, 2 at
+// n <= 32, or 0 for `geometry`'s.  Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for other lanes).
 extern "C" int repro_mamba_scan_fwd(const void* x, const void* dt, const void* A,
                                     const void* B, const void* C, const void* h0,
                                     void* y, void* hf, int b, int s, int d, int n,
                                     long long sxb, long long sxt, long long sdb,
                                     long long sdt, long long sbb, long long sbt,
-                                    long long scb, long long sct, void* stream) {
+                                    long long scb, long long sct, int lanes, void* stream) {
   return run(x, dt, A, B, C, h0, y, hf, b, s, d, n, sxb, sxt, sdb, sdt, sbb, sbt, scb, sct,
-             stream);
+             lanes, stream);
 }
 
-// A block's dynamic shared memory (its tile ring) at state size n.
-extern "C" int repro_mamba_scan_fwd_smem(int n) {
+// A block's dynamic shared memory (its tile ring) at state size n and
+// `lanes` lanes a channel (0: `geometry`'s); -1 where the kernel refuses.
+extern "C" int repro_mamba_scan_fwd_smem(int n, int lanes) {
   if (n < 1 || n > 32) return -1;
   int G, NS;
-  geometry(n, &G, &NS);
+  if (!geometry(n, lanes, &G, &NS)) return -1;
   return ring_bytes(G, NS);
 }

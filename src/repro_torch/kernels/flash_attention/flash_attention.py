@@ -21,9 +21,17 @@ Pallas ``flash_attention_bwd``: p recomputed from the forward's lse,
 take bf16 operands, with p and ds split into two bf16 terms each, and sum
 in fp32; the fp32 kernels' products are three tf32 products each).
 
+The bf16 forward's tiles are launch parameters: ``block_q`` (64 or 128
+query rows of a q-head in a block) and ``block_k`` (64 or 128 keys a
+tile).  A call that names neither reads them from the tuning cache
+(``repro_torch.tune``, kernel ``flash_fwd``, backend ``"cuda"``), and
+without a cache, or on a miss, runs the kernel's first tiles, 64 x 64.
+The fp32 forward and the backward pairs run their fixed tiles.
+
 Under ``torch.func.vmap`` (``Service.execute_batch``) the forward goes
 through the custom op ``repro_torch::flash_attention_fwd``, whose vmap
-rule folds the tasks into B and launches once (``kernels/batched.py``).
+rule folds the tasks into B and launches once (``kernels/batched.py``),
+so a folded call reads the cache at its folded batch.
 """
 
 from __future__ import annotations
@@ -32,6 +40,9 @@ import ctypes
 
 import torch
 
+from ...tune.cache import ConfigProbe, get_cache
+from ...tune.space import (KernelConfigError, default_config, fixed_tiles,
+                           flash_heads_a_block, resolve_config, validate_config)
 from .. import head_dims
 from ..batched import fold, under_vmap, unfold
 from ..build import CudaKernel
@@ -40,12 +51,22 @@ NEG_INF = -2.0e38
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 # the forward kernels take (q, k, v, out, lse, B, Sq, Skv, H, K, D, Dv,
-# causal, stream)
+# causal, stream); the bf16 one takes (block_q, block_k) before the stream
 _FWD_ARGS = [_p] * 5 + [_i] * 8 + [_p]
 SM90_KERNEL = CudaKernel("flash_attention_sm90.cu",
-                         "repro_flash_attention_fwd_sm90", _FWD_ARGS)
+                         "repro_flash_attention_fwd_sm90",
+                         _FWD_ARGS[:-1] + [_i, _i, _p])
 SM90_FP32_KERNEL = CudaKernel("flash_attention_sm90_fp32.cu",
                               "repro_flash_attention_fwd_sm90_fp32", _FWD_ARGS)
+# the bf16 forward's untuned tiles, and the fp32 forward's fixed ones
+DEFAULT_TILES = default_config("flash_fwd", "cuda", "bfloat16")
+_DEFAULT_PAIR = _BQ0, _BK0 = (DEFAULT_TILES["block_q"], DEFAULT_TILES["block_k"])
+FP32_TILES = fixed_tiles("flash_fwd", "float32")
+_TILES_PROBE = ConfigProbe("flash_fwd", ("B", "Sq", "Skv", "H", "K", "D", "Dv"), "cuda",
+                           DEFAULT_TILES)
+# resolved and checked tiles by what decides them: (D, Dv, q-heads a block,
+# block_q, block_k, Sq <= 64, Skv <= 64)
+_RESOLVED: dict[tuple, tuple[int, int]] = {}
 # the backward kernels all take (8 pointers, B, Sq, Skv, H, K, D, Dv,
 # causal, stream)
 _BWD_ARGS = [_p] * 8 + [_i] * 8 + [_p]
@@ -137,15 +158,68 @@ def _check_tma(name, *ts):
                          "TMA)")
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True):
+def forward_tiles(dtype, B, Sq, Skv, H, K, D, Dv, block_q=None, block_k=None):
+    """(block_q, block_k) a CUDA forward of ``dtype`` launches: the ones
+    given, else the tuning cache's for this shape, else the defaults; a
+    tile the shape cannot use falls to one it can (``resolve_config``).
+    Raises :class:`KernelConfigError`, naming the config, on a malformed
+    tile or one the kernel is not built for (the fp32 kernel runs only its
+    fixed tiles)."""
+    if dtype == torch.float32:
+        if block_q is not None or block_k is not None:
+            tiles = {"block_q": FP32_TILES["block_q"] if block_q is None else block_q,
+                     "block_k": FP32_TILES["block_k"] if block_k is None else block_k}
+            if tiles != FP32_TILES:
+                raise KernelConfigError(f"flash_attention_fwd: the fp32 kernel runs "
+                                        f"its fixed tiles {FP32_TILES}, not {tiles}")
+        return FP32_TILES["block_q"], FP32_TILES["block_k"]
+    if block_q is None or block_k is None:
+        cfg = _TILES_PROBE((B, Sq, Skv, H, K, D, Dv), dtype)
+        block_q = cfg["block_q"] if block_q is None else block_q
+        block_k = cfg["block_k"] if block_k is None else block_k
+    if (block_q, block_k) == _DEFAULT_PAIR:
+        return _DEFAULT_PAIR
+    key = (D, Dv, flash_heads_a_block(H, K), block_q, block_k, Sq <= 64, Skv <= 64)
+    tiles = _RESOLVED.get(key)
+    if tiles is None:
+        shape = {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K, "D": D, "Dv": Dv}
+        cfg = resolve_config("flash_fwd", shape, {"block_q": block_q, "block_k": block_k},
+                             "cuda", "bfloat16")
+        validate_config("flash_fwd", shape, cfg, "cuda", "bfloat16")
+        tiles = _RESOLVED[key] = (cfg["block_q"], cfg["block_k"])
+    return tiles
+
+
+def _launch_tuned(q, k, v, out, lse, causal, block_q, block_k, stream):
+    """The forward at the tiles ``forward_tiles`` resolves; a launch the
+    kernel refuses raises :class:`KernelConfigError` naming the tiles."""
+    B, Sq, H, D = q.shape
+    _, Skv, K, Dv = v.shape
+    tiles = forward_tiles(q.dtype, B, Sq, Skv, H, K, D, Dv, block_q, block_k)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            B, Sq, Skv, H, K, D, Dv, int(causal))
+    if q.dtype == torch.float32:
+        SM90_FP32_KERNEL.launch(*args, stream)
+        return
+    try:
+        SM90_KERNEL.launch(*args, *tiles, stream)
+    except RuntimeError as e:  # the kernel refused the tiles
+        raise KernelConfigError(
+            f"flash_attention_fwd: tiles block_q={tiles[0]}, block_k={tiles[1]} at "
+            f"(D, Dv) = ({D}, {Dv}), H={H}, K={K}: {e}") from e
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        block_q: int | None = None, block_k: int | None = None):
     """Returns (out (B,Sq,H,Dv) in q's dtype, lse (B,H,Sq) fp32).
 
     CPU tensors go to the plain version; CUDA tensors to the kernel of
     their dtype (``forward_kernel``), which raises on what it does not
-    take.  Under vmap the call goes through the custom op, whose rule
-    launches once for all the tasks."""
+    take, at the tiles ``forward_tiles`` resolves (``block_q``,
+    ``block_k``: None reads the tuning cache).  Under vmap the call goes
+    through the custom op, whose rule launches once for all the tasks."""
     if under_vmap(q, k, v):
-        return _fwd_op(q, k, v, causal)
+        return _fwd_op(q, k, v, causal, block_q, block_k)
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
@@ -158,33 +232,43 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
                          "exceeds the grid's 65535")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    tuned = block_q is not None or block_k is not None or get_cache() is not None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        forward_kernel(q.dtype).launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, Sq, Skv, H, K, D, Dv, int(causal), stream)
+        if tuned:
+            _launch_tuned(q, k, v, out, lse, causal, block_q, block_k, stream)
+        elif q.dtype == torch.bfloat16:  # no cache, no tiles asked for: the untuned ones
+            SM90_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                               lse.data_ptr(), B, Sq, Skv, H, K, D, Dv, int(causal),
+                               _BQ0, _BK0, stream)
+        else:
+            SM90_FP32_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                    lse.data_ptr(), B, Sq, Skv, H, K, D, Dv, int(causal),
+                                    stream)
     return out, lse
 
 
 @torch.library.custom_op(
     "repro_torch::flash_attention_fwd", mutates_args=(),
-    schema="(Tensor q, Tensor k, Tensor v, bool causal) -> (Tensor, Tensor)")
-def _fwd_op(q, k, v, causal):
-    return flash_attention_fwd(q, k, v, causal=causal)
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, int? block_q=None, "
+           "int? block_k=None) -> (Tensor, Tensor)")
+def _fwd_op(q, k, v, causal, block_q=None, block_k=None):
+    return flash_attention_fwd(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
 
 
 @_fwd_op.register_fake
-def _(q, k, v, causal):
+def _(q, k, v, causal, block_q=None, block_k=None):
     B, Sq, H, _ = q.shape
     return (q.new_empty((B, Sq, H, v.shape[3])),
             q.new_empty((B, H, Sq), dtype=torch.float32))
 
 
 @_fwd_op.register_vmap
-def _(info, in_dims, q, k, v, causal):
+def _(info, in_dims, q, k, v, causal, block_q=None, block_k=None):
     n = info.batch_size
     q, k, v = fold("flash_attention_fwd", n, ("q", "k", "v"), (q, k, v), in_dims[:3])
-    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, block_q=block_q,
+                                   block_k=block_k)
     return (unfold(out, n), unfold(lse, n)), (0, 0)
 
 

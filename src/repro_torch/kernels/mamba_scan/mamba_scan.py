@@ -19,6 +19,15 @@ and combine, so the products come in the same order.  It never forms the
 closed form ``exp(cumsum(dt A))``, whose inverse overflows once a chunk's
 ``sum dt A`` passes about -88.  ``mamba_scan_naive`` is the step-by-step
 recurrence, for the tests.
+
+Both read the tuning cache (``repro_torch.tune``) when the caller names
+no value: the kernel's lanes a channel (``lanes``: kernel ``mamba``,
+backend ``"cuda"``; 0, the kernel's own rule, without a cache or on a
+miss) and the plain scan's ``chunk`` (kernel ``mamba``, backend
+``"torch"``; 256 without one).  The card runs the plain scan in the
+scan's backward (``ops.py``), so that is where its chunk counts there.
+A folded call of ``Service.execute_batch`` reads the cache at its folded
+batch.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ import ctypes
 
 import torch
 
+from ...tune.cache import ConfigProbe, get_cache
+from ...tune.space import KernelConfigError, default_config
 from ..build import CudaKernel
 
 MAX_STATE = 32  # the kernel's limit on n: 2 lanes of 16 states a channel
@@ -35,7 +46,11 @@ _p, _i, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = CudaKernel(
     "mamba_scan_sm90.cu", "repro_mamba_scan_fwd",
     [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
-     _l, _l, _l, _l, _l, _l, _l, _l, _p])
+     _l, _l, _l, _l, _l, _l, _l, _l, _i, _p])
+DEFAULT_LANES = default_config("mamba", "cuda")  # {"lanes": 0}: the kernel's rule
+DEFAULT_CHUNK = default_config("mamba", "torch")  # {"chunk": 256}
+_LANES_PROBE = ConfigProbe("mamba", ("b", "s", "d", "n"), "cuda", DEFAULT_LANES)
+_CHUNK_PROBE = ConfigProbe("mamba", ("b", "s", "d", "n"), "torch", DEFAULT_CHUNK)
 
 
 def _chunk_size(seq: int, target: int = 256) -> int:
@@ -88,13 +103,18 @@ def associative_scan(a, b, dim):
 
 def mamba_scan_plain(x, dt, A, B, C, h0=None, *, chunk: int | None = None):
     """The chunked scan.  x, dt (b,s,d); A (d,n); B, C (b,s,n); h0 (b,d,n)
-    or None.  ``chunk`` (default 256) falls to the largest divisor of s
-    at most that size.  Returns (y (b,s,d), h_final (b,d,n)), fp32;
-    differentiable."""
+    or None.  ``chunk`` (None: the tuning cache's, else 256) falls to the
+    largest divisor of s at most that size.  Returns (y (b,s,d), h_final
+    (b,d,n)), fp32; differentiable."""
     b, s, d = x.shape
     n = A.shape[-1]
+    if chunk is None:
+        chunk = _CHUNK_PROBE((b, s, d, n), x.dtype)["chunk"]
+    if isinstance(chunk, bool) or not isinstance(chunk, int) or chunk <= 0:
+        raise KernelConfigError(f"mamba_scan_plain: chunk must be a positive int, "
+                                f"got {chunk!r}")
     x, dt, A, B, C = (t.float() for t in (x, dt, A, B, C))
-    c = _chunk_size(s, 256 if chunk is None else chunk)
+    c = _chunk_size(s, chunk)
     h = (torch.zeros((b, d, n), dtype=torch.float32, device=x.device)
          if h0 is None else h0.float())
     ys = []
@@ -161,14 +181,32 @@ def _rows(t, *, align=False):
     return t
 
 
-def mamba_scan_fwd(x, dt, A, B, C, h0=None):
+def scan_lanes(dtype, b, s, d, n, lanes=None) -> int:
+    """The lanes a channel a CUDA call launches: ``lanes`` when given, else
+    the tuning cache's for this shape, else 0 (the kernel's ``geometry``).
+    Raises :class:`KernelConfigError`, naming it, on a count the kernel
+    does not take at state size ``n`` (1, 2 or 4 at n <= 16; 2 at
+    n <= 32)."""
+    if lanes is None:
+        lanes = _LANES_PROBE((b, s, d, n), dtype)["lanes"]
+    if lanes == 0 and not isinstance(lanes, bool):
+        return 0
+    allowed = (1, 2, 4) if n <= 16 else (2,)
+    if isinstance(lanes, bool) or lanes not in allowed:
+        raise KernelConfigError(f"mamba_scan_fwd: lanes={lanes!r} at state size {n}; "
+                                f"the kernel takes {allowed} (or 0 for its own)")
+    return lanes
+
+
+def mamba_scan_fwd(x, dt, A, B, C, h0=None, *, lanes: int | None = None):
     """Returns (y (b,s,d), h_final (b,d,n)), fp32; inputs are cast to fp32
     as the reference's entry does.
 
     CPU tensors go to the plain version; CUDA tensors to the kernel,
-    which raises on what it does not take.  x, dt, B and C may be strided
-    views (slices of wider projections): the kernel reads them through
-    their batch and time strides."""
+    which raises on what it does not take, at the lanes a channel
+    ``scan_lanes`` resolves (None reads the tuning cache).  x, dt, B and C
+    may be strided views (slices of wider projections): the kernel reads
+    them through their batch and time strides."""
     _check(x, dt, A, B, C, h0)
     if x.device.type == "cpu":
         return mamba_scan_plain(x, dt, A, B, C, h0)
@@ -184,17 +222,28 @@ def mamba_scan_fwd(x, dt, A, B, C, h0=None):
                          f"at most {MAX_STATE}")
     if b > 65535:
         raise ValueError(f"mamba_scan_fwd: batch {b} exceeds the grid's 65535")
+    if lanes is not None or get_cache() is not None:
+        lanes = scan_lanes(x.dtype, b, s, d, n, lanes)
+    else:
+        lanes = 0  # no cache, no count asked for: the kernel's own (geometry)
     x, dt = (_rows(t, align=True) for t in (x, dt))
     B, C = _rows(B), _rows(C)
     A = A.float().contiguous()
     h0 = None if h0 is None else h0.float().contiguous()
     y = torch.empty((b, s, d), dtype=torch.float32, device=x.device)
     hf = torch.empty((b, d, n), dtype=torch.float32, device=x.device)
+    args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            None if h0 is None else h0.data_ptr(), y.data_ptr(), hf.data_ptr(), b, s, d, n,
+            x.stride(0), x.stride(1), dt.stride(0), dt.stride(1), B.stride(0), B.stride(1),
+            C.stride(0), C.stride(1), lanes)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        KERNEL.launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                      C.data_ptr(), None if h0 is None else h0.data_ptr(),
-                      y.data_ptr(), hf.data_ptr(), b, s, d, n,
-                      x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
-                      B.stride(0), B.stride(1), C.stride(0), C.stride(1), stream)
+        if lanes == 0:
+            KERNEL.launch(*args, stream)
+        else:
+            try:
+                KERNEL.launch(*args, stream)
+            except RuntimeError as e:  # the kernel refused the tuned lanes
+                raise KernelConfigError(f"mamba_scan_fwd: lanes={lanes} at ({b}, {s}, "
+                                        f"{d}, {n}): {e}") from e
     return y, hf

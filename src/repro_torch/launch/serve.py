@@ -12,6 +12,9 @@ from text prompts, as by the reference's launcher: a vision model
 without patch embeddings.  An encoder-decoder arch (whisper) is refused:
 its tasks need encoder frames, which ``serve_requests`` does not build
 (run ``make_generate_program`` on tasks that carry ``enc_frames``).
+``--tune-cache PATH`` installs a tuning cache (``repro_torch.tune``): the
+kernels' launch parameters and the plain chunked paths' chunks are read
+from it; shapes it has no entry for keep the defaults.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from repro_torch.models import build
 from repro_torch.runtime.serve_loop import ServeConfig, serve_requests
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--requests", type=int, default=16)
@@ -38,11 +41,24 @@ def main() -> None:
     ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--batch-per-task", type=int, default=4)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (widths as published)")
     ap.add_argument("--kill-one", action="store_true",
                     help="fault-inject a service mid-run")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    args = ap.parse_args()
+    ap.add_argument("--tune-cache", default=None, metavar="PATH",
+                    help="kernel tuning cache (JSON from repro_torch.tune): the "
+                         "kernels' tiles, KV splits and lanes and the chunked "
+                         "paths' chunks are read from it; untuned shapes keep "
+                         "the defaults")
+    args = ap.parse_args(argv)
+
+    if args.tune_cache:
+        from repro_torch.tune import configure
+
+        cache = configure(args.tune_cache)
+        print(f"tuning cache {args.tune_cache}: {len(cache)} entries")
 
     device = resolve_device(args.device)
     cfg = cfgs.get(args.arch)
@@ -51,6 +67,8 @@ def main() -> None:
                  "this launcher serves text prompts only")
     if args.reduced:
         cfg = cfgs.reduced(cfg)
+    if args.layers is not None:
+        cfg = cfg.replace(n_layers=args.layers)
     api = build(cfg)
     params = api.init(torch.Generator(device=device).manual_seed(0))
     if device.type == "cuda":
@@ -75,6 +93,8 @@ def main() -> None:
     print(f"generated {tuple(gen.shape)} on {device} in {dt:.2f}s "
           f"({toks/dt:.0f} tok/s across the farm)")
     print(f"farm stats: {stats}")
+    if args.tune_cache:
+        print(f"tuning cache lookups: {cache.hits} hits, {cache.misses} misses")
 
 
 if __name__ == "__main__":

@@ -826,3 +826,119 @@ def test_moe_training_step_with_remat_gives_the_gradients_without(device):
         d = (runs[True][1][name].float() - g.float()).norm()
         assert d <= 1e-6 * g.float().norm(), name
 
+
+
+# ---------------- the tuning space's candidates on the card ----------- #
+# (family, backend, dtype, shape) as chip_smoke.py's TUNE_SWEEPS; each
+# candidate the space admits is held to the plain version, as today's
+# tiles are.
+TUNE_FLASH = [("G=2", {"B": 4, "Sq": 512, "Skv": 512, "H": 16, "K": 8, "D": 128, "Dv": 128}),
+              ("G=5", {"B": 4, "Sq": 512, "Skv": 512, "H": 40, "K": 8, "D": 128, "Dv": 128}),
+              ("D=64 ragged", {"B": 2, "Sq": 200, "Skv": 70, "H": 4, "K": 4, "D": 64,
+                               "Dv": 64}),
+              ("(96, 64)", {"B": 1, "Sq": 130, "Skv": 130, "H": 8, "K": 8, "D": 96, "Dv": 64})]
+
+
+@pytest.mark.parametrize("label, shape", TUNE_FLASH)
+@pytest.mark.parametrize("causal", [True, False])
+def test_every_flash_candidate_matches_plain(label, shape, causal, device):
+    from repro_torch.tune import search_space
+
+    bf = torch.bfloat16
+    q = _randn((shape["B"], shape["Sq"], shape["H"], shape["D"]), bf, device, 41)
+    k = _randn((shape["B"], shape["Skv"], shape["K"], shape["D"]), bf, device, 42)
+    v = _randn((shape["B"], shape["Skv"], shape["K"], shape["Dv"]), bf, device, 43)
+    ref, ref_lse = flash_attention_plain(q, k, v, causal=causal)
+    cands, _ = search_space("flash_fwd", shape, "bfloat16")
+    assert cands
+    for c in cands:
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, **c)
+        _assert_elementwise(out, ref, 2.0 ** -7)
+        _assert_elementwise(lse, ref_lse, 0.0)
+
+
+@pytest.mark.parametrize("B, ci", [(4, 575), (1, 575), (4, 40), (2, 11)])
+def test_every_decode_split_count_matches_plain(B, ci, device):
+    from repro_torch.tune import search_space
+
+    q, kc, vc = _decode_inputs(B, 576, 16, 8, 128, torch.bfloat16, device, 44)
+    ref = decode_attention_plain(q, kc, vc, cache_index=ci)
+    shape = {"B": B, "S": 576, "H": 16, "K": 8, "D": 128, "Dv": 128}
+    for c in search_space("decode", shape, "bfloat16")[0]:
+        got = decode_attention_fwd(q, kc, vc, cache_index=ci, **c)
+        torch.testing.assert_close(got.float(), ref.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("n, lanes", [(16, 1), (16, 2), (16, 4), (8, 4), (4, 2), (32, 2)])
+def test_every_scan_lane_count_matches_plain(n, lanes, device):
+    from repro_torch.kernels.mamba_scan import mamba_scan_fwd, mamba_scan_plain
+
+    g = torch.Generator(device=device).manual_seed(45)
+    b, s, d = 2, 77, 300
+    x = torch.randn((b, s, d), generator=g, device=device)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, d), generator=g, device=device))
+    A = -torch.exp(torch.randn((d, n), generator=g, device=device) * 0.5)
+    B_ = torch.randn((b, s, n), generator=g, device=device)
+    C_ = torch.randn((b, s, n), generator=g, device=device)
+    got = mamba_scan_fwd(x, dt, A, B_, C_, lanes=lanes)
+    ref = mamba_scan_plain(x, dt, A, B_, C_)
+    for a, r in zip(got, ref):
+        _assert_elementwise(a, r, 1e-4, 1e-4)
+
+
+def test_a_refused_config_raises_by_name(device):
+    """A tile the kernel is not built for raises KernelConfigError naming
+    it, from an argument and from a cache entry, and launches nothing;
+    decode's and the scan's out-of-range counts too."""
+    from repro_torch.kernels import mamba_scan as scan
+    from repro_torch.tune import KernelConfigError, TuningCache, set_cache
+
+    bf = torch.bfloat16
+    shape = {"B": 4, "Sq": 512, "Skv": 512, "H": 16, "K": 8, "D": 128, "Dv": 128}
+    q = _randn((4, 512, 16, 128), bf, device, 46)
+    k = _randn((4, 512, 8, 128), bf, device, 47)
+    flash_kernel = forward_kernel(bf)
+    before = (flash_kernel.launches, DECODE.launches, scan.KERNEL.launches)
+    with pytest.raises(KernelConfigError, match="block_q"):
+        flash_attention_fwd(q, k, k, block_q=128, block_k=64)
+    with pytest.raises(KernelConfigError, match="splits=16"):
+        decode_attention_fwd(q[:, :1].contiguous(), k, k, cache_index=500, splits=16)
+    x = _randn((2, 8, 16), torch.float32, device, 48)
+    A = -_randn((16, 16), torch.float32, device, 51).abs()
+    with pytest.raises(KernelConfigError, match="lanes=3"):
+        scan.mamba_scan_fwd(x, x.abs(), A, x, x, lanes=3)
+    cache = TuningCache()
+    cache.put("flash_fwd", shape, "bfloat16", "cuda", {"block_q": 128, "block_k": 64}, 1.0,
+              save=False)
+    prev = set_cache(cache)
+    try:
+        with pytest.raises(KernelConfigError, match="'block_q': 128"):
+            flash_attention_fwd(q, k, k)
+    finally:
+        set_cache(prev)
+    assert (flash_kernel.launches, DECODE.launches, scan.KERNEL.launches) == before
+
+
+def test_a_cache_entry_changes_what_launches(device):
+    """The wrapper reads the cache on a call with no tiles: a cached 128-key
+    tile runs (the library's smem query says it is built), within the
+    element check, and the cache counts the hit."""
+    from repro_torch.tune import TuningCache, set_cache
+
+    bf = torch.bfloat16
+    shape = {"B": 4, "Sq": 512, "Skv": 512, "H": 16, "K": 8, "D": 128, "Dv": 128}
+    q = _randn((4, 512, 16, 128), bf, device, 49)
+    k = _randn((4, 512, 8, 128), bf, device, 50)
+    ref, _ = flash_attention_plain(q, k, k)
+    cache = TuningCache()
+    cache.put("flash_fwd", shape, "bfloat16", "cuda", {"block_q": 64, "block_k": 128}, 1.0,
+              save=False)
+    prev = set_cache(cache)
+    try:
+        out, _ = flash_attention_fwd(q, k, k)
+    finally:
+        set_cache(prev)
+    assert cache.hits == 1
+    _assert_elementwise(out, ref, 2.0 ** -7)
+    tuned = flash_attention_fwd(q, k, k, block_q=64, block_k=128)[0]
+    assert torch.equal(out, tuned)

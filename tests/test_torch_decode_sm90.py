@@ -214,3 +214,27 @@ def test_split_count_rules(B, H, K):
         assert splits == 1 or shortest >= TK
         if splits < MAX_SPLITS and n >= (splits + 1) * TK:
             assert splits * blocks_a_split >= 2 * SMS
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("B", [4, 1])
+def test_an_explicit_split_count_holds_the_check(B, splits):
+    """A split count the tuning cache gives (``decode_attention_fwd(...,
+    splits=)``) at qwen3's serve shape: each count the space takes holds
+    chip_smoke.py's element check against the plain version, as the
+    kernel's own choice does; the wrapper passes the count through where
+    every split keeps a tile, and 0 (the kernel's choice) otherwise
+    names none."""
+    from repro_torch.kernels.decode_attention.decode_attention import decode_splits
+    from repro_torch.tune.space import choose_splits
+
+    ci = 543
+    case = (B, 576, 16, 8, 128, ci, splits, BF16)
+    _, (q, k, v) = _inputs(case, seed=3)
+    got = decode_model(q, k, v, cache_index=ci, splits=splits).float()
+    ref = decode_attention_plain(q, k, v, cache_index=ci).float()
+    worst = ((got - ref).abs() / (2e-5 + 2.0 ** -7 * ref.abs())).max().item()
+    assert worst <= 1.0, f"largest |err| / limit {worst:.3f}"
+    assert decode_splits(BF16, B, 576, 16, 8, 128, 128, ci, splits) == splits
+    assert decode_splits(BF16, B, 576, 16, 8, 128, 128, ci) == 0
+    assert choose_splits(B, 16, 8, ci + 1) == kernel_splits(B, 16, 8, ci)

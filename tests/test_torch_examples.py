@@ -1,9 +1,11 @@
 """The port's examples on the CPU: ``examples/torch_serve_farm.py`` (two
 weighted tenants on one ``FarmScheduler``, a stream under a window of 8,
-a service joining mid-run) and ``examples/torch_train_lm.py`` (a
+a service joining mid-run), ``examples/torch_train_lm.py`` (a
 llama-family model on the Markov stream, checkpoint and restart, the
-loss dropping by more than a nat), each run as a subprocess with
-``--device cpu`` and small flags; neither imports ``jax`` or ``repro``."""
+loss dropping by more than a nat) and ``examples/torch_autotune.py``
+(``sim://`` sweeps, the tuning cache, dispatch through it), each run as a
+subprocess with ``--device cpu`` and small flags; none imports ``jax`` or
+``repro``."""
 
 import os
 import subprocess
@@ -48,7 +50,20 @@ def test_train_lm_example_runs_on_the_cpu():
     assert out.rstrip().endswith("OK")
 
 
-@pytest.mark.parametrize("example", ["torch_serve_farm.py", "torch_train_lm.py"])
+def test_autotune_example_runs_on_the_cpu():
+    """The port's autotune example: sim:// sweeps with the scripted cost
+    model (the reference's own xla_flash winner and the bf16 flash tiles'),
+    the cache written, and the windowed dispatch reading it on the CPU."""
+    out = _run("torch_autotune.py", "--device", "cpu")
+    assert "xla_flash (torch): winner {'kv_chunk': 128, 'q_chunk': 128}" in out
+    assert "flash_fwd (cuda): winner" in out
+    assert "windowed dispatch through the tuned chunks" in out
+    assert "cache hits=1 misses=0" in out
+    assert out.rstrip().endswith("OK")
+
+
+@pytest.mark.parametrize("example", ["torch_serve_farm.py", "torch_train_lm.py",
+                                     "torch_autotune.py"])
 def test_examples_default_to_the_card(example):
     """Without ``--device`` an example asks for the card, and raises where
     there is none, instead of running on the CPU."""

@@ -18,7 +18,10 @@ in both trees):
 
 - the host microseconds a call of the bf16 flash forward's wrapper and of
   decode's wrapper take, enqueued back to back (``CALLS`` calls, the card
-  not waited for), two readings a turn;
+  not waited for), two readings a turn, every tree's taken one after the
+  other before the turn's rounds (the host's readings wander between
+  slow and fast spells of a few seconds: a round between two trees'
+  readings puts them in different spells);
 - one task alone: prefill ms and decode ms per step (CUDA events), a
   prefill and 64 decode steps a round, two rounds a turn after an untimed
   one;
@@ -135,9 +138,13 @@ def main() -> int:
     got = {t.name: {} for t in trees}
     for p in range(args.pairs):
         order = trees if p % 2 == 0 else trees[::-1]
-        for t in order + order[::-1]:  # ABBA: two readings of each tree a turn
+        # ABBA: two readings of each tree a turn; the wrappers' host µs of
+        # every tree back to back first (a few ms apart, one host spell),
+        # then the rounds (seconds each)
+        for t in order + order[::-1]:
             for key, fn in t.calls.items():
                 got[t.name].setdefault(key, []).append(host_us(fn))
+        for t in order + order[::-1]:
             pre, dec = t.round(tokens)
             got[t.name].setdefault("prefill_ms", []).append(pre)
             got[t.name].setdefault("decode_ms_per_step", []).append(dec)
