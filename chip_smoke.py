@@ -16,15 +16,18 @@ against its plain PyTorch version.  Phases, in order; any
 failure raises and exits non-zero:
 
 1. build the CUDA kernels from this checkout's sources (one ``nvcc`` per
-   source, all started together), print each kernel's registers, spills
-   and static shared memory, count the tensor-core (``HGMMA``) and TMA
-   (``UTMALDG``) instructions in the SASS of the six Hopper attention
-   libraries (flash forward, backward dq and dk/dv, each in bf16 and in
-   fp32; failing if either is 0) and the asynchronous-copy (``LDGSTS``)
-   instructions in the decode and scan libraries (failing if 0), print the
-   fp32 forward's and backward pair's dynamic shared memory a block at
-   each (D, Dv) they take, decode's and the scan's, and print the card's
-   name and power limit;
+   source, all started together; each library's seconds printed), print
+   each kernel's registers, spills and static shared memory, count the
+   tensor-core (``HGMMA``) and TMA (``UTMALDG``) instructions in the SASS
+   of the six Hopper attention libraries (flash forward, backward dq and
+   dk/dv, each in bf16 and in fp32; failing if either is 0) and the
+   asynchronous-copy (``LDGSTS``) instructions in the decode and scan
+   libraries (failing if 0), hold every shared-memory query of the fp32
+   forward and both pairs at every tile to the tuning space's, print the
+   register probe (ptxas on every instantiation those five kernels'
+   shared-memory bounds admit, their register rules lowered: what the
+   rules are written from), decode's and the scan's shared memory, and
+   print the card's name and power limit;
 2. each attention kernel against its plain version on the card, on the
    same inputs, at every shape its paths give it (``FLASH_SHAPES``,
    ``DECODE_SHAPES``): qwen3's serve shapes (B=4, H=16, K=8, D=128, Sq =
@@ -270,12 +273,15 @@ failure raises and exits non-zero:
     and dispatched through on the card); their output printed, any one
     failing fails the script;
 23. the autotuner (``repro_torch.tune``) on the card, within
-    TUNE_PHASE_LIMIT_S: the tuning space against the kernels (every bf16
-    forward instantiation built where the space's register rule admits
-    it and refused where not, each kernel's shared-memory query equal to
-    the space's ``smem_bytes``, no ptxas spill in what tuning adds, the
-    build time); every candidate of TUNE_SWEEPS held to its plain version
-    with phase 2's (phase 9's) element check, also at ragged shapes, and
+    TUNE_PHASE_LIMIT_S: the tuning space against the kernels (every
+    instantiation of the bf16 and fp32 forwards and of both backward
+    pairs built where the space's rules admit it and refused where not,
+    each kernel's shared-memory query equal to the space's
+    ``smem_bytes``, no ptxas spill in what tuning adds, the build time);
+    every candidate of TUNE_SWEEPS held to its plain version with phase
+    2's (phase 5's for the pairs, phase 9's for the scan) element check,
+    also at ragged shapes, the untuned call bit-identical to an explicit
+    one at the untuned tiles, the pairs' second launch bit-identical, and
     configs the kernels refuse raising by name, from an argument and
     from a cache entry; each sweep of TUNE_SWEEPS through a KernelTuner
     over a farm of one service on the card, its summary printed, its
@@ -285,7 +291,11 @@ failure raises and exits non-zero:
     wrapper call; qwen3-1.7B at full width, TUNE_SERVE_LAYERS layers,
     served through ``launch/serve.py --tune-cache`` with the winners:
     cache hits, a task's launches as phase 3's a layer, logits of the
-    tuned dispatch held to phase 4's limits against the untuned kernels.
+    tuned dispatch held to phase 4's limits against the untuned kernels;
+    one qwen3-1.7B training step at full width, TRAIN_LAYERS layers, in
+    bf16 and fp32 through the winners' cache and through the runners-up:
+    one dq and one dk/dv a layer, gradients held to phase 7's
+    TRAIN_LIMITS against the untuned kernels.
 
 The line before the last is a JSON object with each kernel's numbers, one
 row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
@@ -710,8 +720,10 @@ SCAN_FLOP_PER_ELEMENT = 6  # dt*A, h*dA, dx*B, +, C*h, + per (b, s, d, n)
 # prefill (G = 2: two q-heads a block) and llama4's (G = 5: one); decode's
 # KV splits at qwen3's (B = 4 and B = 1, a 576-slot cache); the scan's
 # lanes a channel and the plain scan's chunk (its forward and backward) at
-# falcon-mamba's (b = 4, s = 512, d = 8192, n = 16).  label -> (family,
-# backend, dtype, shape).  Each sweep is a KernelTuner over a farm of one
+# falcon-mamba's (b = 4, s = 512, d = 8192, n = 16); the backward pairs'
+# four tiles at qwen3's training shape (bf16 and fp32) and minicpm3's MLA
+# (bf16: H = K = 40, (D, Dv) = (96, 64)); the fp32 forward's tiles at
+# qwen3's and minicpm3's.  label -> (family, backend, dtype, shape).  Each sweep is a KernelTuner over a farm of one
 # in-process service on the card: candidates timed at once on one card
 # would time each other.  Its winner and the default are then re-timed
 # one after the other, TUNE_RETIMES times each in turns, and the winner's
@@ -734,12 +746,30 @@ TUNE_SWEEPS = {
                                 {"b": PER_TASK, "s": PROMPT, "d": 8192, "n": 16}),
     "scan chunk falcon-mamba": ("mamba", "torch", "float32",
                                 {"b": PER_TASK, "s": PROMPT, "d": 8192, "n": 16}),
+    "bf16 pair qwen3": ("flash_bwd", "cuda", "bfloat16",
+                        {"B": PER_TASK, "Sq": PROMPT, "Skv": PROMPT, "H": 16, "K": 8,
+                         "D": 128, "Dv": 128}),
+    "bf16 pair minicpm3": ("flash_bwd", "cuda", "bfloat16",
+                           {"B": PER_TASK, "Sq": PROMPT, "Skv": PROMPT, "H": 40, "K": 40,
+                            "D": 96, "Dv": 64}),
+    "fp32 pair qwen3": ("flash_bwd", "cuda", "float32",
+                        {"B": PER_TASK, "Sq": PROMPT, "Skv": PROMPT, "H": 16, "K": 8,
+                         "D": 128, "Dv": 128}),
+    "fp32 flash qwen3": ("flash_fwd", "cuda", "float32",
+                         {"B": PER_TASK, "Sq": PROMPT, "Skv": PROMPT, "H": 16, "K": 8,
+                          "D": 128, "Dv": 128}),
+    "fp32 flash minicpm3": ("flash_fwd", "cuda", "float32",
+                            {"B": PER_TASK, "Sq": PROMPT, "Skv": PROMPT, "H": 40, "K": 40,
+                             "D": 96, "Dv": 64}),
 }
 TUNE_RETIMES = 5
 # Ragged shapes every flash candidate also runs at (besides its sweep
 # shape): a second row warpgroup whose rows run past Sq, a 128-key tile
 # past Skv, non-causal.  (B, Sq, Skv, causal)
 TUNE_RAGGED_FLASH = ((2, 13, 13, True), (2, 200, 200, True), (1, 130, 70, False))
+# and every backward candidate (rows past Sq, a 128-key block past Skv,
+# non-causal with Sq > Skv)
+TUNE_RAGGED_BWD = ((2, 13, 13, True), (1, 200, 200, True), (1, 130, 70, False))
 # A cache-hit probe of the tuning cache, as a wrapper pays it, may cost at
 # most this share of phase 2's host time of a wrapper call (the
 # reference's dispatch-overhead gate, benchmarks/autotune.py).
@@ -756,6 +786,11 @@ TUNE_PHASE_LIMIT_S = 90
 # the kernels line's tunable launch parameters of each kernel, the values
 # its tuning space takes (repro_torch/tune/space.py); fixed tiles take none
 TUNABLE_KNOBS = {"flash_attention_sm90": {"block_q": [64, 128], "block_k": [64, 128]},
+                 "flash_attention_sm90_fp32": {"block_q": [64, 128], "block_k": [16, 32, 64]},
+                 "flash_bwd_dq_sm90": {"dq_block_q": [64, 128], "dq_block_k": [64, 128]},
+                 "flash_bwd_dkv_sm90": {"dkv_block_k": [64, 128], "dkv_block_q": [16, 32, 64]},
+                 "flash_bwd_dq_sm90_fp32": {"dq_block_q": [64], "dq_block_k": [16, 32, 64]},
+                 "flash_bwd_dkv_sm90_fp32": {"dkv_block_k": [64], "dkv_block_q": [8, 16, 32]},
                  "decode_attention_sm90": {"splits": [1, 2, 4, 8]},
                  "mamba_scan_sm90": {"lanes": [1, 2, 4]}}
 # the (D, Dv) pairs the bf16 and fp32 attention kernels take
@@ -920,14 +955,116 @@ def say_async_smem(decode, scan):
         f"n={n} {tiles(n, 0):,} B" for n in (4, 8, 16, 32)))
 
 
-def say_smem(kern):
-    """The dynamic shared memory a block of ``kern`` takes at each pair of
-    head dims it takes (its library's ``<symbol>_smem`` entry, (D, Dv)),
-    beside the 227 KB a block may have."""
-    fn = kernel_entry(kern, "_smem", 2)
-    say(f"  {kern.source.name} shared memory a block: " + ", ".join(
-        f"({d}, {dv}) {fn(d, dv):,} B" for d, dv in
-        ((32, 32), (64, 64), (96, 96), (96, 64), (128, 128))) + " (at most 232,448 B)")
+# the libraries whose register rules (each source's REG_BASE, mirrored by
+# repro_torch/tune/space.py) phase 1's register probe reports on
+PROBED_SOURCES = ("flash_attention_sm90_fp32.cu", "flash_bwd_dq_sm90.cu", "flash_bwd_dkv_sm90.cu",
+                  "flash_bwd_dq_sm90_fp32.cu", "flash_bwd_dkv_sm90_fp32.cu")
+
+
+def start_register_probe():
+    """Phase 1's register probe: copies the kernels' sources under
+    ``build/register_probe/``, lowers REG_BASE in the fp32 forward and both
+    pairs so far that each ``admits`` reduces to its shared-memory bound,
+    and starts one ``nvcc`` a library (the package's flags), beside the
+    real build.  Returns {source: process}."""
+    from repro_torch.kernels.build import CSRC, NVCC_FLAGS, find_nvcc
+
+    out = ROOT / "build" / "register_probe"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(CSRC, out)
+    procs = {}
+    for name in PROBED_SOURCES:
+        src = out / name
+        text, n = re.subn(r"constexpr int REG_BASE = \d+;", "constexpr int REG_BASE = -1000;",
+                          src.read_text())
+        if n != 1:
+            raise AssertionError(f"{name}: no REG_BASE to lower")
+        src.write_text(text)
+        procs[name] = subprocess.Popen(
+            [find_nvcc(), *NVCC_FLAGS, "-I", str(out), "-o", str(src.with_suffix(".so")),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+def say_register_probe(procs, logs):
+    """Prints the register probe's ptxas report: registers and spill
+    stores of every instantiation the shared-memory bounds admit, each
+    marked built (the real libraries' ``logs`` hold it: the register rule
+    admits it) or refused by the rule; what the rules are written from.
+    Fails if the probe does not compile."""
+    built = {}
+    for log in logs.values():
+        built.update(ptxas_records(log))
+    counts = {"built": 0, "refused": 0, "refused, spills": 0}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise AssertionError(f"register probe of {name}: nvcc failed\n{log[-4000:]}")
+        for inst, (regs, stores, _, _) in ptxas_records(log).items():
+            what = "built" if inst in built else "refused, spills" if stores else "refused"
+            counts[what] += 1
+            say(f"  register probe {inst}: {regs} registers, {stores} bytes spill stores "
+                f"({what})")
+    say(f"  register probe: {sum(counts.values())} instantiations within a block's shared "
+        f"memory, {counts['built']} built, {counts['refused, spills']} refused that spill, "
+        f"{counts['refused']} refused that would not")
+
+
+def tile_smem_queries(flash):
+    """Every shared-memory query of the five kernels whose tiles phase 23
+    adds (the fp32 forward, the bf16 and fp32 pairs), at every (D, Dv),
+    q-heads a block (the bf16 dq) and tile of their spaces, against the
+    space's figure: ``smem_bytes`` (``bwd_smem_bytes``' part) where the
+    space's rule builds the instantiation, -1 where it does not.  Prints a
+    line a library, its built instantiations' bytes; raises on a
+    mismatch."""
+    import itertools
+
+    from repro_torch.tune import space
+
+    rows = {}  # library -> [(label, bytes)]
+    bad = []
+
+    def held(kern, label, got, want):
+        if got != want:
+            bad.append(f"{kern.source.name} {label}: the library's {got}, the space's {want}")
+        elif got >= 0:
+            rows.setdefault(kern.source.name, []).append((label, got))
+
+    fwd = kernel_entry(flash.SM90_FP32_KERNEL, "_smem", 4)
+    bf_dq, bf_dkv = kernel_entry(flash.DQ_SM90_KERNEL, "_smem", 5), kernel_entry(
+        flash.DKV_SM90_KERNEL, "_smem", 4)
+    f_dq, f_dkv = kernel_entry(flash.DQ_SM90_FP32_KERNEL, "_smem", 4), kernel_entry(
+        flash.DKV_SM90_FP32_KERNEL, "_smem", 4)
+    for D, Dv in HEAD_PAIRS:
+        for bq, bk in itertools.product((64, 128), (16, 32, 64)):
+            cfg, shape = {"block_q": bq, "block_k": bk}, {"H": 1, "K": 1, "D": D, "Dv": Dv}
+            want = (space.smem_bytes("flash_fwd", shape, cfg, "float32")
+                    if space.instantiated("flash_fwd", shape, cfg, "float32") else -1)
+            held(flash.SM90_FP32_KERNEL, f"({D}, {Dv}) {bq}x{bk}", fwd(D, Dv, bq, bk), want)
+        for dt, (dq_fn, dkv_fn) in (("bfloat16", (bf_dq, bf_dkv)), ("float32", (f_dq, f_dkv))):
+            tiles, base = space._BWD_TILES[dt], space.default_config("flash_bwd", "cuda", dt)
+            kern_dq, kern_dkv = flash.backward_kernels(getattr(torch, dt))
+            for heads in ((1, 2) if dt == "bfloat16" else (1,)):
+                shape = {"H": heads, "K": 1, "D": D, "Dv": Dv}
+                for a, b in itertools.product(tiles["dq_block_q"], tiles["dq_block_k"]):
+                    cfg = dict(base, dq_block_q=a, dq_block_k=b)
+                    want = (space.bwd_smem_bytes(shape, cfg, dt)["dq"]
+                            if space.instantiated("flash_bwd", shape, cfg, dt, "dq") else -1)
+                    got = dq_fn(D, Dv, heads, a, b) if dt == "bfloat16" else dq_fn(D, Dv, a, b)
+                    held(kern_dq, f"({D}, {Dv}) x{heads} {a}x{b}", got, want)
+            shape = {"H": 1, "K": 1, "D": D, "Dv": Dv}
+            for a, b in itertools.product(tiles["dkv_block_k"], tiles["dkv_block_q"]):
+                cfg = dict(base, dkv_block_k=a, dkv_block_q=b)
+                want = (space.bwd_smem_bytes(shape, cfg, dt)["dkv"]
+                        if space.instantiated("flash_bwd", shape, cfg, dt, "dkv") else -1)
+                held(kern_dkv, f"({D}, {Dv}) {a}x{b}", dkv_fn(D, Dv, a, b), want)
+    for lib, built in rows.items():
+        say(f"  {lib} shared memory a block, each instantiation built (the space's "
+            f"smem_bytes; the others refused by both): " + ", ".join(
+                f"{label} {b:,} B" for label, b in built) + " (at most 232,448 B)")
+    if bad:
+        raise AssertionError("shared-memory queries disagree with the space: " + "; ".join(bad))
 
 
 def fmt_ms(ms) -> str:
@@ -3303,8 +3440,8 @@ def tune_space_checks(flash, decode, scan, logs, build_s):
     beside them)."""
     from repro_torch.tune import space
 
-    say(f"  kernels built in {build_s:.2f} s (phase 1), the bf16 forward's "
-        "instantiations for its tunable tiles included")
+    say(f"  kernels built in {build_s:.2f} s (phase 1), every instantiation of the tunable "
+        "tiles included")
     records = {}
     for log in logs.values():
         records.update(ptxas_records(log))
@@ -3329,19 +3466,7 @@ def tune_space_checks(flash, decode, scan, logs, build_s):
         "each one's shared memory the space's smem_bytes, the others refused by both: " +
         ", ".join(f"({D}, {Dv}) x{h} {bq}x{bk} {b:,} B" for D, Dv, h, bq, bk, b in built
                   if (bq, bk) != (64, 64)))
-    fp32 = [kernel_entry(k, "_smem", 2) for k in (flash.SM90_FP32_KERNEL,
-                                                  flash.DQ_SM90_FP32_KERNEL,
-                                                  flash.DKV_SM90_FP32_KERNEL)]
-    for D, Dv in HEAD_PAIRS:
-        shape = {"H": 1, "K": 1, "D": D, "Dv": Dv}
-        got = (fp32[0](D, Dv), max(fp32[1](D, Dv), fp32[2](D, Dv)))
-        want = (space.smem_bytes("flash_fwd", shape, space.fixed_tiles("flash_fwd", "float32"),
-                                 "float32"),
-                space.smem_bytes("flash_bwd", shape, space.fixed_tiles("flash_bwd", "float32"),
-                                 "float32"))
-        if got != want:
-            raise AssertionError(f"fp32 ({D}, {Dv}): the libraries' shared memory {got}, "
-                                 f"the space's {want}")
+    tile_smem_queries(flash)  # the fp32 forward's and both pairs', as phase 1
     ring = kernel_entry(decode.KERNEL, "_smem", 2)
     for D in (32, 64, 96, 128):
         for name, code in (("float32", 0), ("bfloat16", 1)):
@@ -3360,26 +3485,104 @@ def tune_space_checks(flash, decode, scan, logs, build_s):
             if tiles(n, lanes) != want:
                 raise AssertionError(f"scan n={n} lanes={lanes}: ring {tiles(n, lanes)}, "
                                      f"space {want}")
-    say("  fp32 forward and backward pair, decode, scan: each library's shared memory the "
-        "space's smem_bytes at every config it takes")
+    say("  fp32 forward, bf16 and fp32 backward pairs, decode, scan: each library's shared "
+        "memory the space's smem_bytes at every config it takes")
     if not records:
         raise AssertionError("no ptxas report: phase 1 found the kernels built already")
     # (instantiation, whether tuning adds it): every bf16 forward built,
-    # the scan's three at n = 16, decode's at the sweeps' shape
+    # the scan's three at n = 16, decode's at the sweeps' shape, and every
+    # instantiation of the fp32 forward and both pairs (those of the
+    # untuned tiles are today's)
     reach = ([(flash_name(D, Dv, h, bq, bk), (bq, bk) != (64, 64))
               for D, Dv, h, bq, bk, _ in built]
              + [(f"scan_sm90_kernel<{lanes}, {16 // lanes}>", lanes == 4)
                 for lanes in (1, 2, 4)]
              + [("decode_sm90_kernel<bf16, 128, 2>", False)])
-    spilled = []
+    untuned = {"flash_fwd_sm90_fp32_kernel": lambda t: t[-2:] == [1, 32],
+               "flash_bwd_dq_sm90_kernel": lambda t: t[-2:] == [1, 64],
+               "flash_bwd_dkv_sm90_kernel": lambda t: t[-2:] == [64, 32],
+               "flash_bwd_dq_sm90_fp32_kernel": lambda t: t[-1] == 32,
+               "flash_bwd_dkv_sm90_fp32_kernel": lambda t: t[-1] == 16}
+    for name in records:
+        kern, _, args = name.partition("<")
+        if kern in untuned:
+            reach.append((name, not untuned[kern]([int(x) for x in args[:-1].split(", ")])))
+    spilled, added = [], 0
     for name, new in reach:
         regs, stores, _, _ = records[name]
+        added += new
         say(f"  {name}: {regs} registers, {stores} bytes spill stores "
             f"({'tuning adds it' if new else 'untuned'})")
         if new and stores:
             spilled.append(name)
+    say(f"  {added} instantiations tuning adds, none of which may spill")
     if spilled:
         raise AssertionError(f"instantiations tuning adds spill: {spilled}")
+
+
+def worst_ratio(got, ref, rtol, atol):
+    """(largest |got - ref|, largest |got - ref| / (atol + rtol |ref|))."""
+    diff = (got.float() - ref.float()).abs()
+    return diff.max().item(), (diff / (atol + rtol * ref.float().abs())).max().item()
+
+
+def tiles_check(flash, label, kernel, dtype, shape, cands):
+    """Phase 23, part 2, for the fp32 forward's and the pairs' sweeps:
+    every candidate at the sweep's shape and at TUNE_RAGGED_FLASH's
+    (forward) or TUNE_RAGGED_BWD's (pairs) sizes, held to the plain
+    version with phase 2's (forward) or phase 5's (pairs) element check,
+    each kernel launched once a call; the untuned call bit-identical to
+    an explicit call at the untuned tiles; the pairs' results bit-identical
+    on a second launch.  A line a size: the worst candidate's ratio."""
+    from repro_torch.tune import default_config
+
+    dt = getattr(torch, dtype)
+    default = default_config(kernel, "cuda", dtype)
+    kerns = ((flash.forward_kernel(dt),) if kernel == "flash_fwd"
+             else flash.backward_kernels(dt))
+    ragged = TUNE_RAGGED_FLASH if kernel == "flash_fwd" else TUNE_RAGGED_BWD
+    for B, sq, skv, causal in [(shape["B"], shape["Sq"], shape["Skv"], True)] + list(ragged):
+        q = randn((B, sq, shape["H"], shape["D"]), dt, 61)
+        k = randn((B, skv, shape["K"], shape["D"]), dt, 62)
+        v = randn((B, skv, shape["K"], shape["Dv"]), dt, 63)
+        tag = f"{label} B={B} Sq={sq} Skv={skv} {'causal' if causal else 'non-causal'}"
+        if kernel == "flash_fwd":
+            ref = flash.flash_attention_plain(q, k, v, causal=causal)
+            untuned = flash.flash_attention_fwd(q, k, v, causal=causal)
+            run = lambda c: flash.flash_attention_fwd(q, k, v, causal=causal, **c)  # noqa: E731
+            limits = ((RTOL[dt], ATOL), (0.0, ATOL))
+        else:
+            g = randn((B, sq, shape["H"], shape["Dv"]), dt, 64)
+            out, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
+            ref = flash.flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal)
+            untuned = flash.flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+            run = lambda c: flash.flash_attention_bwd(  # noqa: E731
+                q, k, v, out, lse, g, causal=causal, **c)
+            limits = ((RTOL[dt], BWD_ATOL),) * 3
+        worst, err = (0.0, None), 0.0
+        for c in cands:
+            before = [kern.launches for kern in kerns]
+            got = run(c)
+            if [kern.launches for kern in kerns] != [n + 1 for n in before]:
+                raise AssertionError(f"{tag} {c}: not one launch of each kernel")
+            for a, r, (rtol, atol) in zip(got, ref, limits):
+                e, ratio = worst_ratio(a, r, rtol, atol)
+                err = max(err, e)
+                if ratio > worst[0]:
+                    worst = (ratio, c)
+            if kernel == "flash_bwd" and not all(
+                    torch.equal(a, b) for a, b in zip(got, run(c))):
+                raise AssertionError(f"{tag} {c}: a second launch differs")
+            if c == default and not all(torch.equal(a, b) for a, b in zip(got, untuned)):
+                raise AssertionError(f"{tag}: the untuned call differs from {c}")
+        say(f"  {tag}: {len(cands)} candidates, worst |err| / limit {worst[0]:.3f} ({worst[1]}), "
+            f"max_abs_err {err:.3e}; untuned call bit-identical to {default}"
+            + ("; every candidate's second launch bit-identical" if kernel == "flash_bwd"
+               else ""))
+        if worst[0] > 1.0:
+            raise AssertionError(f"{tag} {worst[1]}: the kernel disagrees with its plain "
+                                 "version")
+        del q, k, v, ref, untuned
 
 
 def tune_candidates_check(flash, decode, scan):
@@ -3397,7 +3600,7 @@ def tune_candidates_check(flash, decode, scan):
     for label, (kernel, backend, dtype, shape) in TUNE_SWEEPS.items():
         cands, pruned = search_space(kernel, shape, dtype, backend)
         say(f"  {label}: {len(cands)} candidates {cands}, {pruned} pruned")
-        if kernel == "flash_fwd":
+        if kernel == "flash_fwd" and dtype == "bfloat16":
             sizes = [(shape["B"], shape["Sq"], shape["Skv"], True)] + list(TUNE_RAGGED_FLASH)
             for B, sq, skv, causal in sizes:
                 q = randn((B, sq, shape["H"], shape["D"]), bf, 61)
@@ -3412,6 +3615,8 @@ def tune_candidates_check(flash, decode, scan):
                     tag = f"{label} {c} B={B} Sq={sq} Skv={skv} {'causal' if causal else ''}"
                     check(tag + " out", out, ref, RTOL[bf])
                     check(tag + " lse", lse, ref_lse, 0.0)
+        elif kernel in ("flash_fwd", "flash_bwd"):  # the fp32 forward, the pairs
+            tiles_check(flash, label, kernel, dtype, shape, cands)
         elif kernel == "decode":
             B, H, K, D = shape["B"], shape["H"], shape["K"], shape["D"]
             for slots, ci in ((shape["S"], shape["S"] - 1), (24, 11)):
@@ -3464,24 +3669,49 @@ def tune_candidates_check(flash, decode, scan):
                    q[:, :1].contiguous(), k, k, cache_index=PROMPT - 1, splits=16)),
                ("scan lanes=3", lambda: scan.mamba_scan_fwd(
                    *scan_inputs(2, 13, 96, 16, 71), lanes=3))]
+    # the fp32 forward and the pairs at qwen3's D = 128: 64-key fp32 tiles
+    # and 32-query fp32 steps take more than a block's shared memory; a
+    # 128-key bf16 dq tile more registers than a thread may have
+    q32, k32 = q.float(), k.float()
+    out, lse = flash.flash_attention_fwd(q, k, k)
+    out32, lse32 = flash.flash_attention_fwd(q32, k32, k32)
+    refused += [("fp32 flash 64x64 at D=128 (shared memory)",
+                 lambda: flash.flash_attention_fwd(q32, k32, k32, block_q=64, block_k=64)),
+                ("bf16 pair dq_block_k=128 at D=128 (registers)",
+                 lambda: flash.flash_attention_bwd(q, k, k, out, lse, out, dq_block_k=128)),
+                ("fp32 pair dkv_block_q=32 at D=128 (shared memory)",
+                 lambda: flash.flash_attention_bwd(q32, k32, k32, out32, lse32, out32,
+                                                   dkv_block_q=32)),
+                ("bf16 pair dkv_block_q=0", lambda: flash.flash_attention_bwd(
+                    q, k, k, out, lse, out, dkv_block_q=0))]
+    qwen3 = {"B": PER_TASK, "Sq": PROMPT, "Skv": PROMPT, "H": 16, "K": 8, "D": 128, "Dv": 128}
     cache = TuningCache()
-    cache.put("flash_fwd", {"B": PER_TASK, "Sq": PROMPT, "Skv": PROMPT, "H": 16, "K": 8,
-                            "D": 128, "Dv": 128}, "bfloat16", "cuda",
-              {"block_q": 128, "block_k": 64}, 1.0, save=False)
+    for kernel, dtype, cfg in (("flash_fwd", "bfloat16", {"block_q": 128, "block_k": 64}),
+                               ("flash_fwd", "float32", {"block_q": 128, "block_k": 32}),
+                               ("flash_bwd", "bfloat16", {"dq_block_k": 128}),
+                               ("flash_bwd", "float32", {"dkv_block_q": 32})):
+        cache.put(kernel, qwen3, dtype, "cuda", cfg, 1.0, save=False)
+    every = (flash.SM90_KERNEL, flash.SM90_FP32_KERNEL) + flash.backward_kernels(bf) + \
+        flash.backward_kernels(torch.float32) + (decode.KERNEL, scan.KERNEL)
     prev = set_cache(cache)
     try:
-        refused.append(("a cache entry of flash block_q=128 at G=2, D=128",
-                        lambda: flash.flash_attention_fwd(q, k, k)))
+        refused += [("a cache entry of flash block_q=128 at G=2, D=128",
+                     lambda: flash.flash_attention_fwd(q, k, k)),
+                    ("a cache entry of fp32 flash 128x32 at D=128",
+                     lambda: flash.flash_attention_fwd(q32, k32, k32)),
+                    ("a cache entry of the bf16 pair's dq_block_k=128 at D=128",
+                     lambda: flash.flash_attention_bwd(q, k, k, out, lse, out)),
+                    ("a cache entry of the fp32 pair's dkv_block_q=32 at D=128",
+                     lambda: flash.flash_attention_bwd(q32, k32, k32, out32, lse32, out32))]
         for what, call in refused:
-            before = [kern.launches for kern in (flash.SM90_KERNEL, decode.KERNEL, scan.KERNEL)]
+            before = [kern.launches for kern in every]
             try:
                 call()
             except KernelConfigError as e:
                 say(f"  refused, as it must be: {what}: {e}")
             else:
                 raise AssertionError(f"{what} was not refused")
-            if [kern.launches for kern in (flash.SM90_KERNEL, decode.KERNEL,
-                                           scan.KERNEL)] != before:
+            if [kern.launches for kern in every] != before:
                 raise AssertionError(f"{what} launched a kernel")
     finally:
         set_cache(prev)
@@ -3547,7 +3777,8 @@ def tune_determinism():
     sweeps = [("xla_flash", "torch", "float32",
                {"B": 1, "Sq": 1024, "Skv": 1024, "H": 8, "K": 2, "D": 64, "Dv": 64})]
     sweeps += [TUNE_SWEEPS[label] for label in ("flash llama4 G=5", "decode qwen3 B=4",
-                                                "scan lanes falcon-mamba")]
+                                                "scan lanes falcon-mamba", "bf16 pair minicpm3",
+                                                "fp32 pair qwen3", "fp32 flash minicpm3")]
     for kernel, backend, dtype, shape in sweeps:
         runs = []
         for _ in range(2):
@@ -3682,9 +3913,73 @@ def tune_serve(cfg, dev, kernels, cache_path, phase3_launches, sweeps):
         torch.cuda.empty_cache()
 
 
+def tune_train(cfg, dev, kernels, cache_path, sweeps):
+    """Phase 23, part 7: one qwen3-1.7B training step at full width,
+    TRAIN_LAYERS layers, in bf16 and in fp32, through the sweeps' winners
+    (``repro_torch.tune.configure(cache_path)``: the pairs' and the fp32
+    forward's tiles) and then through a cache of each training sweep's
+    fastest candidate other than the default: each launches one forward,
+    one dq and one dk/dv a layer, and its loss and gradients are held to
+    phase 7's TRAIN_LIMITS against the untuned kernels (no cache)."""
+    from repro_torch.models import build
+    from repro_torch.runtime.train_loop import loss_and_grads
+    from repro_torch.tune import TuningCache, configure, set_cache
+
+    tcfg = cfg.replace(n_layers=TRAIN_LAYERS)
+    runners = TuningCache()
+    for label, (kernel, backend, dtype, shape) in TUNE_SWEEPS.items():
+        if shape == {"B": TRAIN_BATCH, "Sq": TRAIN_SEQ, "Skv": TRAIN_SEQ, "H": 16, "K": 8,
+                     "D": 128, "Dv": 128} and kernel in ("flash_bwd", "flash_fwd") \
+                and (dtype == "float32" or kernel == "flash_bwd"):
+            r, _, _, each = sweeps[label]
+            others = [(us, c) for c, us in each.items() if json.loads(c) != r.default_config]
+            if others:
+                runners.put(kernel, shape, dtype, backend, json.loads(min(others)[1]), 0.0,
+                            save=False)
+    for dt, names in ((torch.bfloat16, BF16_TRAIN_KERNELS), (torch.float32, FP32_TRAIN_KERNELS)):
+        name = str(dt)[6:]
+        api = build(tcfg if dt == torch.bfloat16
+                    else tcfg.replace(param_dtype="float32", compute_dtype="float32"))
+        model = api.init(torch.Generator(device=dev).manual_seed(SEED))
+        model.requires_grad_(True)
+        if dt == torch.float32:
+            model.head().drop_f32()
+        batch = markov_batch(tcfg, dev)
+        set_cache(None)
+        loss_u, _, g_u = loss_and_grads(api, model, batch)
+        loss_lim, grad_lim = TRAIN_LIMITS[dt]
+        for which, install in (("the winners", lambda: configure(cache_path)),
+                               ("the runners-up", lambda: set_cache(runners) or runners)):
+            cache = install()
+            zero_counts(kernels)
+            try:
+                loss_t, _, g_t = loss_and_grads(api, model, batch)
+            finally:
+                set_cache(None)
+            got = {k: v for k, v in launch_counts(kernels).items() if v}
+            want = {n: TRAIN_LAYERS for n in names}
+            tiles = {k: e["config"] for k, e in cache.entries().items()
+                     if f"|{name}|" in k and k.startswith("flash")}
+            dloss = abs(loss_t.item() - loss_u.item())
+            worst = compare_grads(g_t, g_u, "g_tuned - g_untuned", "g_untuned", quiet=True)
+            say(f"  {name} training step through {which} {tiles}: {cache.hits} cache hits, "
+                f"launches {got}; |dloss| {dloss:.3e} (limit {loss_lim:g}), largest relative "
+                f"gradient difference from the untuned kernels {worst:.3e} (limit {grad_lim:g})")
+            if got != want:
+                raise AssertionError(f"{name} tuned training step launched {got}, not {want}")
+            if cache.hits < 1:
+                raise AssertionError(f"{name} tuned training step read no tuned config")
+            if not (dloss <= loss_lim and worst <= grad_lim):
+                raise AssertionError(f"{name} training step through {which} disagrees with "
+                                     "the untuned kernels")
+        del api, model, g_u, g_t
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def tune_phase(cfg, dev, kernels, flash, decode, scan, logs, build_s, host_us,
                phase3_launches):
-    """Phase 23: the autotuner on the card (parts 1-6 above); returns the
+    """Phase 23: the autotuner on the card (parts 1-7 above); returns the
     sweeps' results."""
     t0 = time.perf_counter()
     tune_space_checks(flash, decode, scan, logs, build_s)
@@ -3696,6 +3991,7 @@ def tune_phase(cfg, dev, kernels, flash, decode, scan, logs, build_s, host_us,
     tune_determinism()
     tune_probe_cost(flash, decode, host_us)
     tune_serve(cfg, dev, kernels, cache_path, phase3_launches, sweeps)
+    tune_train(cfg, dev, kernels, cache_path, sweeps)
     took = time.perf_counter() - t0
     say(f"  phase 23 took {took:.1f} s (limit {TUNE_PHASE_LIMIT_S} s)")
     if took > TUNE_PHASE_LIMIT_S:
@@ -3722,10 +4018,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase("phase 1: build")
     t0 = time.perf_counter()
-    logs = build_all(kernels.KERNELS)
+    lib_s = {}
+    probe = start_register_probe()
+    logs = build_all(kernels.KERNELS, lib_s)
     build_s = time.perf_counter() - t0
-    say(f"  kernels built in {build_s:.2f} s "
-        f"({', '.join(sorted(logs)) or 'already built'})")
+    say(f"  kernels built in {build_s:.2f} s, one nvcc a library in parallel: "
+        + (", ".join(f"{name} {sec:.2f} s" for name, sec in sorted(lib_s.items()))
+           or "already built"))
     for log in logs.values():
         say_registers(log)
     for kern in (flash.SM90_KERNEL, flash.SM90_FP32_KERNEL, flash.DQ_SM90_KERNEL,
@@ -3734,9 +4033,8 @@ def main() -> int:
         say_sass(kern)
     for kern in (decode.KERNEL, scan.KERNEL):
         say_sass(kern, ("LDGSTS",))
-    for kern in (flash.SM90_FP32_KERNEL, flash.DQ_SM90_FP32_KERNEL,
-                 flash.DKV_SM90_FP32_KERNEL):
-        say_smem(kern)
+    tile_smem_queries(flash)
+    say_register_probe(probe, logs)
     say_async_smem(decode, scan)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

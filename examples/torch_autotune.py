@@ -6,8 +6,10 @@ N independent (build a candidate, time it, report a number) tasks.  This
 example runs successive-halving sweeps over a deterministic ``sim://``
 cluster with the scripted cost model (so it finishes in seconds and picks
 the same winners every run): the chunks of the windowed attention path
-(``xla_flash``, the reference's own sweep) and the bf16 flash forward's
-tiles (``flash_fwd``) at qwen3-1.7B's prefill.  It persists the winners to
+(``xla_flash``, the reference's own sweep), the bf16 flash forward's
+tiles (``flash_fwd``) at qwen3-1.7B's prefill and the bf16 backward pair's
+four tiles (``flash_bwd``) at its training shape, which a training step
+under ``configure(path)`` launches.  It persists the winners to
 a JSON cache, installs it, and calls the model-side dispatch, which picks
 the tuned configs up from the cache with zero call-site changes: the
 windowed path's chunks on any device, and on the card the flash kernel's
@@ -51,6 +53,10 @@ def main():
             tuner = KernelTuner(scheduler=sched, cache=TuningCache(cache_path))
             results = [tuner.tune("xla_flash", SHAPE, cost_model="scripted", seed=3),
                        tuner.tune("flash_fwd", FLASH_SHAPE, "bfloat16",
+                                  cost_model="scripted", seed=3),
+                       # the backward pair's four tiles (dq's, dk/dv's): what a
+                       # training step under configure(path) launches
+                       tuner.tune("flash_bwd", FLASH_SHAPE, "bfloat16",
                                   cost_model="scripted", seed=3)]
         leases = len(cluster.trace)
     for r in results:

@@ -7,15 +7,16 @@ fp32, the fp32 ones' products three tf32 products each), and the Mamba-1
 selective scan.
 
 The tuning cache (``repro_torch.tune``) picks launch parameters where
-the caller names none: the bf16 flash forward's tiles (``flash_fwd``),
+the caller names none: the bf16 and fp32 flash forwards' tiles
+(``flash_fwd``), the bf16 and fp32 backward pairs' tiles (``flash_bwd``:
+dq's query and key tiles, dk/dv's keys a block and queries a step),
 decode's KV splits (``decode``) and the scan's lanes a channel
 (``mamba``), all under the backend key ``"cuda"``; and the chunks of the
 plain paths the card runs, ``chunked_attention``'s (``xla_flash``) and
 the scan backward's ``mamba_scan_plain`` (``mamba``), under ``"torch"``.
 With no cache installed, or on a miss, every kernel launches its untuned
-geometry.  The fp32 forward and the backward pairs run fixed tiles.  A
-folded call of ``Service.execute_batch`` reads the cache at its folded
-batch.
+geometry.  A folded call of ``Service.execute_batch`` reads the cache at
+its folded batch.
 
 A windowed attention call (jamba's attention layers at long context) runs
 the model's plain windowed path on every device, as the reference sends

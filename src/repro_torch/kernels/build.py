@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -115,14 +116,26 @@ class CudaKernel:
             self.launches += 1
 
 
-def _finish_builds(procs) -> dict[str, str]:
+def _finish_builds(procs, seconds=None, start=None) -> dict[str, str]:
     """Wait for the ``nvcc`` processes; returns each library's compiler
-    output (registers, spills) by file name."""
+    output (registers, spills) by file name, and puts into ``seconds``
+    (when given) each library's seconds from ``start`` to its end."""
+    procs = [p for p in procs if p is not None]
+    outs = {}
+
+    def wait(proc):
+        outs[proc] = proc.communicate()[0]
+        if seconds is not None:
+            seconds[proc.lib.name] = time.perf_counter() - start
+
+    waiters = [threading.Thread(target=wait, args=(p,)) for p in procs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     logs, failures = {}, []
     for proc in procs:
-        if proc is None:
-            continue
-        log, _ = proc.communicate()
+        log = outs[proc]
         logs[proc.lib.name] = log
         if proc.returncode != 0:
             proc.tmp.unlink(missing_ok=True)
@@ -134,8 +147,10 @@ def _finish_builds(procs) -> dict[str, str]:
     return logs
 
 
-def build_all(kernels) -> dict[str, str]:
+def build_all(kernels, seconds=None) -> dict[str, str]:
     """Build every library that is not built yet, one ``nvcc`` per
     source, all started together; returns the compiler output of each
-    library built."""
-    return _finish_builds([k.start_build() for k in kernels])
+    library built, and puts each one's build seconds into ``seconds``
+    when given."""
+    start = time.perf_counter()
+    return _finish_builds([k.start_build() for k in kernels], seconds, start)

@@ -73,10 +73,25 @@
 //   order; at the end warpgroup 1's dK and dV pass through shared memory
 //   and are added to warpgroup 0's, always in that order, so two runs give
 //   bit-identical results.
-// - Grid: (K, B, 64-key tiles), the key tile on z in ascending order: key
-//   tile 0 sees the most queries, and blocks are dispatched x fastest, so
-//   the longest run first.  Causal key tiles start at their own first
-//   query.
+// - Grid: (K, B, key tiles of block_k keys), the key tile on z in
+//   ascending order: key tile 0 sees the most queries, and blocks are
+//   dispatched x fastest, so the longest run first.  Causal key tiles start
+//   at their own first query.
+// - Tiles as launch parameters (the tuning cache's bf16 `flash_bwd`
+//   entries' dkv_block_k and dkv_block_q, repro_torch/tune/space.py):
+//   block_q, the queries of a step, is 16, 32 or 64 (S^T and dP^T m64n16k16,
+//   m64n32k16 or m64n64k16); block_k, the keys of a block, is 64 (the design
+//   above: two warpgroups deal the steps over one 64-key tile and add their
+//   sums at the end) or 128: each warpgroup owns 64 of the keys and both
+//   read every (Q, dO) step from one shared ring of STAGES stages, which
+//   halves the Q/dO traffic a key and needs no cross-warpgroup sum; each
+//   key's dK and dV are one warpgroup's sums over the steps in ascending
+//   order, so two runs give bit-identical results there too.  At 64 keys
+//   and 16 queries warpgroup 1's dK and dV outgrow the rings, and the block
+//   takes their size instead.  The untuned 64 x 32 is always built; any
+//   other instantiation only where a thread's registers fit (`admits`, the
+//   space's rule, from ptxas's report: 64-query steps spill at D=128).
+
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -92,15 +107,47 @@ namespace {
 
 using namespace sm90;
 
-constexpr int BKV = 64;    // keys of a block
-constexpr int BQ = 32;     // queries of a step
-constexpr int STAGES = 3;  // (Q, dO) ring of a warpgroup
-constexpr int NWG = 2;     // warpgroups of a block: steps j = wg, wg + 2, ...
+constexpr int STAGES = 3;  // (Q, dO) ring
+constexpr int NWG = 2;     // warpgroups of a block
+// the untuned tiles: 64 keys a block, 32-query steps
+constexpr int DEFAULT_BLOCK_K = 64, DEFAULT_BLOCK_Q = 32;
+// a thread's registers beyond the dK and dV accumulators, a step's S^T and
+// dP^T and their two bf16 terms (repro_torch/tune/space.py's DKV_REG_BASE)
+constexpr int REG_BASE = 30;
+
+// Bytes of the <D, DV, BKV, BQ> instantiation's (Q, dO) rings: one a
+// warpgroup at 64 keys a block (each takes every other step), one for both
+// at 128 (each owns 64 of the keys and takes every step).
+template <int D, int DV, int BKV, int BQ>
+constexpr int ring_bytes() {
+  return (BKV == 64 ? NWG : 1) * STAGES * pair_bytes<D, DV>(BQ);
+}
+
+// Dynamic shared memory of the <D, DV, BKV, BQ> instantiation: K and V, the
+// rings (at 64 keys also room for warpgroup 1's dK and dV, which pass
+// through the rings' memory at the end), and room to align them to 1024
+// bytes.
+template <int D, int DV, int BKV, int BQ>
+constexpr int smem_bytes() {
+  constexpr int rings = ring_bytes<D, DV, BKV, BQ>();
+  constexpr int red = BKV == 64 ? (D / 2 + DV / 2) * WG * 4 : 0;
+  return pair_bytes<D, DV>(BKV) + (rings > red ? rings : red) + 1024;
+}
+
+// Whether the <D, DV, BKV, BQ> instantiation is built: the default tiles
+// always; the others where a thread's registers (REG_BASE + D/2 + DV/2 +
+// 2 BQ: dK, dV, S^T, dP^T and their two terms) fit the 255 that one block
+// of two warpgroups an SM leaves, and the block's shared memory 227 KB.
+template <int D, int DV, int BKV, int BQ>
+constexpr bool admits() {
+  if (BKV == DEFAULT_BLOCK_K && BQ == DEFAULT_BLOCK_Q) return true;
+  return smem_bytes<D, DV, BKV, BQ>() <= 232448 && REG_BASE + D / 2 + DV / 2 + 2 * BQ <= 255;
+}
 
 // Step j's Q and dO tiles (query tile j / group, q-head kh group + j % group),
-// the warpgroup's i-th, into its ring stage i % STAGES, completing on that
-// stage's barrier.
-template <int D, int DV>
+// the ring's i-th, into its stage i % STAGES, completing on that stage's
+// barrier.
+template <int D, int DV, int BQ>
 __device__ __forceinline__ void load_step(const CUtensorMap* tq, const CUtensorMap* tg,
                                           uint32_t ring, uint32_t fbar, int i, int j,
                                           int q_begin, int group, int kh, int b) {
@@ -115,7 +162,10 @@ __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(WG) : "memory");
 }
 
-template <int D, int DV>
+// BKV = 64: both warpgroups on the block's 64 keys, steps j = wg, wg + 2,
+// ... from a ring each, their sums added at the end.  BKV = 128: warpgroup
+// wg on keys wg 64 .. wg 64 + 63, every step from one shared ring.
+template <int D, int DV, int BKV, int BQ>
 __global__ void __launch_bounds__(NWG * WG, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -125,6 +175,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                           int Sq, int Skv, int H, int K, float scale_log2, float scale,
                           int causal) {
+  constexpr bool SPLIT = BKV == 64;   // the warpgroups split the steps
+  constexpr int NRING = SPLIT ? NWG : 1;
   constexpr int KSTEPS = D / 16;   // k16 slices of K Q^T
   constexpr int VSTEPS = DV / 16;  // k16 slices of V dO^T
   constexpr int QSTEPS = BQ / 16;  // k16 slices of P^T dO and dS^T Q
@@ -132,11 +184,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr int KREG = D / 2;      // dK accumulator registers a thread
   constexpr int VREG = DV / 2;     // dV accumulator registers a thread
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bars[1 + NWG * STAGES];
+  __shared__ __align__(8) uint64_t bars[1 + NRING * STAGES];
 
   const uint32_t sk = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sv = sk + Geo<D>::tile_bytes(BKV);
-  const uint32_t sring = sk + pair_bytes<D, DV>(BKV);  // warpgroup w's ring after w rings
+  const uint32_t sring = sk + pair_bytes<D, DV>(BKV);  // ring r after r rings
   const uint32_t kvbar = smem_u32(&bars[0]);
 
   const int tid = threadIdx.x;
@@ -144,28 +196,34 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int kh = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BKV;
   const int group = H / K;
   // the warpgroup's ring (stage s: Q, then dO) and its barriers (fbar + 8 s)
-  const uint32_t ring = sring + wg * STAGES * pair_bytes<D, DV>(BQ);
-  const uint32_t fbar = smem_u32(&bars[1 + wg * STAGES]);
+  const int rid = SPLIT ? wg : 0;
+  const uint32_t ring = sring + rid * STAGES * pair_bytes<D, DV>(BQ);
+  const uint32_t fbar = smem_u32(&bars[1 + rid * STAGES]);
+  // the ring's loader, and the A tiles' first key row of this warpgroup
+  const bool loader = SPLIT ? tid % WG == 0 : tid == 0;
+  const int kw = SPLIT ? 0 : wg * 64;
   // causal: queries before the block's first key see none of its keys
   const int q_begin = causal ? k0 : 0;
   const int n_steps = q_begin < Sq ? (Sq - q_begin + BQ - 1) / BQ * group : 0;
-  const int n_mine = n_steps > wg ? (n_steps - wg + NWG - 1) / NWG : 0;
+  // this warpgroup's steps: j = first + stride i
+  const int first = SPLIT ? wg : 0, stride = SPLIT ? NWG : 1;
+  const int n_mine = n_steps > first ? (n_steps - first + stride - 1) / stride : 0;
 
   if (tid == 0) {
     mbar_init(kvbar, 1);
 #pragma unroll
-    for (int s = 0; s < NWG * STAGES; ++s) mbar_init(smem_u32(&bars[1 + s]), 1);
+    for (int s = 0; s < NRING * STAGES; ++s) mbar_init(smem_u32(&bars[1 + s]), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   if (tid == 0) tma_load_pair<D, DV>(&tk, &tv, sk, sv, kh, k0, b, BKV, kvbar);
-  if (tid % WG == 0)
+  if (loader)
     for (int i = 0; i < STAGES - 1 && i < n_mine; ++i)
-      load_step<D, DV>(&tq, &tg, ring, fbar, i, wg + NWG * i, q_begin, group, kh, b);
+      load_step<D, DV, BQ>(&tq, &tg, ring, fbar, i, first + stride * i, q_begin, group, kh, b);
 
   // this thread's key rows kr0 and kr0 + 8, and its first query column in
   // every 8-column chunk
-  const int kr0 = k0 + 16 * warp + lane / 4;
+  const int kr0 = k0 + kw + 16 * warp + lane / 4;
   const int c0 = 2 * (lane % 4);
   float dk_acc[KREG], dv_acc[VREG];
 #pragma unroll
@@ -173,16 +231,21 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int i = 0; i < VREG; ++i) dv_acc[i] = 0.f;
 
+  // the warpgroup's 64 key rows of the K and V tiles (BKV rows an atom)
+  const uint32_t ak = sk + kw * Geo<D>::SW, av = sv + kw * Geo<DV>::SW;
   mbar_wait(kvbar, 0);
   for (int i = 0; i < n_mine; ++i) {
-    const int j = wg + NWG * i, s = i % STAGES;
+    const int j = first + stride * i, s = i % STAGES;
     const int q0 = q_begin + j / group * BQ, h = kh * group + j % group;
-    // the warpgroup is past its previous step's products: that stage may
-    // be refilled
-    wg_sync(wg);
-    if (tid % WG == 0 && i + STAGES - 1 < n_mine)
-      load_step<D, DV>(&tq, &tg, ring, fbar, i + STAGES - 1, j + NWG * (STAGES - 1), q_begin,
-                       group, kh, b);
+    // the ring's consumers are past its previous step's products: that
+    // stage may be refilled
+    if (SPLIT)
+      wg_sync(wg);
+    else
+      __syncthreads();
+    if (loader && i + STAGES - 1 < n_mine)
+      load_step<D, DV, BQ>(&tq, &tg, ring, fbar, i + STAGES - 1, j + stride * (STAGES - 1),
+                           q_begin, group, kh, b);
 
     // lse (as a base-2 exponent) and Dvec of query columns q0 + 8 t + c0 + e
     float lq[BQ / 8][2], dd[BQ / 8][2];
@@ -211,10 +274,10 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk)
-      wgmma_ss(st, desc_k<D>(sk, BKV, kk), desc_k<D>(q_tile, BQ, kk), kk > 0);
+      wgmma_ss(st, desc_k<D>(ak, BKV, kk), desc_k<D>(q_tile, BQ, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < VSTEPS; ++kk)
-      wgmma_ss(dpt, desc_k<DV>(sv, BKV, kk), desc_k<DV>(g_tile, BQ, kk), kk > 0);
+      wgmma_ss(dpt, desc_k<DV>(av, BKV, kk), desc_k<DV>(g_tile, BQ, kk), kk > 0);
     wgmma_commit();
     wgmma_wait_all();
     pin(st);
@@ -222,7 +285,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
     // P^T and dS^T in the accumulator's layout: st[4t + e] is key row
     // kr0 + 8 (e >> 1), query column q0 + 8t + c0 + (e & 1)
-    const bool edge = k0 + BKV > Skv || q0 + BQ > Sq || (causal && k0 + BKV - 1 > q0);
+    const bool edge =
+        k0 + kw + 64 > Skv || q0 + BQ > Sq || (causal && k0 + kw + 63 > q0);
 #pragma unroll
     for (int i = 0; i < SREG; ++i) {
       const int t = i / 4, e = i & 1;
@@ -273,77 +337,137 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     pin(ds_lo);
   }
 
-  // warpgroup 1's partial dK and dV into warpgroup 0's, in that order,
-  // through the rings' memory (every step's tiles are consumed by now)
-  __syncthreads();
-  float* red = reinterpret_cast<float*>(smem_raw + (sring - smem_u32(smem_raw)));
-  const int t = tid % WG;
-  if (wg == 1) {
+  if constexpr (!SPLIT) {
+    // each warpgroup's own 64 keys, summed over every step in order
+    store_rows<D>(dk, dk_acc, k0 + kw, Skv, K, kh, b);
+    store_rows<DV>(dv, dv_acc, k0 + kw, Skv, K, kh, b);
+  } else {
+    // warpgroup 1's partial dK and dV into warpgroup 0's, in that order,
+    // through the rings' memory (every step's tiles are consumed by now)
+    __syncthreads();
+    float* red = reinterpret_cast<float*>(smem_raw + (sring - smem_u32(smem_raw)));
+    const int t = tid % WG;
+    if (wg == 1) {
 #pragma unroll
-    for (int i = 0; i < KREG; ++i) red[i * WG + t] = dk_acc[i];
+      for (int i = 0; i < KREG; ++i) red[i * WG + t] = dk_acc[i];
 #pragma unroll
-    for (int i = 0; i < VREG; ++i) red[(KREG + i) * WG + t] = dv_acc[i];
-  }
-  __syncthreads();
-  if (wg == 0) {
+      for (int i = 0; i < VREG; ++i) red[(KREG + i) * WG + t] = dv_acc[i];
+    }
+    __syncthreads();
+    if (wg == 0) {
 #pragma unroll
-    for (int i = 0; i < KREG; ++i) dk_acc[i] += red[i * WG + t];
+      for (int i = 0; i < KREG; ++i) dk_acc[i] += red[i * WG + t];
 #pragma unroll
-    for (int i = 0; i < VREG; ++i) dv_acc[i] += red[(KREG + i) * WG + t];
-    store_rows<D>(dk, dk_acc, k0, Skv, K, kh, b);
-    store_rows<DV>(dv, dv_acc, k0, Skv, K, kh, b);
+      for (int i = 0; i < VREG; ++i) dv_acc[i] += red[(KREG + i) * WG + t];
+      store_rows<D>(dk, dk_acc, k0, Skv, K, kh, b);
+      store_rows<DV>(dv, dv_acc, k0, Skv, K, kh, b);
+    }
   }
 }
 
-template <int D, int DV>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
-                   const void* lse, const void* dvec, void* dk, void* dv, int B, int Sq,
-                   int Skv, int H, int K, int causal, cudaStream_t stream) {
-  CUtensorMap maps[4];
-  if (!(make_map<D>(&maps[0], q, B, Sq, H, BQ) && make_map<D>(&maps[1], k, B, Skv, K, BKV) &&
-        make_map<DV>(&maps[2], v, B, Skv, K, BKV) && make_map<DV>(&maps[3], g, B, Sq, H, BQ)))
-    return cudaErrorInvalidValue;
-  // K and V, the warpgroups' rings, and room to align them to 1024 bytes
-  constexpr int rings = NWG * STAGES * pair_bytes<D, DV>(BQ);
-  constexpr int smem = pair_bytes<D, DV>(BKV) + rings + 1024;
-  static_assert((D / 2 + DV / 2) * WG * 4 <= rings, "the rings hold warpgroup 1's dK and dV");
-  static bool configured = false;  // once per instantiation (a repeat is harmless)
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_sm90_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
+struct Call {
+  const void *q, *k, *v, *g, *lse, *dvec;
+  void *dk, *dv;
+  int B, Sq, Skv, H, K, causal;
+  cudaStream_t stream;
+};
+
+template <int D, int DV, int BKV, int BQ>
+cudaError_t launch_tiles(const Call& c) {
+  if constexpr (!admits<D, DV, BKV, BQ>()) {
+    return cudaErrorInvalidValue;  // not built: its registers or shared memory would not fit
+  } else {
+    CUtensorMap maps[4];
+    if (!(make_map<D>(&maps[0], c.q, c.B, c.Sq, c.H, BQ) &&
+          make_map<D>(&maps[1], c.k, c.B, c.Skv, c.K, BKV) &&
+          make_map<DV>(&maps[2], c.v, c.B, c.Skv, c.K, BKV) &&
+          make_map<DV>(&maps[3], c.g, c.B, c.Sq, c.H, BQ)))
+      return cudaErrorInvalidValue;
+    constexpr int smem = smem_bytes<D, DV, BKV, BQ>();
+    static bool configured = false;  // once per instantiation (a repeat is harmless)
+    if (!configured) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_bwd_dkv_sm90_kernel<D, DV, BKV, BQ>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      configured = true;
+    }
+    const float root = sqrtf(static_cast<float>(D));
+    const dim3 grid(c.K, c.B, (c.Skv + BKV - 1) / BKV);
+    flash_bwd_dkv_sm90_kernel<D, DV, BKV, BQ><<<grid, NWG * WG, smem, c.stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(c.lse),
+        static_cast<const float*>(c.dvec), static_cast<__nv_bfloat16*>(c.dk),
+        static_cast<__nv_bfloat16*>(c.dv), c.Sq, c.Skv, c.H, c.K, LOG2E / root, 1.0f / root,
+        c.causal);
+    return cudaGetLastError();
   }
-  const float root = sqrtf(static_cast<float>(D));
-  const dim3 grid(K, B, (Skv + BKV - 1) / BKV);
-  flash_bwd_dkv_sm90_kernel<D, DV><<<grid, NWG * WG, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
-      static_cast<const float*>(dvec), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), Sq, Skv, H, K, LOG2E / root, 1.0f / root, causal);
-  return cudaGetLastError();
+}
+
+// The instantiation of block_k x block_q.
+template <int D, int DV>
+cudaError_t launch(const Call& c, int block_k, int block_q) {
+  if (block_k == 64 && block_q == 16) return launch_tiles<D, DV, 64, 16>(c);
+  if (block_k == 64 && block_q == 32) return launch_tiles<D, DV, 64, 32>(c);
+  if (block_k == 64 && block_q == 64) return launch_tiles<D, DV, 64, 64>(c);
+  if (block_k == 128 && block_q == 16) return launch_tiles<D, DV, 128, 16>(c);
+  if (block_k == 128 && block_q == 32) return launch_tiles<D, DV, 128, 32>(c);
+  if (block_k == 128 && block_q == 64) return launch_tiles<D, DV, 128, 64>(c);
+  return cudaErrorInvalidValue;
+}
+
+template <int D, int DV, int BKV, int BQ>
+int smem_tiles() {
+  return admits<D, DV, BKV, BQ>() ? smem_bytes<D, DV, BKV, BQ>() : -1;
+}
+
+template <int D, int DV>
+int smem_dv(int block_k, int block_q) {
+  if (block_k == 64 && block_q == 16) return smem_tiles<D, DV, 64, 16>();
+  if (block_k == 64 && block_q == 32) return smem_tiles<D, DV, 64, 32>();
+  if (block_k == 64 && block_q == 64) return smem_tiles<D, DV, 64, 64>();
+  if (block_k == 128 && block_q == 16) return smem_tiles<D, DV, 128, 16>();
+  if (block_k == 128 && block_q == 32) return smem_tiles<D, DV, 128, 32>();
+  if (block_k == 128 && block_q == 64) return smem_tiles<D, DV, 128, 64>();
+  return -1;
 }
 
 }  // namespace
 
 // q (B,Sq,H,D), g (B,Sq,H,Dv), k (B,Skv,K,D), v (B,Skv,K,Dv) contiguous bf16
-// with 16-byte aligned pointers, lse and dvec (B,H,Sq) fp32; writes dk
+// with 16-byte aligned pointers, lse and dvec (B,H,Sq) fp32; block_k (64 or
+// 128: keys a block) and block_q (16, 32 or 64: queries a step); writes dk
 // (B,Skv,K,D) and dv (B,Skv,K,Dv) bf16.  Returns the cudaError_t of the
-// launch (cudaErrorInvalidValue when a tensor map cannot be made or (D, Dv)
-// is not one of (32, 32), (64, 64), (96, 96), (128, 128), (96, 64)).
+// launch (cudaErrorInvalidValue when a tensor map cannot be made, (D, Dv)
+// is not one of (32, 32), (64, 64), (96, 96), (128, 128), (96, 64), or the
+// tiles' instantiation is not built).
 extern "C" int repro_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
                                         const void* g, const void* lse, const void* dvec,
                                         void* dk, void* dv, int B, int Sq, int Skv, int H,
-                                        int K, int D, int Dv, int causal, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 96 && Dv == 64)
-    return launch<96, 64>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, st);
+                                        int K, int D, int Dv, int causal, int block_k,
+                                        int block_q, void* stream) {
+  const Call c{q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal,
+               static_cast<cudaStream_t>(stream)};
+  if (D == 96 && Dv == 64) return launch<96, 64>(c, block_k, block_q);
   if (D != Dv) return cudaErrorInvalidValue;
   switch (D) {
-    case 32: return launch<32, 32>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, st);
-    case 64: return launch<64, 64>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, st);
-    case 96: return launch<96, 96>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, st);
-    case 128:
-      return launch<128, 128>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, st);
+    case 32: return launch<32, 32>(c, block_k, block_q);
+    case 64: return launch<64, 64>(c, block_k, block_q);
+    case 96: return launch<96, 96>(c, block_k, block_q);
+    case 128: return launch<128, 128>(c, block_k, block_q);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// A block's dynamic shared memory at (D, Dv) and block_k x block_q; -1
+// where that instantiation is not built.
+extern "C" int repro_flash_bwd_dkv_sm90_smem(int D, int Dv, int block_k, int block_q) {
+  if (D == 96 && Dv == 64) return smem_dv<96, 64>(block_k, block_q);
+  if (D != Dv) return -1;
+  switch (D) {
+    case 32: return smem_dv<32, 32>(block_k, block_q);
+    case 64: return smem_dv<64, 64>(block_k, block_q);
+    case 96: return smem_dv<96, 96>(block_k, block_q);
+    case 128: return smem_dv<128, 128>(block_k, block_q);
+    default: return -1;
   }
 }

@@ -32,7 +32,7 @@
 //
 // Design, constraint by constraint:
 // - Tensor cores, transposed.  A block owns 64 keys of one kv-head and
-//   walks 16-query steps.  S^T = K Q^T and dP^T = V dO^T are m64n16k8 tf32
+//   walks steps of BQ queries (16 untuned; below).  S^T = K Q^T and dP^T = V dO^T are m64n16k8 tf32
 //   wgmmas with A (K or V) and B (the step's Q or dO) from shared memory,
 //   K-major as they lie: keys on M, queries on N.  Their accumulators,
 //   split into hi and lo, are the A fragments of the RS wgmmas dV += P^T dO
@@ -58,7 +58,8 @@
 //   t + 4 query 2t + 1) so that the S^T accumulator's register pairs are
 //   the A fragment's slots.  K's and V's hi are written in place, with K_lo
 //   and V_lo beside them, once per block.
-// - Shared memory at D=128 (227 KB is the most a block may take): K, K_lo,
+// - Shared memory at D=128 and 16-query steps (227 KB is the most a block
+//   may take): K, K_lo,
 //   V, V_lo 128 KB; the raw (Q, dO) stage 16 KB; a step's Q, dO hi and lo
 //   32 KB and Q^T, dO^T hi and lo 32 KB; the swap of S^T and dP^T halves
 //   16 KB: 224 KB, one block an SM (at (96, 96) 172 KB, at (96, 64)
@@ -82,6 +83,17 @@
 // - Grid: (K, B, 64-key tiles), the key tile on z in ascending order: key
 //   tile 0 sees the most queries, and blocks are dispatched x fastest, so
 //   the longest run first.
+// - Tiles as launch parameters (the tuning cache's fp32 `flash_bwd`
+//   entries' dkv_block_q, repro_torch/tune/space.py): BQ is 8, 16 or 32
+//   queries a step (S^T and dP^T m64n8k8, m64n16k8 or m64n32k8; Q^T and
+//   dO^T in Geo<BQ, 4>: 32-byte rows with the 32-byte swizzle at 8, 64 at
+//   16, 128 at 32; the warpgroups' halves start on the swizzle's period at
+//   every width), with the same 8-row permutation; dkv_block_k stays the
+//   block's 64 keys.  The untuned 16 is always built; 8 and 32 where the
+//   shared memory and a thread's registers fit (`admits`, the space's
+//   rule): 32-query steps take 328,704 bytes at D=128 and are built at
+//   D = 64 and below and at (96, 64).  The sums stay in ascending step
+//   order at every BQ, so two runs give bit-identical results.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -97,15 +109,20 @@ namespace {
 using namespace sm90;
 
 constexpr int BKV = 64;       // keys of a block
-constexpr int BQ = 16;        // queries of a step
 constexpr int NWG = 2;        // warpgroups, each owning half of D's columns
-constexpr int SREG = BQ / 2;  // S^T, dP^T accumulator registers a thread
+// the untuned step
+constexpr int DEFAULT_BLOCK_Q = 16;
+// a thread's registers beyond its dK and dV columns, a step's fresh
+// product and S^T, dP^T and their two terms (repro_torch/tune/space.py's
+// FP32_DKV_REG_BASE)
+constexpr int REG_BASE = 60;
 
-// Byte offsets of the block's buffers from a 1024-byte boundary.  A
-// transposed tile is D (Q^T) or DV (dO^T) rows of BQ queries: as many bytes
-// as a step's tile of Q or dO.
-template <int D, int DV>
+// Byte offsets of the <D, DV, BQ> instantiation's buffers from a 1024-byte
+// boundary.  A transposed tile is D (Q^T) or DV (dO^T) rows of BQ queries
+// (Geo<BQ, 4>): as many bytes as a step's tile of Q or dO.
+template <int D, int DV, int BQ>
 struct Smem {
+  static constexpr int SREG = BQ / 2;  // S^T, dP^T accumulator registers a thread
   using G = Geo<D, 4>;
   using GV = Geo<DV, 4>;
   static constexpr int K = 0;  // hi in place
@@ -126,13 +143,32 @@ struct Smem {
   static constexpr int BYTES = SWAP + NWG * 2 * SREG * WG * 4;
 };
 
+// Dynamic shared memory a block of the <D, DV, BQ> instantiation takes: the
+// buffers, and room to align them to 1024 bytes.
+template <int D, int DV, int BQ>
+constexpr int smem_bytes() {
+  return Smem<D, DV, BQ>::BYTES + 1024;
+}
+
+// Whether the <D, DV, BQ> instantiation is built: the default step always;
+// the others where the block's shared memory fits 227 KB and a thread's
+// registers (REG_BASE + D/4 + DV/4 + max(D, DV)/4 + 2 BQ: dK and dV's
+// columns, the larger fresh product, S^T, dP^T and one product's two
+// terms) fit the 255 that one block an SM leaves.
+template <int D, int DV, int BQ>
+constexpr bool admits() {
+  if (BQ == DEFAULT_BLOCK_Q) return true;
+  return smem_bytes<D, DV, BQ>() <= 232448 &&
+         REG_BASE + D / 4 + DV / 4 + (D > DV ? D : DV) / 4 + 2 * BQ <= 255;
+}
+
 // Step i's Q and dO tiles (query tile i / group, q-head kh group + i % group)
 // into the raw stage, completing on `bar`.
-template <int D, int DV>
+template <int D, int DV, int BQ>
 __device__ __forceinline__ void load_step(const CUtensorMap* tq, const CUtensorMap* tg,
                                           uint32_t base, uint32_t bar, int i, int q_begin,
                                           int group, int kh, int b) {
-  const uint32_t dst = base + Smem<D, DV>::RAW;
+  const uint32_t dst = base + Smem<D, DV, BQ>::RAW;
   tma_load_pair<D, DV, 4>(tq, tg, dst, dst + Geo<D, 4>::tile_bytes(BQ),
                           kh * group + i % group, q_begin + i / group * BQ, b, BQ, bar);
 }
@@ -141,7 +177,7 @@ __device__ __forceinline__ void load_step(const CUtensorMap* tq, const CUtensorM
 // registers, B the warpgroup's rows of a transposed tile (N rows of BQ
 // queries, hi and lo); the sum made in a fresh accumulator and added to acc
 // in fp32.
-template <int N>
+template <int N, int BQ>
 __device__ __forceinline__ void add_product(float (&acc)[N / 2], uint32_t (&a_hi)[BQ / 8][4],
                                             uint32_t (&a_lo)[BQ / 8][4], uint32_t b_hi,
                                             uint32_t b_lo) {
@@ -167,7 +203,7 @@ __device__ __forceinline__ void add_product(float (&acc)[N / 2], uint32_t (&a_hi
   for (int i = 0; i < N / 2; ++i) acc[i] += t[i];
 }
 
-template <int D, int DV>
+template <int D, int DV, int BQ>
 __global__ void __launch_bounds__(NWG * WG, 1)
 flash_bwd_dkv_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
@@ -179,7 +215,8 @@ flash_bwd_dkv_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
                                int causal) {
   using G = Geo<D, 4>;
   using GV = Geo<DV, 4>;
-  using L = Smem<D, DV>;
+  using L = Smem<D, DV, BQ>;
+  constexpr int SREG = L::SREG;    // S^T, dP^T accumulator registers a thread
   constexpr int DH = D / NWG;      // columns of dK a warpgroup owns
   constexpr int DHV = DV / NWG;    // columns of dV a warpgroup owns
   constexpr int KSTEPS = DH / 8;   // k8 slices of a warpgroup's half of D (S^T)
@@ -206,7 +243,7 @@ flash_bwd_dkv_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
   if (tid == 0) {
     tma_load_pair<D, DV, 4>(&tk, &tv, base + L::K, base + L::V, kh, k0, b, BKV, kvbar);
-    if (n_steps > 0) load_step<D, DV>(&tq, &tg, base, rbar, 0, q_begin, group, kh, b);
+    if (n_steps > 0) load_step<D, DV, BQ>(&tq, &tg, base, rbar, 0, q_begin, group, kh, b);
   }
 
   // this thread's key rows kr0 and kr0 + 8, its first query column in every
@@ -251,7 +288,7 @@ flash_bwd_dkv_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
     __syncthreads();
     // the raw stage is split: step i+1's tiles may come in
     if (tid == 0 && i + 1 < n_steps)
-      load_step<D, DV>(&tq, &tg, base, rbar, i + 1, q_begin, group, kh, b);
+      load_step<D, DV, BQ>(&tq, &tg, base, rbar, i + 1, q_begin, group, kh, b);
 
     // the warpgroup's half of S^T = K_hi Q_lo^T + K_lo Q_hi^T + K_hi Q_hi^T
     // and of dP^T, the same of V and dO: the k8 slices of D from wg KSTEPS,
@@ -325,91 +362,122 @@ flash_bwd_dkv_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
 
     // dV += P^T dO, then dK += dS^T Q over the warpgroup's columns: B the
     // transposed dO and Q, rows wg DHV .. (wg + 1) DHV - 1 and wg DH .. (wg +
-    // 1) DH - 1 (64 bytes each)
+    // 1) DH - 1 (4 BQ bytes each)
     const uint32_t g_rows = wg * DHV * BQ * 4, q_rows = wg * DH * BQ * 4;
     uint32_t a_hi[BQ / 8][4], a_lo[BQ / 8][4];
     tf32_fragments(st, a_hi, a_lo);
-    add_product<DHV>(dv_acc, a_hi, a_lo, base + L::GT_HI + g_rows, base + L::GT_LO + g_rows);
+    add_product<DHV, BQ>(dv_acc, a_hi, a_lo, base + L::GT_HI + g_rows,
+                         base + L::GT_LO + g_rows);
     tf32_fragments(dpt, a_hi, a_lo);
-    add_product<DH>(dk_acc, a_hi, a_lo, base + L::QT_HI + q_rows, base + L::QT_LO + q_rows);
+    add_product<DH, BQ>(dk_acc, a_hi, a_lo, base + L::QT_HI + q_rows, base + L::QT_LO + q_rows);
   }
 
   store_rows_f32<D, DH>(dk + wg * DH, dk_acc, k0, Skv, K, kh, b);
   store_rows_f32<DV, DHV>(dv + wg * DHV, dv_acc, k0, Skv, K, kh, b);
 }
 
-// Dynamic shared memory a block of the <D, DV> instantiation takes: the
-// buffers, and room to align them to 1024 bytes.
-template <int D, int DV>
-constexpr int smem_bytes() {
-  return Smem<D, DV>::BYTES + 1024;
+template <int D, int DV, int BQ>
+cudaError_t launch_tiles(const void* q, const void* k, const void* v, const void* g,
+                         const void* lse, const void* dvec, void* dk, void* dv, int B, int Sq,
+                         int Skv, int H, int K, int causal, cudaStream_t stream) {
+  if constexpr (!admits<D, DV, BQ>()) {
+    return cudaErrorInvalidValue;  // not built: its shared memory or registers would not fit
+  } else {
+    CUtensorMap maps[4];
+    if (!(make_map<D, 4>(&maps[0], q, B, Sq, H, BQ) &&
+          make_map<D, 4>(&maps[1], k, B, Skv, K, BKV) &&
+          make_map<DV, 4>(&maps[2], v, B, Skv, K, BKV) &&
+          make_map<DV, 4>(&maps[3], g, B, Sq, H, BQ)))
+      return cudaErrorInvalidValue;
+    constexpr int smem = smem_bytes<D, DV, BQ>();
+    static bool configured = false;  // once per instantiation (a repeat is harmless)
+    if (!configured) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_bwd_dkv_sm90_fp32_kernel<D, DV, BQ>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      configured = true;
+    }
+    const float root = sqrtf(static_cast<float>(D));
+    const dim3 grid(K, B, (Skv + BKV - 1) / BKV);
+    flash_bwd_dkv_sm90_fp32_kernel<D, DV, BQ><<<grid, NWG * WG, smem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+        static_cast<const float*>(dvec), static_cast<float*>(dk), static_cast<float*>(dv), Sq,
+        Skv, H, K, LOG2E / root, 1.0f / root, causal);
+    return cudaGetLastError();
+  }
 }
 
+// The instantiation of block_q (block_k is the block's 64 keys).
 template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
                    const void* lse, const void* dvec, void* dk, void* dv, int B, int Sq,
-                   int Skv, int H, int K, int causal, cudaStream_t stream) {
-  CUtensorMap maps[4];
-  if (!(make_map<D, 4>(&maps[0], q, B, Sq, H, BQ) &&
-        make_map<D, 4>(&maps[1], k, B, Skv, K, BKV) &&
-        make_map<DV, 4>(&maps[2], v, B, Skv, K, BKV) &&
-        make_map<DV, 4>(&maps[3], g, B, Sq, H, BQ)))
-    return cudaErrorInvalidValue;
-  constexpr int smem = smem_bytes<D, DV>();
-  static bool configured = false;  // once per instantiation (a repeat is harmless)
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_sm90_fp32_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
+                   int Skv, int H, int K, int causal, int block_k, int block_q,
+                   cudaStream_t stream) {
+  if (block_k != BKV) return cudaErrorInvalidValue;
+  switch (block_q) {
+    case 8:
+      return launch_tiles<D, DV, 8>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal,
+                                    stream);
+    case 16:
+      return launch_tiles<D, DV, 16>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal,
+                                     stream);
+    case 32:
+      return launch_tiles<D, DV, 32>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal,
+                                     stream);
+    default: return cudaErrorInvalidValue;
   }
-  const float root = sqrtf(static_cast<float>(D));
-  const dim3 grid(K, B, (Skv + BKV - 1) / BKV);
-  flash_bwd_dkv_sm90_fp32_kernel<D, DV><<<grid, NWG * WG, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
-      static_cast<const float*>(dvec), static_cast<float*>(dk), static_cast<float*>(dv), Sq,
-      Skv, H, K, LOG2E / root, 1.0f / root, causal);
-  return cudaGetLastError();
+}
+
+template <int D, int DV>
+int smem_dv(int block_k, int block_q) {
+  if (block_k != BKV) return -1;
+  switch (block_q) {
+    case 8: return admits<D, DV, 8>() ? smem_bytes<D, DV, 8>() : -1;
+    case 16: return admits<D, DV, 16>() ? smem_bytes<D, DV, 16>() : -1;
+    case 32: return admits<D, DV, 32>() ? smem_bytes<D, DV, 32>() : -1;
+    default: return -1;
+  }
 }
 
 }  // namespace
 
 // q (B,Sq,H,D), g (B,Sq,H,Dv), k (B,Skv,K,D), v (B,Skv,K,Dv) contiguous fp32
-// with 16-byte aligned pointers, lse and dvec (B,H,Sq) fp32; writes dk
+// with 16-byte aligned pointers, lse and dvec (B,H,Sq) fp32; block_k (64:
+// the block's keys) and block_q (8, 16 or 32: queries a step); writes dk
 // (B,Skv,K,D) and dv (B,Skv,K,Dv) fp32.  Returns the cudaError_t of the
-// launch (cudaErrorInvalidValue when a tensor map cannot be made, or (D, Dv)
-// is neither D == Dv in {32, 64, 96, 128} nor (96, 64)).
+// launch (cudaErrorInvalidValue when a tensor map cannot be made, (D, Dv)
+// is neither D == Dv in {32, 64, 96, 128} nor (96, 64), or the tiles'
+// instantiation is not built).
 extern "C" int repro_flash_bwd_dkv_sm90_fp32(const void* q, const void* k, const void* v,
                                              const void* g, const void* lse, const void* dvec,
                                              void* dk, void* dv, int B, int Sq, int Skv,
                                              int H, int K, int D, int Dv, int causal,
-                                             void* stream) {
+                                             int block_k, int block_q, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 96 && Dv == 64)
-    return launch<96, 64>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, st);
+#define REPRO_DKV_ARGS q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, block_k, block_q, st
+  if (D == 96 && Dv == 64) return launch<96, 64>(REPRO_DKV_ARGS);
   if (Dv != D) return cudaErrorInvalidValue;
   switch (D) {
-    case 32: return launch<32, 32>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, st);
-    case 64: return launch<64, 64>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, st);
-    case 96: return launch<96, 96>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, st);
-    case 128:
-      return launch<128, 128>(q, k, v, g, lse, dvec, dk, dv, B, Sq, Skv, H, K, causal, st);
+    case 32: return launch<32, 32>(REPRO_DKV_ARGS);
+    case 64: return launch<64, 64>(REPRO_DKV_ARGS);
+    case 96: return launch<96, 96>(REPRO_DKV_ARGS);
+    case 128: return launch<128, 128>(REPRO_DKV_ARGS);
     default: return cudaErrorInvalidValue;
   }
+#undef REPRO_DKV_ARGS
 }
 
-// Dynamic shared memory a block of the (D, Dv) instantiation takes, in
-// bytes (0 for a pair the entry refuses): what phase 1 of chip_smoke.py
-// prints.
-extern "C" int repro_flash_bwd_dkv_sm90_fp32_smem(int D, int Dv) {
-  if (D == 96 && Dv == 64) return smem_bytes<96, 64>();
-  if (Dv != D) return 0;
+// Dynamic shared memory a block of the (D, Dv) instantiation of block_k x
+// block_q takes, in bytes; -1 where that instantiation is not built.
+extern "C" int repro_flash_bwd_dkv_sm90_fp32_smem(int D, int Dv, int block_k, int block_q) {
+  if (D == 96 && Dv == 64) return smem_dv<96, 64>(block_k, block_q);
+  if (Dv != D) return -1;
   switch (D) {
-    case 32: return smem_bytes<32, 32>();
-    case 64: return smem_bytes<64, 64>();
-    case 96: return smem_bytes<96, 96>();
-    case 128: return smem_bytes<128, 128>();
-    default: return 0;
+    case 32: return smem_dv<32, 32>(block_k, block_q);
+    case 64: return smem_dv<64, 64>(block_k, block_q);
+    case 96: return smem_dv<96, 96>(block_k, block_q);
+    case 128: return smem_dv<128, 128>(block_k, block_q);
+    default: return -1;
   }
 }

@@ -64,10 +64,22 @@
 //   32; blocks of two warpgroups take 128 KB of shared memory at D=128, so
 //   one fits an SM and may use 255 registers a thread (phase 1 of
 //   chip_smoke.py prints ptxas -v, spills included).
-// - Grid: (q-head groups, batch, 64-row query tiles), the query tile on z
-//   and reversed: blocks are dispatched x fastest, so the longest causal
-//   tiles go first.  No atomics: each dq element is one thread's sum over
-//   the key tiles in order, so two runs give bit-identical results.
+// - Grid: (q-head groups, batch, query tiles of block_q rows), the query
+//   tile on z and reversed: blocks are dispatched x fastest, so the longest
+//   causal tiles go first.  No atomics: each dq element is one thread's sum
+//   over the key tiles in order, so two runs give bit-identical results.
+// - Tiles as launch parameters (the tuning cache's bf16 `flash_bwd`
+//   entries' dq_block_q and dq_block_k, repro_torch/tune/space.py):
+//   block_q, the query rows of a q-head in a block, is 64 or 128 (RW = 1 or
+//   2 warpgroups, each its own 64 rows and its own (Q, dO) pair, sharing
+//   every K/V tile; the first skips the tiles wholly above its rows, whose
+//   dS is 0), as the bf16 forward's; block_k, the keys of a tile, is 64 or
+//   128 (S and dP m64n128k16, dS K over 8 k16 slices).  The untuned 64 x 64
+//   is always built; any other instantiation only where a thread's
+//   registers fit its launch bounds (`admits`, the space's rule, from
+//   ptxas's report: a block of two q-heads and 128 rows is 512 threads, 128
+//   registers a thread, and spills but at D <= 64 with 64-key tiles).
+
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -84,12 +96,35 @@ namespace {
 using namespace sm90;
 
 constexpr int BQ = 64;     // query rows of a warpgroup
-constexpr int BK = 64;     // keys per tile
 constexpr int STAGES = 2;  // K/V ring
+// the untuned tiles: one 64-row warpgroup a q-head, 64-key tiles
+constexpr int DEFAULT_BLOCK_Q = 64, DEFAULT_BLOCK_K = 64;
+// a thread's registers beyond the dQ accumulator and a tile's S, dP and
+// dS's two terms (repro_torch/tune/space.py's DQ_REG_BASE)
+constexpr int REG_BASE = 0;
+
+// Dynamic shared memory of the <D, DV, NWG, RW, BK> instantiation: a (Q,
+// dO) pair a warpgroup, the K/V ring, and room to align them to 1024 bytes.
+template <int D, int DV, int NWG, int RW, int BK>
+constexpr int smem_bytes() {
+  return NWG * RW * pair_bytes<D, DV>(BQ) + STAGES * pair_bytes<D, DV>(BK) + 1024;
+}
+
+// Whether the <D, DV, NWG, RW, BK> instantiation is built: the default
+// tiles always; the others where a thread's registers (REG_BASE + D/2 +
+// 3 BK/2: dQ, S, dP and dS's two terms) fit what (threads, 1) launch bounds
+// leave it, and the block's shared memory 227 KB.
+template <int D, int DV, int NWG, int RW, int BK>
+constexpr bool admits() {
+  if (RW * BQ == DEFAULT_BLOCK_Q && BK == DEFAULT_BLOCK_K) return true;
+  const int cap = 65536 / (NWG * RW * WG);
+  return smem_bytes<D, DV, NWG, RW, BK>() <= 232448 &&
+         REG_BASE + D / 2 + 3 * BK / 2 <= (cap < 255 ? cap : 255);
+}
 
 // Tile j of K and V into ring stage j % STAGES (K at skv + s pair_bytes(BK),
 // V after it), completing on that stage's barrier (fbar + 8 s).
-template <int D, int DV>
+template <int D, int DV, int BK>
 __device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap* tv,
                                         uint32_t skv, uint32_t fbar, int kh, int b, int j) {
   const int s = j % STAGES;
@@ -98,10 +133,12 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap
                        fbar + 8 * s);
 }
 
-// NWG warpgroups a block, each with its own q-head of the same kv-head and
-// the same 64 rows: they share every K/V tile.  Grid (H/NWG, B, q tiles).
-template <int D, int DV, int NWG>
-__global__ void __launch_bounds__(NWG * WG, 1)
+// NWG x RW warpgroups a block: NWG q-heads of the same kv-head, each over RW
+// x 64 rows, warpgroup w taking head w / RW and rows (w % RW) 64.. of the
+// block's; they share every K/V tile of BK keys.  Grid (H/NWG, B, query
+// tiles of RW x 64 rows).
+template <int D, int DV, int NWG, int RW, int BK>
+__global__ void __launch_bounds__(NWG * RW * WG, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
@@ -111,18 +148,19 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          float* __restrict__ dvec, __nv_bfloat16* __restrict__ dq, int Sq,
                          int Skv, int H, int K, float scale_log2, float scale, int causal) {
   using G = Geo<D>;
+  constexpr int NQ = NWG * RW;     // (Q, dO) pairs (warpgroups) of the block
   constexpr int KSTEPS = D / 16;   // k16 slices of Q K^T
   constexpr int VSTEPS = DV / 16;  // k16 slices of dO V^T
   constexpr int PSTEPS = BK / 16;  // k16 slices of dS K
   constexpr int OREG = D / 2;      // dQ accumulator registers a thread
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + STAGES];
-  __shared__ float dvec_s[NWG][BQ];
+  __shared__ float dvec_s[NQ][BQ];
 
   // warpgroup w: Q at sq0 + w pair_bytes(BQ), dO after it
   const uint32_t sq0 = (smem_u32(smem_raw) + 1023u) & ~1023u;
   // stage s: K at skv + s pair_bytes(BK), V after it
-  const uint32_t skv = sq0 + NWG * pair_bytes<D, DV>(BQ);
+  const uint32_t skv = sq0 + NQ * pair_bytes<D, DV>(BQ);
   const uint32_t qbar = smem_u32(&bars[0]);
   const uint32_t fbar = smem_u32(&bars[1]);  // stage s: fbar + 8 s
 
@@ -130,16 +168,17 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg = tid / WG, warp = tid / 32 % 4, lane = tid % 32;
   // blocks are dispatched x fastest, z slowest: the longest causal q tiles
   // (the last) go first
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
-  const int h0 = blockIdx.x * NWG, h = h0 + wg, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * (RW * BQ);
+  const int qw = q0 + (wg % RW) * BQ;  // this warpgroup's first row
+  const int h0 = blockIdx.x * NWG, h = h0 + wg / RW, b = blockIdx.y;
   const int kh = h0 * K / H;  // the same for the block's NWG heads
   const uint32_t sq = sq0 + wg * pair_bytes<D, DV>(BQ), sg = sq + G::tile_bytes(BQ);
-  // causal: keys past the tile's last row are masked for every row
-  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
+  // causal: keys past the block's last row are masked for every row
+  const int kv_end = causal ? min(Skv, q0 + RW * BQ) : Skv;
   const int n_tiles = (kv_end + BK - 1) / BK;
 
   if (tid == 0) {
-    mbar_init(qbar, NWG);  // one arrival for each warpgroup's (Q, dO) pair
+    mbar_init(qbar, NQ);  // one arrival for each warpgroup's (Q, dO) pair
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) mbar_init(fbar + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -147,17 +186,18 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
   if (tid == 0) {
 #pragma unroll
-    for (int w = 0; w < NWG; ++w) {
+    for (int w = 0; w < NQ; ++w) {
       const uint32_t dst = sq0 + w * pair_bytes<D, DV>(BQ);
-      tma_load_pair<D, DV>(&tq, &tg, dst, dst + G::tile_bytes(BQ), h0 + w, q0, b, BQ, qbar);
+      tma_load_pair<D, DV>(&tq, &tg, dst, dst + G::tile_bytes(BQ), h0 + w / RW,
+                           q0 + (w % RW) * BQ, b, BQ, qbar);
     }
-    load_kv<D, DV>(&tk, &tv, skv, fbar, kh, b, 0);
+    load_kv<D, DV, BK>(&tk, &tv, skv, fbar, kh, b, 0);
   }
 
   // prologue: Dvec = rowsum(dO * O) for the warpgroup's 64 rows, two
   // threads a row, each over half the DV columns in 16-byte loads
   {
-    const int t = tid % WG, row = t / 2, half = t % 2, qp = q0 + row;
+    const int t = tid % WG, row = t / 2, half = t % 2, qp = qw + row;
     float part = 0.f;
     if (qp < Sq) {
       const size_t off = ((static_cast<size_t>(b) * Sq + qp) * H + h) * DV + half * (DV / 2);
@@ -185,14 +225,14 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
   // this thread's two rows, their lse (as a base-2 exponent) and Dvec, and
   // its first key column in every 8-column chunk
-  const int r0 = q0 + 16 * warp + lane / 4, r1 = r0 + 8;
+  const int r0 = qw + 16 * warp + lane / 4, r1 = r0 + 8;
   const int c0 = 2 * (lane % 4);
   float l2[2], dd[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qp = r ? r1 : r0;
     l2[r] = qp < Sq ? lse[(static_cast<size_t>(b) * H + h) * Sq + qp] * LOG2E : 0.f;
-    dd[r] = dvec_s[wg][qp - q0];
+    dd[r] = dvec_s[wg][qp - qw];
   }
   float dq_acc[OREG];
 #pragma unroll
@@ -205,7 +245,10 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // every warp of the block is past tile j-1's products: its stage may be
     // refilled
     __syncthreads();
-    if (tid == 0 && j + 1 < n_tiles) load_kv<D, DV>(&tk, &tv, skv, fbar, kh, b, j + 1);
+    if (tid == 0 && j + 1 < n_tiles) load_kv<D, DV, BK>(&tk, &tv, skv, fbar, kh, b, j + 1);
+    // a tile wholly above this warpgroup's rows (only below the block's last
+    // row warpgroup, which waits on every tile) would add exactly 0
+    if (RW > 1 && causal && k0 > qw + BQ - 1) continue;
     mbar_wait(fbar + 8 * s, (j / STAGES) & 1);
     const uint32_t k_tile = skv + s * pair_bytes<D, DV>(BK), v_tile = k_tile + G::tile_bytes(BK);
 
@@ -231,7 +274,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
     // dS in dP's registers, in the accumulator's layout: dp[4i + e] is row
     // (e < 2 ? r0 : r1), key column k0 + 8i + c0 + (e & 1)
-    const bool edge = k0 + BK > Skv || q0 + BQ > Sq || (causal && k0 + BK - 1 > q0);
+    const bool edge = k0 + BK > Skv || qw + BQ > Sq || (causal && k0 + BK - 1 > qw);
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
       const int r = (i >> 1) & 1;
@@ -267,69 +310,124 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     pin(ds_lo);
   }
 
-  store_rows<D>(dq, dq_acc, q0, Sq, H, h, b);
+  store_rows<D>(dq, dq_acc, qw, Sq, H, h, b);
 }
 
-template <int D, int DV, int NWG>
-cudaError_t launch_nwg(const CUtensorMap* maps, const void* out, const void* g,
-                       const void* lse, void* dvec, void* dq, int B, int Sq, int Skv, int H,
-                       int K, int causal, cudaStream_t stream) {
-  // NWG (Q, dO) pairs, the K/V ring, and room to align them to 1024 bytes
-  constexpr int smem = NWG * pair_bytes<D, DV>(BQ) + STAGES * pair_bytes<D, DV>(BK) + 1024;
-  static bool configured = false;  // once per instantiation (a repeat is harmless)
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_sm90_kernel<D, DV, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
+struct Call {
+  const void *q, *k, *v, *out, *g, *lse;
+  void *dvec, *dq;
+  int B, Sq, Skv, H, K, causal;
+  cudaStream_t stream;
+};
+
+template <int D, int DV, int NWG, int RW, int BK>
+cudaError_t launch_tiles(const Call& c) {
+  if constexpr (!admits<D, DV, NWG, RW, BK>()) {
+    return cudaErrorInvalidValue;  // not built: its registers or shared memory would not fit
+  } else {
+    CUtensorMap maps[4];
+    if (!(make_map<D>(&maps[0], c.q, c.B, c.Sq, c.H, BQ) &&
+          make_map<D>(&maps[1], c.k, c.B, c.Skv, c.K, BK) &&
+          make_map<DV>(&maps[2], c.v, c.B, c.Skv, c.K, BK) &&
+          make_map<DV>(&maps[3], c.g, c.B, c.Sq, c.H, BQ)))
+      return cudaErrorInvalidValue;
+    constexpr int smem = smem_bytes<D, DV, NWG, RW, BK>();
+    static bool configured = false;  // once per instantiation (a repeat is harmless)
+    if (!configured) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_bwd_dq_sm90_kernel<D, DV, NWG, RW, BK>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      configured = true;
+    }
+    const float root = sqrtf(static_cast<float>(D));
+    const dim3 grid(c.H / NWG, c.B, (c.Sq + RW * BQ - 1) / (RW * BQ));
+    flash_bwd_dq_sm90_kernel<D, DV, NWG, RW, BK><<<grid, NWG * RW * WG, smem, c.stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<const __nv_bfloat16*>(c.out),
+        static_cast<const __nv_bfloat16*>(c.g), static_cast<const float*>(c.lse),
+        static_cast<float*>(c.dvec), static_cast<__nv_bfloat16*>(c.dq), c.Sq, c.Skv, c.H, c.K,
+        LOG2E / root, 1.0f / root, c.causal);
+    return cudaGetLastError();
   }
-  const float root = sqrtf(static_cast<float>(D));
-  const dim3 grid(H / NWG, B, (Sq + BQ - 1) / BQ);
-  flash_bwd_dq_sm90_kernel<D, DV, NWG><<<grid, NWG * WG, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<const __nv_bfloat16*>(out),
-      static_cast<const __nv_bfloat16*>(g), static_cast<const float*>(lse),
-      static_cast<float*>(dvec), static_cast<__nv_bfloat16*>(dq), Sq, Skv, H, K,
-      LOG2E / root, 1.0f / root, causal);
-  return cudaGetLastError();
+}
+
+// The instantiation of block_q x block_k; NWG q-heads a block.
+template <int D, int DV, int NWG>
+cudaError_t launch_nwg(const Call& c, int block_q, int block_k) {
+  if (block_q == 64 && block_k == 64) return launch_tiles<D, DV, NWG, 1, 64>(c);
+  if (block_q == 64 && block_k == 128) return launch_tiles<D, DV, NWG, 1, 128>(c);
+  if (block_q == 128 && block_k == 64) return launch_tiles<D, DV, NWG, 2, 64>(c);
+  if (block_q == 128 && block_k == 128) return launch_tiles<D, DV, NWG, 2, 128>(c);
+  return cudaErrorInvalidValue;
 }
 
 // Two q-heads a block when they share a kv-head (H/K even), else one.
 template <int D, int DV>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
-                   const void* g, const void* lse, void* dvec, void* dq, int B, int Sq,
-                   int Skv, int H, int K, int causal, cudaStream_t stream) {
-  CUtensorMap maps[4];
-  if (!(make_map<D>(&maps[0], q, B, Sq, H, BQ) && make_map<D>(&maps[1], k, B, Skv, K, BK) &&
-        make_map<DV>(&maps[2], v, B, Skv, K, BK) && make_map<DV>(&maps[3], g, B, Sq, H, BQ)))
-    return cudaErrorInvalidValue;
-  if ((H / K) % 2 == 0)
-    return launch_nwg<D, DV, 2>(maps, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, stream);
-  return launch_nwg<D, DV, 1>(maps, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, stream);
+cudaError_t launch(const Call& c, int block_q, int block_k) {
+  if ((c.H / c.K) % 2 == 0) return launch_nwg<D, DV, 2>(c, block_q, block_k);
+  return launch_nwg<D, DV, 1>(c, block_q, block_k);
+}
+
+template <int D, int DV, int NWG, int RW, int BK>
+int smem_tiles() {
+  return admits<D, DV, NWG, RW, BK>() ? smem_bytes<D, DV, NWG, RW, BK>() : -1;
+}
+
+template <int D, int DV, int NWG>
+int smem_nwg(int block_q, int block_k) {
+  if (block_q == 64 && block_k == 64) return smem_tiles<D, DV, NWG, 1, 64>();
+  if (block_q == 64 && block_k == 128) return smem_tiles<D, DV, NWG, 1, 128>();
+  if (block_q == 128 && block_k == 64) return smem_tiles<D, DV, NWG, 2, 64>();
+  if (block_q == 128 && block_k == 128) return smem_tiles<D, DV, NWG, 2, 128>();
+  return -1;
+}
+
+template <int D, int DV>
+int smem_dv(int heads, int block_q, int block_k) {
+  if (heads == 2) return smem_nwg<D, DV, 2>(block_q, block_k);
+  if (heads == 1) return smem_nwg<D, DV, 1>(block_q, block_k);
+  return -1;
 }
 
 }  // namespace
 
 // q (B,Sq,H,D), out, g (B,Sq,H,Dv), k (B,Skv,K,D), v (B,Skv,K,Dv) contiguous
 // bf16 with 16-byte aligned pointers, lse (B,H,Sq) fp32 from the forward;
-// writes dq (B,Sq,H,D) bf16 and dvec (B,H,Sq) fp32.  Returns the
-// cudaError_t of the launch (cudaErrorInvalidValue when a tensor map cannot
-// be made or (D, Dv) is not one of (32, 32), (64, 64), (96, 96), (128, 128),
-// (96, 64)).
+// block_q (64 or 128: query rows of a q-head in a block) and block_k (64 or
+// 128: keys a tile); writes dq (B,Sq,H,D) bf16 and dvec (B,H,Sq) fp32.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue when a
+// tensor map cannot be made, (D, Dv) is not one of (32, 32), (64, 64),
+// (96, 96), (128, 128), (96, 64), or the tiles' instantiation is not
+// built).
 extern "C" int repro_flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                        const void* out, const void* g, const void* lse,
                                        void* dvec, void* dq, int B, int Sq, int Skv, int H,
-                                       int K, int D, int Dv, int causal, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 96 && Dv == 64)
-    return launch<96, 64>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
+                                       int K, int D, int Dv, int causal, int block_q,
+                                       int block_k, void* stream) {
+  const Call c{q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal,
+               static_cast<cudaStream_t>(stream)};
+  if (D == 96 && Dv == 64) return launch<96, 64>(c, block_q, block_k);
   if (D != Dv) return cudaErrorInvalidValue;
   switch (D) {
-    case 32: return launch<32, 32>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
-    case 64: return launch<64, 64>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
-    case 96: return launch<96, 96>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
-    case 128:
-      return launch<128, 128>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
+    case 32: return launch<32, 32>(c, block_q, block_k);
+    case 64: return launch<64, 64>(c, block_q, block_k);
+    case 96: return launch<96, 96>(c, block_q, block_k);
+    case 128: return launch<128, 128>(c, block_q, block_k);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// A block's dynamic shared memory at (D, Dv), `heads` q-heads a block (1 or
+// 2) and block_q x block_k; -1 where that instantiation is not built.
+extern "C" int repro_flash_bwd_dq_sm90_smem(int D, int Dv, int heads, int block_q,
+                                            int block_k) {
+  if (D == 96 && Dv == 64) return smem_dv<96, 64>(heads, block_q, block_k);
+  if (D != Dv) return -1;
+  switch (D) {
+    case 32: return smem_dv<32, 32>(heads, block_q, block_k);
+    case 64: return smem_dv<64, 64>(heads, block_q, block_k);
+    case 96: return smem_dv<96, 96>(heads, block_q, block_k);
+    case 128: return smem_dv<128, 128>(heads, block_q, block_k);
+    default: return -1;
   }
 }

@@ -57,7 +57,7 @@
 //
 // Design, constraint by constraint:
 // - Tensor cores: one warpgroup (128 threads) a block owns 64 query rows of
-//   one q-head and walks 32-key tiles.  S = Q K^T and dP = dO V^T are
+//   one q-head and walks key tiles of BK keys (32 untuned; below).  S = Q K^T and dP = dO V^T are
 //   m64n32k8 tf32 wgmmas with A (Q or dO) and B (K or V) from shared
 //   memory, K-major as they lie.  The dP accumulator, turned into dS in
 //   place and split into hi and lo, is the A fragment of the RS wgmma
@@ -74,7 +74,8 @@
 //   thread; a tf32 A fragment wants k = t and t + 4.  K^T's 8-key groups are
 //   written permuted the same way (k slot t holds key 2t, slot t + 4 key
 //   2t + 1), so each ds meets its own k.
-// - Shared memory at D=128 (227 KB is the most a block may take): Q (hi in
+// - Shared memory at D=128 and 32-key tiles (227 KB is the most a block may
+//   take): Q (hi in
 //   place) and Q_lo 64 KB; dO and dO_lo 64 KB; K and K_lo 32 KB; V and V_lo
 //   32 KB; K^T hi and lo 32 KB: 224 KB, one K/V stage (at (96, 96) 168 KB,
 //   at (96, 64) 144 KB: D=96 is three 128-byte atoms a row, and every tile
@@ -102,6 +103,15 @@
 //   blocks are dispatched x fastest, so the longest causal tiles go first.
 //   No atomics: each dq element is one thread's sum over the key tiles in
 //   order, so two runs give bit-identical results.
+// - Tiles as launch parameters (the tuning cache's fp32 `flash_bwd`
+//   entries' dq_block_k, repro_torch/tune/space.py): BK is 16, 32 or 64
+//   keys (K^T in Geo<BK, 4>: 64-byte rows at 16, 128 at 32, two 128-byte
+//   atoms at 64, sm90.cuh's transpose_split_tf32 and tposed_off), with the
+//   same 8-key permutation; dq_block_q stays the warpgroup's 64 rows.  The
+//   untuned 32 is always built; 16 and 64 where the shared memory and a
+//   thread's registers fit (`admits`, the space's rule): 64-key tiles take
+//   328,704 bytes at D=128 and are built at D = 64 and below and at
+//   (96, 64).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -117,11 +127,16 @@ namespace {
 using namespace sm90;
 
 constexpr int BQ = 64;  // query rows of the warpgroup
-constexpr int BK = 32;  // keys per tile
+// the untuned key tile
+constexpr int DEFAULT_BLOCK_K = 32;
+// a thread's registers beyond the dQ accumulator, its fresh part and a
+// tile's S, dP and dS terms (repro_torch/tune/space.py's FP32_DQ_REG_BASE)
+constexpr int REG_BASE = 50;
 
-// Byte offsets of the block's buffers from a 1024-byte boundary.  K^T is D
-// rows of BK keys: as many bytes as a K tile.  dO and V are DV wide.
-template <int D, int DV>
+// Byte offsets of the <D, DV, BK> instantiation's buffers from a 1024-byte
+// boundary.  K^T is D rows of BK keys (Geo<BK, 4>): as many bytes as a K
+// tile.  dO and V are DV wide.
+template <int D, int DV, int BK>
 struct Smem {
   using G = Geo<D, 4>;
   using GV = Geo<DV, 4>;
@@ -138,7 +153,25 @@ struct Smem {
   static constexpr int BYTES = KT_LO + G::tile_bytes(BK);
 };
 
-template <int D, int DV>
+// Dynamic shared memory a block of the <D, DV, BK> instantiation takes:
+// the buffers, and room to align them to 1024 bytes.
+template <int D, int DV, int BK>
+constexpr int smem_bytes() {
+  return Smem<D, DV, BK>::BYTES + 1024;
+}
+
+// Whether the <D, DV, BK> instantiation is built: the default tile always;
+// the others where the block's shared memory fits 227 KB and a thread's
+// registers (REG_BASE + D/2 + D/2 / NH + 2 BK: dQ, its fresh part, S, dP
+// and dS's two terms) fit the 255 that one block an SM leaves.
+template <int D, int DV, int BK>
+constexpr bool admits() {
+  if (BK == DEFAULT_BLOCK_K) return true;
+  const int nh = D > 64 ? 2 : 1;
+  return smem_bytes<D, DV, BK>() <= 232448 && REG_BASE + D / 2 + D / 2 / nh + 2 * BK <= 255;
+}
+
+template <int D, int DV, int BK>
 __global__ void __launch_bounds__(WG, 1)
 flash_bwd_dq_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
@@ -150,7 +183,8 @@ flash_bwd_dq_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
                               float scale_log2, float scale, int causal) {
   using G = Geo<D, 4>;
   using GV = Geo<DV, 4>;
-  using L = Smem<D, DV>;
+  using GT = Geo<BK, 4>;  // K^T's geometry
+  using L = Smem<D, DV, BK>;
   constexpr int KSTEPS = D / 8;        // k8 slices of Q K^T
   constexpr int VSTEPS = DV / 8;       // k8 slices of dO V^T
   constexpr int PSTEPS = BK / 8;       // k8 slices of dS K
@@ -303,15 +337,16 @@ flash_bwd_dq_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
 
     // dQ += dS_hi K^T_lo + dS_lo K^T_hi + dS_hi K^T_hi, the tile's product
     // in a fresh accumulator added to dQ in fp32, for NH parts of D columns
-    // (K^T rows, 8 of them 1024 bytes apart, so a part of 48 starts on a
-    // 1024-byte boundary too); the k8 slice kk is 32 bytes into the atom
+    // (K^T rows of GT::SW bytes in an atom, 8 of them a swizzle period, so
+    // a part of 48 starts on a period too); the k8 slice kk is 32 bytes into
+    // its atom
 #pragma unroll
     for (int part = 0; part < NH; ++part) {
       float t[OREG / NH];
 #pragma unroll
       for (int i = 0; i < OREG / NH; ++i) t[i] = 0.f;
-      const uint32_t kt_lo = base + L::KT_LO + part * (D / NH) * 128;
-      const uint32_t kt_hi = base + L::KT_HI + part * (D / NH) * 128;
+      const uint32_t kt_lo = base + L::KT_LO + part * (D / NH) * GT::SW;
+      const uint32_t kt_hi = base + L::KT_HI + part * (D / NH) * GT::SW;
       pin(t);
       pin(ds_hi);
       pin(ds_lo);
@@ -338,77 +373,108 @@ flash_bwd_dq_sm90_fp32_kernel(const __grid_constant__ CUtensorMap tq,
   store_rows_f32<D>(dq, dq_acc, q0, Sq, H, h, b);
 }
 
-// Dynamic shared memory a block of the <D, DV> instantiation takes: the
-// buffers, and room to align them to 1024 bytes.
-template <int D, int DV>
-constexpr int smem_bytes() {
-  return Smem<D, DV>::BYTES + 1024;
+template <int D, int DV, int BK>
+cudaError_t launch_tiles(const void* q, const void* k, const void* v, const void* out,
+                         const void* g, const void* lse, void* dvec, void* dq, int B, int Sq,
+                         int Skv, int H, int K, int causal, cudaStream_t stream) {
+  if constexpr (!admits<D, DV, BK>()) {
+    return cudaErrorInvalidValue;  // not built: its shared memory or registers would not fit
+  } else {
+    CUtensorMap maps[4];
+    if (!(make_map<D, 4>(&maps[0], q, B, Sq, H, BQ) &&
+          make_map<D, 4>(&maps[1], k, B, Skv, K, BK) &&
+          make_map<DV, 4>(&maps[2], v, B, Skv, K, BK) &&
+          make_map<DV, 4>(&maps[3], g, B, Sq, H, BQ)))
+      return cudaErrorInvalidValue;
+    constexpr int smem = smem_bytes<D, DV, BK>();
+    static bool configured = false;  // once per instantiation (a repeat is harmless)
+    if (!configured) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_bwd_dq_sm90_fp32_kernel<D, DV, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (err != cudaSuccess) return err;
+      configured = true;
+    }
+    const float root = sqrtf(static_cast<float>(D));
+    const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
+    flash_bwd_dq_sm90_fp32_kernel<D, DV, BK><<<grid, WG, smem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(out),
+        static_cast<const float*>(g), static_cast<const float*>(lse), static_cast<float*>(dvec),
+        static_cast<float*>(dq), Sq, Skv, H, K, LOG2E / root, 1.0f / root, causal);
+    return cudaGetLastError();
+  }
 }
 
+// The instantiation of block_k (block_q is the warpgroup's 64 rows).
 template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
                    const void* g, const void* lse, void* dvec, void* dq, int B, int Sq,
-                   int Skv, int H, int K, int causal, cudaStream_t stream) {
-  CUtensorMap maps[4];
-  if (!(make_map<D, 4>(&maps[0], q, B, Sq, H, BQ) && make_map<D, 4>(&maps[1], k, B, Skv, K, BK) &&
-        make_map<DV, 4>(&maps[2], v, B, Skv, K, BK) &&
-        make_map<DV, 4>(&maps[3], g, B, Sq, H, BQ)))
-    return cudaErrorInvalidValue;
-  constexpr int smem = smem_bytes<D, DV>();
-  static bool configured = false;  // once per instantiation (a repeat is harmless)
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_sm90_fp32_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
+                   int Skv, int H, int K, int causal, int block_q, int block_k,
+                   cudaStream_t stream) {
+  if (block_q != BQ) return cudaErrorInvalidValue;
+  switch (block_k) {
+    case 16:
+      return launch_tiles<D, DV, 16>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal,
+                                     stream);
+    case 32:
+      return launch_tiles<D, DV, 32>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal,
+                                     stream);
+    case 64:
+      return launch_tiles<D, DV, 64>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal,
+                                     stream);
+    default: return cudaErrorInvalidValue;
   }
-  const float root = sqrtf(static_cast<float>(D));
-  const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
-  flash_bwd_dq_sm90_fp32_kernel<D, DV><<<grid, WG, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(out),
-      static_cast<const float*>(g), static_cast<const float*>(lse), static_cast<float*>(dvec),
-      static_cast<float*>(dq), Sq, Skv, H, K, LOG2E / root, 1.0f / root, causal);
-  return cudaGetLastError();
+}
+
+template <int D, int DV>
+int smem_dv(int block_q, int block_k) {
+  if (block_q != BQ) return -1;
+  switch (block_k) {
+    case 16: return admits<D, DV, 16>() ? smem_bytes<D, DV, 16>() : -1;
+    case 32: return admits<D, DV, 32>() ? smem_bytes<D, DV, 32>() : -1;
+    case 64: return admits<D, DV, 64>() ? smem_bytes<D, DV, 64>() : -1;
+    default: return -1;
+  }
 }
 
 }  // namespace
 
 // q (B,Sq,H,D), out, g (B,Sq,H,Dv), k (B,Skv,K,D), v (B,Skv,K,Dv)
 // contiguous fp32 with 16-byte aligned pointers, lse (B,H,Sq) fp32 from the
-// forward; writes dq (B,Sq,H,D) and dvec (B,H,Sq), fp32.  Returns the
-// cudaError_t of the launch (cudaErrorInvalidValue when a tensor map cannot
-// be made, or (D, Dv) is neither D == Dv in {32, 64, 96, 128} nor (96, 64)).
+// forward; block_q (64: the warpgroup's query rows) and block_k (16, 32 or
+// 64: keys a tile); writes dq (B,Sq,H,D) and dvec (B,H,Sq), fp32.  Returns
+// the cudaError_t of the launch (cudaErrorInvalidValue when a tensor map
+// cannot be made, (D, Dv) is neither D == Dv in {32, 64, 96, 128} nor
+// (96, 64), or the tiles' instantiation is not built).
 extern "C" int repro_flash_bwd_dq_sm90_fp32(const void* q, const void* k, const void* v,
                                             const void* out, const void* g, const void* lse,
                                             void* dvec, void* dq, int B, int Sq, int Skv,
                                             int H, int K, int D, int Dv, int causal,
-                                            void* stream) {
+                                            int block_q, int block_k, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 96 && Dv == 64)
-    return launch<96, 64>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
+#define REPRO_DQ_ARGS q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, block_q, block_k, st
+  if (D == 96 && Dv == 64) return launch<96, 64>(REPRO_DQ_ARGS);
   if (Dv != D) return cudaErrorInvalidValue;
   switch (D) {
-    case 32: return launch<32, 32>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
-    case 64: return launch<64, 64>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
-    case 96: return launch<96, 96>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
-    case 128:
-      return launch<128, 128>(q, k, v, out, g, lse, dvec, dq, B, Sq, Skv, H, K, causal, st);
+    case 32: return launch<32, 32>(REPRO_DQ_ARGS);
+    case 64: return launch<64, 64>(REPRO_DQ_ARGS);
+    case 96: return launch<96, 96>(REPRO_DQ_ARGS);
+    case 128: return launch<128, 128>(REPRO_DQ_ARGS);
     default: return cudaErrorInvalidValue;
   }
+#undef REPRO_DQ_ARGS
 }
 
-// Dynamic shared memory a block of the (D, Dv) instantiation takes, in
-// bytes (0 for a pair the entry refuses): what phase 1 of chip_smoke.py
-// prints.
-extern "C" int repro_flash_bwd_dq_sm90_fp32_smem(int D, int Dv) {
-  if (D == 96 && Dv == 64) return smem_bytes<96, 64>();
-  if (Dv != D) return 0;
+// Dynamic shared memory a block of the (D, Dv) instantiation of block_q x
+// block_k takes, in bytes; -1 where that instantiation is not built.
+extern "C" int repro_flash_bwd_dq_sm90_fp32_smem(int D, int Dv, int block_q, int block_k) {
+  if (D == 96 && Dv == 64) return smem_dv<96, 64>(block_q, block_k);
+  if (Dv != D) return -1;
   switch (D) {
-    case 32: return smem_bytes<32, 32>();
-    case 64: return smem_bytes<64, 64>();
-    case 96: return smem_bytes<96, 96>();
-    case 128: return smem_bytes<128, 128>();
-    default: return 0;
+    case 32: return smem_dv<32, 32>(block_q, block_k);
+    case 64: return smem_dv<64, 64>(block_q, block_k);
+    case 96: return smem_dv<96, 96>(block_q, block_k);
+    case 128: return smem_dv<128, 128>(block_q, block_k);
+    default: return -1;
   }
 }

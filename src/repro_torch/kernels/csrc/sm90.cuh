@@ -24,18 +24,23 @@ constexpr float LOG2E = 1.4426950408889634f;
 // Shared-memory geometry of a tile with D columns of E-byte elements (E = 2:
 // bf16, E = 4: fp32): a tile of `rows` rows is NATOM column atoms of rows x
 // SW bytes, each starting on a 1024-byte boundary.  SW, the swizzle span,
-// is the larger of 128 and 64 bytes that divides a row: 64 bf16 columns
-// (D = 64, 128), 32 for bf16 D = 32 and D = 96 (a 192-byte row is three
-// 64-byte atoms, not one 128-byte atom and a stray half), 32 fp32 columns.
+// is the largest of 128, 64 and 32 bytes that divides a row: 64 bf16
+// columns (D = 64, 128), 32 for bf16 D = 32 and D = 96 (a 192-byte row is
+// three 64-byte atoms, not one 128-byte atom and a stray half), 32 fp32
+// columns; 16 fp32 columns (a transposed tile of 16 rows) take the 64-byte
+// swizzle and 8 (a transposed tile of 8 rows) the 32-byte one.
 template <int D, int E = 2>
 struct Geo {
-  static constexpr int SW = D * E % 128 == 0 ? 128 : 64;
+  static constexpr int SW = D * E % 128 == 0 ? 128 : D * E % 64 == 0 ? 64 : 32;
   static_assert(D * E % SW == 0, "the swizzle atoms must cover a row exactly");
   static constexpr int ATOM = SW / E;
   static constexpr int NATOM = D / ATOM;
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma: 128B or 64B swizzle
+  // wgmma: 128B, 64B or 32B swizzle
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
   static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
-      SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+      SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                 : CU_TENSOR_MAP_SWIZZLE_32B;
   __host__ __device__ static constexpr int atom_bytes(int rows) { return rows * SW; }
   __host__ __device__ static constexpr int tile_bytes(int rows) { return rows * D * E; }
 };
@@ -140,7 +145,9 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int kk) {
 // wgmma has no transpose): the k8 slice kk of D, 32 bytes inside a 128-byte
 // atom as a bf16 k16 slice is.  A tile of 16 columns (64-byte rows, as
 // transpose_split_tf32 writes them for 16 rows) takes Geo<16, 4>'s 64-byte
-// swizzle: one atom, its two k8 slices 32 bytes apart.
+// swizzle: one atom, its two k8 slices 32 bytes apart; a tile of 8 columns
+// (32-byte rows) Geo<8, 4>'s 32-byte swizzle, one k8 slice; a tile of 64
+// columns two 128-byte atoms, `rows` x 128 bytes apart.
 template <int D>
 __device__ __forceinline__ uint64_t desc_k_tf32(uint32_t tile, int rows, int kk) {
   using G = Geo<D, 4>;
@@ -186,6 +193,18 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
 // accumulator registers a thread holds.  wgmma_ss: A and B from shared
 // memory, both K-major.  wgmma_rs: A from registers (four bf16x2 per
 // thread), B from shared memory MN-major (transpose-B), D accumulated.
+// n16: the bf16 dk/dv pass's S^T and dP^T over a 16-query step.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db,
                                          int scale_d) {
   asm volatile(
@@ -324,6 +343,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 // accumulated; a thread's four registers hold A's rows lane/4 (a[0], a[2])
 // and lane/4 + 8 (a[1], a[3]) of its warp's 16, at k = lane % 4 (a[0],
 // a[1]) and lane % 4 + 4 (a[2], a[3]).
+// n8: the fp32 dk/dv pass's S^T and dP^T over an 8-query step.
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[4], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[8], uint64_t da, uint64_t db,
                                               int scale_d) {
   asm volatile(
@@ -345,6 +375,24 @@ __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t da, uint6
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// n64: the fp32 forward's S and the dq pass's S and dP over 64-key tiles.
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[32], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -510,13 +558,29 @@ __device__ __forceinline__ void sts_v4(uint32_t addr, const uint32_t (&x)[4]) {
                : "memory");
 }
 
-// An fp32 tile of ROWS rows (16 or 32) by D columns at shared address
-// `src`, as TMA wrote it (Geo<D, 4>), split into its tf32 terms twice over:
-// as it lies, hi at `hi` (which may be `src`: in place) and lo at `lo`, in
-// src's layout; and transposed, D rows of ROWS values in Geo<ROWS, 4>'s
-// layout (one atom row: 128 bytes with the 128-byte swizzle at ROWS = 32,
-// 64 bytes with the 64-byte swizzle at ROWS = 16), hi at `t_hi` and lo at
-// `t_lo`.  D is any multiple of 32 (D = 96: three column atoms).  Each
+// Byte offset of 16-byte chunk c (values 4c .. 4c + 3) of row d in a
+// transposed fp32 tile of `rows` rows of ROWS values, Geo<ROWS, 4>'s
+// layout: up to 32 values a row is one atom row (32, 64 or 128 bytes, its
+// swizzle the row's span); 64 values are two 128-byte atoms of `rows` rows,
+// values 0-31 in the first.
+template <int ROWS>
+__device__ __forceinline__ uint32_t tposed_off(int d, int c, int rows) {
+  if constexpr (ROWS > 32) {
+    return (c / 8) * rows * 128 + d * 128 + ((c % 8) ^ (d % 8)) * 16;
+  } else {
+    constexpr int RB = ROWS * 4;  // bytes of a transposed row
+    return d * RB + (c ^ ((d * RB >> 7) & (RB / 16 - 1))) * 16;
+  }
+}
+
+// An fp32 tile of ROWS rows (8, 16, 32 or 64) by D columns at shared
+// address `src`, as TMA wrote it (Geo<D, 4>), split into its tf32 terms
+// twice over: as it lies, hi at `hi` (which may be `src`: in place) and lo
+// at `lo`, in src's layout; and transposed, D rows of ROWS values in
+// Geo<ROWS, 4>'s layout (tposed_off: one atom row of 128 bytes with the
+// 128-byte swizzle at ROWS = 32, 64 bytes with the 64-byte swizzle at
+// ROWS = 16, 32 bytes with the 32-byte swizzle at ROWS = 8; two 128-byte
+// atoms at ROWS = 64), hi at `t_hi` and lo at `t_lo`.  D is any multiple of 32 (D = 96: three column atoms).  Each
 // 8-row group is permuted on the way: row 8g + 2i + e goes to
 // k slot 8g + 4e + i, so that an RS wgmma's A fragment taken pairwise from
 // an accumulator's registers meets its own rows (flash_attention_sm90_fp32.cu's
@@ -531,7 +595,6 @@ __device__ __forceinline__ void sts_v4(uint32_t addr, const uint32_t (&x)[4]) {
 template <int D, int ROWS>
 __device__ __forceinline__ void transpose_split_tf32(uint32_t src, uint32_t hi, uint32_t lo,
                                                      uint32_t t_hi, uint32_t t_lo) {
-  constexpr int RB = ROWS * 4;  // bytes of a transposed row
   int lane = threadIdx.x % 32;
   asm volatile("" : "+r"(lane));
   const int warps = blockDim.x / 32;
@@ -554,7 +617,7 @@ __device__ __forceinline__ void transpose_split_tf32(uint32_t src, uint32_t hi, 
       sts_u32(lo + off[i], l[i]);
     }
     const int d = 32 * atom + lane;
-    const uint32_t toff = d * RB + ((2 * g + e) ^ ((d * RB >> 7) & (RB / 16 - 1))) * 16;
+    const uint32_t toff = tposed_off<ROWS>(d, 2 * g + e, D);
     sts_v4(t_hi + toff, h);
     sts_v4(t_lo + toff, l);
   }

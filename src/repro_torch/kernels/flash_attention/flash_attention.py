@@ -21,12 +21,18 @@ Pallas ``flash_attention_bwd``: p recomputed from the forward's lse,
 take bf16 operands, with p and ds split into two bf16 terms each, and sum
 in fp32; the fp32 kernels' products are three tf32 products each).
 
-The bf16 forward's tiles are launch parameters: ``block_q`` (64 or 128
-query rows of a q-head in a block) and ``block_k`` (64 or 128 keys a
-tile).  A call that names neither reads them from the tuning cache
-(``repro_torch.tune``, kernel ``flash_fwd``, backend ``"cuda"``), and
-without a cache, or on a miss, runs the kernel's first tiles, 64 x 64.
-The fp32 forward and the backward pairs run their fixed tiles.
+Every kernel's tiles are launch parameters.  The forwards take
+``block_q`` (64 or 128 query rows of a q-head in a block) and ``block_k``
+(keys a tile: 64 or 128 in bf16, 16, 32 or 64 in fp32); the backward
+pairs take dq's ``dq_block_q`` and ``dq_block_k`` and dk/dv's
+``dkv_block_k`` (keys a block) and ``dkv_block_q`` (queries a step).  A
+call that names none reads them from the tuning cache
+(``repro_torch.tune``, kernels ``flash_fwd`` and ``flash_bwd``, backend
+``"cuda"``), and without a cache, or on a miss, runs each kernel's
+untuned tiles (``repro_torch.tune.space.DEFAULTS``): the bf16 forward 64 x
+64, the fp32 forward 64 x 32, the bf16 pair dq 64 x 64 and dk/dv 64 keys
+x 32 queries, the fp32 pair dq 64 x 32 and dk/dv 64 x 16.  A training step
+under ``repro_torch.tune.configure(path)`` runs the tuned pair.
 
 Under ``torch.func.vmap`` (``Service.execute_batch``) the forward goes
 through the custom op ``repro_torch::flash_attention_fwd``, whose vmap
@@ -41,8 +47,8 @@ import ctypes
 import torch
 
 from ...tune.cache import ConfigProbe, get_cache
-from ...tune.space import (KernelConfigError, default_config, fixed_tiles,
-                           flash_heads_a_block, resolve_config, validate_config)
+from ...tune.space import (KernelConfigError, default_config, flash_heads_a_block,
+                           resolve_config, validate_config)
 from .. import head_dims
 from ..batched import fold, under_vmap, unfold
 from ..build import CudaKernel
@@ -51,25 +57,37 @@ NEG_INF = -2.0e38
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 # the forward kernels take (q, k, v, out, lse, B, Sq, Skv, H, K, D, Dv,
-# causal, stream); the bf16 one takes (block_q, block_k) before the stream
-_FWD_ARGS = [_p] * 5 + [_i] * 8 + [_p]
+# causal, block_q, block_k, stream)
+_FWD_ARGS = [_p] * 5 + [_i] * 10 + [_p]
 SM90_KERNEL = CudaKernel("flash_attention_sm90.cu",
-                         "repro_flash_attention_fwd_sm90",
-                         _FWD_ARGS[:-1] + [_i, _i, _p])
+                         "repro_flash_attention_fwd_sm90", _FWD_ARGS)
 SM90_FP32_KERNEL = CudaKernel("flash_attention_sm90_fp32.cu",
                               "repro_flash_attention_fwd_sm90_fp32", _FWD_ARGS)
-# the bf16 forward's untuned tiles, and the fp32 forward's fixed ones
+_DIMS = ("B", "Sq", "Skv", "H", "K", "D", "Dv")
+# each dtype's untuned forward tiles, and the probe of the tuning cache that
+# falls back to them
 DEFAULT_TILES = default_config("flash_fwd", "cuda", "bfloat16")
-_DEFAULT_PAIR = _BQ0, _BK0 = (DEFAULT_TILES["block_q"], DEFAULT_TILES["block_k"])
-FP32_TILES = fixed_tiles("flash_fwd", "float32")
-_TILES_PROBE = ConfigProbe("flash_fwd", ("B", "Sq", "Skv", "H", "K", "D", "Dv"), "cuda",
-                           DEFAULT_TILES)
-# resolved and checked tiles by what decides them: (D, Dv, q-heads a block,
-# block_q, block_k, Sq <= 64, Skv <= 64)
-_RESOLVED: dict[tuple, tuple[int, int]] = {}
+FP32_TILES = default_config("flash_fwd", "cuda", "float32")
+_FWD_DEFAULTS = {torch.bfloat16: (DEFAULT_TILES["block_q"], DEFAULT_TILES["block_k"]),
+                 torch.float32: (FP32_TILES["block_q"], FP32_TILES["block_k"])}
+(_BQ0, _BK0), (_FQ0, _FK0) = _FWD_DEFAULTS[torch.bfloat16], _FWD_DEFAULTS[torch.float32]
+_TILES_PROBE = ConfigProbe("flash_fwd", _DIMS, "cuda", DEFAULT_TILES)
+_FP32_TILES_PROBE = ConfigProbe("flash_fwd", _DIMS, "cuda", FP32_TILES)
+# the backward pairs' tiles: (dq_block_q, dq_block_k, dkv_block_k,
+# dkv_block_q), each dtype's untuned ones and its probe
+BWD_TILE_NAMES = ("dq_block_q", "dq_block_k", "dkv_block_k", "dkv_block_q")
+_BWD_DEFAULTS = {dt: tuple(default_config("flash_bwd", "cuda", name)[n] for n in BWD_TILE_NAMES)
+                 for dt, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32"))}
+_BWD_PROBES = {dt: ConfigProbe("flash_bwd", _DIMS, "cuda",
+                               dict(zip(BWD_TILE_NAMES, _BWD_DEFAULTS[dt])))
+               for dt in _BWD_DEFAULTS}
+# resolved and checked tiles by what decides them: (kernel, dtype, D, Dv,
+# q-heads a block, the tiles asked for, Sq <= 64, Skv <= 64)
+_RESOLVED: dict[tuple, tuple] = {}
 # the backward kernels all take (8 pointers, B, Sq, Skv, H, K, D, Dv,
-# causal, stream)
-_BWD_ARGS = [_p] * 8 + [_i] * 8 + [_p]
+# causal, their two tiles, stream): dq (block_q, block_k), dk/dv (block_k,
+# block_q)
+_BWD_ARGS = [_p] * 8 + [_i] * 10 + [_p]
 DQ_SM90_KERNEL = CudaKernel("flash_bwd_dq_sm90.cu", "repro_flash_bwd_dq_sm90",
                             _BWD_ARGS)
 DKV_SM90_KERNEL = CudaKernel("flash_bwd_dkv_sm90.cu",
@@ -158,36 +176,46 @@ def _check_tma(name, *ts):
                          "TMA)")
 
 
+def _resolved(kernel, dtype, names, tiles, B, Sq, Skv, H, K, D, Dv):
+    """``tiles`` (named ``names``) as ``resolve_config`` degrades them to
+    what the shape can use, checked by ``validate_config``; memoized by
+    what decides them."""
+    key = (kernel, dtype, D, Dv, flash_heads_a_block(H, K), tiles, Sq <= 64, Skv <= 64)
+    got = _RESOLVED.get(key)
+    if got is None:
+        shape = dict(zip(_DIMS, (B, Sq, Skv, H, K, D, Dv)))
+        name = "float32" if dtype == torch.float32 else "bfloat16"
+        cfg = resolve_config(kernel, shape, dict(zip(names, tiles)), "cuda", name)
+        validate_config(kernel, shape, cfg, "cuda", name)
+        got = _RESOLVED[key] = tuple(cfg[n] for n in names)
+    return got
+
+
 def forward_tiles(dtype, B, Sq, Skv, H, K, D, Dv, block_q=None, block_k=None):
     """(block_q, block_k) a CUDA forward of ``dtype`` launches: the ones
-    given, else the tuning cache's for this shape, else the defaults; a
-    tile the shape cannot use falls to one it can (``resolve_config``).
-    Raises :class:`KernelConfigError`, naming the config, on a malformed
-    tile or one the kernel is not built for (the fp32 kernel runs only its
-    fixed tiles)."""
-    if dtype == torch.float32:
-        if block_q is not None or block_k is not None:
-            tiles = {"block_q": FP32_TILES["block_q"] if block_q is None else block_q,
-                     "block_k": FP32_TILES["block_k"] if block_k is None else block_k}
-            if tiles != FP32_TILES:
-                raise KernelConfigError(f"flash_attention_fwd: the fp32 kernel runs "
-                                        f"its fixed tiles {FP32_TILES}, not {tiles}")
-        return FP32_TILES["block_q"], FP32_TILES["block_k"]
+    given, else the tuning cache's for this shape, else the dtype's
+    untuned tiles; a tile the shape cannot use falls to one it can
+    (``resolve_config``).  Raises :class:`KernelConfigError`, naming the
+    config, on a malformed tile or one the kernel is not built for."""
+    default = _FWD_DEFAULTS[dtype]
     if block_q is None or block_k is None:
-        cfg = _TILES_PROBE((B, Sq, Skv, H, K, D, Dv), dtype)
+        probe = _FP32_TILES_PROBE if dtype == torch.float32 else _TILES_PROBE
+        cfg = probe((B, Sq, Skv, H, K, D, Dv), dtype)
         block_q = cfg["block_q"] if block_q is None else block_q
         block_k = cfg["block_k"] if block_k is None else block_k
-    if (block_q, block_k) == _DEFAULT_PAIR:
-        return _DEFAULT_PAIR
-    key = (D, Dv, flash_heads_a_block(H, K), block_q, block_k, Sq <= 64, Skv <= 64)
-    tiles = _RESOLVED.get(key)
-    if tiles is None:
-        shape = {"B": B, "Sq": Sq, "Skv": Skv, "H": H, "K": K, "D": D, "Dv": Dv}
-        cfg = resolve_config("flash_fwd", shape, {"block_q": block_q, "block_k": block_k},
-                             "cuda", "bfloat16")
-        validate_config("flash_fwd", shape, cfg, "cuda", "bfloat16")
-        tiles = _RESOLVED[key] = (cfg["block_q"], cfg["block_k"])
-    return tiles
+    if (block_q, block_k) == default:
+        return default
+    return _resolved("flash_fwd", dtype, ("block_q", "block_k"), (block_q, block_k),
+                     B, Sq, Skv, H, K, D, Dv)
+
+
+def _refused(kernel, tiles, q, v, e):
+    """The :class:`KernelConfigError` of a launch the kernel refused."""
+    B, Sq, H, D = q.shape
+    _, Skv, K, Dv = v.shape
+    return KernelConfigError(
+        f"{kernel}: tiles {tiles} at (D, Dv) = ({D}, {Dv}), B={B}, Sq={Sq}, Skv={Skv}, "
+        f"H={H}, K={K}: {e}")
 
 
 def _launch_tuned(q, k, v, out, lse, causal, block_q, block_k, stream):
@@ -195,18 +223,13 @@ def _launch_tuned(q, k, v, out, lse, causal, block_q, block_k, stream):
     kernel refuses raises :class:`KernelConfigError` naming the tiles."""
     B, Sq, H, D = q.shape
     _, Skv, K, Dv = v.shape
-    tiles = forward_tiles(q.dtype, B, Sq, Skv, H, K, D, Dv, block_q, block_k)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            B, Sq, Skv, H, K, D, Dv, int(causal))
-    if q.dtype == torch.float32:
-        SM90_FP32_KERNEL.launch(*args, stream)
-        return
+    bq, bk = forward_tiles(q.dtype, B, Sq, Skv, H, K, D, Dv, block_q, block_k)
     try:
-        SM90_KERNEL.launch(*args, *tiles, stream)
+        forward_kernel(q.dtype).launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            B, Sq, Skv, H, K, D, Dv, int(causal), bq, bk, stream)
     except RuntimeError as e:  # the kernel refused the tiles
-        raise KernelConfigError(
-            f"flash_attention_fwd: tiles block_q={tiles[0]}, block_k={tiles[1]} at "
-            f"(D, Dv) = ({D}, {Dv}), H={H}, K={K}: {e}") from e
+        raise _refused("flash_attention_fwd", {"block_q": bq, "block_k": bk}, q, v, e) from e
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
@@ -244,7 +267,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         else:
             SM90_FP32_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                     lse.data_ptr(), B, Sq, Skv, H, K, D, Dv, int(causal),
-                                    stream)
+                                    _FQ0, _FK0, stream)
     return out, lse
 
 
@@ -299,15 +322,36 @@ def flash_attention_bwd_plain(q, k, v, out, lse, g, *, causal: bool = True):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True):
+def backward_tiles(dtype, B, Sq, Skv, H, K, D, Dv, dq_block_q=None, dq_block_k=None,
+                   dkv_block_k=None, dkv_block_q=None):
+    """(dq_block_q, dq_block_k, dkv_block_k, dkv_block_q) a CUDA backward of
+    ``dtype`` launches: the ones given, else the tuning cache's
+    ``flash_bwd`` entry for this shape, else the dtype's untuned tiles; a
+    tile the shape cannot use falls to one it can (``resolve_config``).
+    Raises :class:`KernelConfigError`, naming the config, on a malformed
+    tile or one a kernel of the pair is not built for."""
+    asked = (dq_block_q, dq_block_k, dkv_block_k, dkv_block_q)
+    if None in asked:
+        cfg = _BWD_PROBES[dtype]((B, Sq, Skv, H, K, D, Dv), dtype)
+        asked = tuple(cfg[n] if t is None else t for n, t in zip(BWD_TILE_NAMES, asked))
+    if asked == _BWD_DEFAULTS[dtype]:
+        return asked
+    return _resolved("flash_bwd", dtype, BWD_TILE_NAMES, asked, B, Sq, Skv, H, K, D, Dv)
+
+
+def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
+                        dq_block_q: int | None = None, dq_block_k: int | None = None,
+                        dkv_block_k: int | None = None, dkv_block_q: int | None = None):
     """Gradients of ``flash_attention_fwd``'s out, given ``g`` = dL/dout
     and the forward's (out, lse).  Returns (dq, dk, dv) in the dtypes of
     q, k, v.
 
-    CPU tensors go to the plain version; CUDA tensors to the dq kernel
-    of their dtype (which also writes Dvec) and then its dk/dv kernel
-    (``backward_kernels``), on the current stream; they raise on what the
-    kernels do not take."""
+    CPU tensors go to the plain version (the tiles are not read); CUDA
+    tensors to the dq kernel of their dtype (which also writes Dvec) and
+    then its dk/dv kernel (``backward_kernels``), on the current stream,
+    at the tiles ``backward_tiles`` resolves (None reads the tuning
+    cache's ``flash_bwd`` entry); they raise on what the kernels do not
+    take."""
     _check(q, k, v, "flash_attention_bwd")
     B, Sq, H, D = q.shape
     _, Skv, K, Dv = v.shape
@@ -324,8 +368,15 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True):
         raise TypeError("flash_attention_bwd: lse must be contiguous float32 "
                         "on q's device")
     _check_tma("flash_attention_bwd", q, k, v, out, g)
-    dq, dvec = bwd_dq_launch(q, k, v, out, lse, g, causal=causal)
-    dk, dv = bwd_dkv_launch(q, k, v, g, lse, dvec, causal=causal)
+    asked = (dq_block_q, dq_block_k, dkv_block_k, dkv_block_q)
+    if asked == (None,) * 4 and get_cache() is None:
+        tiles = _BWD_DEFAULTS[q.dtype]  # no cache, no tiles asked for: the untuned ones
+    else:
+        tiles = backward_tiles(q.dtype, B, Sq, Skv, H, K, D, Dv, *asked)
+    dq, dvec = bwd_dq_launch(q, k, v, out, lse, g, causal=causal, block_q=tiles[0],
+                             block_k=tiles[1])
+    dk, dv = bwd_dkv_launch(q, k, v, g, lse, dvec, causal=causal, block_k=tiles[2],
+                            block_q=tiles[3])
     return dq, dk, dv
 
 
@@ -335,29 +386,54 @@ def _bwd_args(q, v, causal):
     return B, Sq, Skv, H, K, D, Dv, int(causal)
 
 
-def bwd_dq_launch(q, k, v, out, lse, g, *, causal: bool = True):
+def bwd_dq_launch(q, k, v, out, lse, g, *, causal: bool = True, block_q: int | None = None,
+                  block_k: int | None = None):
     """The dq kernel of q's dtype alone, on inputs ``flash_attention_bwd``
-    has checked: returns (dq, Dvec (B,H,Sq) fp32)."""
+    has checked, at ``block_q`` x ``block_k`` (None: the untuned tile):
+    returns (dq, Dvec (B,H,Sq) fp32).  A launch the kernel refuses raises
+    :class:`KernelConfigError` naming the tiles."""
+    default = _BWD_DEFAULTS[q.dtype]
+    bq = default[0] if block_q is None else block_q
+    bk = default[1] if block_k is None else block_k
     dq = torch.empty_like(q)
     dvec = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        backward_kernels(q.dtype)[0].launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            g.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
-            *_bwd_args(q, v, causal),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        try:
+            backward_kernels(q.dtype)[0].launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                g.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+                *_bwd_args(q, v, causal), bq, bk,
+                torch.cuda.current_stream(q.device).cuda_stream)
+        except RuntimeError as e:
+            if (bq, bk) == default[:2]:
+                raise
+            raise _refused("flash_attention_bwd dq", {"block_q": bq, "block_k": bk}, q, v,
+                           e) from e
     return dq, dvec
 
 
-def bwd_dkv_launch(q, k, v, g, lse, dvec, *, causal: bool = True):
+def bwd_dkv_launch(q, k, v, g, lse, dvec, *, causal: bool = True, block_k: int | None = None,
+                   block_q: int | None = None):
     """The dk/dv kernel of q's dtype alone, after ``bwd_dq_launch`` wrote
-    ``dvec`` on the same stream: returns (dk, dv)."""
+    ``dvec`` on the same stream, at ``block_k`` keys a block and
+    ``block_q`` queries a step (None: the untuned tile): returns (dk,
+    dv).  A launch the kernel refuses raises :class:`KernelConfigError`
+    naming the tiles."""
+    default = _BWD_DEFAULTS[q.dtype]
+    bk = default[2] if block_k is None else block_k
+    bq = default[3] if block_q is None else block_q
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
-        backward_kernels(q.dtype)[1].launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_bwd_args(q, v, causal),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        try:
+            backward_kernels(q.dtype)[1].launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                *_bwd_args(q, v, causal), bk, bq,
+                torch.cuda.current_stream(q.device).cuda_stream)
+        except RuntimeError as e:
+            if (bk, bq) == default[2:]:
+                raise
+            raise _refused("flash_attention_bwd dk/dv", {"block_k": bk, "block_q": bq}, q,
+                           v, e) from e
     return dk, dv

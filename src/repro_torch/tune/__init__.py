@@ -17,9 +17,12 @@ own hot paths):
   wrappers and the plain chunked paths via :func:`best_config`: serving
   and training pick up tuned configs with zero call-site changes.
 
-The tunable launch parameters: the bf16 flash forward's ``block_q`` and
-``block_k`` (``flash_fwd``), decode's ``splits`` (``decode``) and the
-scan's ``lanes`` (``mamba``), backend ``"cuda"``; ``chunked_attention``'s
+The tunable launch parameters: the flash forwards' ``block_q`` and
+``block_k`` (``flash_fwd``, bf16 and fp32), the backward pairs'
+``dq_block_q``, ``dq_block_k``, ``dkv_block_k`` and ``dkv_block_q``
+(``flash_bwd``, bf16 and fp32: a training step reads them), decode's
+``splits`` (``decode``) and the scan's ``lanes`` (``mamba``), backend
+``"cuda"``; ``chunked_attention``'s
 ``q_chunk`` and ``kv_chunk`` (``xla_flash``) and ``mamba_scan_plain``'s
 ``chunk`` (``mamba``), backend ``"torch"``.
 

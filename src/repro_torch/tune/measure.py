@@ -40,7 +40,7 @@ import time
 import numpy as np
 
 from .space import (SMS, KernelConfigError, choose_splits, default_backend,
-                    scan_geometry, validate_config)
+                    default_config, scan_geometry, validate_config)
 
 _INF = float("inf")
 #: SM clock cycles a second the sleep kernel is reckoned at (an H100's
@@ -79,8 +79,12 @@ def scripted_cost_us(kernel: str, shape: dict, config: dict,
       ``b s d n 2e-5`` over the share of one wave on 132 SMs that
       ``b ceil(d lanes / 128)`` blocks fill (at most 1), times
       ``1 + 0.1 (lanes - 1)`` for the shuffles that sum y across lanes;
-    * the fixed tiles of the fp32 forward and the backward pairs, named
-      as the kernels' constants, stand in for ``block_q``/``block_k``.
+    * the backward pair's four tiles: the reference's model of one pass
+      for each kernel, the dq kernel's on (``dq_block_q``,
+      ``dq_block_k``) with 1.2 of the reference's 3.0 work weight and the
+      dk/dv kernel's on (``dkv_block_q``, ``dkv_block_k``) with 1.8, each
+      with its own tile overhead (the fp32 forward's ``block_q``,
+      ``block_k`` are the reference's knobs).
     """
     def tile_pen(b: int) -> float:
         # quadratic-in-log distance from 128
@@ -90,14 +94,21 @@ def scripted_cost_us(kernel: str, shape: dict, config: dict,
         sq = int(shape["Sq"]); skv = int(shape["Skv"])
         d = int(shape.get("D", 64)); h = int(shape.get("H", 8))
         b = int(shape.get("B", 1))
-        if kernel == "xla_flash":
-            bq, bk = config["q_chunk"], config["kv_chunk"]
+        work = b * h * sq * skv * d * 1e-5
+        if "dq_block_q" in config:  # the port's pair
+            us = 0.0
+            for share, bq, bk in ((1.2, config["dq_block_q"], config["dq_block_k"]),
+                                  (1.8, config["dkv_block_q"], config["dkv_block_k"])):
+                us += (work * share * tile_pen(bq) * tile_pen(bk)
+                       + -(-sq // bq) * -(-skv // bk) * 2.0)
         else:
-            bq = config.get("block_q", config.get("dq_block_q"))
-            bk = config.get("block_k", config.get("dq_block_k"))
-        ntiles = -(-sq // bq) * -(-skv // bk)
-        work = b * h * sq * skv * d * (3.0 if kernel == "flash_bwd" else 1.0)
-        us = work * 1e-5 * tile_pen(bq) * tile_pen(bk) + ntiles * 2.0
+            if kernel == "xla_flash":
+                bq, bk = config["q_chunk"], config["kv_chunk"]
+            else:
+                bq, bk = config["block_q"], config["block_k"]
+            ntiles = -(-sq // bq) * -(-skv // bk)
+            us = (work * (3.0 if kernel == "flash_bwd" else 1.0) * tile_pen(bq)
+                  * tile_pen(bk) + ntiles * 2.0)
     elif kernel == "decode":
         s = int(shape["S"]); d = int(shape.get("D", 64))
         h = int(shape.get("H", 8)); b = int(shape.get("B", 1))
@@ -134,7 +145,10 @@ def make_inputs(kernel: str, shape: dict, dtype: str, seed: int, device="cuda"):
     """Seeded inputs with an independent stream per tensor (correlated
     q == k == v inflates attention scores and skews timings), drawn in
     fp32 with numpy as the reference draws them and cast to ``dtype`` on
-    ``device``.  The scan's inputs stay fp32, as its kernel computes."""
+    ``device``.  The scan's inputs stay fp32, as its kernel computes.  The
+    backward's are (q, k, v, out, lse, g): the forward's out and lse made
+    once here, at the untuned tiles, and g drawn, so that a candidate's
+    timing holds the backward alone."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -148,7 +162,15 @@ def make_inputs(kernel: str, shape: dict, dtype: str, seed: int, device="cuda"):
         b, sq, skv = int(shape["B"]), int(shape["Sq"]), int(shape["Skv"])
         h, k = int(shape["H"]), int(shape["K"])
         d = int(shape["D"]); dv = int(shape.get("Dv", d))
-        return (draw(b, sq, h, d), draw(b, skv, k, d), draw(b, skv, k, dv))
+        qkv = (draw(b, sq, h, d), draw(b, skv, k, d), draw(b, skv, k, dv))
+        if kernel != "flash_bwd":
+            return qkv
+        from repro_torch.kernels.flash_attention.flash_attention import \
+            flash_attention_fwd
+
+        out, lse = flash_attention_fwd(*qkv, causal=True, **default_config(
+            "flash_fwd", "cuda", dtype))
+        return qkv + (out, lse, draw(b, sq, h, dv))
     if kernel == "decode":
         b, s = int(shape["B"]), int(shape["S"])
         h, k, d = int(shape["H"]), int(shape["K"]), int(shape["D"])
@@ -209,14 +231,13 @@ def build_fn(kernel: str, config: dict, backend: str | None = None):
         return lambda q, k, v: flash_attention_fwd(q, k, v, causal=True, block_q=bq,
                                                    block_k=bk)
     if kernel == "flash_bwd":
-        from repro_torch.kernels.flash_attention.flash_attention import (
-            flash_attention_bwd, flash_attention_fwd)
+        from repro_torch.kernels.flash_attention.flash_attention import \
+            flash_attention_bwd
 
-        def grads(q, k, v):
-            out, lse = flash_attention_fwd(q, k, v, causal=True)
-            return flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out),
-                                       causal=True)
-        return grads
+        tiles = {n: config[n] for n in ("dq_block_q", "dq_block_k", "dkv_block_k",
+                                        "dkv_block_q")}
+        return lambda q, k, v, out, lse, g: flash_attention_bwd(q, k, v, out, lse, g,
+                                                                causal=True, **tiles)
     if kernel == "decode":
         from repro_torch.kernels.decode_attention.decode_attention import \
             decode_attention_fwd

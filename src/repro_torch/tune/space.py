@@ -2,11 +2,17 @@
 
 One space per kernel family and backend:
 
-    ``flash_fwd``  ``"cuda"``   the flash forward's tiles: in bf16
-                   ``block_q`` (64 or 128: one or two 64-row warpgroups
-                   over the query rows of one q-head) and ``block_k`` (64
-                   or 128 keys a K/V tile); in fp32 today's tiles only
-    ``flash_bwd``  ``"cuda"``   the backward pair's tiles: today's only
+    ``flash_fwd``  ``"cuda"``   the flash forward's tiles: ``block_q``
+                   (64 or 128: one or two 64-row warpgroups over the query
+                   rows of one q-head) and ``block_k`` (keys a K/V tile:
+                   64 or 128 in bf16, 16, 32 or 64 in fp32)
+    ``flash_bwd``  ``"cuda"``   the backward pair's tiles: the dq kernel's
+                   ``dq_block_q`` (64 or 128 rows in bf16, 64 in fp32) and
+                   ``dq_block_k`` (64 or 128 keys in bf16, 16, 32 or 64
+                   in fp32), the dk/dv kernel's ``dkv_block_k`` (keys a
+                   block: 64 or 128 in bf16, 64 in fp32) and
+                   ``dkv_block_q`` (queries a step: 16, 32 or 64 in bf16,
+                   8, 16 or 32 in fp32)
     ``decode``     ``"cuda"``   ``splits``, the KV splits of a cluster
     ``mamba``      ``"cuda"``   ``lanes``, the threads a channel of the scan
     ``mamba``      ``"torch"``  ``chunk`` of ``mamba_scan_plain`` (the
@@ -25,10 +31,12 @@ The ``"cuda"`` spaces are pruned by what a Hopper block can hold, not by
 TPU VMEM: a block's dynamic shared memory at most 227 KB (232,448 B,
 :func:`smem_bytes`, equal to each kernel's own query), and its registers
 within the 65,536 of an SM at the kernel's ``__launch_bounds__`` (at most
-255 a thread).  Their divisibility rules are the kernels' own: tiles of
-64-row warpgroups, a cluster of at most 8 blocks, no KV split shorter
-than one 32-key tile; ragged edges are masked in the kernels, so no tile
-has to divide its dim.  A candidate never reaches a farm worker unless it
+255 a thread; each kernel's rule from ptxas's report of every
+instantiation, the same rule its ``admits`` builds by).  Their
+divisibility rules are the kernels' own: tiles of 64-row warpgroups, a
+cluster of at most 8 blocks, no KV split shorter than one 32-key tile;
+ragged edges are masked in the kernels, so no tile has to divide its
+dim.  A candidate never reaches a farm worker unless it
 passes :func:`validate_config`.
 
 Shapes are plain dicts of named dims (``{"B": 4, "Sq": 512, ...}``) so
@@ -56,9 +64,25 @@ XLA_FLASH_BYTES = 256 * 1024 * 1024
 #: ``"torch"`` spaces keep them)
 _BLOCKS = (32, 64, 128, 256, 512, 1024, 2048)
 _CHUNKS = (64, 128, 256, 512, 1024, 2048, 4096)
-#: the bf16 flash forward's tiles
+#: the flash forward's tiles (block_q in both dtypes; block_k by dtype)
 _FLASH_BLOCK_Q = (64, 128)
 _FLASH_BLOCK_K = (64, 128)
+_FP32_FLASH_BLOCK_K = (16, 32, 64)
+#: the backward pairs' tiles by dtype: each knob's values
+_BWD_TILES = {
+    "bfloat16": {"dq_block_q": (64, 128), "dq_block_k": (64, 128),
+                 "dkv_block_k": (64, 128), "dkv_block_q": (16, 32, 64)},
+    "float32": {"dq_block_q": (64,), "dq_block_k": (16, 32, 64),
+                "dkv_block_k": (64,), "dkv_block_q": (8, 16, 32)},
+}
+#: the dim each flash tile knob tiles
+_TILE_DIM = {"block_q": "Sq", "block_k": "Skv", "dq_block_q": "Sq", "dq_block_k": "Skv",
+             "dkv_block_k": "Skv", "dkv_block_q": "Sq"}
+#: the (D, Dv) pairs every attention kernel takes
+HEAD_PAIRS = ((32, 32), (64, 64), (96, 96), (96, 64), (128, 128))
+#: the most dynamic shared memory a kernel builds an instantiation for
+#: (its ``admits``; :data:`SMEM_BYTES` is the space's own bound)
+_BLOCK_SMEM = 232_448
 #: decode's KV splits: cluster sizes up to the portable 8; keys a tile
 _SPLITS = (1, 2, 4, 8)
 MAX_SPLITS, DECODE_TILE = 8, 32
@@ -72,31 +96,39 @@ MAX_STATE = 32
 #: (Dv = 32 .. 128); the base is set above that fit, so that what the
 #: space admits compiles without spills (chip_smoke.py phase 23 checks).
 FLASH_REG_BASE = 100
+#: the same base of the other kernels' register rules (each kernel's
+#: REG_BASE; what a thread needs beyond its accumulators and a tile's
+#: scores and their split terms, :func:`fp32_flash_registers`,
+#: :func:`bwd_registers`), set from ptxas's report of every instantiation
+#: within the shared-memory bounds (chip_smoke.py phase 1's register
+#: probe) so that what the spaces admit compiles without spills (phase 23
+#: checks)
+FP32_FWD_REG_BASE = 80
+DQ_REG_BASE = 0
+DKV_REG_BASE = 30
+FP32_DQ_REG_BASE = 50
+FP32_DKV_REG_BASE = 60
 
 KERNELS = ("flash_fwd", "flash_bwd", "decode", "mamba", "xla_flash")
 
-#: (kernel, backend) -> the hand-picked config each path shipped with: the
-#: tuner's baseline and the dispatch fallback when the cache has no entry.
+#: (kernel, backend[, dtype]) -> the hand-picked config each path shipped
+#: with: the tuner's baseline and the dispatch fallback when the cache has
+#: no entry; a dtype's own entry first.  The flash kernels' are their
+#: untuned tiles, as the CUDA sources name them (DEFAULT_BLOCK_Q, ...).
 #: decode's ``splits`` 0 and the scan's ``lanes`` 0 are the kernels' own
 #: rules (``choose_splits``, ``geometry``), which :func:`resolve_config`
-#: spells out.  The fp32 flash forward and both backward pairs run their
-#: fixed tiles (:func:`fixed_tiles`).
+#: spells out.
 DEFAULTS = {
-    ("flash_fwd", "cuda"): {"block_q": 64, "block_k": 64},
+    ("flash_fwd", "cuda", "bfloat16"): {"block_q": 64, "block_k": 64},
+    ("flash_fwd", "cuda", "float32"): {"block_q": 64, "block_k": 32},
+    ("flash_bwd", "cuda", "bfloat16"): {"dq_block_q": 64, "dq_block_k": 64,
+                                        "dkv_block_k": 64, "dkv_block_q": 32},
+    ("flash_bwd", "cuda", "float32"): {"dq_block_q": 64, "dq_block_k": 32,
+                                       "dkv_block_k": 64, "dkv_block_q": 16},
     ("decode", "cuda"): {"splits": 0},
     ("mamba", "cuda"): {"lanes": 0},
     ("mamba", "torch"): {"chunk": 256},
     ("xla_flash", "torch"): {"q_chunk": 512, "kv_chunk": 1024},
-}
-#: the kernels whose tiles are fixed: the fp32 forward's, and the bf16 and
-#: fp32 backward pairs' (dq's query and key tiles, dk/dv's key and query
-#: tiles), named as the kernels' own constants
-_FIXED = {
-    ("flash_fwd", "float32"): {"block_q": 64, "block_k": 32},
-    ("flash_bwd", "bfloat16"): {"dq_block_q": 64, "dq_block_k": 64,
-                                "dkv_block_k": 64, "dkv_block_q": 32},
-    ("flash_bwd", "float32"): {"dq_block_q": 64, "dq_block_k": 32,
-                               "dkv_block_k": 64, "dkv_block_q": 16},
 }
 
 
@@ -117,22 +149,12 @@ def default_backend(kernel: str) -> str:
     return "torch" if kernel in ("xla_flash", "mamba") else "cuda"
 
 
-def fixed_tiles(kernel: str, dtype: str) -> dict | None:
-    """The fixed tiles of a kernel that takes none as launch parameters,
-    or None."""
-    return _FIXED.get((kernel, dtype))
-
-
 def default_config(kernel: str, backend: str, dtype: str = "float32") -> dict:
     """The hand-picked config of ``kernel`` on ``backend`` in ``dtype``."""
-    fixed = fixed_tiles(kernel, dtype) if backend == "cuda" else None
-    if fixed is not None:
-        return dict(fixed)
-    try:
-        return dict(DEFAULTS[(kernel, backend)])
-    except KeyError:
-        raise KernelConfigError(
-            f"no {backend!r} space for kernel {kernel!r}") from None
+    cfg = DEFAULTS.get((kernel, backend, dtype), DEFAULTS.get((kernel, backend)))
+    if cfg is None:
+        raise KernelConfigError(f"no {backend!r} space for kernel {kernel!r}")
+    return dict(cfg)
 
 
 def _positive_int(name: str, v) -> None:
@@ -204,6 +226,97 @@ def flash_instantiated(D: int, Dv: int, heads: int, block_q: int,
     return need <= cap
 
 
+def _cap(threads: int) -> int:
+    """Registers a thread may have in one block of ``threads`` an SM."""
+    return min(MAX_THREAD_REGISTERS, REGISTERS // threads)
+
+
+def fp32_flash_registers(block_q: int, block_k: int, dv: int) -> tuple[int, int]:
+    """(registers a thread needs, registers a thread may have) of the
+    fp32 forward's instantiation (``flash_attention_sm90_fp32.cu``'s
+    ``admits``): a base plus O (Dv/2), the tile's fresh part of O (Dv/2
+    over the parts it is summed in: two above Dv = 64) and S with P's two
+    tf32 terms (3 block_k/2); block_q/64 warpgroups, one block an SM."""
+    parts = 2 if dv > 64 else 1
+    need = FP32_FWD_REG_BASE + dv // 2 + dv // 2 // parts + 3 * block_k // 2
+    return need, _cap(block_q // 64 * WG)
+
+
+def bwd_registers(part: str, dtype: str, shape: dict, config: dict) -> tuple[int, int]:
+    """(registers a thread needs, registers a thread may have) of one
+    kernel of the backward pair (``part`` "dq" or "dkv") at this config,
+    each kernel's ``admits``: a base plus its accumulators and a tile's
+    scores with their split terms.  bf16 dq: dQ (D/2), S, dP and dS's two
+    terms (3 dq_block_k/2), q-heads a block x dq_block_q/64 warpgroups;
+    bf16 dk/dv: dK and dV (D/2 + Dv/2), S^T, dP^T and their terms (2
+    dkv_block_q), two warpgroups; fp32 dq: dQ and its fresh part (D/2 +
+    D/2 over its parts), S, dP and dS's terms (2 dq_block_k), one
+    warpgroup; fp32 dk/dv: a warpgroup's half of dK and dV and the larger
+    fresh product (D/4 + Dv/4 + max(D, Dv)/4), S^T, dP^T and their terms
+    (2 dkv_block_q), two warpgroups."""
+    H, K, D = _dims(shape, "H", "K", "D")
+    dv = int(shape.get("Dv", D))
+    if part == "dq" and dtype == "float32":
+        parts = 2 if D > 64 else 1
+        need = FP32_DQ_REG_BASE + D // 2 + D // 2 // parts + 2 * config["dq_block_k"]
+        return need, _cap(WG)
+    if part == "dq":
+        threads = flash_heads_a_block(H, K) * config["dq_block_q"] // 64 * WG
+        return DQ_REG_BASE + D // 2 + 3 * config["dq_block_k"] // 2, _cap(threads)
+    if dtype == "float32":
+        need = (FP32_DKV_REG_BASE + D // 4 + dv // 4 + max(D, dv) // 4
+                + 2 * config["dkv_block_q"])
+        return need, _cap(2 * WG)
+    return DKV_REG_BASE + D // 2 + dv // 2 + 2 * config["dkv_block_q"], _cap(2 * WG)
+
+
+def _tiles(kernel: str, dtype: str) -> dict[str, tuple]:
+    """The flash kernels' tile knobs and the values each takes."""
+    if kernel == "flash_bwd":
+        return _BWD_TILES[dtype]
+    return {"block_q": _FLASH_BLOCK_Q,
+            "block_k": _FP32_FLASH_BLOCK_K if dtype == "float32" else _FLASH_BLOCK_K}
+
+
+def _untuned(kernel: str, dtype: str, config: dict, names) -> bool:
+    default = DEFAULTS[(kernel, "cuda", dtype)]
+    return all(config[n] == default[n] for n in names)
+
+
+def instantiated(kernel: str, shape: dict, config: dict, dtype: str,
+                 part: str | None = None) -> bool:
+    """Whether the CUDA library builds the instantiation of these tiles at
+    this shape's (D, Dv) (and q-heads a block): the untuned tiles always;
+    any other where its shared memory fits a block and its registers a
+    thread (each kernel's ``admits``, the same rule).  For ``flash_bwd``
+    both kernels of the pair, or the one ``part`` ("dq", "dkv") names."""
+    D = _dims(shape, "D")[0]
+    dv = int(shape.get("Dv", D))
+    if (D, dv) not in HEAD_PAIRS:
+        return False
+    tiles = _tiles(kernel, dtype)
+    if any(config.get(n) not in values for n, values in tiles.items()):
+        return False
+    if kernel == "flash_fwd" and dtype != "float32":
+        H, K = _dims(shape, "H", "K")
+        return flash_instantiated(D, dv, flash_heads_a_block(H, K), config["block_q"],
+                                  config["block_k"])
+    if kernel == "flash_fwd":
+        if _untuned(kernel, dtype, config, tiles):
+            return True
+        need, cap = fp32_flash_registers(config["block_q"], config["block_k"], dv)
+        return need <= cap and smem_bytes(kernel, shape, config, dtype) <= _BLOCK_SMEM
+    parts = (part,) if part else ("dq", "dkv")
+    for p in parts:
+        names = [n for n in tiles if n.startswith(p + "_")]
+        if _untuned(kernel, dtype, config, names):
+            continue
+        need, cap = bwd_registers(p, dtype, shape, config)
+        if need > cap or bwd_smem_bytes(shape, config, dtype)[p] > _BLOCK_SMEM:
+            return False
+    return True
+
+
 def choose_splits(B: int, H: int, K: int, n_keys: int, sms: int = SMS) -> int:
     """decode_attention_sm90.cu's ``choose_splits``: about two blocks on
     each SM, at most 8, no split shorter than a 32-key tile."""
@@ -224,40 +337,54 @@ def scan_geometry(n: int, lanes: int = 0) -> tuple[int, int]:
     return lanes, 4 if per_lane <= 4 else 8 if per_lane <= 8 else 16
 
 
+def bwd_smem_bytes(shape: dict, config: dict, dtype: str = "float32") -> dict[str, int]:
+    """Dynamic shared memory a block of each kernel of the backward pair
+    takes at this config, {"dq": bytes, "dkv": bytes}: each equal to the
+    kernel's own query."""
+    H, K, D = _dims(shape, "H", "K", "D")
+    dv = int(shape.get("Dv", D))
+    dq_q, dq_k = config["dq_block_q"], config["dq_block_k"]
+    kv_k, kv_q = config["dkv_block_k"], config["dkv_block_q"]
+    if dtype == "float32":
+        # dq: Q, dO hi and lo; K, V hi and lo; K^T hi and lo
+        dq = 4 * (2 * dq_q * (D + dv) + 2 * dq_k * (D + dv) + 2 * dq_k * D) + 1024
+        # dk/dv: K, V hi and lo; the TMA stage; Q, dO hi and lo and
+        # transposed; the swap space of 2 warpgroups' accumulators
+        dkv = (4 * (2 * kv_k * (D + dv) + 5 * kv_q * (D + dv))
+               + 2 * 2 * (kv_q // 2) * WG * 4 + 1024)
+        return {"dq": dq, "dkv": dkv}
+    # dq: a (Q, dO) pair a warpgroup (q-heads a block x dq_q/64), the
+    # K/V ring's 2 stages
+    dq = 2 * (flash_heads_a_block(H, K) * dq_q * (D + dv) + 2 * dq_k * (D + dv)) + 1024
+    # dk/dv: K and V, the (Q, dO) rings of 3 stages, one a warpgroup at 64
+    # keys (which also hold warpgroup 1's dK and dV at the end), one shared
+    # at 128
+    rings = (2 if kv_k == 64 else 1) * 3 * 2 * kv_q * (D + dv)
+    red = (D // 2 + dv // 2) * WG * 4 if kv_k == 64 else 0
+    dkv = 2 * kv_k * (D + dv) + max(rings, red) + 1024
+    return {"dq": dq, "dkv": dkv}
+
+
 def smem_bytes(kernel: str, shape: dict, config: dict,
                dtype: str = "float32") -> int:
     """Dynamic shared memory a block of the CUDA kernel takes at this
     config: equal to the kernel's own query (``chip_smoke.py`` phase 23
-    holds each against it).  For ``flash_bwd``, the larger of the pair's."""
+    holds each against it).  For ``flash_bwd``, the larger of the pair's
+    (:func:`bwd_smem_bytes`)."""
     if kernel == "flash_fwd":
         H, K, D = _dims(shape, "H", "K", "D")
         dv = int(shape.get("Dv", D))
         bq, bk = config["block_q"], config["block_k"]
         if dtype == "float32":
-            # Q hi and lo, the K/V ring's 2 stages, K lo, V^T hi and lo
+            # Q hi and lo a warpgroup, the K/V ring's 2 stages, K lo, V^T
+            # hi and lo
             return 4 * (2 * bq * D + 2 * bk * (D + dv) + bk * D
                         + 2 * bk * dv) + 1024
         # one 64-row Q tile a warpgroup, the K/V ring's 2 stages
         heads = flash_heads_a_block(H, K)
         return 2 * (heads * bq * D + 2 * bk * (D + dv)) + 1024
     if kernel == "flash_bwd":
-        H, K, D = _dims(shape, "H", "K", "D")
-        dv = int(shape.get("Dv", D))
-        dq_q, dq_k = config["dq_block_q"], config["dq_block_k"]
-        kv_k, kv_q = config["dkv_block_k"], config["dkv_block_q"]
-        if dtype == "float32":
-            # dq: Q, dO hi and lo; K, V hi and lo; K^T hi and lo
-            dq = 4 * (2 * dq_q * (D + dv) + 2 * dq_k * (D + dv)
-                      + 2 * dq_k * D) + 1024
-            # dk/dv: K, V hi and lo; the TMA stage; Q, dO hi and lo and
-            # transposed; the swap space of 2 warpgroups' accumulators
-            dkv = (4 * (2 * kv_k * (D + dv) + 5 * kv_q * (D + dv))
-                   + 2 * 2 * (kv_q // 2) * WG * 4 + 1024)
-            return max(dq, dkv)
-        heads = flash_heads_a_block(H, K)
-        dq = 2 * (heads * dq_q * (D + dv) + 2 * dq_k * (D + dv)) + 1024
-        dkv = 2 * (kv_k * (D + dv) + 2 * 3 * kv_q * (D + dv)) + 1024
-        return max(dq, dkv)
+        return max(bwd_smem_bytes(shape, config, dtype).values())
     if kernel == "decode":
         # the K/V ring: 32-key tiles, 2-4 stages within 64 KB
         D = _dims(shape, "D")[0]
@@ -294,11 +421,12 @@ def resolve_config(kernel: str, shape: dict, config: dict,
                    backend: str | None = None,
                    dtype: str = "float32") -> dict:
     """The *effective* config the path would run: chunks through
-    :func:`resolve_block` against their dims; the bf16 flash tiles to the
-    largest valid tile at or below the request (at least 64, at most the
-    dim rounded up to 64); a KV split count to the key tiles (0: the
-    kernel's ``choose_splits``); lanes 0 to the scan's ``geometry``.  What
-    an untuned dispatch executes, so also the honest tuning baseline."""
+    :func:`resolve_block` against their dims; each flash tile to the
+    largest value its knob takes at or below the request (at least the
+    knob's smallest, at most the dim it tiles rounded up to 64); a KV
+    split count to the key tiles (0: the kernel's ``choose_splits``);
+    lanes 0 to the scan's ``geometry``.  What an untuned dispatch
+    executes, so also the honest tuning baseline."""
     backend = backend or default_backend(kernel)
     out = dict(config)
     if backend == "torch":
@@ -306,13 +434,11 @@ def resolve_config(kernel: str, shape: dict, config: dict,
             if name in out:
                 out[name] = resolve_block(name, dim, out[name])
         return out
-    if kernel == "flash_fwd" and dtype != "float32":
-        sq, skv = _dims(shape, "Sq", "Skv")
-        for name, dim, values in (("block_q", sq, _FLASH_BLOCK_Q),
-                                  ("block_k", skv, _FLASH_BLOCK_K)):
+    if kernel in ("flash_fwd", "flash_bwd"):
+        for name, values in _tiles(kernel, dtype).items():
             if name in out:
                 _positive_int(name, out[name])
-                top = min(out[name], _round64(dim))
+                top = min(out[name], _round64(_dims(shape, _TILE_DIM[name])[0]))
                 out[name] = max([v for v in values if v <= top] or [values[0]])
     elif kernel == "decode" and "splits" in out:
         B, S, H, K = _dims(shape, "B", "S", "H", "K")
@@ -340,6 +466,22 @@ def _check_ints(kernel: str, config: dict, names) -> None:
                 f"{kernel}.{name} must be a positive int, got {v!r}")
 
 
+def _registers_said(kernel: str, shape: dict, config: dict, dtype: str) -> str:
+    """What a refused flash instantiation's registers are, in words."""
+    H, K, D = _dims(shape, "H", "K", "D")
+    dv = int(shape.get("Dv", D))
+    if kernel == "flash_fwd" and dtype != "float32":
+        heads = flash_heads_a_block(H, K)
+        need, cap = flash_registers(heads, config["block_q"], config["block_k"], dv)
+        return f"{heads} q-heads a block: {need} registers a thread needed, {cap} available"
+    if kernel == "flash_fwd":
+        need, cap = fp32_flash_registers(config["block_q"], config["block_k"], dv)
+        return f"{need} registers a thread needed, {cap} available"
+    return "; ".join(f"{p}: {n} registers a thread needed, {c} available"
+                     for p in ("dq", "dkv")
+                     for n, c in [bwd_registers(p, dtype, shape, config)])
+
+
 def validate_config(kernel: str, shape: dict, config: dict,
                     backend: str | None = None,
                     dtype: str = "float32") -> None:
@@ -364,32 +506,29 @@ def validate_config(kernel: str, shape: dict, config: dict,
         return
     if backend != "cuda":
         raise KernelConfigError(f"unknown backend {backend!r}")
-    fixed = fixed_tiles(kernel, dtype)
-    if fixed is not None:
-        if config != fixed:
-            raise KernelConfigError(
-                f"{kernel} in {dtype} runs its fixed tiles {fixed}, not "
-                f"{config}")
-    elif kernel == "flash_fwd":
-        _check_ints(kernel, config, ("block_q", "block_k"))
-        sq, skv, H, K, D = _dims(shape, "Sq", "Skv", "H", "K", "D")
+    if kernel in ("flash_fwd", "flash_bwd"):
+        tiles = _tiles(kernel, dtype)
+        _check_ints(kernel, config, tiles)
+        for name, values in tiles.items():
+            v, dim = config[name], _dims(shape, _TILE_DIM[name])[0]
+            if v not in values or v > _round64(dim):
+                raise KernelConfigError(
+                    f"{kernel}.{name}={v} in {dtype}: one of {values}, at most "
+                    f"{_round64(dim)} at {_TILE_DIM[name]}={dim}")
+        D = _dims(shape, "D")[0]
         dv = int(shape.get("Dv", D))
-        bq, bk = config["block_q"], config["block_k"]
-        if bq not in _FLASH_BLOCK_Q or bq > _round64(sq):
+        if (D, dv) not in HEAD_PAIRS:
+            raise KernelConfigError(f"{kernel} has no kernel at (D, Dv) = ({D}, {dv})")
+        bytes_ = smem_bytes(kernel, shape, config, dtype)
+        if bytes_ > SMEM_BYTES:
             raise KernelConfigError(
-                f"flash_fwd.block_q={bq}: 64-row warpgroups, at most "
-                f"{_round64(sq)} rows at Sq={sq}")
-        if bk not in _FLASH_BLOCK_K or bk > _round64(skv):
+                f"{kernel} config {config}: {bytes_} B of shared memory a block, "
+                f"beyond {SMEM_BYTES} B")
+        if not instantiated(kernel, shape, config, dtype):
             raise KernelConfigError(
-                f"flash_fwd.block_k={bk}: tiles of 64 or 128 keys, at most "
-                f"{_round64(skv)} at Skv={skv}")
-        heads = flash_heads_a_block(H, K)
-        if not flash_instantiated(D, dv, heads, bq, bk):
-            need, cap = flash_registers(heads, bq, bk, dv)
-            raise KernelConfigError(
-                f"flash_fwd config {config} at (D, Dv) = ({D}, {dv}), {heads} "
-                f"q-heads a block: {need} registers a thread needed, {cap} "
-                "available")
+                f"{kernel} config {config} in {dtype} at (D, Dv) = ({D}, {dv}): "
+                + _registers_said(kernel, shape, config, dtype) + " (not built)")
+        return
     elif kernel == "decode":
         _check_ints(kernel, config, ("splits",))
         s, S = config["splits"], _dims(shape, "S")[0]
@@ -422,11 +561,8 @@ def _grids(kernel: str, shape: dict, backend: str,
         values = _CHUNKS if kernel == "xla_flash" else _BLOCKS
         return {name: tuple(sorted({v for v in values if v <= dim} | {dim}))
                 for name, dim in _axes(kernel, shape).items()}
-    fixed = fixed_tiles(kernel, dtype)
-    if fixed is not None:
-        return {name: (v,) for name, v in fixed.items()}
-    if kernel == "flash_fwd":
-        return {"block_q": _FLASH_BLOCK_Q, "block_k": _FLASH_BLOCK_K}
+    if kernel in ("flash_fwd", "flash_bwd"):
+        return dict(_tiles(kernel, dtype))
     if kernel == "decode":
         return {"splits": _SPLITS}
     if kernel == "mamba":

@@ -640,13 +640,13 @@ def test_bf16_bwd_kernels_at_mla_phi3_and_whisper_shapes(case, device):
 @pytest.mark.parametrize("D, Dv", [(96, 32), (16, 16), (64, 96)])
 def test_fp32_entries_return_an_error_outside_the_rule(D, Dv, device):
     """Below the wrappers' check, each fp32 library's C entry refuses a
-    (D, Dv) it has no instantiation for: it returns cudaErrorInvalidValue
-    (1) and launches nothing."""
+    (D, Dv) it has no instantiation for, at its untuned tiles: it returns
+    cudaErrorInvalidValue (1) and launches nothing."""
     p = torch.zeros(64, device=device).data_ptr()
     stream = torch.cuda.current_stream(device).cuda_stream
-    assert FLASH._loaded()(p, p, p, p, p, 1, 8, 8, 4, 2, D, Dv, 1, stream) == 1
-    for kern in backward_kernels(torch.float32):
-        assert kern._loaded()(*[p] * 8, 1, 8, 8, 4, 2, D, Dv, 1, stream) == 1
+    assert FLASH._loaded()(p, p, p, p, p, 1, 8, 8, 4, 2, D, Dv, 1, 64, 32, stream) == 1
+    for kern, tiles in zip(backward_kernels(torch.float32), ((64, 32), (64, 16))):
+        assert kern._loaded()(*[p] * 8, 1, 8, 8, 4, 2, D, Dv, 1, *tiles, stream) == 1
     torch.cuda.synchronize()
 
 
@@ -942,3 +942,144 @@ def test_a_cache_entry_changes_what_launches(device):
     _assert_elementwise(out, ref, 2.0 ** -7)
     tuned = flash_attention_fwd(q, k, k, block_q=64, block_k=128)[0]
     assert torch.equal(out, tuned)
+
+
+# ---------------- the fp32 forward's and the pairs' tiles ------------- #
+# Every candidate of the fp32 ``flash_fwd`` space and of both ``flash_bwd``
+# spaces at the sweeps' shapes (chip_smoke.py's TUNE_SWEEPS) and ragged
+# ones, held to the plain versions with the checks above; the untuned
+# call bit-identical to an explicit call at the untuned tiles.
+TUNE_TILES = [("qwen3", {"B": 4, "Sq": 512, "Skv": 512, "H": 16, "K": 8, "D": 128, "Dv": 128}),
+              ("minicpm3", {"B": 1, "Sq": 512, "Skv": 512, "H": 40, "K": 40, "D": 96,
+                            "Dv": 64}),
+              ("G=5 ragged", {"B": 1, "Sq": 200, "Skv": 200, "H": 10, "K": 2, "D": 128,
+                              "Dv": 128}),
+              ("D=64 ragged", {"B": 2, "Sq": 130, "Skv": 70, "H": 4, "K": 4, "D": 64,
+                               "Dv": 64}),
+              ("D=32 short", {"B": 2, "Sq": 13, "Skv": 13, "H": 4, "K": 2, "D": 32,
+                              "Dv": 32})]
+
+
+def _tile_inputs(shape, dt, device, seed):
+    B, Sq, Skv, H, K = (shape[n] for n in ("B", "Sq", "Skv", "H", "K"))
+    q = _randn((B, Sq, H, shape["D"]), dt, device, seed)
+    k = _randn((B, Skv, K, shape["D"]), dt, device, seed + 1)
+    v = _randn((B, Skv, K, shape["Dv"]), dt, device, seed + 2)
+    g = _randn((B, Sq, H, shape["Dv"]), dt, device, seed + 3)
+    return q, k, v, g
+
+
+@pytest.mark.parametrize("label, shape", TUNE_TILES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_every_fp32_flash_candidate_matches_plain(label, shape, causal, device):
+    from repro_torch.tune import search_space
+
+    q, k, v, _ = _tile_inputs(shape, torch.float32, device, 52)
+    ref, ref_lse = flash_attention_plain(q, k, v, causal=causal)
+    cands, _ = search_space("flash_fwd", shape, "float32")
+    assert len(cands) >= 2
+    untuned = flash_attention_fwd(q, k, v, causal=causal)
+    for c in cands:
+        before = FLASH.launches
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, **c)
+        assert FLASH.launches == before + 1
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=0, msg=f"{label} {c}")
+        torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=0, msg=f"{label} {c}")
+        if c == {"block_q": 64, "block_k": 32}:
+            assert all(torch.equal(a, b) for a, b in zip(untuned, (out, lse)))
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("label, shape", TUNE_TILES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_every_bwd_candidate_matches_plain(dt, label, shape, causal, device):
+    """Every candidate of the pair's space: dq, dk, dv within phase 5's
+    check, one launch of each kernel; dk/dv bit-identical on a second
+    launch (no atomics, a fixed order); the untuned call bit-identical to
+    an explicit one at the untuned tiles."""
+    from repro_torch.tune import default_config, search_space
+
+    name = str(dt)[6:]
+    q, k, v, g = _tile_inputs(shape, dt, device, 53)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal)
+    cands, _ = search_space("flash_bwd", shape, name)
+    assert cands
+    untuned = flash_attention_bwd(q, k, v, out, lse, g, causal=causal)
+    default = default_config("flash_bwd", "cuda", name)
+    pair = backward_kernels(dt)
+    for c in cands:
+        before = [kern.launches for kern in pair]
+        got = flash_attention_bwd(q, k, v, out, lse, g, causal=causal, **c)
+        assert [kern.launches for kern in pair] == [n + 1 for n in before], c
+        for part, a, b in zip(("dq", "dk", "dv"), got, ref):
+            if dt == torch.float32:
+                torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg=f"{part} {c}")
+            else:
+                _assert_elementwise(a, b, 2.0 ** -7, atol=1e-4)
+        again = flash_attention_bwd(q, k, v, out, lse, g, causal=causal, **c)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), c
+        if c == default:
+            assert all(torch.equal(a, b) for a, b in zip(untuned, got))
+
+
+def test_a_refused_pair_or_fp32_tile_raises_by_name(device):
+    """Tiles the fp32 forward or a kernel of a pair is not built for raise
+    KernelConfigError naming them, from an argument and from a cache
+    entry, and launch nothing."""
+    from repro_torch.tune import KernelConfigError, TuningCache, set_cache
+
+    shape = {"B": 4, "Sq": 512, "Skv": 512, "H": 16, "K": 8, "D": 128, "Dv": 128}
+    kerns = (FLASH,) + backward_kernels(torch.float32) + backward_kernels(torch.bfloat16)
+    before = [kern.launches for kern in kerns]
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, g = _tile_inputs(shape, dt, device, 54)
+        out = torch.zeros_like(q)
+        lse = torch.zeros((4, 16, 512), device=device)
+        bad = ({"dkv_block_q": 32} if dt == torch.float32 else {"dq_block_k": 128})
+        with pytest.raises(KernelConfigError, match=next(iter(bad))):
+            flash_attention_bwd(q, k, v, out, lse, g, **bad)
+        with pytest.raises(KernelConfigError, match="dkv_block_q"):
+            flash_attention_bwd(q, k, v, out, lse, g, dkv_block_q=0)
+        cache = TuningCache()
+        name = str(dt)[6:]
+        cache.put("flash_bwd", shape, name, "cuda", bad, 1.0, save=False)
+        if dt == torch.float32:
+            cache.put("flash_fwd", shape, name, "cuda", {"block_q": 128, "block_k": 32}, 1.0,
+                      save=False)
+        prev = set_cache(cache)
+        try:
+            with pytest.raises(KernelConfigError, match=next(iter(bad))):
+                flash_attention_bwd(q, k, v, out, lse, g)
+            if dt == torch.float32:
+                with pytest.raises(KernelConfigError, match="'block_q': 128"):
+                    flash_attention_fwd(q, k, v)
+        finally:
+            set_cache(prev)
+    q, k, v, _ = _tile_inputs(shape, torch.float32, device, 55)
+    with pytest.raises(KernelConfigError, match="block_k"):
+        flash_attention_fwd(q, k, v, block_q=64, block_k=64)
+    assert [kern.launches for kern in kerns] == before
+
+
+def test_a_flash_bwd_cache_entry_reaches_a_training_step(device):
+    """A cached ``flash_bwd`` entry is what the autograd backward
+    launches: the same bits as an explicit call at those tiles."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.tune import TuningCache, set_cache
+
+    shape = {"B": 2, "Sq": 256, "Skv": 256, "H": 8, "K": 4, "D": 128, "Dv": 128}
+    tiles = {"dq_block_q": 64, "dq_block_k": 64, "dkv_block_k": 128, "dkv_block_q": 16}
+    q, k, v, g = _tile_inputs(shape, torch.bfloat16, device, 56)
+    cache = TuningCache()
+    cache.put("flash_bwd", shape, "bfloat16", "cuda", tiles, 1.0, save=False)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    prev = set_cache(cache)
+    try:
+        flash_attention(*leaves).backward(g)
+    finally:
+        set_cache(prev)
+    assert cache.hits >= 1
+    out, lse = flash_attention_fwd(q, k, v)
+    want = flash_attention_bwd(q, k, v, out, lse, g, **tiles)
+    assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))

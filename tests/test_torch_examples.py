@@ -57,6 +57,7 @@ def test_autotune_example_runs_on_the_cpu():
     out = _run("torch_autotune.py", "--device", "cpu")
     assert "xla_flash (torch): winner {'kv_chunk': 128, 'q_chunk': 128}" in out
     assert "flash_fwd (cuda): winner" in out
+    assert "flash_bwd (cuda): winner" in out
     assert "windowed dispatch through the tuned chunks" in out
     assert "cache hits=1 misses=0" in out
     assert out.rstrip().endswith("OK")

@@ -9,9 +9,9 @@ products (S = Q K^T, dP = dO V^T, dQ = dS K, dV = P^T dO, dK = dS^T Q) as
 three tf32 products, a_hi b_lo + a_lo b_hi + a_hi b_hi, summed in fp32
 (``_product`` of the fp32 forward's model); p = exp2(s D^-0.5 log2(e) -
 lse log2(e)) from the forward's lse, 0 where masked; ds = p (dp - Dvec)
-D^-0.5 in fp32.  dq walks 32-key tiles in order, dk/dv 16-query steps (the
-query tiles in order and, inside each, the G q-heads of the kv-head in
-order); each tile's or step's product is summed apart and added to the
+D^-0.5 in fp32.  dq walks 32-key tiles in order (16 or 64 at the tuned
+tiles), dk/dv 16-query steps (8 or 32) (the query tiles in order and,
+inside each, the G q-heads of the kv-head in order); each tile's or step's product is summed apart and added to the
 running sum in fp32 (the kernels' fresh accumulators).  The kernels pair
 dS's (and P^T's) registers with K^T's keys (dO^T's and Q^T's queries)
 through an 8-row permutation (``_transposed_slot``); the model takes each
@@ -62,6 +62,9 @@ def _one_thread():
 
 DQ_BK = 32    # dq: keys per tile
 DKV_BQ = 16   # dk/dv: queries per step
+# (dq keys a tile, dk/dv queries a step) of the tuning space besides the
+# untuned (32, 16)
+TUNED = [(16, 8), (64, 32), (16, 32), (64, 8)]
 BWD_ATOL = 1e-4
 GRAD_LIMIT = 1e-5
 LOG2E = np.float32(1.4426950408889634)
@@ -98,10 +101,12 @@ def _inputs(case, seed=0):
     return q, k, v, out, lse, g
 
 
-def fp32_bwd_model(q, k, v, out, lse, g, *, causal=True, terms=None):
+def fp32_bwd_model(q, k, v, out, lse, g, *, causal=True, terms=None, dq_bk=DQ_BK,
+                   dkv_bq=DKV_BQ):
     """The kernels' arithmetic on fp32 q (B,Sq,H,D), dO (B,Sq,H,Dv), k
     (B,Skv,K,D), v (B,Skv,K,Dv), the forward's out and lse: returns (dq, dk,
-    dv), fp32.  ``terms`` maps
+    dv), fp32, at ``dq_bk`` keys a dq tile and ``dkv_bq`` queries a dk/dv
+    step.  ``terms`` maps
     a product of ``PRODUCTS`` to its tf32 terms (3 unless given; 2 drops
     a_hi b_lo, 1 keeps a_hi b_hi alone)."""
     terms = {**dict.fromkeys(PRODUCTS, 3), **(terms or {})}
@@ -124,20 +129,20 @@ def fp32_bwd_model(q, k, v, out, lse, g, *, causal=True, terms=None):
         return p, p * (dp - dvec_[..., None]) * scale
 
     dq = torch.zeros(B, K, G, Sq, D)
-    for k0 in range(0, Skv, DQ_BK):
-        kt, vt = k[:, k0:k0 + DQ_BK], v[:, k0:k0 + DQ_BK]
+    for k0 in range(0, Skv, dq_bk):
+        kt, vt = k[:, k0:k0 + dq_bk], v[:, k0:k0 + dq_bk]
         s = _product("bqkgd,bnkd->bkgqn", qf, kt, terms["s"])
         dp = _product("bqkgd,bnkd->bkgqn", gf, vt, terms["dp"])
-        _, ds = p_ds(s, dp, l2, dvec, qpos, kpos[k0:k0 + DQ_BK])
+        _, ds = p_ds(s, dp, l2, dvec, qpos, kpos[k0:k0 + dq_bk])
         order = torch.tensor(_key_order(kt.shape[1]))
         dq = dq + _product("bkgqn,bnkd->bkgqd", ds[..., order], kt[:, order],
                            terms["dq"])
 
     dk = torch.zeros(B, Skv, K, D)
     dv = torch.zeros(B, Skv, K, Dv)
-    for q0 in range(0, Sq, DKV_BQ):
+    for q0 in range(0, Sq, dkv_bq):
         for gi in range(G):
-            rows = slice(q0, q0 + DKV_BQ)
+            rows = slice(q0, q0 + dkv_bq)
             qt, gt = qf[:, rows, :, gi], gf[:, rows, :, gi]  # (B, n, K, D)
             st = _product("bskd,bnkd->bkns", k, qt, terms["s"])  # queries, keys
             dpt = _product("bskd,bnkd->bkns", v, gt, terms["dp"])
@@ -168,6 +173,19 @@ def test_model_matches_plain_elementwise(case):
     ref = flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal)
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         assert a.dtype == torch.float32 and a.shape == b.shape
+        n, worst, rel = _beyond(a, b)
+        assert n == 0 and rel <= GRAD_LIMIT / 5, (name, n, worst, rel)
+
+
+@pytest.mark.parametrize("tiles", TUNED, ids=lambda t: f"dq{t[0]}-dkv{t[1]}")
+@pytest.mark.parametrize("case", CASES)
+def test_model_at_tuned_tiles_matches_plain_elementwise(case, tiles):
+    q, k, v, out, lse, g = _inputs(case)
+    causal = case[-1]
+    got = fp32_bwd_model(q, k, v, out, lse, g, causal=causal, dq_bk=tiles[0],
+                         dkv_bq=tiles[1])
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, g, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         n, worst, rel = _beyond(a, b)
         assert n == 0 and rel <= GRAD_LIMIT / 5, (name, n, worst, rel)
 
@@ -222,7 +240,7 @@ def _transposed_slot(row):
     return 8 * g + 4 * (r % 2) + r // 2
 
 
-@pytest.mark.parametrize("rows", [DQ_BK, DKV_BQ])
+@pytest.mark.parametrize("rows", [8, 16, 32, 64])
 def test_ds_and_p_registers_meet_their_own_rows(rows):
     """The permutation: in every 8-row group, the row (key in dq, query in
     dk/dv) a thread's A-fragment slot holds, its accumulator column, is the
@@ -237,36 +255,54 @@ def test_ds_and_p_registers_meet_their_own_rows(rows):
     assert [_transposed_slot(r) for r in _key_order(rows)] == list(range(rows))
 
 
-@pytest.mark.parametrize("rows", [DQ_BK, DKV_BQ])
+def _tposed(d, slot, rows, n):
+    """The byte of element (d, k slot) of a transposed tile of ``n`` rows
+    of ``rows`` values as the wgmma descriptor of ``desc_k_tf32<rows>``
+    reads it, CuTe's swizzle of the row-major offset: Swizzle<3,4,3> of
+    128-byte rows at 32 values, <2,4,3> of 64-byte rows at 16, <1,4,3> of
+    32-byte rows at 8; at 64 values two 128-byte atoms of ``n`` rows,
+    values 0-31 in the first."""
+    if rows > 32:
+        off = d * 128 + slot % 32 * 4
+        return slot // 32 * n * 128 + (off ^ (((off >> 7) & 7) << 4))
+    rb = rows * 4
+    bits = {128: 3, 64: 2, 32: 1}[rb]
+    off = d * rb + slot * 4
+    return off ^ (((off >> 7) & ((1 << bits) - 1)) << 4)
+
+
+def _kernel_toff(d, chunk, rows, n):
+    """sm90.cuh's tposed_off<rows>: the byte of 16-byte chunk ``chunk`` of
+    row d of a transposed tile of ``n`` rows."""
+    if rows > 32:
+        return chunk // 8 * n * 128 + d * 128 + ((chunk % 8) ^ (d % 8)) * 16
+    rb = rows * 4
+    return d * rb + ((chunk ^ ((d * rb >> 7) & (rb // 16 - 1))) * 16)
+
+
+@pytest.mark.parametrize("rows", [8, 16, 32, 64])
 def test_transposed_tiles_are_the_swizzled_k_major_layout(rows):
     """The byte offset at which transpose_split_tf32 writes element (d,
-    slot) of a transposed tile (rows of ``rows`` fp32: 128 bytes at 32, 64
-    at 16) is that of the K-major layout a wgmma descriptor of
-    ``desc_k_tf32<rows>`` reads: CUTLASS's Swizzle<3,4,3> (128-byte) or
-    Swizzle<2,4,3> (64-byte) of the row-major offset; and the 16-byte
-    chunks a warp writes at once fall in distinct banks."""
-    rb = rows * 4
-    bits = 3 if rb == 128 else 2
-
-    def swizzle(off):  # CuTe's Swizzle<bits, 4, 3> on a byte offset
-        return off ^ (((off >> 7) & ((1 << bits) - 1)) << 4)
-
-    def kernel_offset(d, slot):  # sm90.cuh's transpose_split_tf32
-        chunk = slot // 4
-        return d * rb + ((chunk ^ ((d * rb >> 7) & (rb // 16 - 1))) * 16) + slot % 4 * 4
-
+    slot) of a transposed tile (``tposed_off``: rows of 32 fp32 are 128
+    bytes, of 16 64 bytes, of 8 32 bytes, of 64 two 128-byte atoms) is
+    that of the K-major layout a wgmma descriptor of ``desc_k_tf32<rows>``
+    reads (``_tposed``); and the 16-byte chunks a warp writes at once
+    fall in distinct banks."""
     seen = set()
     for d in range(128):
         for slot in range(rows):
-            off = kernel_offset(d, slot)
-            assert off == swizzle(d * rb + slot * 4)
+            off = _kernel_toff(d, slot // 4, rows, 128) + slot % 4 * 4
+            assert off == _tposed(d, slot, rows, 128)
             seen.add(off)
-    assert seen == set(range(0, 128 * rb, 4))
+    assert seen == set(range(0, 128 * rows * 4, 4))
     # a warp's 16-byte stores, 8 lanes (d = 8w .. 8w + 7) a phase, of one chunk
-    for chunk in range(rb // 16):
+    for chunk in range(rows // 4):
         for w in range(4):
-            banks = [kernel_offset(d, 4 * chunk) // 4 % 32 for d in range(8 * w, 8 * w + 8)]
-            assert sorted(b + i for b in banks for i in range(4)) == list(range(32))
+            banks = [_kernel_toff(d, chunk, rows, 128) // 4 % 32 for d in range(8 * w, 8 * w + 8)]
+            if rows >= 16:
+                assert sorted(b + i for b in banks for i in range(4)) == list(range(32))
+            else:  # 32-byte rows: a phase's 8 lanes cover 256 bytes, two to a bank group
+                assert len({b // 4 for b in banks}) == 8
 
 
 def _transpose_split(d, rows):
@@ -275,14 +311,13 @@ def _transpose_split(d, rows):
     the tile TMA wrote, the (row, column) ``_tma_offset`` puts there, the
     byte of the transposed tile it writes, the transposed (row, k slot) of
     that byte)."""
-    rb = rows * 4
     seen = []
     for u in range(d * rows // 128):
         atom, g, e = u // (rows // 4), u % (rows // 4) // 2, u % 2
         for lane in range(32):
             col = atom * rows * 128 + (lane % 4) * 4
             dd = 32 * atom + lane
-            toff = dd * rb + ((2 * g + e) ^ ((dd * rb >> 7) & (rb // 16 - 1))) * 16
+            toff = _kernel_toff(dd, 2 * g + e, rows, d)
             for i in range(4):
                 row = 8 * g + 2 * i + e
                 src = col + row * 128 + ((lane // 4) ^ (row % 8)) * 16
@@ -290,16 +325,16 @@ def _transpose_split(d, rows):
     return seen
 
 
-@pytest.mark.parametrize("d, rows", [(96, DQ_BK), (96, DKV_BQ), (64, DKV_BQ), (128, DKV_BQ)])
+@pytest.mark.parametrize("d, rows", [(96, DQ_BK), (96, DKV_BQ), (64, DKV_BQ), (128, DKV_BQ),
+                                     (128, 8), (96, 8), (64, 8), (96, 64), (64, 64), (32, 64),
+                                     (32, 16)])
 def test_split_transpose_reads_each_atom_and_writes_the_swizzled_layout(d, rows):
     """transpose_split_tf32 at three atoms (K^T in dq, Q^T in dk/dv at D =
-    96) and at MLA's dO^T (64 rows): every element of the tile is read
-    once, from where TMA wrote it, and lands at its permuted k slot in the
-    swizzled K-major layout the descriptors read (the byte-level check of
-    test_transposed_tiles_are_the_swizzled_k_major_layout, at this many
-    rows); every byte of the transposed tile is written once."""
-    rb = rows * 4
-    bits = 3 if rb == 128 else 2
+    96), at MLA's dO^T (64 rows), and at the tuned tiles' 8-query steps
+    (32-byte rows) and 64-key dq tiles (two atoms): every element of the
+    tile is read once, from where TMA wrote it, and lands at its permuted
+    k slot in the swizzled K-major layout the descriptors read; every byte
+    of the transposed tile is written once."""
     seen = _transpose_split(d, rows)
     assert len(seen) == d * rows
     reads = {src: what for src, what, _, _ in seen}
@@ -307,45 +342,57 @@ def test_split_transpose_reads_each_atom_and_writes_the_swizzled_layout(d, rows)
     assert all(_tma_offset(row, col, rows) == src for src, (row, col) in reads.items())
     for _, (row, col), dst, (t_row, slot) in seen:
         assert t_row == col and slot == _transposed_slot(row)
-        off = t_row * rb + slot * 4
-        assert dst == off ^ (((off >> 7) & ((1 << bits) - 1)) << 4)
-    assert sorted(dst for *_, dst, _ in seen) == list(range(0, d * rb, 4))
+        assert dst == _tposed(t_row, slot, rows, d)
+    assert sorted(dst for *_, dst, _ in seen) == list(range(0, d * rows * 4, 4))
 
 
+@pytest.mark.parametrize("tiles", [(DQ_BK, DKV_BQ)] + TUNED, ids=lambda t: f"dq{t[0]}-dkv{t[1]}")
 @pytest.mark.parametrize("d, dv", [(32, 32), (64, 64), (96, 96), (96, 64), (128, 128)])
-def test_transposed_halves_and_parts_start_on_the_swizzle_period(d, dv):
+def test_transposed_halves_and_parts_start_on_the_swizzle_period(d, dv, tiles):
     """Where a wgmma descriptor starts inside a transposed tile, it starts
     on the swizzle's period (8 rows), so no base offset is needed: dk/dv's
-    warpgroup halves of Q^T (D/2 rows) and dO^T (Dv/2 rows) of 64-byte rows
-    (period 512 bytes; 3,072 bytes in at D = 96), each half a form of
-    sm90.cuh (n48 at 96); dq's parts of K^T (NH = 2 at D > 64: 48 rows at
-    96) of 128-byte rows (period 1024).  And every buffer of both kernels
-    lies on a 1024-byte boundary, their shared memory at 128 columns the
-    224 KB their sources state."""
+    warpgroup halves of Q^T (D/2 rows) and dO^T (Dv/2 rows) of 4 BQ-byte
+    rows (32, 64 or 128; 3,072 bytes in at D = 96 and 16 queries), each
+    half a form of sm90.cuh (n48 at 96); dq's parts of K^T (NH = 2 at D >
+    64: 48 rows at 96) of min(4 BK, 128)-byte rows.  And every buffer of
+    both kernels lies on a 1024-byte boundary, their shared memory at 128
+    columns and the untuned tiles the 224 KB their sources state."""
+    dq_bk, dkv_bq = tiles
     for width in (d, dv):
         half = width // 2
         assert half in (16, 32, 48, 64)
-        assert half * DKV_BQ * 4 % 512 == 0
+        assert half * dkv_bq * 4 % (8 * dkv_bq * 4) == 0
     parts = 2 if d > 64 else 1
     assert d // parts in (16, 32, 48, 64)
-    assert all(p * (d // parts) * DQ_BK * 4 % 1024 == 0 for p in range(parts))
+    row = min(dq_bk * 4, 128)
+    assert all(p * (d // parts) * row % (8 * row) == 0 for p in range(parts))
 
     def tile(width, rows):
         return rows * width * 4
 
-    dq = [tile(d, 64), tile(d, 64), tile(dv, 64), tile(dv, 64), tile(d, DQ_BK),
-          tile(dv, DQ_BK), tile(d, DQ_BK), tile(dv, DQ_BK), tile(d, DQ_BK), tile(d, DQ_BK)]
-    dkv = [tile(d, 64), tile(d, 64), tile(dv, 64), tile(dv, 64), tile(d, DKV_BQ),
-           tile(dv, DKV_BQ)] + [tile(w, DKV_BQ) for w in (d, d, dv, dv, d, d, dv, dv)]
-    dkv.append(2 * 2 * (DKV_BQ // 2) * 128 * 4)  # the swap of S^T and dP^T halves
+    dq = [tile(d, 64), tile(d, 64), tile(dv, 64), tile(dv, 64), tile(d, dq_bk),
+          tile(dv, dq_bk), tile(d, dq_bk), tile(dv, dq_bk), tile(d, dq_bk), tile(d, dq_bk)]
+    dkv = [tile(d, 64), tile(d, 64), tile(dv, 64), tile(dv, 64), tile(d, dkv_bq),
+           tile(dv, dkv_bq)] + [tile(w, dkv_bq) for w in (d, d, dv, dv, d, d, dv, dv)]
+    dkv.append(2 * 2 * (dkv_bq // 2) * 128 * 4)  # the swap of S^T and dP^T halves
     for sizes in (dq, dkv):
         assert all(sum(sizes[:i]) % 1024 == 0 for i in range(len(sizes) + 1))
-    if (d, dv) == (128, 128):
+    if (d, dv) == (128, 128) and tiles == (DQ_BK, DKV_BQ):
         assert sum(dq) == sum(dkv) == 224 * 1024
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_model_matches_pallas_reference(case):
+    _model_matches_pallas(case, (DQ_BK, DKV_BQ))
+
+
+@pytest.mark.parametrize("tiles", TUNED[:2], ids=lambda t: f"dq{t[0]}-dkv{t[1]}")
+@pytest.mark.parametrize("case", CASES)
+def test_model_at_tuned_tiles_matches_pallas_reference(case, tiles):
+    _model_matches_pallas(case, tiles)
+
+
+def _model_matches_pallas(case, tiles):
     B, Sq, Skv, H, K, D, Dv, causal = case
     qn, kn, vn, gn = _numpy_inputs(case, seed=1)
     qj, kj, vj, gj = (jnp.asarray(x) for x in (qn, kn, vn, gn))
@@ -358,7 +405,7 @@ def test_model_matches_pallas_reference(case):
     got = fp32_bwd_model(*(torch.from_numpy(x) for x in (qn, kn, vn)),
                          torch.from_numpy(np.array(out_j)),
                          torch.from_numpy(np.array(lse_j)), torch.from_numpy(gn),
-                         causal=causal)
+                         causal=causal, dq_bk=tiles[0], dkv_bq=tiles[1])
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-3,
                                    rtol=1e-3, err_msg=name)

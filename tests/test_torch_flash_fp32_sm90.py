@@ -7,9 +7,12 @@ The model does what the kernel does, tile by tile: every product as three
 tf32 products, a_hi b_lo + a_lo b_hi + a_hi b_hi, summed in fp32, with x_hi
 = x with its low 13 mantissa bits cleared and x_lo = the same of x - x_hi
 (products of tf32 values are exact in fp32); scores pre-scaled by D^-0.5
-log2(e); an online softmax over 32-key tiles with p = exp2(s - m), each
-tile's PV summed apart and added to the running O in fp32; l summed from
-the fp32 p; lse = m ln2 + log(l).  The kernel pairs P's registers with
+log2(e); an online softmax over 32-key tiles (16 or 64 at the tuned
+tiles, ``block_k``) with p = exp2(s - m), each tile's PV summed apart and
+added to the running O in fp32; l summed from the fp32 p; lse = m ln2 +
+log(l).  At 128 rows a block (``block_q``) two row warpgroups share each
+tile and the first skips the tiles wholly above its rows, which the model
+shows to be no-ops.  The kernel pairs P's registers with
 V^T's keys through an 8-key permutation (``_a_slot_key``, ``_vt_slot_key``);
 the model takes each PV product over the keys in that order.  At D = 96
 a row of Q and K is three 128-byte swizzle atoms, and V, V^T and O may be
@@ -21,6 +24,9 @@ fp32 tolerance: |got - ref| <= 2e-5 for out and lse.  Against the Pallas
 kernel the tolerance is the reference's own, 2e-5 absolute and relative
 (tests/test_kernels_flash.py).
 """
+
+import ctypes
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -46,8 +52,10 @@ def _one_thread():
     torch.set_num_threads(before)
 
 
-BK = 32  # keys per tile, as in the kernel
+BK = 32  # keys per tile, as in the kernel's untuned tiles
 ATOL = 2e-5
+# (block_q, block_k): the untuned tiles first, then the tuning space's
+TILES = [(64, BK), (64, 16), (64, 64), (128, 16), (128, 32)]
 
 CASES = [
     # (B, Sq, Skv, H, K, D, Dv, causal)
@@ -119,9 +127,21 @@ def _key_order(n):
     return [k for k in order if k < n]
 
 
-def fp32_model(q, k, v, *, causal=True, s_terms=3, o_terms=3):
+def walked(k0, bk, q0, bq, rows, Skv, causal):
+    """Whether the kernel's warpgroup over ``rows`` (64 query rows) of a
+    block of ``bq`` rows from ``q0`` multiplies the tile of ``bk`` keys from
+    ``k0``: the block walks the tiles up to its last row (causal) and a
+    warpgroup skips those wholly above its own rows."""
+    kv_end = min(Skv, q0 + bq) if causal else Skv
+    return k0 < kv_end and not (bq > 64 and causal and k0 > rows.stop - 1)
+
+
+def fp32_model(q, k, v, *, causal=True, s_terms=3, o_terms=3, block_q=64, block_k=BK):
     """The kernel's arithmetic on fp32 q (B,Sq,H,D), k (B,Skv,K,D) and v
-    (B,Skv,K,Dv): returns (out (B,Sq,H,Dv), lse), fp32."""
+    (B,Skv,K,Dv) at ``block_q`` x ``block_k``: returns (out (B,Sq,H,Dv),
+    lse), fp32.  A row's m, l and O move only on the tiles its warpgroup
+    multiplies (``walked``)."""
+    bk = block_k
     B, Sq, H, D = q.shape
     Skv, K, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // K
@@ -131,8 +151,8 @@ def fp32_model(q, k, v, *, causal=True, s_terms=3, o_terms=3):
     l = torch.zeros((B, K, G, Sq))
     o = torch.zeros((B, K, G, Sq, Dv))
     qpos = torch.arange(Sq)
-    for k0 in range(0, Skv, BK):
-        kt, vt = k[:, k0:k0 + BK], v[:, k0:k0 + BK]
+    for k0 in range(0, Skv, bk):
+        kt, vt = k[:, k0:k0 + bk], v[:, k0:k0 + bk]
         s = _product("bqkgd,bskd->bkgqs", qf, kt, s_terms) * scale_log2
         kpos = torch.arange(k0, k0 + kt.shape[1])
         if causal:
@@ -140,11 +160,14 @@ def fp32_model(q, k, v, *, causal=True, s_terms=3, o_terms=3):
         m_new = torch.maximum(m, s.amax(-1))
         corr = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new[..., None])
-        l = l * corr + p.sum(-1)
         order = torch.tensor(_key_order(kt.shape[1]))
-        o = o * corr[..., None] + _product("bkgqs,bskd->bkgqd", p[..., order],
-                                           vt[:, order], o_terms)
-        m = m_new
+        go = torch.tensor([walked(k0, bk, r - r % block_q, block_q,
+                                  range(r - r % 64, r - r % 64 + 64), Skv, causal)
+                           for r in range(Sq)])
+        l = torch.where(go, l * corr + p.sum(-1), l)
+        o = torch.where(go[:, None], o * corr[..., None] + _product(
+            "bkgqs,bskd->bkgqd", p[..., order], vt[:, order], o_terms), o)
+        m = torch.where(go, m_new, m)
     l = l.clamp_min(1e-37)
     out = (o / l[..., None]).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv)
     lse = (m * float(np.log(2.0)) + torch.log(l)).reshape(B, H, Sq)
@@ -227,85 +250,170 @@ def _tma_offset(row, col, rows):
     return col // 32 * rows * 128 + _swizzle128(row * 128 + col % 32 * 4)
 
 
-def _transpose_v(dv):
-    """The kernel's transpose_v<DV> over one BK-key tile of V, warp by warp
-    and lane by lane: for each element, (the byte it reads from V's tile,
-    the (key, column) TMA wrote there by ``_tma_offset``, the byte of V^T
-    it writes, V^T's (row, k slot) of that byte)."""
+def _swizzle(off, span):
+    """CuTe's Swizzle<b,4,3> on a byte offset for a swizzle span of 128, 64
+    or 32 bytes (b = 3, 2, 1): 16-byte chunk c of row r at c ^ (r's bits
+    above 128 bytes)."""
+    bits = {128: 3, 64: 2, 32: 1}[span]
+    return off ^ (((off >> 7) & ((1 << bits) - 1)) << 4)
+
+
+def _tposed_offset(d, slot, bk, rows):
+    """Byte offset of element (d, k slot) of a transposed fp32 tile of
+    ``rows`` rows of ``bk`` values (sm90.cuh's Geo<bk, 4>, tposed_off): one
+    swizzled atom row of 4 bk bytes up to 32 values, two 128-byte atoms of
+    ``rows`` rows at 64."""
+    if bk > 32:
+        return slot // 32 * rows * 128 + _swizzle128(d * 128 + slot % 32 * 4)
+    return _swizzle(d * bk * 4 + slot * 4, bk * 4)
+
+
+def _transpose_v(dv, bk=BK, warps=4):
+    """The kernel's transpose_v<DV, BK, NW> over one tile of V, warp by
+    warp and lane by lane: for each element, (the byte it reads from V's
+    tile, the (key, column) TMA wrote there by ``_tma_offset``, the byte of
+    V^T it writes, V^T's (row, k slot) of that byte)."""
     seen = []
-    for warp in range(4):
-        for u in range(warp, dv // 4, 4):
-            atom, g, e = u // 8, u % 8 // 2, u % 2
+    for warp in range(warps):
+        for u in range(warp, dv * bk // 128, warps):
+            atom, g, e = u // (bk // 4), u % (bk // 4) // 2, u % 2
             for lane in range(32):
                 d = 32 * atom + lane
-                chunk = (2 * g + e) ^ (d % 8)
+                c = 2 * g + e
+                if bk > 32:
+                    dst0 = c // 8 * dv * 128 + d * 128 + ((c % 8) ^ (d % 8)) * 16
+                else:
+                    rb = bk * 4
+                    dst0 = d * rb + (c ^ ((d * rb >> 7) & (rb // 16 - 1))) * 16
                 for i in range(4):
                     key = 8 * g + 2 * i + e
-                    src = (atom * BK * 128 + (lane % 4) * 4 + key * 128
+                    src = (atom * bk * 128 + (lane % 4) * 4 + key * 128
                            + ((lane // 4) ^ (key % 8)) * 16)
-                    dst = d * 128 + chunk * 16 + 4 * i
-                    seen.append((src, (key, d), dst, (d, 4 * (2 * g + e) + i)))
+                    seen.append((src, (key, d), dst0 + 4 * i, (d, 4 * c + i)))
     return seen
 
 
+@pytest.mark.parametrize("bk, warps", [(32, 4), (16, 4), (64, 4), (16, 8), (32, 8)])
 @pytest.mark.parametrize("dv", [32, 64, 96, 128])
-def test_transpose_v_reads_every_element_once_and_writes_the_swizzled_vt(dv):
-    """transpose_v<DV> at every width, three atoms (96) and MLA's 64
-    included: each element of V's tile is read once, from where TMA put it;
-    V^T's byte for it is the 128-byte-swizzled K-major layout of (d, slot),
-    the slot the 8-key permutation gives its key; every byte of V^T is
-    written once."""
-    seen = _transpose_v(dv)
-    assert len(seen) == dv * BK
+def test_transpose_v_reads_every_element_once_and_writes_the_swizzled_vt(dv, bk, warps):
+    """transpose_v<DV, BK, NW> at every width, three atoms (96) and MLA's
+    64 included, and every key tile (4 or 8 warps: one or two row
+    warpgroups): each element of V's tile is read once, from where TMA put
+    it; V^T's byte for it is the swizzled K-major layout of (d, slot) that
+    desc_k_tf32<BK> reads (128-byte rows at 32 keys, 64-byte at 16, two
+    128-byte atoms at 64), the slot the 8-key permutation gives its key;
+    every byte of V^T is written once."""
+    seen = _transpose_v(dv, bk, warps)
+    assert len(seen) == dv * bk
     reads = {src: what for src, what, _, _ in seen}
-    assert len(reads) == dv * BK
-    assert all(_tma_offset(key, d, BK) == src for src, (key, d) in reads.items())
+    assert len(reads) == dv * bk
+    assert all(_tma_offset(key, d, bk) == src for src, (key, d) in reads.items())
     for _, (key, d), dst, (row, slot) in seen:
         assert row == d and _vt_slot_key(slot % 8) == key % 8 and slot // 8 == key // 8
-        assert dst == _swizzle128(row * 128 + slot * 4)
-    assert sorted(dst for *_, dst, _ in seen) == list(range(0, dv * 128, 4))
+        assert dst == _tposed_offset(row, slot, bk, dv)
+    assert sorted(dst for *_, dst, _ in seen) == list(range(0, dv * bk * 4, 4))
 
 
+@pytest.mark.parametrize("tiles", TILES, ids=lambda t: f"{t[0]}x{t[1]}")
 @pytest.mark.parametrize("d, dv", [(32, 32), (64, 64), (96, 96), (96, 64), (128, 128)])
-def test_tiles_and_parts_start_on_the_swizzle_period(d, dv):
-    """The shared-memory offsets the kernel computes (its Smem<D, DV>) put
-    every tile on a 1024-byte boundary, the 128-byte swizzle's period, at
-    every width; QK^T's k8 slices walk three atoms at D = 96 as
-    desc_k_tf32 finds them; O's parts of Dv / NH columns (NH = 2 at Dv >
-    64: 64 at 128, 48 at 96) start on that boundary in V^T too; and the
-    block's shared memory at 128 columns is the 176 KB the source states."""
-    bq, stages = 64, 2
+def test_tiles_and_parts_start_on_the_swizzle_period(d, dv, tiles):
+    """The shared-memory offsets the kernel computes (its Smem<D, DV, RW,
+    BK>) put every tile on a 1024-byte boundary, the 128-byte swizzle's
+    period, at every width and tile; QK^T's k8 slices walk three atoms at
+    D = 96 as desc_k_tf32 finds them; O's parts of Dv / NH columns (NH = 2
+    at Dv > 64: 64 at 128, 48 at 96) start on V^T's swizzle period (8 rows
+    of 4 BK bytes in an atom); and the block's shared memory at 128
+    columns is the 176 KB the source states at the untuned tiles, 184 KB
+    at 128 x 16."""
+    bq, bk = tiles
+    stages = 2
 
     def tile(width, rows):
         return rows * width * 4
 
-    q_lo = tile(d, bq)
-    kv = q_lo + tile(d, bq)
-    stage = tile(d, BK) + tile(dv, BK)
+    q_offs = [w * 2 * tile(d, 64) + h * tile(d, 64) for w in range(bq // 64) for h in (0, 1)]
+    kv = bq // 64 * 2 * tile(d, 64)
+    stage = tile(d, bk) + tile(dv, bk)
     k_lo = kv + stages * stage
-    vt_hi = k_lo + tile(d, BK)
-    vt_lo = vt_hi + tile(dv, BK)
-    size = vt_lo + tile(dv, BK)
-    for off in (q_lo, kv, kv + tile(d, BK), kv + stage, k_lo, vt_hi, vt_lo, size):
+    vt_hi = k_lo + tile(d, bk)
+    vt_lo = vt_hi + tile(dv, bk)
+    size = vt_lo + tile(dv, bk)
+    for off in q_offs + [kv, kv + tile(d, bk), kv + stage, k_lo, vt_hi, vt_lo, size]:
         assert off % 1024 == 0, off
     for kk in range(d // 8):  # desc_k_tf32<D>: atom kk * 8 / 32, 32 bytes a slice
         atom, off = kk * 8 // 32, kk * 8 % 32 * 4
-        assert (atom, off) == divmod(_tma_offset(0, 8 * kk, bq), bq * 128)
+        assert (atom, off) == divmod(_tma_offset(0, 8 * kk, 64), 64 * 128)
     parts = 2 if dv > 64 else 1
     assert dv // parts in (16, 32, 48, 64)  # the m64nNk8 tf32 forms of sm90.cuh
-    assert all(p * (dv // parts) * 128 % 1024 == 0 for p in range(parts))
-    if (d, dv) == (128, 128):
+    row_bytes = min(bk * 4, 128)
+    assert all(p * (dv // parts) * row_bytes % (8 * row_bytes) == 0 for p in range(parts))
+    if (d, dv) == (128, 128) and tiles == TILES[0]:
         assert size == 176 * 1024
+    if (d, dv) == (128, 128) and tiles == (128, 16):
+        assert size == 184 * 1024
+
+
+@pytest.mark.parametrize("tiles", TILES[1:], ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("case", CASES)
+def test_model_at_tuned_tiles_matches_plain_elementwise(case, tiles):
+    q, k, v = (torch.from_numpy(x) for x in _inputs(case))
+    causal = case[-1]
+    out, lse = fp32_model(q, k, v, causal=causal, block_q=tiles[0], block_k=tiles[1])
+    ref, ref_lse = flash_attention_plain(q, k, v, causal=causal)
+    assert _over(out, ref)[1] <= 1.0 and _over(lse, ref_lse)[1] <= 1.0
+
+
+@pytest.mark.parametrize("tiles", TILES[1:], ids=lambda t: f"{t[0]}x{t[1]}")
+def test_tiles_change_only_the_rescale_points(tiles):
+    """Two row warpgroups a block leave every row's tiles as one does: a
+    tile the first skips is one it would have masked whole, which moves
+    neither m, l nor O (corr = 1, p = 0), so 128 rows give 64 rows' output
+    bit for bit; 16- and 64-key tiles move the online softmax's rescale
+    points, so their outputs differ from 32-key tiles' by rounding only,
+    inside the element check against each other too."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(CASES[0]))
+    rows64 = fp32_model(q, k, v, causal=True, block_k=tiles[1])
+    got = fp32_model(q, k, v, causal=True, block_q=tiles[0], block_k=tiles[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, rows64))
+    base = fp32_model(q, k, v, causal=True)
+    assert _over(got[0], base[0])[1] <= 1.0 and _over(got[1], base[1])[1] <= 1.0
+
+
+@pytest.mark.parametrize("bk", [16, 32, 64])
+@pytest.mark.parametrize("sq, skv", [(512, 512), (200, 200), (130, 70), (13, 13)])
+def test_a_row_warpgroup_skips_only_tiles_it_would_mask_whole(sq, skv, bk):
+    """At 128 rows a block, causal: the first warpgroup's skipped tiles
+    hold no key visible to any of its rows, and every tile that holds one
+    is multiplied, as a 64-row block walks them."""
+    for q0 in range(0, sq, 128):
+        for w in (0, 1):
+            rows = range(q0 + 64 * w, q0 + 64 * w + 64)
+            for k0 in range(0, skv, bk):
+                visible = any(kp <= r for r in rows if r < sq
+                              for kp in range(k0, min(k0 + bk, skv)))
+                alone = walked(k0, bk, rows.start, 64, rows, skv, True)
+                assert walked(k0, bk, q0, 128, rows, skv, True) == alone or not visible
+                assert alone or not visible
+
+
+@pytest.mark.parametrize("tiles", [(64, 16), (64, 64)], ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("case", CASES)
+def test_model_at_tuned_tiles_matches_pallas_reference(case, tiles):
+    _model_matches_pallas(case, tiles)
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_model_matches_pallas_reference(case):
+    _model_matches_pallas(case, TILES[0])
+
+
+def _model_matches_pallas(case, tiles):
     qn, kn, vn = _inputs(case, seed=1)
     causal = case[-1]
     out_j, lse_j = jax_flash(*(jnp.asarray(x) for x in (qn, kn, vn)),
                              causal=causal, interpret=True, return_lse=True)
     out, lse = fp32_model(*(torch.from_numpy(x) for x in (qn, kn, vn)),
-                          causal=causal)
+                          causal=causal, block_q=tiles[0], block_k=tiles[1])
     np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=2e-5,
                                rtol=2e-5)
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), atol=2e-5,
@@ -329,6 +437,18 @@ def test_cpu_fp32_calls_build_and_count_nothing():
     ref, ref_lse = flash_attention_plain(q, k, v, causal=True)
     assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
     assert SM90_FP32_KERNEL.launches == before and SM90_FP32_KERNEL._fn is None
+
+
+@pytest.mark.parametrize("kern", [SM90_KERNEL, SM90_FP32_KERNEL], ids=lambda k: k.name)
+def test_the_two_forwards_share_one_abi(kern):
+    """5 pointers, then B, Sq, Skv, H, K, D, Dv, causal and the tiles
+    block_q, block_k as ints, then the stream: the C entry in each source
+    declares the same ints in that order."""
+    assert kern.argtypes == [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    decl = re.search(rf'extern "C" int {kern.symbol}\(([^)]*)\)',
+                     kern.source.read_text()).group(1)
+    assert re.findall(r"\bint (\w+)", decl) == [
+        "B", "Sq", "Skv", "H", "K", "D", "Dv", "causal", "block_q", "block_k"]
 
 
 def test_the_fp32_kernel_has_its_own_source():

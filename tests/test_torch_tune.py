@@ -214,7 +214,9 @@ def test_wrappers_resolution_is_typed():
             forward_tiles(bf, 4, 512, 512, 16, 8, 128, 128, **bad)
     with pytest.raises(KernelConfigError, match="registers"):  # not built at G = 2
         forward_tiles(bf, 4, 512, 512, 16, 8, 128, 128, 128, 64)
-    with pytest.raises(KernelConfigError, match="fixed tiles"):
+    # fp32: 16-key tiles are built at D = 128, 64-key tiles take 294 KB
+    assert forward_tiles(torch.float32, 4, 512, 512, 16, 8, 128, 128, 64, 16) == (64, 16)
+    with pytest.raises(KernelConfigError, match="shared memory"):
         forward_tiles(torch.float32, 4, 512, 512, 16, 8, 128, 128, 64, 64)
     assert decode_splits(bf, 4, 576, 16, 8, 128, 128, 575) == 0
     assert decode_splits(bf, 4, 576, 16, 8, 128, 128, 575, 4) == 4
@@ -237,24 +239,38 @@ def _constants(source, *names):
 
 
 def test_each_default_is_the_kernels_own_tiles():
-    """The untuned configs are the tiles the CUDA sources fix: the bf16
-    forward's first tiles, the fp32 forward's and the pairs' constants;
+    """The untuned configs are the tiles the CUDA sources name as their
+    defaults (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K; the fp32 dq's one row
+    warpgroup BQ and the fp32 dk/dv's 64 keys BKV, which tuning leaves);
     decode's 0 and the scan's 0 are the kernels' own rules."""
     bq, bk = _constants("flash_attention_sm90.cu", "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K")
     assert space.default_config("flash_fwd", "cuda", "bfloat16") == {
         "block_q": bq, "block_k": bk} == {"block_q": 64, "block_k": 64}
     assert space.default_config("flash_fwd", "cuda", "float32") == dict(zip(
-        ("block_q", "block_k"), _constants("flash_attention_sm90_fp32.cu", "BQ", "BK")))
-    for dtype, sfx in (("bfloat16", ""), ("float32", "_fp32")):
-        dq = _constants(f"flash_bwd_dq_sm90{sfx}.cu", "BQ", "BK")
-        dkv = _constants(f"flash_bwd_dkv_sm90{sfx}.cu", "BKV", "BQ")
+        ("block_q", "block_k"), _constants("flash_attention_sm90_fp32.cu", "DEFAULT_BLOCK_Q",
+                                           "DEFAULT_BLOCK_K"))) == {"block_q": 64, "block_k": 32}
+    pairs = {"bfloat16": (_constants("flash_bwd_dq_sm90.cu", "DEFAULT_BLOCK_Q",
+                                     "DEFAULT_BLOCK_K"),
+                          _constants("flash_bwd_dkv_sm90.cu", "DEFAULT_BLOCK_K",
+                                     "DEFAULT_BLOCK_Q")),
+             "float32": (_constants("flash_bwd_dq_sm90_fp32.cu", "BQ", "DEFAULT_BLOCK_K"),
+                         _constants("flash_bwd_dkv_sm90_fp32.cu", "BKV", "DEFAULT_BLOCK_Q"))}
+    for dtype, (dq, dkv) in pairs.items():
         assert space.default_config("flash_bwd", "cuda", dtype) == {
             "dq_block_q": dq[0], "dq_block_k": dq[1], "dkv_block_k": dkv[0],
             "dkv_block_q": dkv[1]}
+    assert space.default_config("flash_bwd", "cuda", "float32") == {
+        "dq_block_q": 64, "dq_block_k": 32, "dkv_block_k": 64, "dkv_block_q": 16}
     assert space.default_config("decode", "cuda") == {"splits": 0}
     assert space.default_config("mamba", "cuda") == {"lanes": 0}
-    # the register rule is the kernel's admits(): the same base
-    assert _constants("flash_attention_sm90.cu", "REG_BASE") == [space.FLASH_REG_BASE]
+    # each register rule is its kernel's admits(): the same base
+    for source, base in (("flash_attention_sm90.cu", space.FLASH_REG_BASE),
+                         ("flash_attention_sm90_fp32.cu", space.FP32_FWD_REG_BASE),
+                         ("flash_bwd_dq_sm90.cu", space.DQ_REG_BASE),
+                         ("flash_bwd_dkv_sm90.cu", space.DKV_REG_BASE),
+                         ("flash_bwd_dq_sm90_fp32.cu", space.FP32_DQ_REG_BASE),
+                         ("flash_bwd_dkv_sm90_fp32.cu", space.FP32_DKV_REG_BASE)):
+        assert _constants(source, "REG_BASE") == [base], source
     assert _constants("decode_attention_sm90.cu", "MAX_SPLITS") == [space.MAX_SPLITS]
 
 
@@ -292,6 +308,203 @@ def test_flash_space_follows_the_register_rule():
     # the smem formula of today's tiles: the kernel's own figure, 2 q-heads
     assert space.smem_bytes("flash_fwd", QWEN3, {"block_q": 64, "block_k": 64},
                             "bfloat16") == 2 * 64 * 128 * 2 + 2 * 64 * 256 * 2 + 1024
+
+
+# ---------------- the fp32 forward's and the pairs' spaces ------------ #
+
+MINICPM3 = dict(QWEN3, H=40, K=40, D=96, Dv=64)
+WHISPER = {"B": 4, "Sq": 1500, "Skv": 1500, "H": 6, "K": 6, "D": 64, "Dv": 64}
+TILE_SHAPES = [("qwen3", QWEN3), ("minicpm3", MINICPM3), ("whisper", WHISPER),
+               ("G=5", dict(QWEN3, H=40))]
+TILE_SPACES = [("flash_fwd", "float32"), ("flash_bwd", "bfloat16"), ("flash_bwd", "float32")]
+
+
+@pytest.mark.parametrize("kernel, dtype", TILE_SPACES, ids="-".join)
+@pytest.mark.parametrize("label, shape", TILE_SHAPES)
+def test_the_tile_spaces_admit_the_untuned_tiles(kernel, dtype, label, shape):
+    """Each space at qwen3's, minicpm3's, whisper's and a G = 5 shape:
+    today's tiles among its candidates, every candidate valid, and at
+    qwen3's D = 128 at least two candidates."""
+    cands, pruned = search_space(kernel, shape, dtype, "cuda")
+    assert space.default_config(kernel, "cuda", dtype) in cands
+    assert len(cands) >= 2 and pruned >= 0
+    for c in cands:
+        validate_config(kernel, shape, c, "cuda", dtype)
+        assert space.instantiated(kernel, shape, c, dtype)
+
+
+def test_the_tile_spaces_at_qwen3():
+    """What qwen3's D = 128 admits: fp32 forward tiles of 16 keys or one
+    32-key row warpgroup (64 x 64 and 128 x 32 take more than a block's
+    shared memory); the bf16 pair's dq at 64 x 64 only (two q-heads of 128
+    rows are 512 threads, 128 registers a thread; 128-key tiles 256
+    registers) with dk/dv at 64 or 128 keys and 16 or 32 queries (64-query
+    steps 286 registers); the fp32 pair's 16- or 32-key dq tiles and 8- or
+    16-query dk/dv steps."""
+    def tiles(kernel, dtype, names):
+        return [tuple(c[n] for n in names) for c in search_space(kernel, QWEN3, dtype, "cuda")[0]]
+
+    assert tiles("flash_fwd", "float32", ("block_q", "block_k")) == [(64, 16), (128, 16), (64, 32)]
+    pair = ("dq_block_q", "dq_block_k", "dkv_block_k", "dkv_block_q")
+    assert tiles("flash_bwd", "bfloat16", pair) == [
+        (64, 64, 64, 16), (64, 64, 64, 32), (64, 64, 128, 16), (64, 64, 128, 32)]
+    assert tiles("flash_bwd", "float32", pair) == [
+        (64, 16, 64, 8), (64, 32, 64, 8), (64, 16, 64, 16), (64, 32, 64, 16)]
+
+
+def test_tile_smem_bytes_is_the_reckoning():
+    """The shared memory of each kernel at a few tiles, reckoned here
+    buffer by buffer as its source lays them out, and 1,024 bytes to align
+    them."""
+    fp32 = lambda shape, bq, bk: space.smem_bytes(  # noqa: E731
+        "flash_fwd", shape, {"block_q": bq, "block_k": bk}, "float32")
+    # Q hi and lo a row warpgroup; 2 stages of K and V; K lo; V^T hi, lo
+    assert fp32(QWEN3, 64, 32) == 4 * (2 * 64 * 128 + 2 * 32 * 256 + 32 * 128
+                                       + 2 * 32 * 128) + 1024 == 181_248
+    assert fp32(QWEN3, 128, 16) == 4 * (4 * 64 * 128 + 2 * 16 * 256 + 16 * 128
+                                        + 2 * 16 * 128) + 1024 == 189_440
+    assert fp32(MINICPM3, 64, 16) == 4 * (2 * 64 * 96 + 2 * 16 * 160 + 16 * 96
+                                          + 2 * 16 * 64) + 1024 == 84_992
+    pair = lambda shape, dt, **t: space.bwd_smem_bytes(  # noqa: E731
+        shape, dict(space.default_config("flash_bwd", "cuda", dt), **t), dt)
+    # fp32 dq: Q, dO hi and lo; K, V hi and lo; K^T hi and lo
+    assert pair(QWEN3, "float32")["dq"] == 4 * (2 * 64 * 256 + 2 * 32 * 256
+                                                + 2 * 32 * 128) + 1024 == 230_400
+    assert pair(QWEN3, "float32", dq_block_k=16)["dq"] == 4 * (
+        2 * 64 * 256 + 2 * 16 * 256 + 2 * 16 * 128) + 1024
+    # fp32 dk/dv: K, V hi and lo; the raw stage; Q, dO hi, lo, transposed
+    # hi, lo; the swap of two warpgroups' S^T and dP^T (8 queries: 4 each)
+    assert pair(QWEN3, "float32", dkv_block_q=8)["dkv"] == 4 * (
+        2 * 64 * 256 + 5 * 8 * 256) + 2 * 2 * 4 * 128 * 4 + 1024 == 181_248
+    # bf16 dq: a (Q, dO) pair a warpgroup (2 q-heads), the 2-stage K/V ring
+    assert pair(QWEN3, "bfloat16")["dq"] == 2 * (2 * 64 * 256 + 2 * 64 * 256) + 1024
+    # bf16 dk/dv at 128 keys: K and V, one shared ring of 3 (Q, dO) stages
+    assert pair(QWEN3, "bfloat16", dkv_block_k=128)["dkv"] == (
+        2 * 128 * 256 + 3 * 2 * 32 * 256 + 1024) == 115_712
+    # at 64 keys and 16 queries the two rings (48 KB) are smaller than
+    # warpgroup 1's dK and dV (64 KB), which pass through them
+    assert pair(QWEN3, "bfloat16", dkv_block_q=16)["dkv"] == (
+        2 * 64 * 256 + (64 + 64) * 128 * 4 + 1024) == 99_328
+    assert pair(QWEN3, "bfloat16")["dkv"] == 2 * 64 * 256 + 2 * 3 * 2 * 32 * 256 + 1024
+
+
+def test_tile_register_rules():
+    """The register rules as ptxas reported every instantiation on the
+    card: the bf16 dq spills at 512 threads (two q-heads x 128 rows) but
+    at D = 64 and 32 with 64-key tiles, and the bf16 dk/dv at D = 128 with
+    64-query steps; the others fit.  The untuned tiles are always built."""
+    bf, f32 = "bfloat16", "float32"
+    base = {dt: space.default_config("flash_bwd", "cuda", dt) for dt in (bf, f32)}
+    for D, Dv in ((32, 32), (64, 64)):
+        g2 = {"H": 2, "K": 1, "D": D, "Dv": Dv}
+        assert space.instantiated("flash_bwd", g2, dict(base[bf], dq_block_q=128), bf, "dq")
+        assert not space.instantiated("flash_bwd", g2, dict(base[bf], dq_block_q=128,
+                                                             dq_block_k=128), bf, "dq")
+    for D, Dv in ((96, 96), (96, 64), (128, 128)):
+        g2 = {"H": 2, "K": 1, "D": D, "Dv": Dv}
+        need, cap = space.bwd_registers("dq", bf, g2, dict(base[bf], dq_block_q=128))
+        assert cap == 128 and need > cap
+        assert not space.instantiated("flash_bwd", g2, dict(base[bf], dq_block_q=128), bf, "dq")
+        g1 = {"H": 1, "K": 1, "D": D, "Dv": Dv}
+        assert space.instantiated("flash_bwd", g1, dict(base[bf], dq_block_q=128), bf, "dq")
+    d128 = {"H": 1, "K": 1, "D": 128, "Dv": 128}
+    assert not space.instantiated("flash_bwd", d128, dict(base[bf], dkv_block_q=64), bf, "dkv")
+    assert space.instantiated("flash_bwd", dict(d128, D=96, Dv=96),
+                              dict(base[bf], dkv_block_q=64), bf, "dkv")
+    for dt in (bf, f32):
+        for D, Dv in space.HEAD_PAIRS:
+            shape = {"H": 2, "K": 1, "D": D, "Dv": Dv}
+            assert space.instantiated("flash_bwd", shape, base[dt], dt)
+            assert space.instantiated("flash_fwd", shape, {"block_q": 64, "block_k": 32}, f32)
+    # no fp32 tile that fits a block's shared memory needs more registers
+    # than a thread has
+    for D, Dv in space.HEAD_PAIRS:
+        for bq, bk in ((64, 16), (64, 64), (128, 16), (128, 32), (128, 64)):
+            shape = {"H": 1, "K": 1, "D": D, "Dv": Dv}
+            cfg = {"block_q": bq, "block_k": bk}
+            fits = space.smem_bytes("flash_fwd", shape, cfg, f32) <= space.SMEM_BYTES
+            assert space.instantiated("flash_fwd", shape, cfg, f32) == fits
+
+
+def test_tile_resolution_and_validation_raise_by_name():
+    """A well-formed tile the knob does not take degrades to one it does
+    (at least its smallest, at most the dim rounded up to 64); a malformed
+    one, or one the kernel is not built for, raises naming it."""
+    cfg = resolve_config("flash_bwd", QWEN3, {"dq_block_q": 64, "dq_block_k": 48,
+                                              "dkv_block_k": 64, "dkv_block_q": 12},
+                         "cuda", "float32")
+    assert cfg == {"dq_block_q": 64, "dq_block_k": 32, "dkv_block_k": 64, "dkv_block_q": 8}
+    short = dict(QWEN3, Sq=13, Skv=13)
+    cfg = resolve_config("flash_bwd", short, {"dq_block_q": 128, "dq_block_k": 128,
+                                              "dkv_block_k": 128, "dkv_block_q": 64},
+                         "cuda", "bfloat16")
+    assert cfg == {"dq_block_q": 64, "dq_block_k": 64, "dkv_block_k": 64, "dkv_block_q": 64}
+    assert resolve_config("flash_fwd", short, {"block_q": 128, "block_k": 8}, "cuda",
+                          "float32") == {"block_q": 64, "block_k": 16}
+    for bad in (0, True, -16, 2.0):
+        with pytest.raises(KernelConfigError, match="dkv_block_q"):
+            resolve_config("flash_bwd", QWEN3, {"dkv_block_q": bad}, "cuda", "bfloat16")
+    with pytest.raises(KernelConfigError, match="dkv_block_q=12"):
+        validate_config("flash_bwd", QWEN3, dict(space.default_config(
+            "flash_bwd", "cuda", "float32"), dkv_block_q=12), "cuda", "float32")
+    with pytest.raises(KernelConfigError, match="missing 'dq_block_k'"):
+        validate_config("flash_bwd", QWEN3, {"dq_block_q": 64}, "cuda", "bfloat16")
+    with pytest.raises(KernelConfigError, match="registers"):
+        validate_config("flash_bwd", QWEN3, dict(space.default_config(
+            "flash_bwd", "cuda", "bfloat16"), dq_block_k=128), "cuda", "bfloat16")
+    with pytest.raises(KernelConfigError, match="shared memory"):
+        validate_config("flash_fwd", QWEN3, {"block_q": 128, "block_k": 32}, "cuda",
+                        "float32")
+
+
+def test_scripted_cost_of_the_pairs_knobs():
+    """The pair's four tiles: a cost for each candidate, finite, positive
+    and seed-dependent, with one cheapest candidate (the winner successive
+    halving converges on), the dq kernel's part and the dk/dv kernel's
+    each moving with their own tiles."""
+    cands, _ = search_space("flash_bwd", MINICPM3, "bfloat16", "cuda")
+    costs = [scripted_cost_us("flash_bwd", MINICPM3, c, seed=1, noise=0.0) for c in cands]
+    assert all(np.isfinite(costs)) and min(costs) > 0 and costs.count(min(costs)) == 1
+    c = cands[0]
+    assert (scripted_cost_us("flash_bwd", MINICPM3, c, seed=1)
+            != scripted_cost_us("flash_bwd", MINICPM3, c, seed=2))
+    for knob, value in (("dq_block_k", 128), ("dkv_block_k", 128)):
+        other = dict(c, **{knob: value})
+        assert (scripted_cost_us("flash_bwd", MINICPM3, other, noise=0.0)
+                != scripted_cost_us("flash_bwd", MINICPM3, c, noise=0.0))
+
+
+def test_a_flash_bwd_cache_entry_reaches_the_backward_probe(tmp_path):
+    """A ``flash_bwd`` entry is what ``backward_tiles`` resolves for a
+    call that names no tiles (the wrapper's probe on the call's raw dims),
+    the untuned tiles on a miss and without a cache; CPU tensors still
+    take the plain backward, build and launch nothing."""
+    fl = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+
+    bf = torch.bfloat16
+    dims = tuple(QWEN3[n] for n in ("B", "Sq", "Skv", "H", "K", "D", "Dv"))
+    assert fl.backward_tiles(bf, *dims) == (64, 64, 64, 32)
+    assert fl.backward_tiles(torch.float32, *dims) == (64, 32, 64, 16)
+    cache = TuningCache(str(tmp_path / "tune.json"))
+    cache.put("flash_bwd", QWEN3, "bfloat16", "cuda",
+              {"dq_block_q": 64, "dq_block_k": 64, "dkv_block_k": 128, "dkv_block_q": 16}, 1.0)
+    cache.put("flash_fwd", QWEN3, "float32", "cuda", {"block_q": 128, "block_k": 16}, 1.0)
+    set_cache(TuningCache(str(tmp_path / "tune.json")))  # reloaded from disk
+    assert fl.backward_tiles(bf, *dims) == (64, 64, 128, 16)
+    assert fl.backward_tiles(bf, *dims, dkv_block_q=32) == (64, 64, 128, 32)
+    assert fl.backward_tiles(torch.float32, *dims) == (64, 32, 64, 16)  # a miss
+    assert fl.forward_tiles(torch.float32, *dims) == (128, 16)
+    rng = np.random.default_rng(5)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(s, np.float32)) for s in
+                  ((1, 9, 4, 32), (1, 9, 2, 32), (1, 9, 2, 32), (1, 9, 4, 32)))
+    out, lse = fl.flash_attention_plain(q, k, v)
+    kerns = fl.backward_kernels(torch.float32) + fl.backward_kernels(bf)
+    before = [kern.launches for kern in kerns]
+    got = fl.flash_attention_bwd(q, k, v, out, lse, g, dkv_block_q=8)
+    want = fl.flash_attention_bwd_plain(q, k, v, out, lse, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [kern.launches for kern in kerns] == before
+    assert all(kern._fn is None for kern in kerns)
 
 
 # ---------------- cache ---------------------------------------------- #
@@ -467,6 +680,7 @@ def test_scripted_cost_pure_function(pkg):
     ("mamba", {"b": 2, "s": 1024, "d": 128, "n": 16}),
     ("flash_fwd", {"B": 1, "Sq": 1024, "Skv": 1024, "H": 8, "K": 2, "D": 64, "Dv": 64}),
     ("decode", {"B": 2, "S": 2048, "H": 8, "K": 2, "D": 64, "Dv": 64}),
+    ("flash_bwd", {"B": 1, "Sq": 1024, "Skv": 1024, "H": 8, "K": 2, "D": 64, "Dv": 64}),
 ])
 def test_scripted_cost_equals_the_references(kernel, shape):
     """Value for value on every reference candidate: the same knobs, the
@@ -606,6 +820,9 @@ def _sim_sweep(pkg="repro_torch", seed=3, kernel="xla_flash", shape=SIM_SHAPE,
     ("flash_fwd", dict(QWEN3, H=40), "bfloat16", "cuda"),
     ("decode", SHAPES[("decode", "cuda", "bfloat16")], "bfloat16", "cuda"),
     ("mamba", SHAPES[("mamba", "cuda", "float32")], "float32", "cuda"),
+    ("flash_fwd", dict(QWEN3, H=40, K=40, D=96, Dv=64), "float32", "cuda"),
+    ("flash_bwd", dict(QWEN3, H=40, K=40, D=96, Dv=64), "bfloat16", "cuda"),
+    ("flash_bwd", QWEN3, "float32", "cuda"),
 ])
 def test_sim_sweep_same_seed_identical_winner_and_trace(kernel, shape, dtype, backend):
     r1, t1 = _sim_sweep(kernel=kernel, shape=shape, dtype=dtype, backend=backend)
