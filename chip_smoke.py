@@ -10,8 +10,8 @@ phi-3-vision-4.2b and whisper-tiny; serving and sync training of the MoE
 family, llama4-maverick and arctic; serving jamba-1.5-large-398b, the
 hybrid of Mamba, attention and MoE, and one request of it at long
 context; a training step and serving of minicpm3-4b and phi-3-vision-4.2b
-in fp32; model programs batched through ``Service.execute_batch``; the
-port's two examples — and holds every hand-written kernel of those paths
+in fp32; model programs and training programs batched through
+``Service.execute_batch``; the port's two examples — and holds every hand-written kernel of those paths
 against its plain PyTorch version.  Phases, in order; any
 failure raises and exits non-zero:
 
@@ -295,7 +295,24 @@ failure raises and exits non-zero:
     one qwen3-1.7B training step at full width, TRAIN_LAYERS layers, in
     bf16 and fp32 through the winners' cache and through the runners-up:
     one dq and one dk/dv a layer, gradients held to phase 7's
-    TRAIN_LIMITS against the untuned kernels.
+    TRAIN_LIMITS against the untuned kernels;
+24. training programs batched through ``Service.execute_batch``: the scan
+    kernel with one ``A`` a batch row (b, d, n) at falcon-mamba's width
+    held to the plain scan (phase 9's check, a ragged s too) and, every
+    row's A the shared one, bit-identical to the stride-0 launch; then the
+    local-SGD round (``make_local_round_program``, FARM_INNER AdamW steps
+    a task) of BATCH_TRAIN's configurations, its tasks as one
+    ``execute_batch`` (``torch.func.vmap`` of ``torch.func.grad``, each
+    task with its own weights, gradients, AdamW state and delta) and the
+    same tasks one at a time through ``Service.execute``: the batched call
+    launches each kernel exactly as often as one task (the flash forward,
+    dq, dk/dv and the scan, each through its vmap rule); each task's round
+    loss, and a held-out batch's loss after its batched delta against
+    after its per-task one, within its BATCH_TRAIN loss limit, one inner
+    step's gradients within its gradient limit, the deltas' difference
+    read; wall times and peak memory printed beside the reckoned state;
+    qwen3's tasks then through ``BasicClient`` at ``max_batch`` = their
+    number on one service: one lease, one call, the direct call's results.
 
 The line before the last is a JSON object with each kernel's numbers, one
 row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
@@ -715,6 +732,44 @@ BATCH_DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # compute capability 9.0); the card has 132 SMs
 MUFU_PER_CLOCK_SM, SMS = 16, 132
 SCAN_FLOP_PER_ELEMENT = 6  # dt*A, h*dA, dx*B, +, C*h, + per (b, s, d, n)
+# Phase 24: the local-SGD round of each configuration, at full width, its
+# tasks as one execute_batch and one at a time: (arch, layers, dtype,
+# tasks, experts (None: as published), limits on |dloss| and on the
+# largest per-group relative gradient difference).  The limits are the
+# training ones already held: phase 7's TRAIN_LIMITS in bf16 and fp32
+# (folding makes every GEMM a batched GEMM, whose one-ulp flips depth
+# carries as in phase 7's kernels-vs-plain step), and llama4's phase 18
+# FAMILY_TRAIN_LIMITS, whose routing can flip with those ulps.  The loss
+# limit holds each task's round loss and the loss a held-out batch scores
+# after its batched delta against after its per-task one; the gradient
+# limit holds one inner step's gradients.  The deltas themselves are
+# read, not held to the gradient limit: AdamW divides each element by its
+# own gradient scale, so an element's last-bit gradient difference
+# becomes a difference of its update, and a bf16 weight rounds an update
+# of ~2.5 of its ulps, so a last-bit change flips that rounding (this
+# script's readings on an H100 for qwen3: 5.0e-2 per group in bf16 where
+# the gradients differ by 1.2e-2, 6.3e-5 in fp32, the losses
+# bit-identical; see PERF.md).  qwen3-1.7B's 4 tasks are phase 8's round (FARM_LAYERS,
+# FARM_SHARDS, FARM_INNER, FARM_BATCH x TRAIN_SEQ): a task holds its
+# stacked payload, a working copy, gradients and AdamW moments (3 x 2 +
+# 8 = 14 B a parameter in bf16 with fp32 moments, an fp32 delta after
+# the moments are freed), 10 GB a task at 0.714 B parameters.  llama4's
+# two tasks need its experts cut from phase 18's 32 to
+# BATCH_TRAIN_EXPERTS: its untied 202,048 x 5,120 embedding and head are
+# 2.07 B parameters before any expert, 10 B a parameter a task (bf16
+# moments) beside the client's weights and each task's fp32 loss table and
+# its gradient (8.3 GB a task), so 2 experts (2.72 B parameters) reckon
+# ~69 GB, where phase 18 read 55.21 GB for one task at 32.
+BATCH_TRAIN_EXPERTS = 2
+BATCH_TRAIN = (
+    ("qwen3_1p7b", FARM_LAYERS, torch.bfloat16, FARM_SHARDS, None, TRAIN_LIMITS[torch.bfloat16]),
+    ("qwen3_1p7b", 2, torch.float32, 2, None, TRAIN_LIMITS[torch.float32]),
+    ("falcon_mamba_7b", 2, torch.bfloat16, 2, None, TRAIN_LIMITS[torch.bfloat16]),
+    ("llama4_maverick_400b_a17b", 2, torch.bfloat16, 2, BATCH_TRAIN_EXPERTS,
+     FAMILY_TRAIN_LIMITS["llama4_maverick_400b_a17b"]),
+)
+# the scan with one A a batch row: falcon-mamba's serve shape and a ragged s
+BATCH_SCAN_SHAPES = ((PER_TASK, PROMPT, 8192, 16), (3, 333, 8192, 16))
 # Phase 23: the autotuner (repro_torch.tune) on the card.  Its sweeps run
 # at the main paths' shapes: the bf16 flash forward's tiles at qwen3's
 # prefill (G = 2: two q-heads a block) and llama4's (G = 5: one); decode's
@@ -3394,6 +3449,223 @@ def batched_family(arch, layers, dtype, limits, dev, kernels):
     torch.cuda.empty_cache()
 
 
+def per_row_scan_checks(scan):
+    """Phase 24's direct check: the scan kernel with A (b, d, n), one
+    matrix a batch row (how a folded batch of training tasks gives it),
+    against the plain scan at phase 9's limits; and with every row's A the
+    shared one, the (b, d, n) launch bit-identical to the stride-0 launch
+    of the (d, n) matrix."""
+    for b, s, d, n in BATCH_SCAN_SHAPES:
+        x, dt, A, B, C = scan_inputs(b, s, d, n, 61)
+        rows = torch.stack([A * (1.0 + 0.1 * i) for i in range(b)])
+        got, ref = scan.mamba_scan_fwd(x, dt, rows, B, C), scan.mamba_scan_plain(x, dt, rows, B, C)
+        for name, a, r in zip(("y", "h_final"), got, ref):
+            check(f"scan one A a row ({b}, {s}, {d}, {n}) {name}", a, r, SCAN_TOL, SCAN_TOL)
+        shared = scan.mamba_scan_fwd(x, dt, A, B, C)
+        strided = scan.mamba_scan_fwd(x, dt, A.expand(b, d, n), B, C)
+        same = all(torch.equal(a, r) for a, r in zip(strided, shared))
+        say(f"  scan ({b}, {s}, {d}, {n}): the shared A as one a row (batch stride d n) "
+            f"against the stride-0 launch: {'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError("the scan reads a row's A otherwise than the shared A")
+        del x, dt, A, B, C, rows, got, ref, shared, strided
+    torch.cuda.synchronize()
+
+
+def device_batch(batch, dev):
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def worst_group_delta(got, ref) -> float:
+    """The largest per-group (``group_of``) ||got - ref|| / ||ref||."""
+    acc: dict = {}
+    for name in ref:
+        d = (got[name].float() - ref[name].float()).square().sum()
+        r = ref[name].float().square().sum()
+        a, b = acc.get(group_of(name), (0.0, 0.0))
+        acc[group_of(name)] = (a + d, b + r)
+    return max((d.sqrt() / r.sqrt().clamp_min(1e-30)).item() for d, r in acc.values())
+
+
+def round_launches(cfg, dtype, kernels):
+    """One task's launches in a round of FARM_INNER steps: each attention
+    layer's forward (twice with remat) and its dq and dk/dv, each Mamba
+    layer's scan (twice with remat); and the rule calls a batched call
+    makes for them, one a launch."""
+    n_attn = sum(s.mixer == "attn" for s in cfg.pattern) * cfg.n_layers // len(cfg.pattern)
+    again = 2 if cfg.remat else 1
+    fwd, dq, dkv = BF16_TRAIN_KERNELS if dtype == torch.bfloat16 else FP32_TRAIN_KERNELS
+    want = {kern.name: 0 for kern in kernels.KERNELS}
+    want.update({fwd: FARM_INNER * n_attn * again, dq: FARM_INNER * n_attn,
+                 dkv: FARM_INNER * n_attn,
+                 "mamba_scan_sm90": FARM_INNER * (cfg.n_layers - n_attn) * again})
+    rules = {"rule flash_attention_fwd": want[fwd], "rule flash_attention_bwd": want[dq],
+             "rule decode_attention_fwd": 0, "rule mamba_scan": want["mamba_scan_sm90"]}
+    return want, rules
+
+
+def batched_train_case(arch, layers, dtype, tasks, experts, limits, dev, kernels):
+    """Phase 24 on one configuration of BATCH_TRAIN: the round's ``tasks``
+    tasks as one execute_batch (after a first, cold call) and one at a
+    time: launches, wall times, peak memory; each task's round loss, and
+    the loss of a held-out batch after its batched and its per-task delta,
+    within the loss limit; the deltas' per-group difference read; one
+    inner step's gradients of each task, batched against per task, within
+    the gradient limit (phase 7's metric); qwen3 in bf16 then through
+    BasicClient.  Returns the batched call's launch counts."""
+    import repro_torch.configs as cfgs
+    from repro_torch.core import BasicClient, LookupService, Service
+    from repro_torch.models import build
+    from repro_torch.models.registry import skeleton
+    from repro_torch.runtime.local_sgd import (LocalSGDConfig, make_local_round_program,
+                                               markov_batch)
+    from repro_torch.runtime.train_loop import TrainConfig, functional_loss_and_grads
+
+    full = cfgs.get(arch)
+    cfg = full.replace(n_layers=layers)
+    cuts = [f"n_layers {full.n_layers} -> {layers}"]
+    if experts is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, n_experts=experts))
+        cuts.append(f"n_experts {full.moe.n_experts} -> {experts}")
+    if dtype == torch.float32:
+        cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    api = build(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(SEED))
+    params.head().drop_f32()
+    n = sum(p.numel() for p in params.parameters())
+    wb = params.embed.table.element_size()
+    mb = {"float32": 8, "bfloat16": 4, "int8": 2 + 16 / 256}[cfg.opt_state_dtype]
+    table = 2 * cfg.vocab_size * cfg.d_model * 4
+    reckoned = (n * wb + tasks * (n * (3 * wb + mb) + table)) / 1e9
+    say(f"  {cfg.name} in {str(dtype)[6:]}: {n / 1e9:.3f} B params, {tasks} tasks of "
+        f"{FARM_INNER} AdamW steps ({cfg.opt_state_dtype} moments{', remat' if cfg.remat else ''}) "
+        f"on {FARM_BATCH} x {TRAIN_SEQ} tokens; reduced: "
+        + json.dumps(cuts + ["widths as published"])
+        + f"; reckoned peak {reckoned:.1f} GB (the client's weights; a task's stacked copy, "
+          "working copy, gradients and moments; its fp32 loss table and table gradient)")
+    tc = TrainConfig(lr=3e-4, warmup_steps=1, total_steps=100, seed=SEED)
+    ls = LocalSGDConfig(inner_steps=FARM_INNER, n_shards=tasks, batch_per_shard=FARM_BATCH,
+                        seq_len=TRAIN_SEQ)
+    perm = np.random.default_rng(SEED).permutation(cfg.vocab_size).astype("int32")
+    program = make_local_round_program(api, tc, ls, perm, skeleton=params)
+    weights = dict(params.named_parameters())
+    payloads = [{"params": weights, "round": 0, "shard": i} for i in range(tasks)]
+    svc = Service(None, device=dev)
+    want, rules = round_launches(cfg, dtype, kernels)
+
+    def run(fn):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, wall, launch_counts(kernels), torch.cuda.max_memory_allocated() / 1e9
+
+    _, wall_cold, _, _ = run(lambda: svc.execute_batch(program, payloads))
+    bat, wall_bat, got, peak_bat = run(lambda: svc.execute_batch(program, payloads))
+    say(f"  {tasks} tasks as one execute_batch: {wall_bat:.3f} s (the first call "
+        f"{wall_cold:.3f} s), peak {peak_bat:.2f} GB, launches {got}")
+    if any(got[k] != v for k, v in {**want, **rules}.items()):
+        raise AssertionError(f"{cfg.name}: the batched round's launches are not one task's, "
+                             "through the rules")
+    loss_lim, grad_lim = limits
+    sk = skeleton(params)
+    held_out = device_batch(markov_batch(perm, SEED, 99, 0, 0, FARM_BATCH, TRAIN_SEQ), dev)
+
+    def held_out_loss(delta):
+        with torch.no_grad():
+            moved = {k: (p.float() + delta[k]).to(p.dtype) for k, p in weights.items()}
+            return torch.func.functional_call(sk, moved, (held_out,))[0].item()
+
+    before = held_out_loss({k: torch.zeros((), device=dev) for k in weights})
+    # the same tasks one at a time, each compared with its batched result and
+    # freed before the next (a task's fp32 delta is 10.8 GB for llama4)
+    wall_per, got_per, peak_per = 0.0, {}, 0.0
+    for i, (payload, b) in enumerate(zip(payloads, bat)):
+        p, wall, counts, peak = run(lambda: svc.execute(program, payload))
+        wall_per, peak_per = wall_per + wall, max(peak_per, peak)
+        got_per = {k: got_per.get(k, 0) + v for k, v in counts.items()}
+        dloss = abs(b["loss"].item() - p["loss"].item())
+        after_b, after_p = held_out_loss(b["delta"]), held_out_loss(p["delta"])
+        worst = worst_group_delta(b["delta"], p["delta"])
+        say(f"  task {i}: round loss batched {b['loss'].item():.6f}, per task "
+            f"{p['loss'].item():.6f}: |dloss| {dloss:.3e} (limit {loss_lim:g}); a held-out "
+            f"batch's loss {before:.6f} before, after the batched delta {after_b:.6f}, after "
+            f"the per-task delta {after_p:.6f}: |difference| {abs(after_b - after_p):.3e} (limit "
+            f"{loss_lim:g}); largest per-group relative delta difference {worst:.3e} (read, "
+            "not held: see BATCH_TRAIN)")
+        finite = all(torch.isfinite(d).all() for d in b["delta"].values())
+        if not (np.isfinite(b["loss"].item()) and finite and dloss <= loss_lim
+                and abs(after_b - after_p) <= loss_lim):
+            raise AssertionError(f"{cfg.name}: batched task {i} disagrees with its per-task round")
+        del p
+    say(f"  the same {tasks} one at a time: {wall_per:.3f} s, peak {peak_per:.2f} GB (the "
+        f"batched results held), launches {got_per}; one task's {want}")
+    if any(got_per[k] != tasks * v for k, v in want.items()) or any(got_per[k] for k in rules):
+        raise AssertionError(f"{cfg.name}: the per-task rounds' launches changed")
+    if arch == ARCH and dtype == torch.bfloat16:
+        lookup = LookupService()
+        farm = Service(lookup, device=dev)
+        farm.start()
+        out = []
+        client = BasicClient(program, None, payloads, out, lookup=lookup, max_batch=tasks,
+                             adaptive_batching=False)
+        t0 = time.perf_counter()
+        client.compute(timeout=600)
+        wall = time.perf_counter() - t0
+        stats = client.stats()
+        calls = sum(b["batches_dispatched"] for b in stats["batching"].values())
+        same = all(torch.equal(o["loss"], b["loss"]) and all(
+            torch.equal(o["delta"][k], b["delta"][k]) for k in weights) for o, b in zip(out, bat))
+        say(f"  BasicClient, max_batch={tasks}, one service: {stats['done']} tasks in {calls} "
+            f"call(s), {wall:.3f} s; results equal to the direct call's: {same}")
+        if stats["done"] != tasks or calls != 1 or not same:
+            raise AssertionError("the farm's batched round is not the direct call")
+        farm.drop_programs()
+        farm.kill()
+        del out
+    del bat
+    # one inner step's gradients of every task, batched against per task:
+    # phase 7's metric, at its limit
+    first = [device_batch(markov_batch(perm, SEED, 0, i, 0, FARM_BATCH, TRAIN_SEQ), dev)
+             for i in range(tasks)]
+    stacked = {k: torch.stack([p] * tasks) for k, p in weights.items()}
+    _, _, g_bat = torch.func.vmap(lambda w, b: functional_loss_and_grads(sk, w, b))(
+        stacked, {k: torch.stack([f[k] for f in first]) for k in first[0]})
+    del stacked
+    for i in range(tasks):
+        _, _, g_task = functional_loss_and_grads(sk, weights, first[i])
+        worst = worst_group_delta({k: g[i] for k, g in g_bat.items()}, g_task)
+        say(f"  task {i}: step 0's gradients, batched vs per task: largest per-group relative "
+            f"difference {worst:.3e} (limit {grad_lim:g})")
+        if not worst <= grad_lim:
+            raise AssertionError(f"{cfg.name}: batched task {i}'s gradients disagree")
+        del g_task
+    del g_bat
+    svc.drop_programs()
+    del api, params, weights, payloads, program, sk
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def batched_train_phase(scan, dev, kernels):
+    """Phase 24: the scan with one A a row, then BATCH_TRAIN's rounds.
+    Returns each configuration's batched launches by (arch, dtype)."""
+    t0 = time.perf_counter()
+    say(f"  {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the phase")
+    per_row_scan_checks(scan)
+    counts = {}
+    for arch, layers, dtype, tasks, experts, limits in BATCH_TRAIN:
+        counts[arch, dtype] = batched_train_case(arch, layers, dtype, tasks, experts, limits,
+                                                 dev, kernels)
+    say(f"  phase 24 took {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def examples_phase():
     """Phase 22: the port's three examples on the card at their defaults,
     as a user runs them, side by side (one process each, the kernels this
@@ -4263,6 +4535,10 @@ def main() -> int:
     phase("phase 23: the autotuner (repro_torch.tune) on the card")
     tune_phase(cfg, dev, kernels, flash, decode, scan, logs, build_s,
                k_rows["flash"]["host_us"], launches)
+
+    phase("phase 24: training programs batched through Service.execute_batch (the "
+          "local-SGD round under vmap(grad), each kernel folded)")
+    batched_train_phase(scan, dev, kernels)
 
     say(f"all phases in {time.perf_counter() - START:.1f} s")
     # the kernels line: (name, kernel, its times, its largest |error|, the

@@ -92,7 +92,8 @@ scan_sm90_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ Cm, const float* __restrict__ h0,
                  float* __restrict__ y, float* __restrict__ hf, int s, int d, int n,
                  long long sxb, long long sxt, long long sdb, long long sdt, long long sbb,
-                 long long sbt, long long scb, long long sct, int x16, int bc16) {
+                 long long sbt, long long scb, long long sct, long long sab, int x16,
+                 int bc16) {
   using Q = Geo<G, NS>;
   constexpr int DC = Q::DC, NW = Q::NW;
   extern __shared__ __align__(16) float smem[];
@@ -168,7 +169,7 @@ scan_sm90_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   for (int k = 0; k < NS; ++k) {
     const int st = g * NS + k;
     const bool on = live && st < n;
-    a2[k] = on ? A[static_cast<size_t>(ch) * n + st] * kLog2e : 0.f;
+    a2[k] = on ? A[b * sab + static_cast<size_t>(ch) * n + st] * kLog2e : 0.f;
     h[k] = (on && h0 != nullptr) ? h0[(static_cast<size_t>(b) * d + ch) * n + st] : 0.f;
   }
   float* yb = y + static_cast<size_t>(b) * s * d + ch;
@@ -226,7 +227,7 @@ struct Args {
   const float *x, *dt, *A, *B, *C, *h0;
   float *y, *hf;
   int b, s, d, n;
-  long long sxb, sxt, sdb, sdt, sbb, sbt, scb, sct;
+  long long sxb, sxt, sdb, sdt, sbb, sbt, scb, sct, sab;
 };
 
 template <int G, int NS>
@@ -248,7 +249,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.d + Q::DC - 1) / Q::DC, a.b);
   scan_sm90_kernel<G, NS><<<grid, THREADS, Q::BYTES, stream>>>(
       a.x, a.dt, a.A, a.B, a.C, a.h0, a.y, a.hf, a.s, a.d, a.n, a.sxb, a.sxt, a.sdb, a.sdt,
-      a.sbb, a.sbt, a.scb, a.sct, x16, bc16);
+      a.sbb, a.sbt, a.scb, a.sct, a.sab, x16, bc16);
   return cudaGetLastError();
 }
 
@@ -267,13 +268,13 @@ bool geometry(int n, int lanes, int* G, int* NS) {
 int run(const void* x, const void* dt, const void* A, const void* B, const void* C,
         const void* h0, void* y, void* hf, int b, int s, int d, int n, long long sxb,
         long long sxt, long long sdb, long long sdt, long long sbb, long long sbt,
-        long long scb, long long sct, int lanes, void* stream) {
+        long long scb, long long sct, long long sab, int lanes, void* stream) {
   if (b < 1 || b > 65535 || s < 1 || d < 1 || n < 1 || n > 32) return cudaErrorInvalidValue;
   const Args a{static_cast<const float*>(x), static_cast<const float*>(dt),
                static_cast<const float*>(A), static_cast<const float*>(B),
                static_cast<const float*>(C), static_cast<const float*>(h0),
                static_cast<float*>(y), static_cast<float*>(hf), b, s, d, n,
-               sxb, sxt, sdb, sdt, sbb, sbt, scb, sct};
+               sxb, sxt, sdb, sdt, sbb, sbt, scb, sct, sab};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int G, NS;
   if (!geometry(n, lanes, &G, &NS)) return cudaErrorInvalidValue;
@@ -286,8 +287,9 @@ int run(const void* x, const void* dt, const void* A, const void* B, const void*
 }  // namespace
 
 // x, dt (b,s,d) and B, C (b,s,n): fp32 with unit stride along the last axis,
-// batch and time strides given (in elements).  A (d,n), h0 (b,d,n) or null:
-// contiguous fp32.  Outputs y (b,s,d) and hf (b,d,n): contiguous fp32.
+// batch and time strides given (in elements).  A: contiguous fp32, (d,n) for the
+// whole batch at batch stride sab = 0, or (b,d,n) at sab = d*n; h0 (b,d,n) or
+// null: contiguous fp32.  Outputs y (b,s,d) and hf (b,d,n): contiguous fp32.
 // 1 <= n <= 32, b <= 65535; lanes a channel 1, 2 or 4 at n <= 16, 2 at
 // n <= 32, or 0 for `geometry`'s.  Returns the cudaError_t of the launch
 // (cudaErrorInvalidValue for other lanes).
@@ -296,9 +298,10 @@ extern "C" int repro_mamba_scan_fwd(const void* x, const void* dt, const void* A
                                     void* y, void* hf, int b, int s, int d, int n,
                                     long long sxb, long long sxt, long long sdb,
                                     long long sdt, long long sbb, long long sbt,
-                                    long long scb, long long sct, int lanes, void* stream) {
+                                    long long scb, long long sct, long long sab, int lanes,
+                                    void* stream) {
   return run(x, dt, A, B, C, h0, y, hf, b, s, d, n, sxb, sxt, sdb, sdt, sbb, sbt, scb, sct,
-             lanes, stream);
+             sab, lanes, stream);
 }
 
 // A block's dynamic shared memory (its tile ring) at state size n and

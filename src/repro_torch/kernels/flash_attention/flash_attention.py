@@ -35,9 +35,11 @@ x 32 queries, the fp32 pair dq 64 x 32 and dk/dv 64 x 16.  A training step
 under ``repro_torch.tune.configure(path)`` runs the tuned pair.
 
 Under ``torch.func.vmap`` (``Service.execute_batch``) the forward goes
-through the custom op ``repro_torch::flash_attention_fwd``, whose vmap
-rule folds the tasks into B and launches once (``kernels/batched.py``),
-so a folded call reads the cache at its folded batch.
+through the custom op ``repro_torch::flash_attention_fwd`` and the
+backward through ``repro_torch::flash_attention_bwd``, whose vmap rules
+fold the tasks into B and launch once (the backward: one dq and one
+dk/dv launch, lse and Dvec folded with B; ``kernels/batched.py``), so a
+folded call reads the cache at its folded batch.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ from ...tune.cache import ConfigProbe, get_cache
 from ...tune.space import (KernelConfigError, default_config, flash_heads_a_block,
                            resolve_config, validate_config)
 from .. import head_dims
-from ..batched import fold, under_vmap, unfold
+from ..batched import fold, under_transform, under_vmap, unfold, unwrapped
 from ..build import CudaKernel
 
 NEG_INF = -2.0e38
@@ -351,7 +353,18 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
     then its dk/dv kernel (``backward_kernels``), on the current stream,
     at the tiles ``backward_tiles`` resolves (None reads the tuning
     cache's ``flash_bwd`` entry); they raise on what the kernels do not
-    take."""
+    take.  Under a function transform (a backward under ``torch.func.grad``
+    or ``vmap(grad(...))`` meets its saved tensors wrapped) the call goes
+    through the custom op, which unwraps them; under vmap its rule
+    launches one dq and one dk/dv kernel for all the tasks."""
+    if under_transform(q, k, v, out, lse, g):
+        # the kernels' gradients are not differentiated again: the saved
+        # tensors still track the grad transform, and the op enters no
+        # autograd.Function of its own
+        with torch.no_grad():
+            return _bwd_op(q, k, v, out, lse, g, causal, dq_block_q, dq_block_k,
+                           dkv_block_k, dkv_block_q)
+    q, k, v, out, lse, g = (unwrapped(t) for t in (q, k, v, out, lse, g))
     _check(q, k, v, "flash_attention_bwd")
     B, Sq, H, D = q.shape
     _, Skv, K, Dv = v.shape
@@ -378,6 +391,37 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
     dk, dv = bwd_dkv_launch(q, k, v, g, lse, dvec, causal=causal, block_k=tiles[2],
                             block_q=tiles[3])
     return dq, dk, dv
+
+
+@torch.library.custom_op(
+    "repro_torch::flash_attention_bwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, Tensor g, bool causal, "
+           "int? dq_block_q=None, int? dq_block_k=None, int? dkv_block_k=None, "
+           "int? dkv_block_q=None) -> (Tensor, Tensor, Tensor)")
+def _bwd_op(q, k, v, out, lse, g, causal, dq_block_q=None, dq_block_k=None,
+            dkv_block_k=None, dkv_block_q=None):
+    return flash_attention_bwd(q, k, v, out, lse, g, causal=causal, dq_block_q=dq_block_q,
+                               dq_block_k=dq_block_k, dkv_block_k=dkv_block_k,
+                               dkv_block_q=dkv_block_q)
+
+
+@_bwd_op.register_fake
+def _(q, k, v, out, lse, g, causal, *tiles):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+_BWD_INPUTS = ("q", "k", "v", "out", "lse", "g")
+
+
+@_bwd_op.register_vmap
+def _(info, in_dims, q, k, v, out, lse, g, causal, dq_block_q=None, dq_block_k=None,
+      dkv_block_k=None, dkv_block_q=None):
+    n = info.batch_size
+    folded = fold("flash_attention_bwd", n, _BWD_INPUTS, (q, k, v, out, lse, g), in_dims[:6])
+    grads = flash_attention_bwd(*folded, causal=causal, dq_block_q=dq_block_q,
+                                dq_block_k=dq_block_k, dkv_block_k=dkv_block_k,
+                                dkv_block_q=dkv_block_q)
+    return tuple(unfold(t, n) for t in grads), (0, 0, 0)
 
 
 def _bwd_args(q, v, causal):

@@ -9,7 +9,10 @@ package's Pallas ``mamba_scan_pallas``: per batch b, channel d and state n,
     y_t = sum_n C_t[n] * h_t[n]
 
 from ``h0`` (zeros when it is None), everything in fp32, returning
-``(y (b,s,d), h_final (b,d,n))``.
+``(y (b,s,d), h_final (b,d,n))``.  ``A`` is one (d,n) matrix for the
+whole batch, or one a batch row, (b,d,n): the kernel reads it through a
+batch stride (0 for the shared matrix), as a folded batch of training
+tasks gives it, each task with its own weights.
 
 ``mamba_scan_plain`` mirrors the reference's chunked oracle
 (``mamba_scan_ref``): an outer loop over sequence chunks carries h, and
@@ -46,7 +49,7 @@ _p, _i, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = CudaKernel(
     "mamba_scan_sm90.cu", "repro_mamba_scan_fwd",
     [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i,
-     _l, _l, _l, _l, _l, _l, _l, _l, _i, _p])
+     _l, _l, _l, _l, _l, _l, _l, _l, _l, _i, _p])
 DEFAULT_LANES = default_config("mamba", "cuda")  # {"lanes": 0}: the kernel's rule
 DEFAULT_CHUNK = default_config("mamba", "torch")  # {"chunk": 256}
 _LANES_PROBE = ConfigProbe("mamba", ("b", "s", "d", "n"), "cuda", DEFAULT_LANES)
@@ -102,7 +105,7 @@ def associative_scan(a, b, dim):
 
 
 def mamba_scan_plain(x, dt, A, B, C, h0=None, *, chunk: int | None = None):
-    """The chunked scan.  x, dt (b,s,d); A (d,n); B, C (b,s,n); h0 (b,d,n)
+    """The chunked scan.  x, dt (b,s,d); A (d,n) or (b,d,n); B, C (b,s,n); h0 (b,d,n)
     or None.  ``chunk`` (None: the tuning cache's, else 256) falls to the
     largest divisor of s at most that size.  Returns (y (b,s,d), h_final
     (b,d,n)), fp32; differentiable."""
@@ -114,6 +117,8 @@ def mamba_scan_plain(x, dt, A, B, C, h0=None, *, chunk: int | None = None):
         raise KernelConfigError(f"mamba_scan_plain: chunk must be a positive int, "
                                 f"got {chunk!r}")
     x, dt, A, B, C = (t.float() for t in (x, dt, A, B, C))
+    if A.dim() == 3:  # one A a batch row
+        A = A[:, None]
     c = _chunk_size(s, chunk)
     h = (torch.zeros((b, d, n), dtype=torch.float32, device=x.device)
          if h0 is None else h0.float())
@@ -146,12 +151,13 @@ def mamba_scan_naive(x, dt, A, B, C, h0=None):
 
 
 def _check(x, dt, A, B, C, h0):
-    if x.dim() != 3 or A.dim() != 2:
-        raise ValueError(f"mamba_scan_fwd: x must be (b,s,d) and A (d,n), got "
+    if x.dim() != 3 or A.dim() not in (2, 3):
+        raise ValueError(f"mamba_scan_fwd: x must be (b,s,d) and A (d,n) or (b,d,n), got "
                          f"{tuple(x.shape)}, {tuple(A.shape)}")
     b, s, d = x.shape
-    n = A.shape[1]
-    want = {"dt": (dt, (b, s, d)), "A": (A, (d, n)), "B": (B, (b, s, n)),
+    n = A.shape[-1]
+    want = {"dt": (dt, (b, s, d)), "A": (A, (d, n) if A.dim() == 2 else (b, d, n)),
+            "B": (B, (b, s, n)),
             "C": (C, (b, s, n))}
     if h0 is not None:
         want["h0"] = (h0, (b, d, n))
@@ -206,7 +212,8 @@ def mamba_scan_fwd(x, dt, A, B, C, h0=None, *, lanes: int | None = None):
     which raises on what it does not take, at the lanes a channel
     ``scan_lanes`` resolves (None reads the tuning cache).  x, dt, B and C
     may be strided views (slices of wider projections): the kernel reads
-    them through their batch and time strides."""
+    them through their batch and time strides; A (d,n) is shared by the
+    batch, A (b,d,n) read a row at a time."""
     _check(x, dt, A, B, C, h0)
     if x.device.type == "cpu":
         return mamba_scan_plain(x, dt, A, B, C, h0)
@@ -216,7 +223,7 @@ def mamba_scan_fwd(x, dt, A, B, C, h0=None, *, lanes: int | None = None):
                          f"{sorted({str(t.device) for t in tensors})}; need one "
                          f"CUDA device")
     b, s, d = x.shape
-    n = A.shape[1]
+    n = A.shape[-1]
     if n > MAX_STATE:
         raise ValueError(f"mamba_scan_fwd: state size {n}; the kernel takes "
                          f"at most {MAX_STATE}")
@@ -235,7 +242,7 @@ def mamba_scan_fwd(x, dt, A, B, C, h0=None, *, lanes: int | None = None):
     args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             None if h0 is None else h0.data_ptr(), y.data_ptr(), hf.data_ptr(), b, s, d, n,
             x.stride(0), x.stride(1), dt.stride(0), dt.stride(1), B.stride(0), B.stride(1),
-            C.stride(0), C.stride(1), lanes)
+            C.stride(0), C.stride(1), 0 if A.dim() == 2 else d * n, lanes)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if lanes == 0:

@@ -108,6 +108,10 @@ class EncDec(nn.Module):
     def _dec_embed(self, tokens):
         return self.embed(tokens) + self._positions(tokens.shape[1])[None]
 
+    def forward(self, batch, **kw):
+        """``train_loss``: the module's call, which ``functional_call`` makes."""
+        return self.train_loss(batch, **kw)
+
     def train_loss(self, batch, *, ops: AttentionOps = DISPATCH, long_context=False,
                    block_skip=False):
         """batch: enc_frames (B,S_enc,d), tokens (B,S) int, targets (B,S)

@@ -121,6 +121,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # --------------------------------------------------------------------- #
 # MLP
 # --------------------------------------------------------------------- #
+class _SiLU(torch.autograd.Function):
+    """silu with the native ``silu_backward`` kernel as its backward in
+    every mode.  Under ``torch.func.grad`` PyTorch's own silu gradient is
+    a decomposition that rounds otherwise, by an ulp, so a training task
+    under ``vmap(grad(...))`` (``Service.execute_batch``) would not compute
+    the gradients it computes alone; here both are autograd's."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return nn.functional.silu(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.ops.aten.silu_backward(g, ctx.saved_tensors[0])
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``nn.functional.silu``; differentiable through ``_SiLU``."""
+    if not torch.is_grad_enabled():  # serving: no Function on the path
+        return nn.functional.silu(x)
+    return _SiLU.apply(x)
+
+
 class SwiGLU(nn.Module):
     def __init__(self, cfg: ModelConfig, g: torch.Generator):
         super().__init__()
@@ -132,7 +161,7 @@ class SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        h = nn.functional.silu(x @ self.wg.to(dt)) * (x @ self.wi.to(dt))
+        h = silu(x @ self.wg.to(dt)) * (x @ self.wi.to(dt))
         return h @ self.wo.to(dt)
 
 

@@ -22,18 +22,26 @@ positions only.  Weights are created with ``requires_grad=False``; a
 trainer turns it on.
 
 With ``cfg.remat`` training keeps only each pattern repeat's input and
-runs the repeat's forward again in the backward
-(``torch.utils.checkpoint``), as the reference checkpoints its scan body,
-one repeat of the pattern; the attention kernels' forward launches again
-there, and their backward uses the recomputed (out, lse).  Serving
-ignores ``remat``.
+parameters and runs the repeat's forward again in the backward, as the
+reference checkpoints its scan body, one repeat of the pattern; the
+attention kernels' forward launches again there, and their backward uses
+the recomputed (out, lse).  The route is ``_Remat``, an
+``autograd.Function`` whose backward is ``torch.func.vjp`` of the repeat
+through ``torch.func.functional_call``: unlike ``torch.utils.checkpoint``
+(saved-tensor hooks, which ``torch.func.grad`` refuses), it runs the same
+under ``.backward()``, under ``torch.func.grad`` and under
+``vmap(grad(...))``, a training program in ``Service.execute_batch``.
+Serving ignores ``remat``.
+
+``forward`` is ``train_loss``, so ``torch.func.functional_call(model,
+params, (batch,))`` computes the loss on a ``{name: tensor}`` mapping of
+weights (``runtime/train_loop.functional_loss_and_grads``).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..kernels import DISPATCH, AttentionOps
 from .blocks import make_blocks
@@ -49,6 +57,53 @@ def _train_repeat(blocks, x, aux, ops: AttentionOps, long_context: bool):
         x, a = blk.forward_train(x, ops=ops, long_context=long_context)
         aux = aux + a
     return x, aux
+
+
+class _Repeat(nn.Module):
+    """One repeat of the pattern as a module, so that
+    ``torch.func.functional_call`` runs it on given parameters."""
+
+    def __init__(self, blocks):
+        super().__init__()
+        self.blocks = blocks
+
+    def forward(self, x, aux, ops: AttentionOps, long_context: bool):
+        return _train_repeat(self.blocks, x, aux, ops, long_context)
+
+
+class _Remat(torch.autograd.Function):
+    """``rep``'s forward on (x, aux) with its parameters ``params`` as
+    explicit inputs, keeping no graph; the backward runs the forward again
+    under ``torch.func.vjp`` and returns the gradients of x, aux and every
+    parameter.  ``generate_vmap_rule``: under vmap both passes run at the
+    vmap level, their kernels folded by their own rules."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(rep, names, ops, long_context, x, aux, *params):
+        return torch.func.functional_call(rep, dict(zip(names, params)),
+                                          (x, aux, ops, long_context))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.rep, ctx.names, ctx.ops, ctx.long_context = inputs[:4]
+        ctx.save_for_backward(*inputs[4:])
+
+    @staticmethod
+    def backward(ctx, gx, gaux):
+        def run(x, aux, *params):
+            return torch.func.functional_call(ctx.rep, dict(zip(ctx.names, params)),
+                                              (x, aux, ctx.ops, ctx.long_context))
+
+        _, vjp = torch.func.vjp(run, *ctx.saved_tensors)
+        return (None, None, None, None, *vjp((gx, gaux)))
+
+
+def _remat_repeat(blocks, x, aux, ops: AttentionOps, long_context: bool):
+    rep = _Repeat(blocks)
+    names, params = zip(*rep.named_parameters(remove_duplicate=False))
+    return _Remat.apply(rep, names, ops, long_context, x, aux, *params)
 
 
 class LM(nn.Module):
@@ -90,6 +145,10 @@ class LM(nn.Module):
             x = torch.cat([pe, x], dim=1)
         return x
 
+    def forward(self, batch, **kw):
+        """``train_loss``: the module's call, which ``functional_call`` makes."""
+        return self.train_loss(batch, **kw)
+
     def train_loss(self, batch, *, ops: AttentionOps = DISPATCH, long_context=False,
                    block_skip=False):
         """batch: tokens (B,S) int, targets (B,S) int [, loss_mask (B,S),
@@ -105,8 +164,7 @@ class LM(nn.Module):
         remat = self.cfg.remat and torch.is_grad_enabled()
         for r in range(0, len(self.blocks), n):
             if remat:  # keep the repeat's input, run its forward again in the backward
-                x, aux = checkpoint(_train_repeat, self.blocks[r:r + n], x, aux, ops,
-                                    long_context, use_reentrant=False)
+                x, aux = _remat_repeat(self.blocks[r:r + n], x, aux, ops, long_context)
             else:
                 x, aux = _train_repeat(self.blocks[r:r + n], x, aux, ops, long_context)
         x = self.final_norm(x)

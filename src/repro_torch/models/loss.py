@@ -26,21 +26,34 @@ def _chunks(S: int, target: int = 256) -> int:
 
 
 class _TokenNLL(torch.autograd.Function):
+    """The chunked loss as a Function that ``torch.func`` transforms
+    (``setup_context``, ``generate_vmap_rule``): the chunks are joined, not
+    written into a buffer made outside the transform, so under
+    ``vmap(grad(...))`` (a training program in ``Service.execute_batch``)
+    each task's table and hidden states stay its own.  ``dtable`` is made
+    from the table (batched with it) and summed chunk by chunk in place,
+    in the order of one task's pass."""
+
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x, table, targets, chunk):
-        B, S, _ = x.shape
+    def forward(x, table, targets, chunk):
+        S = x.shape[1]
         c = _chunks(S, chunk)
         w = table.float()
-        nll = torch.empty((B, S), dtype=torch.float32, device=x.device)
+        nll = []
         for s0 in range(0, S, c):
             logits = x[:, s0:s0 + c].float() @ w.T  # (B,c,V)
             m = logits.amax(-1)
             lse = m + torch.log(torch.exp(logits - m[..., None]).sum(-1))
             gold = torch.gather(logits, -1, targets[:, s0:s0 + c, None].long())
-            nll[:, s0:s0 + c] = lse - gold[..., 0]
+            nll.append(lse - gold[..., 0])
+        return torch.cat(nll, 1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, table, targets, ctx.chunk = inputs
         ctx.save_for_backward(x, table, targets)
-        ctx.chunk = chunk
-        return nll
 
     @staticmethod
     def backward(ctx, g):
@@ -50,16 +63,21 @@ class _TokenNLL(torch.autograd.Function):
         w = table.float()
         g = g.float()
         dtable = torch.zeros_like(w)
-        dx = torch.empty((B, S, d), dtype=torch.float32, device=x.device)
+        dx = []
         for s0 in range(0, S, c):
             xc = x[:, s0:s0 + c].float()
             dl = torch.softmax(xc @ w.T, dim=-1)  # p, then p - onehot in place
             dl.scatter_add_(-1, targets[:, s0:s0 + c, None].long(),
                             torch.full((B, c, 1), -1.0, device=x.device))
             dl.mul_(g[:, s0:s0 + c, None])
-            dx[:, s0:s0 + c] = dl @ w
+            dx.append(dl @ w)
+            # in place: one fp32 table gradient a task, not two, at a time
+            # (under vmap, where each task has its own table, functorch has
+            # no rule for addmm_: its fallback runs each task's product in
+            # place, as one task's pass does)
             dtable.addmm_(dl.reshape(-1, dl.shape[-1]).T, xc.reshape(-1, d))
-        return dx.to(x.dtype), dtable.to(table.dtype), None, None
+        del w, dl  # the fp32 table is not needed for the casts below
+        return torch.cat(dx, 1).to(x.dtype), dtable.to(table.dtype), None, None
 
 
 def token_nll(x, table, targets, chunk: int = 256) -> torch.Tensor:

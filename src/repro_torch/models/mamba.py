@@ -15,11 +15,11 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.nn.functional import silu, softplus
+from torch.nn.functional import softplus
 
 from ..kernels import AttentionOps
 from .common import ModelConfig
-from .layers import _param, dense_init
+from .layers import _param, dense_init, silu
 
 
 class Mamba(nn.Module):

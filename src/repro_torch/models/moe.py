@@ -27,7 +27,9 @@ and drops stay per task.  Only the expert products have a rule of their
 own (``expert_matmul``): vmap's rule for a batched (E, T, a) times the
 unbatched (E, a, b) weights copies the weights once per task (one of
 llama4-maverick's expert stacks is 10.7 GB in bf16), where folding the
-tasks' slots into T reads each expert once.
+tasks' slots into T reads each expert once.  The rule has gradients (dx
+= g wᵀ, dw = xᵀ g), so tasks that share the weights train through it
+too; a training task's own weights (batched) take the native ``x @ w``.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from torch import nn
 
 from ..kernels.batched import under_vmap
 from .common import ModelConfig
-from .layers import dense_init, make_mlp
+from .layers import dense_init, make_mlp, silu
 
 
 def routing_group_size(cfg: ModelConfig, seq_len: int) -> int:
@@ -67,33 +69,45 @@ def top_k(probs: torch.Tensor, k: int):
 
 def expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, T, a) @ w (E, a, b) -> (E, T, b), one product an expert.
-    Under vmap with ``w`` unbatched (the weights) it goes through the op
-    ``repro_torch::expert_matmul``, whose rule folds the tasks into T."""
+    Under vmap with ``w`` unbatched (the weights) it goes through
+    ``_ExpertMatmul``, whose rule folds the tasks into T."""
     if under_vmap(x) and not under_vmap(w):
-        return _expert_matmul_op(x, w)
+        return _ExpertMatmul.apply(x, w)
     return x @ w
 
 
-@torch.library.custom_op("repro_torch::expert_matmul", mutates_args=(),
-                         schema="(Tensor x, Tensor w) -> Tensor")
-def _expert_matmul_op(x, w):
-    return x @ w
+class _ExpertMatmul(torch.autograd.Function):
+    """The expert product with the tasks folded into T under vmap, and
+    its gradients dx = g wᵀ (through ``expert_matmul`` again, so the
+    weights stay read once a product) and dw = xᵀ g.  An
+    ``autograd.Function`` with ``setup_context`` and a ``vmap``
+    staticmethod, not a ``torch.library`` op with ``register_autograd``:
+    the op's autograd does not run under ``torch.func.grad``."""
 
+    @staticmethod
+    def forward(x, w):
+        return x @ w
 
-@_expert_matmul_op.register_fake
-def _(x, w):
-    return x.new_empty((*x.shape[:-1], w.shape[-1]))
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
+    @staticmethod
+    def vmap(info, in_dims, x, w):
+        if in_dims[1] is not None:  # expert_matmul enters with w unbatched
+            raise ValueError("expert_matmul under vmap: the weights w arrived batched")
+        n = info.batch_size
+        x = x.movedim(in_dims[0], 1)
+        E, _, T, a = x.shape
+        out = _ExpertMatmul.apply(x.reshape(E, n * T, a), w)  # the tasks' slots side by side
+        return out.reshape(E, n, T, w.shape[-1]), 1
 
-@_expert_matmul_op.register_vmap
-def _(info, in_dims, x, w):
-    if in_dims[1] is not None:  # expert_matmul enters the op with w unbatched
-        raise ValueError("expert_matmul under vmap: the weights w arrived batched")
-    n = info.batch_size
-    x = x.movedim(in_dims[0], 1)
-    E, _, T, a = x.shape
-    out = x.reshape(E, n * T, a) @ w  # the tasks' slots side by side
-    return out.reshape(E, n, T, w.shape[-1]), 1
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = expert_matmul(g, w.transpose(-1, -2)) if ctx.needs_input_grad[0] else None
+        dw = x.transpose(-1, -2) @ g if ctx.needs_input_grad[1] else None
+        return dx, dw
 
 
 class Experts(nn.Module):
@@ -114,7 +128,7 @@ class Experts(nn.Module):
         """x (E, T, d): T slots an expert -> (E, T, d)."""
         dt = self.dtype
         if self.act == "swiglu":
-            h = (nn.functional.silu(expert_matmul(x, self.wg.to(dt)))
+            h = (silu(expert_matmul(x, self.wg.to(dt)))
                  * expert_matmul(x, self.wi.to(dt)))
         else:
             h = nn.functional.gelu(expert_matmul(x, self.wi.to(dt)), approximate="tanh")
@@ -155,7 +169,9 @@ class MoE(nn.Module):
         if K > 1:  # renormalise the chosen gates (mixtral-style)
             gate = gate / gate.sum(-1, keepdim=True)
 
-        onehot = nn.functional.one_hot(idx, E).float()  # (ng, G, K, E)
+        # (ng, G, K, E), by comparison as jax.nn.one_hot: torch's one_hot
+        # reads its indices' range, which vmap(grad(...)) refuses
+        onehot = (idx[..., None] == torch.arange(E, device=x.device)).float()
         # choice-major priority: all first choices beat all second choices
         oh_cm = onehot.transpose(1, 2).reshape(ng, K * G, E)
         pos_cm = oh_cm.cumsum(1) - oh_cm  # place within the expert

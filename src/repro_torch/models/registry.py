@@ -16,10 +16,12 @@ patch stub) and ``audio`` (whisper's encoder-decoder).  ``decode`` takes
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+from torch import nn
 
 from .common import ModelConfig
 from .encdec import EncDec
@@ -53,3 +55,14 @@ def build(cfg: ModelConfig) -> ModelAPI:
             b, c, cache_index=int(b["cache_index"]), long_context=long_context, **kw),
         make_caches=lambda p, bsz, s: p.make_caches(bsz, s),
     )
+
+
+def skeleton(model: nn.Module) -> nn.Module:
+    """A copy of ``model``'s structure with every parameter on the meta
+    device: what ``torch.func.functional_call`` runs a ``{name: tensor}``
+    mapping of weights in, at no memory cost.  ``functional_call`` swaps
+    the weights into the module while it runs, so a caller that may run on
+    two threads at once takes a copy of its own each time."""
+    memo = {id(p): nn.Parameter(p.detach().to("meta"), requires_grad=False)
+            for p in model.parameters()}
+    return copy.deepcopy(model, memo)

@@ -75,15 +75,15 @@ def dequantize_blockwise(codes: torch.Tensor, scale: torch.Tensor,
 
 # ----------------------------- state ---------------------------------- #
 def _zeros_like_moment(p: torch.Tensor, dtype: str):
+    """A zero moment of ``p``, made from ``p`` itself (``new_zeros``), so
+    that under ``torch.func.vmap`` each task's parameter gets its own."""
     if dtype == "int8":
         last = p.shape[-1] + (-p.shape[-1]) % BLOCK
-        codes = torch.zeros(p.shape[:-1] + (last,), dtype=torch.int8,
-                            device=p.device)
-        scale = torch.zeros(p.shape[:-1] + (last // BLOCK,),
-                            dtype=torch.float32, device=p.device)
+        codes = p.new_zeros(p.shape[:-1] + (last,), dtype=torch.int8)
+        scale = p.new_zeros(p.shape[:-1] + (last // BLOCK,), dtype=torch.float32)
         offset = torch.full_like(scale, math.log(_LOG_EPS))
         return {"codes": codes, "scale": scale, "offset": offset}
-    return torch.zeros(p.shape, dtype=getattr(torch, dtype), device=p.device)
+    return p.new_zeros(p.shape, dtype=getattr(torch, dtype))
 
 
 def init_opt_state(params: Mapping[str, torch.Tensor], *,
@@ -91,7 +91,9 @@ def init_opt_state(params: Mapping[str, torch.Tensor], *,
                    master_fp32: bool = False) -> dict:
     """{"step": 0-d int32, "m": {name: moment}, "v": {...}
     [, "master": {name: fp32 copy}]}; an int8 moment is
-    {"codes", "scale", "offset"}."""
+    {"codes", "scale", "offset"}.  Moments and masters are made from the
+    parameters, so a task's parameters batched under ``torch.func.vmap``
+    give it a batched state of its own; the step is shared."""
     device = next(iter(params.values())).device
     state = {
         "step": torch.zeros((), dtype=torch.int32, device=device),

@@ -19,6 +19,16 @@ its jitted round, which the port cannot reproduce.  Here batch h of task
 (seed, round, shard, step), so a rescheduled task recomputes
 bit-identical gradients.  The batch source is injectable (``batch_fn``),
 so a test can feed both packages the same batches.
+
+Batched rounds.  ``Service.execute_batch`` of the round program runs N
+tasks (``{name: tensor}`` payloads, as ``LocalSGDTrainer`` sends them)
+as one ``torch.func.vmap`` call of the same core that runs one task, as
+the reference's ``execute_batch`` runs ``jax.vmap`` of its round: each
+task with its own weights, gradients, AdamW state and delta, each
+kernel launched as often for the N tasks as for one.  The batches are
+drawn on the host first, from the stacked payload's rounds and shards
+(``LocalRoundProgram.prepare_batched``); the reference draws them inside
+its jit from traced values, which a numpy draw cannot do under vmap.
 """
 
 from __future__ import annotations
@@ -31,10 +41,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import BasicClient, Program
+from repro_torch.core.skeletons import to_device
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import ModelAPI
+from repro_torch.models.registry import skeleton as model_skeleton
 from repro_torch.optim import adamw_update, init_opt_state
-from .train_loop import TrainConfig, loss_and_grads, make_lr_fn
+from .train_loop import TrainConfig, functional_loss_and_grads, make_lr_fn
 
 
 @dataclass(frozen=True)
@@ -62,48 +74,102 @@ def markov_batch(perm: np.ndarray, seed: int, rnd: int, shard: int, h: int,
     return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
 
 
+class LocalRoundProgram(Program):
+    """The round program: ``fn`` runs one task; the batched callable
+    (``Service.execute_batch``) reads the stacked payload's rounds and
+    shards on the host, draws each task's batches there (``batch_fn``, a
+    numpy draw that cannot run under vmap), and then runs the inner steps
+    of all the tasks as one ``torch.func.vmap`` call."""
+
+    def __init__(self, fn: Callable, batched: Callable, *, name: str):
+        super().__init__(fn, name=name)
+        self._batched = batched
+
+    def prepare_batched(self, device: torch.device | None = None) -> Callable:
+        def bound(stacked):
+            return self._batched(stacked, device)
+        return bound
+
+
 def make_local_round_program(api: ModelAPI, tc: TrainConfig,
                              ls: LocalSGDConfig, perm, *,
-                             batch_fn: Callable | None = None) -> Program:
-    """The ProcessIf: payload {params (an LM), round, shard} ->
-    {delta {name: fp32 tensor}, loss}.  ``batch_fn(round, shard, h)``
-    gives the inner batches (default ``markov_batch`` from ``tc.seed``).
-    The task trains its own copy of the weights with its own AdamW state;
-    the payload's model is only read."""
+                             batch_fn: Callable | None = None,
+                             skeleton: torch.nn.Module | None = None) -> LocalRoundProgram:
+    """The ProcessIf: payload {params, round, shard} -> {delta {name: fp32
+    tensor}, loss}.  ``params`` is an ``LM``, or a ``{name: tensor}``
+    mapping of its weights, as the reference's is a pytree; a mapping runs
+    in the structure of ``skeleton`` (an ``LM`` of the config, whose
+    weights are not read: a copy on the meta device is kept).
+    ``batch_fn(round, shard, h)`` gives the inner batches (default
+    ``markov_batch`` from ``tc.seed``).  The task trains its own copy of
+    the weights with its own AdamW state; the payload's weights are only
+    read.
+
+    One core runs the H inner steps, for one task and, under
+    ``torch.func.vmap``, for N tasks stacked by ``Service.execute_batch``
+    (mapping payloads), each with its own weights, gradients, AdamW state
+    and delta: the gradients are ``functional_loss_and_grads``, every
+    kernel folds the N tasks into one launch by its vmap rule
+    (``kernels/batched.py``)."""
     lr_fn = make_lr_fn(tc)
     cfg = api.cfg
     perm = np.asarray(perm)
+    template = None if skeleton is None else model_skeleton(skeleton)
     if batch_fn is None:
         def batch_fn(rnd, shard, h):
             return markov_batch(perm, tc.seed, rnd, shard, h,
                                 ls.batch_per_shard, ls.seq_len)
 
-    def run_round(payload):
-        params0 = payload["params"]
-        rnd, shard = int(payload["round"]), int(payload["shard"])
-        model = copy.deepcopy(params0)
-        model.requires_grad_(True)
-        named = dict(model.named_parameters())
-        opt = init_opt_state(named, moment_dtype=cfg.opt_state_dtype)
+    def core(model, params0, batches, lrs):
+        """H AdamW steps from ``params0`` on ``batches[h]`` at ``lrs[h]``."""
+        params = {k: p.detach().clone() for k, p in params0.items()}
+        opt = init_opt_state(params, moment_dtype=cfg.opt_state_dtype)
         losses = []
-        for h in range(ls.inner_steps):
-            batch = {k: torch.as_tensor(v).to(model.device)
-                     for k, v in batch_fn(rnd, shard, h).items()}
-            loss, _, grads = loss_and_grads(api, model, batch)
-            del batch
-            adamw_update(grads, opt, named, lr=lr_fn(rnd * ls.inner_steps + h),
-                         weight_decay=tc.weight_decay,
-                         moment_dtype=cfg.opt_state_dtype,
-                         clip_norm=tc.clip_norm)
+        for batch, lr in zip(batches, lrs):
+            loss, _, grads = functional_loss_and_grads(model, params, batch)
+            adamw_update(grads, opt, params, lr=lr, weight_decay=tc.weight_decay,
+                         moment_dtype=cfg.opt_state_dtype, clip_norm=tc.clip_norm)
             del grads
             losses.append(loss)
         del opt
         with torch.no_grad():
-            delta = {k: p.float() - p0.float() for (k, p), p0 in
-                     zip(named.items(), params0.parameters())}
+            delta = {k: p.float() - params0[k].float() for k, p in params.items()}
         return {"delta": delta, "loss": torch.stack(losses).mean()}
 
-    return Program(run_round, name="local_sgd_round")
+    def structure(params):
+        """(a skeleton of this call's own, the weights as a mapping)."""
+        if isinstance(params, torch.nn.Module):
+            return model_skeleton(params), dict(params.named_parameters())
+        if template is None:
+            raise ValueError("local_sgd_round: a {name: tensor} params payload needs "
+                             "the program made with skeleton=")
+        return copy.deepcopy(template), params
+
+    def draws(rnd, shard, device):
+        return [{k: torch.as_tensor(v).to(device) for k, v in batch_fn(rnd, shard, h).items()}
+                for h in range(ls.inner_steps)]
+
+    def run_round(payload):
+        model, params0 = structure(payload["params"])
+        rnd, shard = int(payload["round"]), int(payload["shard"])
+        device = next(iter(params0.values())).device
+        lrs = [lr_fn(rnd * ls.inner_steps + h) for h in range(ls.inner_steps)]
+        return core(model, params0, draws(rnd, shard, device), lrs)
+
+    def run_batched(stacked, device):
+        rounds, shards = stacked["round"].tolist(), stacked["shard"].tolist()
+        model, params0 = structure(stacked["params"])
+        if device is not None:
+            params0 = to_device(params0, device)
+        device = next(iter(params0.values())).device
+        tasks = [draws(r, i, device) for r, i in zip(rounds, shards)]
+        batches = [{k: torch.stack([t[h][k] for t in tasks]) for k in tasks[0][h]}
+                   for h in range(ls.inner_steps)]
+        lrs = [torch.stack([lr_fn(r * ls.inner_steps + h) for r in rounds])
+               for h in range(ls.inner_steps)]
+        return torch.func.vmap(lambda p, b, lr: core(model, p, b, lr))(params0, batches, lrs)
+
+    return LocalRoundProgram(run_round, run_batched, name="local_sgd_round")
 
 
 class LocalSGDTrainer:
@@ -117,11 +183,11 @@ class LocalSGDTrainer:
         self.lookup = lookup
         rng = np.random.default_rng(seed)
         self.perm = rng.permutation(api.cfg.vocab_size).astype("int32")
-        self.program = make_local_round_program(api, tc, ls, self.perm)
         dev = resolve_device(device)
         params = api.init(torch.Generator(device=dev).manual_seed(tc.seed))
         params.head().drop_f32()  # the weights change every round
         self.params = params
+        self.program = make_local_round_program(api, tc, ls, self.perm, skeleton=params)
         self.outer_velocity = {k: torch.zeros(p.shape, dtype=torch.float32,
                                               device=p.device)
                                for k, p in params.named_parameters()}
@@ -130,7 +196,8 @@ class LocalSGDTrainer:
         self.farm_stats: list[dict] = []
 
     def run_round(self, *, timeout: float = 300.0) -> float:
-        tasks = [{"params": self.params, "round": self.round, "shard": i}
+        weights = dict(self.params.named_parameters())
+        tasks = [{"params": weights, "round": self.round, "shard": i}
                  for i in range(self.ls.n_shards)]
         out: list[Any] = []
         client = BasicClient(self.program, None, tasks, out,

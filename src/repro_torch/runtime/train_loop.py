@@ -83,6 +83,20 @@ def loss_and_grads(api: ModelAPI, model, batch, *,
     return loss.detach(), metrics, dict(zip(named, grads))
 
 
+def functional_loss_and_grads(model, params, batch, *, ops: AttentionOps = DISPATCH):
+    """(loss, metrics, {name: grad}) of one batch on the weights ``params``
+    ({name: tensor}), run in ``model``'s structure: ``torch.func.grad_and_value``
+    of ``torch.func.functional_call``.  A function transform, so it also runs
+    under ``torch.func.vmap``: N tasks, each with its own weights, as one call
+    (a training program in ``Service.execute_batch``).  One task's gradients
+    are ``loss_and_grads``' bit for bit (``models/layers.silu``)."""
+    def loss_fn(p):
+        return torch.func.functional_call(model, p, (batch,), {"ops": ops})
+
+    grads, (loss, metrics) = torch.func.grad_and_value(loss_fn, has_aux=True)(params)
+    return loss, metrics, grads
+
+
 def make_train_step(api: ModelAPI, tc: TrainConfig, *,
                     block_skip: bool = False) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``; metrics are 0-d

@@ -12,7 +12,8 @@ logit gap of at most the 2e-3 logit tolerance, as in
 bucket, an MoE batch in which one task's routing drops tokens and the
 other's does not, each rule against per-task calls of its wrapper on CPU
 tensors (bit-identical: the rule calls the plain versions), the rule
-counters, and a batched ``A`` raising by name.
+counters, and a batched ``A`` folding (an ill-shaped one raising by
+name).
 
 The card's cases (the folded launches against per-task launches) are in
 ``tests/test_torch_cuda_batched.py``, which imports no JAX.
@@ -339,14 +340,25 @@ def test_scan_rule_folds_the_tasks(in_dims, with_h0):
 
 @pytest.mark.parametrize("entry", ["mamba_scan", "DISPATCH.scan"])
 def test_a_batched_A_raises_by_name(entry):
+    """A batched ``A`` (each task's own weights, as a training task has
+    them) folds: one rule call, one (d, n) matrix a folded batch row, each
+    task's result its own per-task call's.  An ``A`` whose task shape is
+    not (d, n) raises, naming A."""
     from repro_torch import kernels
 
     N = 3
     x, dt, A, Bm, C, _ = _scan_inputs(N)
     fn = tscan.mamba_scan if entry == "mamba_scan" else kernels.DISPATCH.scan
-    with pytest.raises(ValueError, match="input A arrived batched"):
+    As = torch.stack([A * (1.0 + 0.25 * i) for i in range(N)])
+    batched.reset_rule_calls()
+    y, hf = torch.func.vmap(fn, in_dims=(0, 0, 0, 0, 0, None))(x, dt, As, Bm, C, None)
+    assert batched.RULE_CALLS["mamba_scan"] == 1
+    for i in range(N):
+        want_y, want_h = tscan.mamba_scan_fwd(x[i], dt[i], As[i], Bm[i], C[i])
+        assert torch.equal(y[i], want_y) and torch.equal(hf[i], want_h)
+    with pytest.raises(ValueError, match="mamba_scan_fwd: A is"):
         torch.func.vmap(fn, in_dims=(0, 0, 0, 0, 0, None))(
-            x, dt, A.expand(N, *A.shape), Bm, C, None)
+            x, dt, As[:, :5], Bm, C, None)
 
 
 def test_per_task_calls_do_not_enter_the_ops():

@@ -1,10 +1,13 @@
 """Model programs under ``Service.execute_batch`` on the card: each
 kernel entry folded by its vmap rule (``repro_torch/kernels/batched.py``)
 launches once for N stacked tasks, and the folded launch equals N
-per-task launches of the same kernel (flash and the scan bit for bit,
-decode within the reference's decode tolerance: folding changes its KV
-split count); a small fp32 qwen3's generate program under
-``execute_batch`` launches each kernel as often as one task does.
+per-task launches of the same kernel (flash forward and backward and the
+scan bit for bit, decode within the reference's decode tolerance: folding
+changes its KV split count); the differentiable flash attention under
+``vmap(grad(...))`` launches its forward, dq and dk/dv once for N tasks;
+the scan takes one ``A`` a batch row; a small fp32 qwen3's generate
+program under ``execute_batch`` launches each kernel as often as one task
+does.
 
 Marked ``cuda``: these need a CUDA device (and ``nvcc``) and skip
 elsewhere.  Run them on the GPU machine:
@@ -100,6 +103,80 @@ def test_card_folded_scan_is_bit_identical_to_per_task_launches(card, entry):
     for i in range(N):
         want_y, want_h = tscan.mamba_scan_fwd(x[i], dt[i], A, Bm[i], C[i])
         assert torch.equal(y[i], want_y) and torch.equal(hf[i], want_h)
+
+
+def _backward_launches(dtype):
+    return tuple(k.launches for k in tflash.backward_kernels(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 512, 512, 16, 8, 128, 128, True),
+                                   (2, 13, 13, 40, 8, 96, 64, True),
+                                   (1, 64, 150, 6, 6, 64, 64, False)])
+def test_card_folded_backward_is_bit_identical_to_per_task_launches(card, dtype, shape):
+    """The backward entry under vmap: one dq and one dk/dv launch for N
+    tasks (lse and Dvec folded with B), each task's gradients those of its
+    own launches, bit for bit."""
+    B, Sq, Skv, H, K, D, Dv, causal = shape
+    N = 4
+    q = _card_randn((N, B, Sq, H, D), dtype, 1)
+    k = _card_randn((N, B, Skv, K, D), dtype, 2)
+    v = _card_randn((N, B, Skv, K, Dv), dtype, 3)
+    g = _card_randn((N, B, Sq, H, Dv), dtype, 4)
+    out, lse = zip(*(tflash.flash_attention_fwd(q[i], k[i], v[i], causal=causal)
+                     for i in range(N)))
+    out, lse = torch.stack(out), torch.stack(lse)
+    before, calls = _backward_launches(dtype), batched.RULE_CALLS["flash_attention_bwd"]
+    got = torch.func.vmap(lambda *a: tflash.flash_attention_bwd(*a, causal=causal))(
+        q, k, v, out, lse, g)
+    assert _backward_launches(dtype) == tuple(n + 1 for n in before)
+    assert batched.RULE_CALLS["flash_attention_bwd"] == calls + 1
+    for i in range(N):
+        want = tflash.flash_attention_bwd(q[i], k[i], v[i], out[i], lse[i], g[i],
+                                          causal=causal)
+        assert all(torch.equal(a[i], b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_card_training_under_vmap_grad_launches_one_tasks_count(card, dtype):
+    """The differentiable flash attention under vmap(grad) on the card:
+    one forward, one dq and one dk/dv launch for N tasks, each task's
+    gradients within the backward check of per-task launches."""
+    N, B, S, H, K, D = 4, 2, 256, 16, 8, 128
+    q, k, v = (_card_randn((N, B, S, h, D), dtype, i) for i, h in ((1, H), (2, K), (3, K)))
+    g = _card_randn((N, B, S, H, D), torch.float32, 4)
+
+    def f(q, k, v, g):
+        return (tflash.flash_attention(q, k, v).float() * g).sum()
+
+    kerns = (tflash.forward_kernel(dtype),) + tflash.backward_kernels(dtype)
+    before = tuple(kern.launches for kern in kerns)
+    got = torch.func.vmap(torch.func.grad(f, argnums=(0, 1, 2)))(q, k, v, g)
+    assert tuple(kern.launches for kern in kerns) == tuple(n + 1 for n in before)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    for i in range(N):
+        want = torch.func.grad(f, argnums=(0, 1, 2))(q[i], k[i], v[i], g[i])
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a[i].float(), b.float(), atol=1e-4, rtol=tol)
+
+
+def test_card_scan_takes_one_A_a_batch_row(card):
+    """The scan kernel with A (b,d,n), read through its batch stride:
+    within the scan check of the plain version, a ragged s too, and with
+    every row's A the shared one, bit for bit the stride-0 launch."""
+    for b, s, d, n in ((4, 512, 512, 16), (3, 77, 200, 16)):
+        x = _card_randn((b, s, d), torch.float32, 21)
+        dt = torch.nn.functional.softplus(_card_randn((b, s, d), torch.float32, 22))
+        A = -torch.exp(_card_randn((b, d, n), torch.float32, 23) * 0.5)
+        Bm, C = _card_randn((b, s, n), torch.float32, 24), _card_randn((b, s, n),
+                                                                       torch.float32, 25)
+        y, hf = tscan.mamba_scan_fwd(x, dt, A, Bm, C)
+        want_y, want_h = tscan.mamba_scan_plain(x, dt, A, Bm, C)
+        torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(hf, want_h, atol=1e-4, rtol=1e-4)
+        shared = tscan.mamba_scan_fwd(x, dt, A[0], Bm, C)
+        rows = tscan.mamba_scan_fwd(x, dt, A[0].expand(b, d, n), Bm, C)
+        assert torch.equal(rows[0], shared[0]) and torch.equal(rows[1], shared[1])
 
 
 def test_card_generate_program_under_execute_batch(card):
