@@ -313,6 +313,32 @@ failure raises and exits non-zero:
     read; wall times and peak memory printed beside the reckoned state;
     qwen3's tasks then through ``BasicClient`` at ``max_batch`` = their
     number on one service: one lease, one call, the direct call's results.
+25. the SPMD layer on one card: (a) a one-rank NCCL group on a
+    ``HashStore`` and its ("data", "model") = (1, 1) mesh through
+    ``make_elastic_mesh(viable_mesh_shape(1, model=1))``; (b) full-width,
+    full-depth qwen3-1.7B distributed by its serve specs
+    (``distribute_model``), one prefill of SPMD_BATCH x SPMD_PROMPT tokens
+    and SPMD_STEPS decode steps under the mesh against the same without
+    it at phase 4's limits (bit-identity printed), exactly one bf16 flash
+    launch a layer through ``local_map`` and one decode launch a layer a
+    step (a one-device "model" axis leaves nothing to merge), the KV
+    caches where ``cache_partition_specs`` puts them after prefill and
+    after every step; (c) qwen3 at
+    TRAIN_LAYERS layers on DTensor parameters (train specs): the loss and
+    gradients under the mesh against the mesh-free ones at phase 7's
+    limits, one ``make_train_step(axes=...)`` step launching one bf16
+    forward, dq and dk/dv a layer and nothing else, its updated weights
+    held too; (d) SPMD_HEAD_PLANS split over SPMD_TP head shards as
+    ``flash_attention_tp`` lays them out, each shard's forward and
+    backward pair launched in turn, held to the unsharded kernels; (e)
+    qwen3's decode cache split into 4, 8 and 16 chunks, each chunk's
+    decode kernel (with its log-sum-exp; no launch for a chunk wholly past
+    cache_index) held to the chunk's plain partials and the chunks merged
+    as the all-reduces merge them, held to the unsharded decode kernel at
+    the reference's bf16 decode tolerance; (f) jamba's long
+    context, the chunked flash's manual backward against autograd through
+    ``chunked_attention`` (LONG_GRAD_TOL), each one's peak memory printed;
+    (g) the phase's seconds; the group destroyed at the end.
 
 The line before the last is a JSON object with each kernel's numbers, one
 row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
@@ -4271,6 +4297,364 @@ def tune_phase(cfg, dev, kernels, flash, decode, scan, logs, build_s, host_us,
     return sweeps
 
 
+# --------------------------------------------------------------------- #
+# phase 25: the SPMD layer on one card
+# --------------------------------------------------------------------- #
+# One NCCL rank makes a ("data", "model") = (1, 1) mesh: every collective is
+# a copy, so the mesh path must give the mesh-free path's numbers (held at
+# phase 4's and phase 7's limits, bit-identity printed) and launch the flash
+# kernels and the decode kernel through local_map (a "model" axis of one
+# device leaves decode nothing to merge).  What one rank cannot show, the
+# head plans and the decode merge at real tensor-parallel degrees, runs
+# serialized: each of SPMD_TP shards' local kernels in turn, each cache
+# chunk's decode kernel with its log-sum-exp in turn.
+SPMD_AXES = ("data", "model")
+SPMD_BATCH, SPMD_PROMPT, SPMD_STEPS = 4, 512, 4
+SPMD_TP = 16
+# (label, H, K, D, Dv) at SPMD_TP
+SPMD_HEAD_PLANS = (("qwen3", 16, 8, 128, 128), ("llama4 G=5", 40, 8, 128, 128),
+                   ("arctic G=7", 56, 8, 128, 128), ("jamba G=8", 64, 8, 128, 128),
+                   ("minicpm3 MLA", 40, 40, 96, 64))
+# qwen3's decode cache split over tp chunks, at cache_index 0, the middle and
+# the end (whole chunks masked); the reference's bf16 decode tolerance, and
+# the chunks' log-sum-exps (fp32 from bf16 inputs) against the plain
+# partials' at LSE_TOL
+SPMD_DECODE = dict(B=4, H=16, K=8, D=128, slots=576, tps=(4, 8, 16), indices=(0, 287, 575))
+DECODE_TOL_BF16 = 3e-2
+LSE_TOL = 1e-3
+# jamba's long context (B=1, S=4096, H=64, K=8, D=128, window 2048, bf16):
+# the chunked flash with its manual backward against autograd through
+# chunked_attention, at the reference's bf16 forward limit (2e-2,
+# tests/test_kernels_flash.py) and its bf16 backward limit (atol 6e-2, rtol
+# 1e-2, tests/test_kernels_flash_bwd.py).  Both round p (and the manual one
+# ds) to bf16 where the reference does, at other points of the recurrence,
+# so they differ by bf16 roundings (a CPU run at 1 x 1024, 16 heads: 0.016-
+# 0.031 largest), beyond phase 5's one-ulp element check, which either
+# breaks 25-50 times against an fp64 reference too.
+SPMD_LONG = dict(B=1, S=4096, H=64, K=8, D=128, window=2048)
+LONG_GRAD_TOL = (6e-2, 1e-2)
+
+
+def spmd_mesh():
+    """(a): a one-rank NCCL group on a HashStore (no address, no port) and
+    its ("data", "model") = (1, 1) mesh through the elastic re-meshing."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime.elastic import make_elastic_mesh, viable_mesh_shape
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    shape = viable_mesh_shape(1, model=1)
+    mesh = make_elastic_mesh(shape)
+    say(f"  (a) mesh {dict(zip(mesh.mesh_dim_names, list(mesh.mesh.shape)))} on one "
+        f"NCCL rank (viable_mesh_shape(1, model=1) = {shape})")
+    return mesh
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def spmd_serve(mesh, dev, kernels):
+    """(b): qwen3-1.7B at full width and depth, distributed by its serve
+    specs, one prefill of SPMD_BATCH x SPMD_PROMPT tokens and SPMD_STEPS
+    decode steps under the mesh against the same without it."""
+    import repro_torch.configs as cfgs
+    from repro_torch.models import build
+    from repro_torch.sharding.hints import mesh_axes, use_mesh
+    from repro_torch.sharding.specs import (cache_partition_specs, distribute_batch,
+                                            distribute_model, mesh_sizes, placements)
+
+    cfg = cfgs.get(ARCH)
+    api = build(cfg)
+    model = api.init(torch.Generator(device=dev).manual_seed(SEED))
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 25).integers(
+        0, cfg.vocab_size, (SPMD_BATCH, SPMD_PROMPT))).to(dev)
+    budget = SPMD_PROMPT + SPMD_STEPS
+    fed = []  # the mesh-free path's greedy tokens, fed to both paths
+
+    def where(caches):
+        return [str(list(getattr(caches[0][n], "placements", []))) for n in ("k", "v")]
+
+    def run(batch_of):
+        logits, caches = model.prefill(batch_of({"tokens": tokens}), seq_budget=budget)
+        out, placed = [_full(logits)], [where(caches)]
+        for j in range(SPMD_STEPS):
+            if len(fed) == j:
+                fed.append(torch.argmax(out[-1], -1).to(torch.int32)[:, None])
+            logits, caches = model.decode(batch_of({"tokens": fed[j]}), caches,
+                                          cache_index=SPMD_PROMPT + j)
+            out.append(_full(logits))
+            placed.append(where(caches))
+        return out, placed
+
+    ref, _ = run(lambda b: b)
+    distribute_model(model, mesh, mode="serve")
+    zero_counts(kernels)
+    with use_mesh(mesh), mesh_axes(SPMD_AXES):
+        got, placed = run(lambda b: distribute_batch(b, mesh))
+    torch.cuda.synchronize()
+    counts = launch_counts(kernels)
+    say(f"  (b) {cfg.name} distributed by tree_partition_specs (serve) on the mesh, "
+        f"embed.table placed {list(model.embed.table.placements)}; launches under the "
+        f"mesh over one prefill and {SPMD_STEPS} decode steps: {counts}")
+    want = str(placements(cache_partition_specs(
+        [{"k": torch.empty(SPMD_BATCH, budget, cfg.n_kv_heads, cfg.head_dim, device="meta")}],
+        SPMD_AXES, global_batch=SPMD_BATCH, dp_size=1, axis_sizes=mesh_sizes(mesh))[0]["k"],
+        mesh))
+    say(f"  (b) layer 0's KV caches placed {placed[0]} after prefill, {placed[-1]} after "
+        f"the last decode step (cache_partition_specs: {want})")
+    if any(p != [want, want] for p in placed):
+        raise AssertionError("(b) the KV caches are not where cache_partition_specs puts "
+                             "them, or decode moved them")
+    for j, (a, b) in enumerate(zip(got, ref)):
+        diff = (a - b).abs()
+        err, mean = diff.max().item(), diff.mean().item()
+        name = "prefill" if j == 0 else f"decode at {SPMD_PROMPT + j - 1}"
+        say(f"  (b) {name} logits under the mesh vs without: max |diff| {err:.3e} "
+            f"(limit {FULL_WIDTH_MAX_ERR:g}), mean {mean:.3e} (limit "
+            f"{FULL_WIDTH_MEAN_ERR:g}), bit-identical {torch.equal(a, b)}")
+        if not (torch.isfinite(a).all() and err <= FULL_WIDTH_MAX_ERR
+                and mean <= FULL_WIDTH_MEAN_ERR):
+            raise AssertionError(f"(b) {name}: logits under the mesh disagree")
+    if (counts["flash_attention_sm90"] != cfg.n_layers
+            or counts["decode_attention_sm90"] != cfg.n_layers * SPMD_STEPS):
+        raise AssertionError(f"(b) expected {cfg.n_layers} bf16 flash launches and "
+                             f"{cfg.n_layers} decode launches a step through local_map")
+    return counts
+
+
+def spmd_train(mesh, dev, kernels):
+    """(c): qwen3 at full width cut to TRAIN_LAYERS, one training step on
+    DTensor parameters (train specs) under make_train_step(axes=...)
+    against the mesh-free step: loss and gradients at phase 7's limits,
+    the updated weights printed."""
+    import repro_torch.configs as cfgs
+    from repro_torch.models import build
+    from repro_torch.runtime.train_loop import (TrainConfig, loss_and_grads,
+                                                make_train_state, make_train_step)
+    from repro_torch.sharding.hints import mesh_axes, use_mesh
+    from repro_torch.sharding.specs import distribute_batch, distribute_model
+
+    tcfg = cfgs.get(ARCH).replace(n_layers=TRAIN_LAYERS)
+    api = build(tcfg)
+    tc = TrainConfig(warmup_steps=1, total_steps=10)
+    batch = markov_batch(tcfg, dev)
+
+    ref_state = make_train_state(api, tc, device=dev)
+    loss0, _, g0 = loss_and_grads(api, ref_state["params"], batch)
+    ref_state, ref_m = make_train_step(api, tc)(ref_state, batch)
+    params = api.init(torch.Generator(device=dev).manual_seed(tc.seed))
+    state = make_train_state(api, tc, params=distribute_model(params, mesh))
+    with use_mesh(mesh), mesh_axes(SPMD_AXES):
+        loss1, _, g1 = loss_and_grads(api, state["params"], distribute_batch(batch, mesh))
+    loss1, g1 = _full(loss1), {k: _full(g) for k, g in g1.items()}
+    zero_counts(kernels)
+    state, m = make_train_step(api, tc, axes=SPMD_AXES)(state, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts(kernels)
+    say(f"  (c) {tcfg.name} at {TRAIN_LAYERS} layers, one make_train_step(axes="
+        f"{SPMD_AXES}) step on DTensor parameters: launches {counts}")
+    dloss = abs(loss1.item() - loss0.item())
+    worst = compare_grads(g1, g0, "g_mesh - g", "g")
+    same = torch.equal(loss1, loss0) and all(torch.equal(g1[k], g0[k]) for k in g0)
+    loss_lim, grad_lim = TRAIN_LIMITS[torch.bfloat16]
+    say(f"  (c) loss under the mesh {loss1.item():.6f}, without {loss0.item():.6f}: "
+        f"|dloss| {dloss:.3e} (limit {loss_lim:g}); largest relative gradient "
+        f"difference {worst:.3e} (limit {grad_lim:g}); bit-identical {same}")
+    step_same = torch.equal(m["loss"], ref_m["loss"])
+    upd = compare_grads({k: _full(p.detach()) for k, p in state["params"].named_parameters()},
+                        dict(ref_state["params"].named_parameters()), "p_mesh - p", "p",
+                        quiet=True)
+    say(f"  (c) the step's loss {m['loss'].item():.6f} (without the mesh "
+        f"{ref_m['loss'].item():.6f}, equal {step_same}), grad_norm "
+        f"{m['grad_norm'].item():.6f} ({ref_m['grad_norm'].item():.6f}); updated weights' "
+        f"largest relative difference {upd:.3e}")
+    if not (dloss <= loss_lim and worst <= grad_lim and upd <= grad_lim):
+        raise AssertionError("(c) the training step under the mesh disagrees")
+    want = {name: TRAIN_LAYERS for name in BF16_TRAIN_KERNELS}
+    if any(counts[name] != n for name, n in want.items()) or any(
+            counts[k.name] for k in kernels.KERNELS if k.name not in want):
+        raise AssertionError(f"(c) expected {want} through local_map and nothing else")
+    return counts
+
+
+def spmd_head_plans(flash, tp=SPMD_TP, B=SPMD_BATCH, S=SPMD_PROMPT):
+    """(d): each SPMD_HEAD_PLANS case split over ``tp`` head shards as
+    flash_attention_tp lays it out (plan_heads' permutation, duplicated kv
+    heads, zero heads), every shard's forward and backward pair launched
+    in turn, the plan inverted (a duplicated kv head's gradient the bf16
+    sum of its copies', as autograd through the permutation sums them);
+    held to the unsharded kernels: the output by phase 2's element check,
+    dq by phase 5's, dk and dv by phase 5's with the rtol term over the
+    copies' magnitudes (each copy rounded to bf16 once before the sum)."""
+    from repro_torch.kernels.flash_attention.sharded import _take_heads, plan_heads
+
+    dt = torch.bfloat16
+    for label, H, K, D, Dv in SPMD_HEAD_PLANS:
+        q, k, v = (randn((B, S, H, D), dt, 61), randn((B, S, K, D), dt, 62),
+                   randn((B, S, K, Dv), dt, 63))
+        g = randn((B, S, H, Dv), dt, 64)
+        plan = plan_heads(H, K, tp)
+        qp, gp = _take_heads(q, plan.q_src), _take_heads(g, plan.q_src)
+        kp, vp = _take_heads(k, plan.kv_src), _take_heads(v, plan.kv_src)
+        hq, hk = plan.Hp // tp, plan.Kp // tp
+        parts = {"out": [], "dq": [], "dk": [], "dv": []}
+        for i in range(tp):
+            qs, gs = (t[:, :, i * hq:(i + 1) * hq].contiguous() for t in (qp, gp))
+            ks, vs = (t[:, :, i * hk:(i + 1) * hk].contiguous() for t in (kp, vp))
+            out, lse = flash.flash_attention_fwd(qs, ks, vs, causal=True)
+            dq, dk, dv = flash.flash_attention_bwd(qs, ks, vs, out, lse, gs, causal=True)
+            for name, t in zip(parts, (out, dq, dk, dv)):
+                parts[name].append(t)
+        inv = torch.tensor(plan.inv, device=q.device)
+        src = torch.tensor([max(s, 0) for s in plan.kv_src], device=q.device)
+        real = torch.tensor([s >= 0 for s in plan.kv_src], device=q.device)
+        got = {n: torch.cat(parts[n], 2).index_select(2, inv) for n in ("out", "dq")}
+        for n, like in (("dk", k), ("dv", v)):
+            cat = torch.cat(parts[n], 2)[:, :, real]
+            got[n] = torch.zeros_like(like).index_add_(2, src[real], cat)
+            got[n + " copies"] = torch.zeros_like(like, dtype=torch.float32).index_add_(
+                2, src[real], cat.float().abs())
+        out, lse = flash.flash_attention_fwd(q, k, v, causal=True)
+        ref = dict(zip(("dq", "dk", "dv"), flash.flash_attention_bwd(q, k, v, out, lse, g,
+                                                                    causal=True)))
+        tag = (f"(d) {label} (H={H}, K={K}, D={D}, Dv={Dv}) at tp={tp}: Hp={plan.Hp}, "
+               f"Kp={plan.Kp}, {tp} shards of {hq} q-heads and {hk} kv-heads")
+        check(f"{tag} out", got["out"], out, RTOL[dt])
+        check(f"{tag} dq", got["dq"], ref["dq"], RTOL[dt], BWD_ATOL)
+        for n in ("dk", "dv"):
+            diff = (got[n].float() - ref[n].float()).abs()
+            lim = BWD_ATOL + RTOL[dt] * (ref[n].float().abs() + got[n + " copies"])
+            worst = (diff / lim).max().item()
+            say(f"  {tag} {n}: max_abs_err {diff.max().item():.3e}, largest |err| / "
+                f"({BWD_ATOL:g} + {RTOL[dt]:g} (|ref| + sum |copy|)) {worst:.3f} (limit 1)")
+            if not worst <= 1.0:
+                raise AssertionError(f"{tag} {n}: the head plan's gradient disagrees")
+        same = {n: torch.equal(got[n], r) for n, r in (("out", out), *ref.items())}
+        say(f"  {tag}: bit-identical to the unsharded kernels {same}")
+
+
+def spmd_decode_merge(decode):
+    """(e): qwen3's bf16 cache split into tp chunks as decode_attention_tp
+    splits it; each chunk's decode kernel (chunk_decode: out and
+    log-sum-exp, no launch for a chunk wholly past cache_index) against the
+    plain partials of the chunk, and the merge the "model" all-reduces make
+    (max, then sums, here over the stacked chunks) against the unsharded
+    decode kernel."""
+    from repro_torch.kernels.decode_attention.sharded import (_local_partials,
+                                                              chunk_decode, merge_chunks)
+
+    def stacked(x, op):
+        return x.amax(0) if op == "max" else x.sum(0)
+
+    c, dt = SPMD_DECODE, torch.bfloat16
+    q = randn((c["B"], 1, c["H"], c["D"]), dt, 71)
+    kc = randn((c["B"], c["slots"], c["K"], c["D"]), dt, 72)
+    vc = randn((c["B"], c["slots"], c["K"], c["D"]), dt, 73)
+    for tp in c["tps"]:
+        sl = c["slots"] // tp
+        for ci in c["indices"]:
+            chunks = [(kc[:, i * sl:(i + 1) * sl].contiguous(),
+                       vc[:, i * sl:(i + 1) * sl].contiguous()) for i in range(tp)]
+            before = decode.KERNEL.launches
+            parts = [chunk_decode(q, k, v, start=i * sl, cache_index=ci)
+                     for i, (k, v) in enumerate(chunks)]
+            launched = decode.KERNEL.launches - before
+            live = sum(i * sl <= ci for i in range(tp))
+            tag = (f"(e) decode, {c['slots']} slots in {tp} chunks of {sl}, cache_index {ci} "
+                   f"({tp - live} chunks wholly masked)")
+            if launched != live:
+                raise AssertionError(f"{tag}: {launched} launches, {live} chunks hold keys")
+            out_worst = lse_err = 0.0
+            for i, ((k, v), (out, lse)) in enumerate(zip(chunks, parts)):
+                if i * sl > ci:
+                    continue
+                acc, m, l = _local_partials(q, k, v, start=i * sl, cache_index=ci, window=None)
+                plain = (acc / l[..., None])[:, None].to(dt).float()
+                out_worst = max(out_worst, ((out.float() - plain).abs() / (
+                    DECODE_TOL_BF16 + DECODE_TOL_BF16 * plain.abs())).max().item())
+                lse_err = max(lse_err, (lse - (m + torch.log(l))).abs().max().item())
+            say(f"  {tag}: {launched} launches; the chunks' outputs against the plain "
+                f"partials' largest |err| / ({DECODE_TOL_BF16:g} + {DECODE_TOL_BF16:g} |ref|) "
+                f"{out_worst:.3f} (limit 1), their lse max_abs_err {lse_err:.3e} (limit "
+                f"{LSE_TOL:g})")
+            if not (out_worst <= 1.0 and lse_err <= LSE_TOL):
+                raise AssertionError(f"{tag}: a chunk's output or log-sum-exp disagrees")
+            out, lse = (torch.stack(t) for t in zip(*parts))
+            ref = decode.decode_attention_fwd(q, kc, vc, cache_index=ci)
+            check(f"{tag} merged", merge_chunks(out, lse, stacked).to(dt), ref,
+                  DECODE_TOL_BF16, DECODE_TOL_BF16)
+
+
+def spmd_long_context():
+    """(f): jamba's long-context attention, the chunked flash with its
+    manual backward against autograd through chunked_attention: output,
+    gradients and each one's peak memory from its forward to the end of
+    its backward."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention.chunked import flash_attention_chunked
+    from repro_torch.models.attention import chunked_attention
+
+    c, dt = SPMD_LONG, torch.bfloat16
+    q = randn((c["B"], c["S"], c["H"], c["D"]), dt, 81)
+    k = randn((c["B"], c["S"], c["K"], c["D"]), dt, 82)
+    v = randn((c["B"], c["S"], c["K"], c["D"]), dt, 83)
+    g = randn((c["B"], c["S"], c["H"], c["D"]), dt, 84)
+    chunks = kernels._chunks(q, v)
+    runs = {}
+    for name, fn in (
+            ("chunked flash, manual backward", lambda a, b, d: flash_attention_chunked(
+                a, b, d, True, c["window"], chunks["q_chunk"], chunks["kv_chunk"])),
+            ("autograd through chunked_attention", lambda a, b, d: chunked_attention(
+                a, b, d, causal=True, window=c["window"], **chunks))):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn(*leaves)
+        out.backward(g)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        runs[name] = (out.detach(), *(t.grad for t in leaves))
+        say(f"  (f) {name} at B={c['B']}, S={c['S']}, H={c['H']}, K={c['K']}, "
+            f"D={c['D']}, window {c['window']}, chunks {chunks}: peak memory above the "
+            f"inputs {peak:.3f} GB, {time.perf_counter() - t0:.3f} s")
+        del out, leaves
+    got, ref = runs.values()
+    check("(f) output", got[0], ref[0], 2e-2, 2e-2)
+    for name, a, b in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+        check(f"(f) {name}", a, b, LONG_GRAD_TOL[1], LONG_GRAD_TOL[0])
+
+
+def spmd_phase(dev, kernels, flash, decode):
+    """Phase 25: (a) the mesh, (b) serving and (c) training under it, (d)
+    the head plans and (e) the decode merge at real tensor-parallel
+    degrees, serialized, (f) the chunked flash's manual backward at long
+    context, (g) the phase's seconds.  Returns (b)'s and (c)'s launches."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    mesh = spmd_mesh()
+    try:
+        serve = spmd_serve(mesh, dev, kernels)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train = spmd_train(mesh, dev, kernels)
+        gc.collect()
+        torch.cuda.empty_cache()
+        spmd_head_plans(flash)
+        spmd_decode_merge(decode)
+        spmd_long_context()
+    finally:
+        dist.destroy_process_group()
+    say(f"  (g) phase 25 took {time.perf_counter() - t0:.1f} s")
+    return serve, train
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4539,6 +4923,12 @@ def main() -> int:
     phase("phase 24: training programs batched through Service.execute_batch (the "
           "local-SGD round under vmap(grad), each kernel folded)")
     batched_train_phase(scan, dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("phase 25: the SPMD layer on one card (a one-rank mesh, local_map, the head "
+          "plans and the decode merge serialized, the chunked flash's manual backward)")
+    spmd_phase(dev, kernels, flash, decode)
 
     say(f"all phases in {time.perf_counter() - START:.1f} s")
     # the kernels line: (name, kernel, its times, its largest |error|, the

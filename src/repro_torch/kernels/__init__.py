@@ -19,10 +19,21 @@ geometry.  A folded call of ``Service.execute_batch`` reads the cache at
 its folded batch.
 
 A windowed attention call (jamba's attention layers at long context) runs
-the model's plain windowed path on every device, as the reference sends
-every windowed call to its non-Pallas path: ``chunked_attention`` for
-prefill and training, ``decode_attention_xla`` for decode.  It launches
-no kernel and counts no launch; the kernels take no window.
+a plain windowed path on every device, as the reference sends every
+windowed call to its non-Pallas path: ``chunked_attention`` for prefill,
+the chunked flash with its manual backward (``flash_attention/chunked.py``,
+the reference's ``flash_attention_xla``) for training,
+``decode_attention_xla`` for decode.  It launches no kernel and counts no
+launch; the kernels take no window.
+
+The prefill, train and decode members go through the tensor-parallel
+attention, which decides the route: while a mesh with a "model" axis is
+current (``sharding.hints.use_mesh``) and the inputs are DTensors,
+``flash_attention_tp`` runs the unsharded dispatch above, the kernels
+included, on each rank's head shard under ``local_map``, and
+``decode_attention_tp`` runs the decode kernel on each rank's cache chunk
+and merges the chunks by their log-sum-exp over "model"; otherwise both
+are the unsharded dispatch, the same launches and bits as with no mesh.
 
 A model's layers call one :class:`AttentionOps`, passed down from the
 model's entry points: its attention members, and ``scan`` for Mamba
@@ -69,28 +80,51 @@ _CHUNKS_PROBE = ConfigProbe("xla_flash", ("B", "Sq", "Skv", "H", "K", "D", "Dv")
                             "torch", default_config("xla_flash", "torch"))
 
 
-def _chunked(q, k, v, causal, window):
-    """The windowed path: ``chunked_attention`` at the tuning cache's
-    chunks for this shape (``xla_flash``, ``"torch"``), as the reference's
-    windowed dispatch reads its ``"xla"`` entries."""
-    from repro_torch.models.attention import chunked_attention
-
+def _chunks(q, v) -> dict:
+    """The tuning cache's chunks for this shape (``xla_flash``,
+    ``"torch"``), as the reference's windowed dispatch reads its
+    ``"xla"`` entries."""
     B, Sq, H, D = q.shape
     _, Skv, K, Dv = v.shape
-    cfg = _CHUNKS_PROBE((B, Sq, Skv, H, K, D, Dv), q.dtype)
+    return _CHUNKS_PROBE((B, Sq, Skv, H, K, D, Dv), q.dtype)
+
+
+def local_attention(q, k, v, *, causal, window, train, q_chunk=None, kv_chunk=None):
+    """The unsharded attention: the flash kernel (``train``: through its
+    autograd rule, the dq and dk/dv kernels in the backward); a windowed
+    call runs ``chunked_attention`` (prefill) or the chunked flash with its
+    manual backward (training) at the given chunks, by default the tuning
+    cache's.  The tensor-parallel attention's local body."""
+    if window is None:
+        if train:
+            return _flash.flash_attention(q, k, v, causal=causal)
+        return _flash.flash_attention_fwd(q, k, v, causal=causal)[0]
+    if q_chunk is None:
+        cfg = _chunks(q, v)
+        q_chunk, kv_chunk = cfg["q_chunk"], cfg["kv_chunk"]
+    if train:
+        from .flash_attention.chunked import flash_attention_chunked
+
+        return flash_attention_chunked(q, k, v, causal, window, q_chunk, kv_chunk)
+    from repro_torch.models.attention import chunked_attention
+
     return chunked_attention(q, k, v, causal=causal, window=window,
-                             q_chunk=cfg["q_chunk"], kv_chunk=cfg["kv_chunk"])
+                             q_chunk=q_chunk, kv_chunk=kv_chunk)
 
 
 def flash_attention_dispatch(q, k, v, *, causal=True, window=None):
     """(B,Sq,H,D) x (B,Skv,K,D) -> (B,Sq,H,Dv)."""
-    if window is not None:
-        return _chunked(q, k, v, causal, window)
-    return _flash.flash_attention_fwd(q, k, v, causal=causal)[0]
+    return flash_attention_tp(q, k, v, causal=causal, window=window, train=False)
 
 
 def decode_attention_dispatch(q, k_cache, v_cache, *, cache_index, window=None):
     """(B,1,H,D) against (B,S,K,D) caches -> (B,1,H,Dv)."""
+    return decode_attention_tp(q, k_cache, v_cache, cache_index=cache_index, window=window)
+
+
+def local_decode(q, k_cache, v_cache, *, cache_index, window=None):
+    """The unsharded decode: the decode kernel, or ``decode_attention_xla``
+    for a windowed call."""
     if window is not None:
         from repro_torch.models.attention import decode_attention_xla
 
@@ -102,9 +136,7 @@ def decode_attention_dispatch(q, k_cache, v_cache, *, cache_index, window=None):
 
 def flash_attention_train_dispatch(q, k, v, *, causal=True, window=None):
     """Differentiable (B,Sq,H,D) x (B,Skv,K,D) -> (B,Sq,H,Dv)."""
-    if window is not None:
-        return _chunked(q, k, v, causal, window)
-    return _flash.flash_attention(q, k, v, causal=causal)
+    return flash_attention_tp(q, k, v, causal=causal, window=window, train=True)
 
 
 def _no_window(window) -> None:
@@ -133,6 +165,11 @@ def mamba_scan_dispatch(x, dt, A, B, C, h0=None):
     (b,d,n)), fp32, differentiable."""
     return _scan.mamba_scan(x, dt, A, B, C, h0)
 
+
+# the tensor-parallel attention's local bodies are local_attention and
+# local_decode above
+from .decode_attention.sharded import decode_attention_tp  # noqa: E402
+from .flash_attention.sharded import flash_attention_tp  # noqa: E402
 
 DISPATCH = AttentionOps(flash_attention_dispatch, decode_attention_dispatch,
                         flash_attention_train_dispatch, mamba_scan_dispatch)

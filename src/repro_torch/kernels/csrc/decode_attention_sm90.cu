@@ -48,6 +48,12 @@
 // calls on several streams at once share nothing, and the result is the
 // same bit for bit from launch to launch.  A split or warp that saw no key
 // keeps m = NEG_INF (finite), l = 0 and weighs exactly 0.
+//
+// Where the caller passes an `lse` buffer (B, H) fp32, the merge also
+// writes each q-head's log-sum-exp of its scores, ln 2 (M + log2 L): what a
+// sequence-parallel decode needs to merge the outputs of the cache chunks
+// that several devices hold (repro_torch/kernels/decode_attention/sharded.py).
+// The output is the same with and without it.
 
 #include <cooperative_groups.h>
 
@@ -70,6 +76,7 @@ constexpr int TK = WARPS * U;          // keys a tile
 constexpr int MAX_SPLITS = 8;          // the portable cluster size
 constexpr int RING_BYTES = 64 * 1024;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // The K/V ring of a block: STAGES stages of one K tile and one V tile.
 template <typename T, int D>
@@ -121,8 +128,8 @@ __device__ __forceinline__ void load_lane(const T* row, int lane, float (&out)[D
 template <typename T, int D, int GP>
 __global__ void __launch_bounds__(THREADS)
 decode_sm90_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ out, int S, int H, int K,
-                   int n_keys, float scale_log2) {
+                   const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+                   int S, int H, int K, int n_keys, float scale_log2) {
   using R = Ring<T, D>;
   constexpr int EPL = D / 32;  // elements a lane
   constexpr int EPC = 16 / static_cast<int>(sizeof(T));  // elements a 16-byte chunk
@@ -298,6 +305,8 @@ decode_sm90_kernel(const T* __restrict__ q, const T* __restrict__ k,
       o = fmaf(*cluster.map_shared_rank(&pacc[g][d], r), c, o);
     }
     orow[i] = repro::from_f<T>(o / fmaxf(L, 1e-37f));
+    if (lse != nullptr && d == 0)
+      lse[static_cast<size_t>(b) * H + kh * G + g0 + g] = LN2 * (M + log2f(fmaxf(L, 1e-37f)));
   }
   cluster.sync();  // no block leaves while another may still read its shared memory
 }
@@ -334,8 +343,8 @@ int resolve_splits(int splits, int B, int H, int K, int n_keys, int sms) {
 }
 
 template <typename T, int D, int GP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int S,
-                   int H, int K, int cache_index, int splits_asked, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                   int S, int H, int K, int cache_index, int splits_asked, cudaStream_t stream) {
   using R = Ring<T, D>;
   static bool configured = false;  // once per instantiation (a repeat is harmless)
   if (!configured) {
@@ -365,30 +374,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, decode_sm90_kernel<T, D, GP>, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, H, K, n_keys,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, K, n_keys,
       LOG2E / sqrtf(static_cast<float>(D)));
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t dispatch_g(const void* q, const void* k, const void* v, void* out, int B, int S,
-                       int H, int K, int cache_index, int splits, cudaStream_t stream) {
+cudaError_t dispatch_g(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int B, int S, int H, int K, int cache_index, int splits,
+                       cudaStream_t stream) {
   switch (heads_a_block(H / K)) {
-    case 1: return launch<T, D, 1>(q, k, v, out, B, S, H, K, cache_index, splits, stream);
-    case 2: return launch<T, D, 2>(q, k, v, out, B, S, H, K, cache_index, splits, stream);
-    case 4: return launch<T, D, 4>(q, k, v, out, B, S, H, K, cache_index, splits, stream);
-    default: return launch<T, D, 8>(q, k, v, out, B, S, H, K, cache_index, splits, stream);
+    case 1: return launch<T, D, 1>(q, k, v, out, lse, B, S, H, K, cache_index, splits, stream);
+    case 2: return launch<T, D, 2>(q, k, v, out, lse, B, S, H, K, cache_index, splits, stream);
+    case 4: return launch<T, D, 4>(q, k, v, out, lse, B, S, H, K, cache_index, splits, stream);
+    default: return launch<T, D, 8>(q, k, v, out, lse, B, S, H, K, cache_index, splits, stream);
   }
 }
 
 template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, int B, int S,
-                       int H, int K, int D, int cache_index, int splits, cudaStream_t stream) {
+cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int B, int S, int H, int K, int D, int cache_index, int splits,
+                       cudaStream_t stream) {
   switch (D) {
-    case 32: return dispatch_g<T, 32>(q, k, v, out, B, S, H, K, cache_index, splits, stream);
-    case 64: return dispatch_g<T, 64>(q, k, v, out, B, S, H, K, cache_index, splits, stream);
-    case 96: return dispatch_g<T, 96>(q, k, v, out, B, S, H, K, cache_index, splits, stream);
-    case 128: return dispatch_g<T, 128>(q, k, v, out, B, S, H, K, cache_index, splits, stream);
+    case 32: return dispatch_g<T, 32>(q, k, v, out, lse, B, S, H, K, cache_index, splits, stream);
+    case 64: return dispatch_g<T, 64>(q, k, v, out, lse, B, S, H, K, cache_index, splits, stream);
+    case 96: return dispatch_g<T, 96>(q, k, v, out, lse, B, S, H, K, cache_index, splits, stream);
+    case 128:
+      return dispatch_g<T, 128>(q, k, v, out, lse, B, S, H, K, cache_index, splits, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -396,24 +408,25 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, i
 }  // namespace
 
 // q (B,1,H,D), k/v caches (B,S,K,D) contiguous, the caches 16-byte aligned;
-// out (B,1,H,D) in the cache dtype.  0 <= cache_index < S, H a multiple of
-// K, B <= 65535.  dtype: 0 = float32, 1 = bfloat16.  splits: the KV
+// out (B,1,H,D) in the cache dtype; lse (B,H) fp32, or null for none.
+// 0 <= cache_index < S, H a multiple of K, B <= 65535.  dtype: 0 = float32, 1 = bfloat16.  splits: the KV
 // splits a cluster, 1..8 and at most the 32-key tiles of the cache_index + 1
 // keys (one always), or 0 for choose_splits's.  Returns the cudaError_t of
 // the launch (cudaErrorInvalidValue for a split count outside those bounds).
 extern "C" int repro_decode_attention_fwd(const void* q, const void* k, const void* v,
-                                          void* out, int B, int S, int H, int K, int D,
-                                          int cache_index, int dtype, int splits,
+                                          void* out, void* lse, int B, int S, int H, int K,
+                                          int D, int cache_index, int dtype, int splits,
                                           void* stream) {
   if (cache_index < 0 || cache_index >= S || B < 1 || B > 65535 || K < 1 || H % K)
     return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(k) % 16 || reinterpret_cast<uintptr_t>(v) % 16)
     return cudaErrorMisalignedAddress;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, out, B, S, H, K, D, cache_index, splits, st);
+    return dispatch_d<float>(q, k, v, out, l, B, S, H, K, D, cache_index, splits, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, B, S, H, K, D, cache_index, splits, st);
+    return dispatch_d<__nv_bfloat16>(q, k, v, out, l, B, S, H, K, D, cache_index, splits, st);
   return cudaErrorInvalidValue;
 }
 

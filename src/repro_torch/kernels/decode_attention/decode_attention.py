@@ -22,6 +22,10 @@ cache at the folded batch.  Folding changes B, so the kernel may split
 the cache into other KV splits and merge in another order than a task's
 own launch: the results agree within the decode tolerance, not bit for
 bit.
+
+``return_lse=True`` also returns each q-head's log-sum-exp of its scores,
+(B, H) fp32, which the kernel writes in its merge: the sequence-parallel
+decode (``sharded.py``) merges the cache chunks' outputs by it.
 """
 
 from __future__ import annotations
@@ -41,16 +45,17 @@ NEG_INF = -2.0e38
 _p, _i = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "decode_attention_sm90.cu", "repro_decode_attention_fwd",
-    [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p])
+    [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DEFAULT_SPLITS = default_config("decode", "cuda")  # {"splits": 0}: choose_splits
 _SPLITS_PROBE = ConfigProbe("decode", ("B", "S", "H", "K", "D", "Dv"), "cuda",
                             DEFAULT_SPLITS)
 
 
-def decode_attention_plain(q, k_cache, v_cache, *, cache_index: int):
+def decode_attention_plain(q, k_cache, v_cache, *, cache_index: int, return_lse=False):
     """Masked softmax over the cache in fp32.  q (B,1,H,D), caches
-    (B,S,K,D[v]) -> (B,1,H,Dv) in the cache dtype."""
+    (B,S,K,D[v]) -> (B,1,H,Dv) in the cache dtype; with ``return_lse``
+    also the scores' log-sum-exp (B,H) fp32."""
     B, S, K, D = k_cache.shape
     H, Dv = q.shape[2], v_cache.shape[-1]
     qg = q.float().reshape(B, K, H // K, D)
@@ -61,7 +66,10 @@ def decode_attention_plain(q, k_cache, v_cache, *, cache_index: int):
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-37)
     out = torch.einsum("bkgs,bskv->bkgv", p, v_cache.float()) / l
-    return out.reshape(B, 1, H, Dv).to(v_cache.dtype)
+    out = out.reshape(B, 1, H, Dv).to(v_cache.dtype)
+    if return_lse:
+        return out, (m + torch.log(l)).reshape(B, H)
+    return out
 
 
 def _check(q, k_cache, v_cache, cache_index):
@@ -99,7 +107,7 @@ def decode_splits(dtype, B, S, H, K, D, Dv, cache_index, splits=None) -> int:
     return min(splits, max(1, (cache_index + 1) // DECODE_TILE)) if splits else 0
 
 
-def _launch_tuned(q, k_cache, v_cache, out, cache_index, splits, stream):
+def _launch_tuned(q, k_cache, v_cache, out, lse, cache_index, splits, stream):
     """Decode at the KV splits ``decode_splits`` resolves; a launch the
     kernel refuses raises :class:`KernelConfigError` naming the count."""
     B, _, H, D = q.shape
@@ -107,7 +115,7 @@ def _launch_tuned(q, k_cache, v_cache, out, cache_index, splits, stream):
     splits = decode_splits(q.dtype, B, S, H, K, D, Dv, cache_index, splits)
     try:
         KERNEL.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-                      B, S, H, K, D, cache_index, _DTYPES[q.dtype], splits, stream)
+                      lse, B, S, H, K, D, cache_index, _DTYPES[q.dtype], splits, stream)
     except RuntimeError as e:
         if splits == 0:  # the kernel's own count: not a tuning matter
             raise
@@ -117,9 +125,10 @@ def _launch_tuned(q, k_cache, v_cache, out, cache_index, splits, stream):
 
 
 def decode_attention_fwd(q, k_cache, v_cache, *, cache_index: int,
-                         splits: int | None = None):
-    """Returns (B,1,H,Dv) in the cache dtype.  ``cache_index`` is a Python
-    int (last valid position, inclusive).
+                         splits: int | None = None, return_lse: bool = False):
+    """Returns (B,1,H,Dv) in the cache dtype, and with ``return_lse`` the
+    scores' log-sum-exp (B,H) fp32 too.  ``cache_index`` is a Python int
+    (last valid position, inclusive).
 
     CPU tensors go to the plain version; CUDA tensors to the kernel,
     which raises on what it does not take, at the KV splits
@@ -127,6 +136,8 @@ def decode_attention_fwd(q, k_cache, v_cache, *, cache_index: int,
     the call goes through the custom op, whose rule launches once for all
     the tasks."""
     if under_vmap(q, k_cache, v_cache):
+        if return_lse:
+            raise NotImplementedError("decode_attention_fwd under vmap returns no lse")
         if torch.is_tensor(cache_index) and under_vmap(cache_index):
             raise ValueError("decode_attention_fwd under vmap: input cache_index "
                              "arrived batched; the kernel takes one cache_index "
@@ -135,8 +146,8 @@ def decode_attention_fwd(q, k_cache, v_cache, *, cache_index: int,
     cache_index = int(cache_index)
     _check(q, k_cache, v_cache, cache_index)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache,
-                                      cache_index=cache_index)
+        return decode_attention_plain(q, k_cache, v_cache, cache_index=cache_index,
+                                      return_lse=return_lse)
     if (q.device.type != "cuda" or k_cache.device != q.device
             or v_cache.device != q.device):
         raise ValueError(f"decode_attention_fwd: q, caches on {q.device}, "
@@ -159,16 +170,18 @@ def decode_attention_fwd(q, k_cache, v_cache, *, cache_index: int,
         raise ValueError("decode_attention_fwd: the caches must start on a "
                          "16-byte boundary (the kernel copies 16 bytes at a time)")
     out = torch.empty((B, 1, H, Dv), dtype=v_cache.dtype, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
+    lse_ptr = lse.data_ptr() if return_lse else None
     tuned = splits is not None or get_cache() is not None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if tuned:
-            _launch_tuned(q, k_cache, v_cache, out, cache_index, splits, stream)
+            _launch_tuned(q, k_cache, v_cache, out, lse_ptr, cache_index, splits, stream)
         else:  # no cache, no count asked for: the kernel's own (0)
             KERNEL.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                          out.data_ptr(), B, S, H, K, D, cache_index,
+                          out.data_ptr(), lse_ptr, B, S, H, K, D, cache_index,
                           _DTYPES[q.dtype], 0, stream)
-    return out
+    return (out, lse) if return_lse else out
 
 
 @torch.library.custom_op(

@@ -7,8 +7,9 @@ the model's entry points pass down, by default the dispatch of
 and flash-decode kernels, on a CPU tensor their plain PyTorch versions.  ``chunked_attention`` and
 ``decode_attention_xla`` are the plain references of the reference
 package's XLA path (a chunked online softmax and a masked one-token
-decode); the dispatch uses them for windowed attention on every device
-(jamba's attention at long context), and
+decode); the dispatch uses them for windowed prefill and decode on every
+device (jamba's attention at long context; windowed training runs the
+chunked flash with its manual backward), and
 whisper's decoder uses ``decode_attention_xla`` for its cross-attention
 decode on every device, as the reference does (it has no kernel there).
 """
@@ -19,6 +20,8 @@ import torch
 from torch import nn
 
 from ..kernels import AttentionOps
+from ..kernels.flash_attention.chunked import chunked_forward
+from ..sharding.hints import split_heads, write_slot
 from .common import ModelConfig
 from .layers import apply_rope, dense_init, ones, rms_norm
 
@@ -36,43 +39,10 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     ``q_chunk`` queries and ``kv_chunk`` keys, the last of each ragged
     (the reference scans chunks of the largest divisor of the length up to
     those sizes: one position at a prime length, which a loop here would
-    take ~S^2 steps over)."""
-    B, Sq, H, D = q.shape
-    Sk, K, Dv = v.shape[1], k.shape[2], v.shape[3]
-    G = H // K
-    scale = D ** -0.5
-    qg = q.reshape(B, Sq, K, G, D).float()
-    kf, vf = k.float(), v.float()
-    kv_pos = torch.arange(Sk, device=q.device)
-    outs = []
-    for q0 in range(0, Sq, q_chunk):
-        qi = qg[:, q0:q0 + q_chunk]
-        qc = qi.shape[1]
-        qpos = q0 + torch.arange(qc, device=q.device)
-        acc = torch.zeros(B, qc, K, G, Dv, device=q.device)
-        m = torch.full((B, K, G, qc), NEG_INF, device=q.device)
-        l = torch.zeros(B, K, G, qc, device=q.device)
-        for k0 in range(0, Sk, kv_chunk):
-            s = torch.einsum("bqkgd,bckd->bkgqc", qi, kf[:, k0:k0 + kv_chunk]) * scale
-            kpos = kv_pos[k0:k0 + kv_chunk]
-            mask = torch.ones(qc, kpos.numel(), dtype=torch.bool,
-                              device=q.device)
-            if causal:
-                mask &= kpos[None, :] <= qpos[:, None]
-            if window is not None:
-                mask &= kpos[None, :] > qpos[:, None] - window
-            s = torch.where(mask, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            pv = torch.einsum("bkgqc,bckv->bqkgv", p.to(v.dtype).float(),
-                              vf[:, k0:k0 + kv_chunk])
-            acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
-            m = m_new
-        out = acc / l.clamp_min(1e-37).permute(0, 3, 1, 2)[..., None]
-        outs.append(out.reshape(B, qc, H, Dv))
-    return torch.cat(outs, dim=1).to(v.dtype)
+    take ~S^2 steps over).  The forward of the chunked flash
+    (``kernels/flash_attention/chunked.py``)."""
+    return chunked_forward(q, k, v, causal=causal, window=window, q_chunk=q_chunk,
+                           kv_chunk=kv_chunk)[0]
 
 
 def decode_attention_xla(q, k_cache, v_cache, *, cache_index: int,
@@ -114,17 +84,15 @@ class Attention(nn.Module):
 
     def _q(self, x):
         cfg = self.cfg
-        B, S, _ = x.shape
-        return (x @ self.wq.to(cfg.dtype)).reshape(B, S, cfg.n_heads, cfg.head_dim)
+        return split_heads(x @ self.wq.to(cfg.dtype), cfg.n_heads, cfg.head_dim)
 
     def cross_kv(self, src):
         """(k, v) of an external source (B,Skv,d): the encoder output a
         whisper decoder layer attends to, with no qk-norm and no rope."""
         cfg = self.cfg
-        B, Skv, _ = src.shape
         dt, hd = cfg.dtype, cfg.head_dim
-        k = (src @ self.wk.to(dt)).reshape(B, Skv, cfg.n_kv_heads, hd)
-        v = (src @ self.wv.to(dt)).reshape(B, Skv, cfg.n_kv_heads, hd)
+        k = split_heads(src @ self.wk.to(dt), cfg.n_kv_heads, hd)
+        v = split_heads(src @ self.wv.to(dt), cfg.n_kv_heads, hd)
         return k, v
 
     def _project_qkv(self, x, positions):
@@ -190,8 +158,8 @@ class Attention(nn.Module):
         positions = (torch.full((1,), cache_index, dtype=torch.int64,
                                 device=x.device) if use_rope else None)
         q, k, v = self._project_qkv(x, positions)
-        cache["k"][:, cache_index] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, cache_index] = v[:, 0].to(cache["v"].dtype)
+        write_slot(cache["k"], cache_index, k[:, 0])
+        write_slot(cache["v"], cache_index, v[:, 0])
         out = ops.decode(q, cache["k"], cache["v"], cache_index=cache_index,
                          window=window)
         return self._out(out), cache

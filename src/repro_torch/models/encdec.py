@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from ..kernels import DISPATCH, AttentionOps
+from ..sharding.hints import shard_hint
 from .attention import Attention, make_empty_cache
 from .blocks import pad_seq
 from .common import ModelConfig, sinusoidal_positions
@@ -158,7 +159,7 @@ class EncDec(nn.Module):
             caches.append({"self": {name: pad_seq(a, seq_budget) for name, a in kv.items()},
                            "cross": {"k": kc, "v": vc}})
         x = self.dec_final_norm(x)
-        return self.head().unembed(x[:, -1:])[:, 0], caches
+        return shard_hint(self.head().unembed(x[:, -1:]), "logits")[:, 0], caches
 
     @torch.no_grad()
     def decode(self, batch, caches, *, cache_index: int,
@@ -176,7 +177,7 @@ class EncDec(nn.Module):
             x = x + layer.cross_attn.cross_decode(layer.cross_norm(x), c["cross"])
             x = layer._mlp(x)
         x = self.dec_final_norm(x)
-        return self.head().unembed(x)[:, 0], caches
+        return shard_hint(self.head().unembed(x), "logits")[:, 0], caches
 
     def make_caches(self, batch: int, seq_len: int):
         """Each decoder layer's empty caches: ``seq_len`` self-attention

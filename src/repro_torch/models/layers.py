@@ -11,6 +11,9 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from ..sharding.hints import data_parallel
 
 from .common import ModelConfig
 
@@ -34,13 +37,29 @@ def dense_init(g: torch.Generator, shape, dtype: torch.dtype,
     return _param(out)
 
 
+def rng(g) -> torch.Generator | None:
+    """``g`` itself, or None for ``META_INIT``: a meta tensor draws
+    nothing."""
+    return None if g.device.type == "meta" else g
+
+
+class _MetaInit:
+    """Stands in for the generator of ``init``: the model's parameters
+    are made on the meta device, shapes and dtypes only."""
+
+    device = torch.device("meta")
+
+
+META_INIT = _MetaInit()
+
+
 def _trunc_normal(g: torch.Generator, shape, std: float) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=g.device)
-    return nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std, generator=g)
+    return nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std, generator=rng(g))
 
 
 def embed_init(g: torch.Generator, shape, dtype: torch.dtype) -> nn.Parameter:
-    t = torch.randn(shape, generator=g, device=g.device) * 0.02
+    t = torch.randn(shape, generator=rng(g), device=g.device) * 0.02
     return _param(t.to(dtype))
 
 
@@ -205,11 +224,15 @@ class Embedding(nn.Module):
         self._table_f32: tuple | None = None  # (data_ptr, version, tensor)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.table.to(self.dtype)[tokens]
+        table = self.table.to(self.dtype)
+        if isinstance(table, DTensor):  # the lookup's backward has no DTensor rule
+            return data_parallel(lambda t_, w_: w_[t_], (tokens,), (table,))
+        return table[tokens]
 
     def table_f32(self) -> torch.Tensor:
         t = self.table
-        key = (t.data_ptr(), t._version)
+        local = t.to_local() if isinstance(t, DTensor) else t  # keyed on its storage
+        key = (local.data_ptr(), local._version)
         cached = self._table_f32
         if cached is None or cached[:2] != key:
             cached = (*key, t.detach().float())

@@ -44,6 +44,7 @@ import torch
 from torch import nn
 
 from ..kernels import DISPATCH, AttentionOps
+from ..sharding.hints import place_caches, shard_hint
 from .blocks import make_blocks
 from .common import ModelConfig
 from .layers import Embedding, dense_init, make_norm
@@ -187,8 +188,8 @@ class LM(nn.Module):
                                long_context=long_context)
             caches.append(c)
         x = self.final_norm(x)
-        logits = self.head().unembed(x[:, -1:, :])
-        return logits[:, 0], caches
+        logits = shard_hint(self.head().unembed(x[:, -1:, :]), "logits")
+        return logits[:, 0], place_caches(caches, x.shape[0])
 
     @torch.no_grad()
     def decode(self, batch, caches, *, cache_index: int,
@@ -199,7 +200,7 @@ class LM(nn.Module):
             x, caches[i] = blk.decode(x, caches[i], cache_index=cache_index,
                                      ops=ops, long_context=long_context)
         x = self.final_norm(x)
-        return self.head().unembed(x)[:, 0], caches
+        return shard_hint(self.head().unembed(x), "logits")[:, 0], caches
 
     def make_caches(self, batch: int, seq_len: int):
         """Each layer's empty cache: KV or latent slots, or a Mamba state."""

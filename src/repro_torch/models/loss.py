@@ -16,6 +16,9 @@ gradient from the head.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from ..sharding.hints import data_parallel
 
 
 def _chunks(S: int, target: int = 256) -> int:
@@ -84,7 +87,13 @@ def token_nll(x, table, targets, chunk: int = 256) -> torch.Tensor:
     """Per-token negative log likelihood.
 
     x: (B,S,d) final hidden states; table: (V,d) unembedding; targets (B,S)
-    int.  Returns (B,S) fp32 nll."""
+    int.  Returns (B,S) fp32 nll.  With a DTensor ``x`` (a model distributed
+    on a mesh) each rank takes its batch rows and the whole table
+    (``data_parallel``): DTensor's gather on vocab-sharded logits has no
+    working rule."""
+    if isinstance(x, DTensor):
+        return data_parallel(lambda x_, y_, t_: _TokenNLL.apply(x_, t_, y_, chunk),
+                             (x, targets), (table,))
     return _TokenNLL.apply(x, table, targets, chunk)
 
 

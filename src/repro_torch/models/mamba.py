@@ -19,7 +19,7 @@ from torch.nn.functional import softplus
 
 from ..kernels import AttentionOps
 from .common import ModelConfig
-from .layers import _param, dense_init, silu
+from .layers import _param, dense_init, rng, silu
 
 
 class Mamba(nn.Module):
@@ -29,13 +29,13 @@ class Mamba(nn.Module):
         d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm.state_dim
         dtr = s.resolved_dt_rank(d)
         self.in_proj = dense_init(g, (d, 2 * di), pd)
-        conv = torch.randn((s.conv_width, di), generator=g, device=dev)
+        conv = torch.randn((s.conv_width, di), generator=rng(g), device=dev)
         self.conv_w = _param((conv * s.conv_width ** -0.5).to(pd))
         self.conv_b = _param(torch.zeros(di, dtype=pd, device=dev))
         self.x_proj = dense_init(g, (di, dtr + 2 * n), pd)
         self.dt_proj_w = dense_init(g, (dtr, di), pd)
         # inverse softplus of dt drawn uniformly from [1e-3, 0.1]
-        u = torch.rand(di, generator=g, device=dev) * (0.1 - 1e-3) + 1e-3
+        u = torch.rand(di, generator=rng(g), device=dev) * (0.1 - 1e-3) + 1e-3
         self.dt_proj_b = _param(torch.log(torch.expm1(u.clamp_min(1e-4))).to(pd))
         # S4D-real init; A_log and D stay fp32 in every config
         a = torch.arange(1, n + 1, dtype=torch.float32, device=dev)

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..kernels import AttentionOps
+from ..sharding.hints import write_slot
 from .common import ModelConfig
 from .layers import apply_rope, dense_init, ones, rms_norm
 
@@ -104,8 +105,8 @@ class MLA(nn.Module):
         positions = torch.full((1,), cache_index, dtype=torch.int64, device=x.device)
         q_nope, q_rope = self._queries(x, positions)  # (B,1,H,*)
         c_new, kr_new = self._latent(x, positions)
-        cache["c_kv"][:, cache_index] = c_new[:, 0].to(cache["c_kv"].dtype)
-        cache["k_rope"][:, cache_index] = kr_new[:, 0].to(cache["k_rope"].dtype)
+        write_slot(cache["c_kv"], cache_index, c_new[:, 0])
+        write_slot(cache["k_rope"], cache_index, kr_new[:, 0])
         c_kv, k_rope = cache["c_kv"].float(), cache["k_rope"].float()
 
         wkv_b = self.wkv_b.to(cfg.dtype).float().reshape(R, H, nope + vdim)

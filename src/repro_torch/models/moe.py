@@ -40,6 +40,7 @@ import torch
 from torch import nn
 
 from ..kernels.batched import under_vmap
+from ..sharding.hints import shard_hint
 from .common import ModelConfig
 from .layers import dense_init, make_mlp, silu
 
@@ -181,8 +182,10 @@ class MoE(nn.Module):
         # jax.nn.one_hot, where torch's one_hot raises)
         slot = (pos * onehot).sum(-1)
         pos_oh = (slot[..., None] == torch.arange(C, device=x.device)).float()
-        dispatch = torch.einsum("gske,gskc->gsec", keep, pos_oh)
-        combine = torch.einsum("gske,gskc,gsk->gsec", keep, pos_oh, gate)
+        dispatch = shard_hint(torch.einsum("gske,gskc->gsec", keep, pos_oh),
+                              "moe_dispatch")
+        combine = shard_hint(torch.einsum("gske,gskc,gsk->gsec", keep, pos_oh, gate),
+                             "moe_dispatch")
         return logits, probs, onehot, keep, dispatch, combine
 
     def forward(self, x: torch.Tensor):
@@ -194,7 +197,9 @@ class MoE(nn.Module):
         ng, G, E, C = dispatch.shape
 
         xin = torch.einsum("gsec,gsd->egcd", dispatch.to(dt), x.reshape(ng, G, d))
+        xin = shard_hint(xin, "moe_expert_batch")
         eout = self.experts(xin.reshape(E, ng * C, d)).reshape(E, ng, C, d)
+        eout = shard_hint(eout, "moe_expert_batch")
         out = torch.einsum("egcd,gsec->gsd", eout.float(),
                            combine.to(dt).float()).to(dt).reshape(B, S, d)
 

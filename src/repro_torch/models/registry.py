@@ -11,7 +11,9 @@ reference's: ``dense`` (GQA, MHA and MLA decoders), ``moe``
 ``ssm`` (Mamba-1, falcon-mamba), ``hybrid`` (jamba: Mamba and attention
 blocks, dense and MoE MLPs), ``vlm`` (phi-3-vision's backbone with its
 patch stub) and ``audio`` (whisper's encoder-decoder).  ``decode`` takes
-``long_context`` as the reference's does.
+``long_context`` as the reference's does.  ``SHAPES``, ``input_specs``,
+``cache_specs`` and ``param_specs`` are the reference's shape stand-ins,
+as tensors on the meta device.
 """
 
 from __future__ import annotations
@@ -25,9 +27,39 @@ from torch import nn
 
 from .common import ModelConfig
 from .encdec import EncDec
+from .layers import META_INIT
 from .lm import LM
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    kind: str  # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train", 4096, 256),
+    "prefill_32k": ShapeCell("prefill", 32768, 32),
+    "decode_32k": ShapeCell("decode", 32768, 128),
+    "long_500k": ShapeCell("decode", 524288, 1),
+}
+
+
+def cell_applicable(cfg: ModelConfig, shape_name: str) -> tuple[bool, str]:
+    """(runs?, reason-if-skipped), the reference's skip rules."""
+    if shape_name == "long_500k":
+        if not cfg.subquadratic:
+            return False, ("pure full-attention arch: O(s^2) attention at "
+                           "524288 has no sub-quadratic mechanism; skipped "
+                           "per assignment")
+    return True, ""
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 @dataclass
@@ -38,6 +70,53 @@ class ModelAPI:
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
     make_caches: Callable[..., Any]
+
+    # the reference's shape stand-ins, as meta tensors: nothing allocates
+    def input_specs(self, shape_name: str, *, batch_override: int | None = None
+                    ) -> dict[str, torch.Tensor]:
+        """The batch of a cell (``SHAPES``), tokens int32 and frames or
+        patch embeddings in the compute dtype, on the meta device."""
+        cell = SHAPES[shape_name]
+        B = batch_override or cell.global_batch
+        S = cell.seq_len
+        cfg = self.cfg
+        i32, f = torch.int32, cfg.dtype
+        if cell.kind == "train":
+            if cfg.is_encoder_decoder:
+                return {"enc_frames": _meta((B, S, cfg.d_model), f),
+                        "tokens": _meta((B, S), i32),
+                        "targets": _meta((B, S), i32)}
+            if cfg.frontend == "vision":
+                P = cfg.n_patch_tokens
+                return {"tokens": _meta((B, S - P), i32),
+                        "patch_embeds": _meta((B, P, cfg.d_model), f),
+                        "targets": _meta((B, S - P), i32)}
+            return {"tokens": _meta((B, S), i32), "targets": _meta((B, S), i32)}
+        if cell.kind == "prefill":
+            base = {"tokens": _meta((B, S), i32)}
+            if cfg.is_encoder_decoder:
+                base["enc_frames"] = _meta((B, cfg.encoder_seq_len, cfg.d_model), f)
+            if cfg.frontend == "vision":
+                P = cfg.n_patch_tokens
+                base["tokens"] = _meta((B, S - P), i32)
+                base["patch_embeds"] = _meta((B, P, cfg.d_model), f)
+            return base
+        # decode: one new token against a seq_len cache
+        return {"tokens": _meta((B, 1), i32), "cache_index": _meta((), i32)}
+
+    def cache_specs(self, shape_name: str, *, batch_override: int | None = None):
+        """A decode cell's caches (``make_caches`` of the model on the meta
+        device): one dict a layer."""
+        cell = SHAPES[shape_name]
+        if cell.kind != "decode":
+            raise ValueError(f"{shape_name} is a {cell.kind} cell; caches are decode's")
+        B = batch_override or cell.global_batch
+        return self.make_caches(self.init(META_INIT), B, cell.seq_len)
+
+    def param_specs(self) -> dict[str, torch.Tensor]:
+        """{name: parameter} of the model built on the meta device (shapes
+        and dtypes, nothing allocated)."""
+        return dict(self.init(META_INIT).named_parameters())
 
 
 def build(cfg: ModelConfig) -> ModelAPI:

@@ -24,6 +24,7 @@ from typing import Mapping
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 BLOCK = 256
 _LOG_EPS = 1e-30
@@ -86,6 +87,23 @@ def _zeros_like_moment(p: torch.Tensor, dtype: str):
     return p.new_zeros(p.shape, dtype=getattr(torch, dtype))
 
 
+def _moment_of(name: str, p: torch.Tensor, dtype: str):
+    """A zero moment of ``p``; of a DTensor, a DTensor placed alike, made
+    from its local shard (the update runs shard by shard).  int8 blocks
+    run along the last dim, so a shard of it must hold whole blocks."""
+    if not isinstance(p, DTensor):
+        return _zeros_like_moment(p, dtype)
+    local = p.to_local()
+    if (dtype == "int8" and any(pl.is_shard(p.ndim - 1) for pl in p.placements)
+            and local.shape[-1] % BLOCK):
+        raise ValueError(f"{name}: int8 moments need whole {BLOCK}-element blocks in "
+                         f"a shard of the last dim, not {local.shape[-1]}")
+    mom = _zeros_like_moment(local, dtype)
+    wrap = lambda t: DTensor.from_local(t, p.device_mesh, p.placements,  # noqa: E731
+                                        run_check=False)
+    return {k: wrap(t) for k, t in mom.items()} if dtype == "int8" else wrap(mom)
+
+
 def init_opt_state(params: Mapping[str, torch.Tensor], *,
                    moment_dtype: str = "float32",
                    master_fp32: bool = False) -> dict:
@@ -97,8 +115,8 @@ def init_opt_state(params: Mapping[str, torch.Tensor], *,
     device = next(iter(params.values())).device
     state = {
         "step": torch.zeros((), dtype=torch.int32, device=device),
-        "m": {k: _zeros_like_moment(p, moment_dtype) for k, p in params.items()},
-        "v": {k: _zeros_like_moment(p, moment_dtype) for k, p in params.items()},
+        "m": {k: _moment_of(k, p, moment_dtype) for k, p in params.items()},
+        "v": {k: _moment_of(k, p, moment_dtype) for k, p in params.items()},
     }
     if master_fp32:
         state["master"] = {k: p.detach().float().clone()
@@ -138,20 +156,31 @@ def _slices(t: torch.Tensor) -> list:
     return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, placed=None) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor (a mapping's values or
-    an iterable), in fp32, summed SLICE elements at a time."""
-    ts = tensors.values() if isinstance(tensors, Mapping) else tensors
-    return torch.sqrt(torch.stack([torch.sum(torch.square(t[i].float()))
-                                   for t in ts for i in _slices(t)]).sum())
+    an iterable), in fp32, summed SLICE elements at a time.  With
+    ``placed`` (one DTensor a tensor) the tensors are those DTensors' local
+    shards, and each one's sums are added up over the mesh dims that
+    shard it."""
+    ts = list(tensors.values() if isinstance(tensors, Mapping) else tensors)
+    sums = [torch.stack([torch.sum(torch.square(t[i].float())) for i in _slices(t)])
+            for t in ts]
+    if placed is not None:
+        sums = [DTensor.from_local(s, d.device_mesh,
+                                   [Partial() if p.is_shard() else Replicate()
+                                    for p in d.placements]).full_tensor()
+                for s, d in zip(sums, placed)]
+    return torch.sqrt(torch.cat(sums).sum())
 
 
-def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float,
+                        placed=None):
     """Returns (clipped grads, the norm before clipping).  The caller's
     gradient tensors are scaled in place, SLICE elements at a time, so no
     second set is made; a gradient autograd handed out as a broadcast view
-    (stride 0), which cannot be written, is replaced by a scaled copy."""
-    norm = global_norm(grads)
+    (stride 0), which cannot be written, is replaced by a scaled copy.
+    ``placed``: as ``global_norm``'s."""
+    norm = global_norm(grads, placed)
     factor = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     out, done = {}, {}  # done: autograd may hand one tensor to two parameters
     with torch.no_grad():
@@ -183,6 +212,14 @@ def _store_moment(dst, val, dtype: str, *, log_domain: bool = False):
         dst.copy_(new)
 
 
+def _local(tree):
+    """A DTensor's local shard (a view: writes reach the DTensor), through
+    dicts."""
+    if isinstance(tree, Mapping):
+        return {k: _local(v) for k, v in tree.items()}
+    return tree.to_local() if isinstance(tree, DTensor) else tree
+
+
 @torch.no_grad()
 def adamw_update(grads: Mapping[str, torch.Tensor], state: dict,
                  params: Mapping[str, torch.Tensor], *, lr, b1=0.9, b2=0.95,
@@ -191,22 +228,33 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: dict,
     """One AdamW step.  Clips ``grads`` in place, writes the new
     parameters into ``params``' tensors and the new moments (and step) into
     ``state``'s, each tensor SLICE elements of its leading axis at a time;
-    returns (params, state, metrics)."""
-    metrics = {}
+    returns (params, state, metrics).
+
+    DTensor parameters (a model distributed on a mesh, its state from
+    ``init_opt_state``) update shard by shard: each gradient is first
+    redistributed to its parameter's placements, the norm is reduced over
+    the mesh, and the elementwise update runs on the local shards of the
+    parameters and of their moments, which are placed alike."""
+    metrics, placed, work, shards = {}, None, state, params
+    if isinstance(next(iter(params.values())), DTensor):
+        placed = list(params.values())
+        grads = {k: g.redistribute(params[k].device_mesh, params[k].placements).to_local()
+                 for k, g in grads.items()}
+        work, shards = _local(state), _local(params)
     if clip_norm is not None:
-        grads, metrics["grad_norm"] = clip_by_global_norm(grads, clip_norm)
+        grads, metrics["grad_norm"] = clip_by_global_norm(grads, clip_norm, placed)
     step = state["step"] + 1
     c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
                                       device=step.device), step.float())
     c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                       device=step.device), step.float())
     lr = torch.as_tensor(lr, dtype=torch.float32, device=step.device)
-    masters = state.get("master", params)
-    for k, p in params.items():
+    masters = work.get("master", shards)
+    for k, p in shards.items():
         for i in _slices(p):
             ps = p[i]
-            m_s = _moment_part(state["m"][k], moment_dtype, i)
-            v_s = _moment_part(state["v"][k], moment_dtype, i)
+            m_s = _moment_part(work["m"][k], moment_dtype, i)
+            v_s = _moment_part(work["v"][k], moment_dtype, i)
             g32 = grads[k][i].float()
             m32 = _read_moment(m_s, ps, moment_dtype)
             v32 = _read_moment(v_s, ps, moment_dtype, log_domain=True)
@@ -218,11 +266,34 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: dict,
             base = masters[k][i].float()
             new = base - lr * (mh / (torch.sqrt(vh) + eps) + weight_decay * base)
             del mh, vh, base
-            if "master" in state:
-                state["master"][k][i].copy_(new)
+            if "master" in work:
+                work["master"][k][i].copy_(new)
             ps.copy_(new)
             _store_moment(m_s, m32, moment_dtype)
             _store_moment(v_s, v32, moment_dtype, log_domain=True)
     state["step"] = step
     metrics["lr"] = lr
     return params, state, metrics
+
+
+def opt_state_partition_specs(state: dict, param_specs: Mapping, axes,
+                              axis_sizes: Mapping[str, int] | None = None) -> dict:
+    """Specs of ``init_opt_state``'s state: the moments mirror the
+    parameters' specs (``tree_partition_specs``); an int8 moment's
+    {codes, scale, offset} take its parameter's spec, each sanitized for
+    its own shape (the blocked last dim usually cannot divide the mesh);
+    ``master`` takes the parameters' specs."""
+    from ..sharding.specs import P, sanitize_spec
+
+    def mom_spec(spec, leaf):
+        if isinstance(leaf, Mapping):  # int8 {codes, scale, offset}
+            return {k: sanitize_spec(spec, leaf[k].shape, axis_sizes)
+                    for k in ("codes", "scale", "offset")}
+        return sanitize_spec(spec, leaf.shape, axis_sizes)
+
+    out = {"step": P(),
+           "m": {k: mom_spec(param_specs[k], m) for k, m in state["m"].items()},
+           "v": {k: mom_spec(param_specs[k], v) for k, v in state["v"].items()}}
+    if "master" in state:
+        out["master"] = dict(param_specs)
+    return out

@@ -1,11 +1,61 @@
-"""Heartbeat liveness for services.
+"""Elastic re-meshing, and heartbeat liveness for services.
 
-Only :class:`PodFailureDetector` is ported: the farm transport's
-:class:`~repro_torch.core.transport.base.LivenessMonitor` feeds it.  The
-SPMD re-meshing half of the reference module has no counterpart yet.
+JJPF handles task-level faults by rescheduling; re-meshing handles the
+SPMD-level fault "a pod (or a slice of it) disappeared": rebuild the
+largest viable mesh from the surviving ranks and resume from the latest
+checkpoint.  Policy: keep the "model" axis as requested if enough ranks
+survive (the tensor-parallel degree is a property of the weights'
+layout), shrink the "data"/"pod" axes.
+
+:class:`PodFailureDetector` is fed by the farm transport's
+:class:`~repro_torch.core.transport.base.LivenessMonitor`.
 """
 
 from __future__ import annotations
+
+import math
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+
+from ..sharding.specs import AXES
+
+
+def viable_mesh_shape(n_devices: int, *, model: int, prefer_pods: int = 1
+                      ) -> tuple[int, ...]:
+    """Largest (pod, data, model) with pod*data*model <= n_devices, model
+    fixed; the pod axis is kept at ``prefer_pods`` when the survivors still
+    divide into that many pods (pod-level fault domains are preserved),
+    otherwise it collapses; data shrinks to the largest power of 2."""
+    if n_devices < model:
+        raise ValueError(
+            f"cannot keep model={model} with only {n_devices} devices")
+    rest = n_devices // model
+    pods = prefer_pods
+    while pods > 1 and rest % pods:
+        pods -= 1
+    data = rest // pods
+    # shrink data to a power of two for clean batch splits
+    d = 1
+    while d * 2 <= data:
+        d *= 2
+    return (pods, d, model) if pods > 1 else (d, model)
+
+
+def make_elastic_mesh(shape: tuple[int, ...], ranks=None, *,
+                      device_type: str = "cuda") -> DeviceMesh:
+    """A ``DeviceMesh`` of ``shape`` over the first prod(shape) of
+    ``ranks`` (default: the world's), axes the last ``len(shape)`` of
+    ("pod", "data", "model").  Every rank of the world calls it."""
+    import torch.distributed as dist
+
+    ranks = list(ranks if ranks is not None else range(dist.get_world_size()))
+    n = math.prod(shape)
+    if n > len(ranks):
+        raise ValueError(f"need {n} devices, have {len(ranks)}")
+    axes = AXES[-len(shape):]
+    return DeviceMesh(device_type, torch.tensor(ranks[:n]).reshape(shape),
+                      mesh_dim_names=axes)
 
 
 class PodFailureDetector:

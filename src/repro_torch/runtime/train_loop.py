@@ -19,12 +19,15 @@ from functools import partial
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import DISPATCH, AttentionOps
 from repro_torch.models.registry import ModelAPI
 from repro_torch.optim import adamw_update, init_opt_state
 from repro_torch.optim.schedules import SCHEDULES
+from repro_torch.sharding.hints import current_mesh, mesh_axes, use_mesh
+from repro_torch.sharding.specs import distribute_batch
 
 
 @dataclass(frozen=True)
@@ -97,12 +100,20 @@ def functional_loss_and_grads(model, params, batch, *, ops: AttentionOps = DISPA
     return loss, metrics, grads
 
 
-def make_train_step(api: ModelAPI, tc: TrainConfig, *,
+def make_train_step(api: ModelAPI, tc: TrainConfig, *, axes=None,
                     block_skip: bool = False) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``; metrics are 0-d
     tensors (loss, grad_norm, lr; ce_loss and aux_loss without
     accumulation).  ``block_skip`` is the reference's keyword, accepted
-    and discarded: its attention dispatch ignores it on both branches."""
+    and discarded: its attention dispatch ignores it on both branches.
+
+    With ``axes`` (mesh axis names, e.g. ``("data", "model")``) the step
+    runs under ``mesh_axes(axes)``, so the sharding hints and the
+    tensor-parallel attention see them, on the mesh of the model's
+    parameters when they are DTensors (``distribute_model``), else the
+    current mesh; the batch's tensors are laid out by their batch specs
+    on it, and the metrics come back whole.  With ``axes=None`` the step
+    is the single-device one."""
     del block_skip
     lr_fn = make_lr_fn(tc)
     cfg = api.cfg
@@ -133,7 +144,20 @@ def make_train_step(api: ModelAPI, tc: TrainConfig, *,
             moment_dtype=cfg.opt_state_dtype, clip_norm=tc.clip_norm)
         return state, {"loss": loss, **metrics, **opt_metrics}
 
-    return train_step
+    if axes is None:
+        return train_step
+
+    def sharded_step(state, batch):
+        param = next(state["params"].parameters())
+        mesh = param.device_mesh if isinstance(param, DTensor) else current_mesh()
+        with use_mesh(mesh), mesh_axes(axes):
+            if mesh is not None:
+                batch = distribute_batch(batch, mesh)
+            state, metrics = train_step(state, batch)
+        return state, {k: v.full_tensor() if isinstance(v, DTensor) else v
+                       for k, v in metrics.items()}
+
+    return sharded_step
 
 
 class Trainer:

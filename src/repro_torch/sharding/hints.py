@@ -1,0 +1,196 @@
+"""Sharding hints that models can emit without knowing the mesh.
+
+Model code calls ``shard_hint(x, kind)``.  If the runtime has announced
+mesh axes (``with mesh_axes(("pod", "data", "model")):``) and ``x`` is a
+DTensor, ``x`` is redistributed to the hint's layout (the reference's
+``with_sharding_constraint``); otherwise (one device, plain tensors) the
+hint returns ``x`` itself.  This keeps the model definitions mesh-agnostic
+while letting the launcher pin the layouts that matter (vocab-sharded
+logits, the MoE's expert batches).
+
+``current_mesh`` is the ambient ``DeviceMesh``: the one set by
+``with use_mesh(mesh):``, as ``with mesh:`` sets jax's.  The
+tensor-parallel attention (``kernels/{flash,decode}_attention/sharded.py``)
+runs under it.  Both the axes and the mesh are per thread.
+
+``implicit_replication`` sets one flag of DTensor's op dispatcher for the
+whole process and clears it on exit, so ``use_mesh`` enters it only at
+the outermost ``use_mesh`` of the process (a count under a lock): a nested
+one, or one that another thread leaves, does not clear it under a mesh
+that is still in use.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication, local_map
+
+from .specs import (AXES, P, _dp, cache_partition_specs, distribute, mesh_sizes, placements,
+                    sanitize_spec)
+
+_ctx = threading.local()
+_replication_lock = threading.Lock()
+_replication_users = 0
+_replication = None  # the process's implicit_replication context, while entered
+
+
+def current_axes() -> tuple[str, ...] | None:
+    return getattr(_ctx, "axes", None)
+
+
+def current_mesh():
+    """The ambient ``DeviceMesh`` (``with use_mesh(mesh):``), or None."""
+    return getattr(_ctx, "mesh", None)
+
+
+@contextlib.contextmanager
+def mesh_axes(axes):
+    prev = getattr(_ctx, "axes", None)
+    _ctx.axes = tuple(axes) if axes else None
+    try:
+        yield
+    finally:
+        _ctx.axes = prev
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Makes ``mesh`` the ambient mesh of this thread (None: no mesh).
+    Inside it a plain tensor that meets a DTensor in an op (a position
+    range, a mask) is taken as replicated on the mesh
+    (``implicit_replication``), as jax takes a constant."""
+    global _replication, _replication_users
+    prev = getattr(_ctx, "mesh", None)
+    with _replication_lock:
+        if _replication_users == 0:
+            _replication = implicit_replication()
+            _replication.__enter__()
+        _replication_users += 1
+    _ctx.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _ctx.mesh = prev
+        with _replication_lock:
+            _replication_users -= 1
+            if _replication_users == 0:
+                _replication.__exit__(None, None, None)
+                _replication = None
+
+
+def spec_for(kind: str, axes, ndim: int) -> P:
+    dp = _dp(axes)
+    model = "model" if "model" in axes else None
+    if kind == "activations":  # (B, S, d) — sequence-parallel over "model"
+        return P(dp, model, None)
+    if kind == "logits":  # (B, S, V) or (B, V)
+        if ndim == 2:
+            return P(dp, model)
+        return P(dp, None, model)
+    if kind == "batch_tokens":  # (B, S)
+        return P(dp, None)
+    if kind == "moe_dispatch":  # (groups, G, E, C): groups over dp, EP over model
+        return P(dp, None, model, None)
+    if kind == "moe_expert_batch":  # (E, groups, C, d): EP over model
+        return P(model, dp, None, None)
+    raise KeyError(kind)
+
+
+def shard_hint(x, kind: str):
+    """``x`` redistributed to ``kind``'s layout on its mesh (sanitized for
+    the mesh's sizes); ``x`` itself when no axes are announced or ``x`` is
+    not a DTensor."""
+    axes = current_axes()
+    if not axes or not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    spec = sanitize_spec(spec_for(kind, axes, x.ndim), x.shape, mesh_sizes(mesh))
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+def _zip_tree(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _zip_tree(fn, tree[k], specs[k]) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return [_zip_tree(fn, t, s) for t, s in zip(tree, specs)]
+    return fn(tree, specs)
+
+
+def place_caches(caches, batch: int):
+    """A model's caches (``make_caches``' tree) laid out on the current
+    mesh by ``cache_partition_specs``, the reference's cache
+    ``in_shardings``: once, at the end of prefill, so that each decode
+    step finds its sequence chunks in place.  Leaves that are not DTensors,
+    and every leaf with no mesh or no announced axes, stay as they are."""
+    mesh = current_mesh()
+    if mesh is None or current_axes() is None:
+        return caches
+    sizes = mesh_sizes(mesh)
+    dp = math.prod(sizes[a] for a in AXES[:2] if a in sizes)
+    specs = cache_partition_specs(caches, mesh.mesh_dim_names, global_batch=batch,
+                                  dp_size=dp, axis_sizes=sizes)
+    return _zip_tree(lambda t, spec: t.redistribute(mesh, placements(spec, mesh))
+                     if isinstance(t, DTensor) else t, caches, specs)
+
+
+def write_slot(cache, index: int, new) -> None:
+    """``cache[:, index] = new`` in place (``new`` (B, ...) as the cache
+    without its sequence dim).  For a DTensor cache whose sequence is
+    sharded, the rank whose chunk holds ``index`` writes ``new``, laid out
+    as the cache's other dims, into its local shard: DTensor writes no
+    slice in place across a sharded dim."""
+    if not isinstance(cache, DTensor):
+        cache[:, index] = new.to(cache.dtype)
+        return
+    mesh, place = cache.device_mesh, cache.placements
+    row = [Replicate() if p.is_shard(1) else Shard(p.dim - 1) if p.is_shard() and p.dim > 1
+           else p for p in place]
+    new = new.redistribute(mesh, row).to_local()
+    coord, chunk, n = mesh.get_coordinate(), 0, 1
+    for i, p in enumerate(place):  # this rank's chunk of the sequence, major axis first
+        if p.is_shard(1):
+            chunk, n = chunk * mesh.size(i) + coord[i], n * mesh.size(i)
+    size = -(-cache.shape[1] // n)  # torch.chunk's sizes
+    local = cache.to_local()
+    if chunk * size <= index < (chunk + 1) * size:
+        local[:, index - chunk * size] = new.to(local.dtype)
+
+
+def split_heads(x, n: int, hd: int):
+    """``x`` (..., n * hd) -> (..., n, hd).  Where ``x`` is a DTensor whose
+    last dim is sharded into pieces that cut through a head, those mesh
+    dims are gathered first: DTensor's view rule mis-sizes such a split
+    (GSPMD reshards it by itself)."""
+    if isinstance(x, DTensor):
+        mesh, last = x.device_mesh, x.ndim - 1
+        cut = [i for i, p in enumerate(x.placements) if p.is_shard(last)]
+        if n % math.prod(mesh.size(i) for i in cut):
+            x = x.redistribute(mesh, [Replicate() if i in cut else p
+                                      for i, p in enumerate(x.placements)])
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+def data_parallel(fn, rows: tuple, whole: tuple = ()):
+    """``fn(*rows, *whole)`` under ``local_map``: each rank takes its batch
+    rows of ``rows`` (dim 0 split over the data axes where it divides) and
+    the whole of ``whole`` (replicated; an all-gather where sharded), and
+    the result is laid out by rows; a ``whole`` tensor's gradient is the
+    ranks' sum (Partial over the data axes).  For an op DTensor has no
+    working rule for (the embedding lookup's backward, the loss's gather
+    on vocab-sharded logits).  Plain tensors among the arguments are the
+    same on every rank and enter replicated."""
+    mesh = next(t.device_mesh for t in rows + whole if isinstance(t, DTensor))
+    rows, whole = ([t if isinstance(t, DTensor) else distribute(t, P(), mesh) for t in ts]
+                   for ts in (rows, whole))
+    dp = P(_dp(mesh.mesh_dim_names))
+    split = placements(sanitize_spec(dp, rows[0].shape, mesh_sizes(mesh)), mesh)
+    summed = [Partial() if p.is_shard() else Replicate() for p in split]
+    rep = [Replicate()] * mesh.ndim
+    n, m = len(rows), len(whole)
+    return local_map(fn, out_placements=split, in_placements=(split,) * n + (rep,) * m,
+                     in_grad_placements=(split,) * n + (summed,) * m, device_mesh=mesh,
+                     redistribute_inputs=True)(*rows, *whole)

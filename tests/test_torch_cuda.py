@@ -301,6 +301,25 @@ def test_decode_kernel_matches_plain(case, device):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_kernel_lse_matches_plain(case, device):
+    """``return_lse``: the kernel's log-sum-exp of the scores (written in
+    its split merge) against the plain version's; the output is the same
+    bits as without it, in one launch."""
+    B, S, H, K, D, ci, dt = case
+    q = _randn((B, 1, H, D), dt, device, 3)
+    kc = _randn((B, S, K, D), dt, device, 4)
+    vc = _randn((B, S, K, D), dt, device, 5)
+    before = DECODE.launches
+    out, lse = decode_attention_fwd(q, kc, vc, cache_index=ci, return_lse=True)
+    torch.cuda.synchronize()
+    assert DECODE.launches == before + 1
+    assert torch.equal(out, decode_attention_fwd(q, kc, vc, cache_index=ci))
+    _, ref = decode_attention_plain(q, kc, vc, cache_index=ci, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    torch.testing.assert_close(lse, ref, atol=1e-4, rtol=1e-5)
+
+
 def test_decode_kernel_never_reads_past_cache_index(device):
     B, S, H, K, D, ci = 1, 128, 2, 2, 128, 50
     q = _randn((B, 1, H, D), torch.float32, device, 6)
