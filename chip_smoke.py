@@ -339,6 +339,24 @@ failure raises and exits non-zero:
     context, the chunked flash's manual backward against autograd through
     ``chunked_attention`` (LONG_GRAD_TOL), each one's peak memory printed;
     (g) the phase's seconds; the group destroyed at the end.
+26. the dry run held to the card (``repro_torch.launch.dryrun``, fake
+    tensors over a fake process group, in subprocesses): (a) qwen3-1.7B's
+    prefill of SPMD_BATCH x SPMD_PROMPT tokens at full depth, a decode
+    step on a SPMD_PROMPT + SPMD_STEPS slot cache and one AdamW step at
+    TRAIN_LAYERS layers dry-run on a fake (1, 1) ``cuda`` mesh (each kernel
+    wrapper through its op's fake impl) while the same steps run for real
+    and mesh-free on the card: each kernel op's calls equal to the
+    launches; (b) the dry run's non-kernel FLOPs equal to
+    ``FlopCounterMode``'s over the real step, exactly, and falcon-mamba's
+    prefill at phase 11's shape on fake CUDA tensors with no mesh: its scan
+    op calls equal to the real prefill's scan launches, its non-kernel
+    FLOPs to ``FlopCounterMode``'s; (c) the predicted peak memory within
+    DRY_PEAK_TOL of ``max_memory_allocated`` over the real step, its
+    arguments resident; (d) qwen3's ``train_4k``, ``prefill_32k`` and
+    ``decode_32k`` on the 16 x 16 mesh and ``train_4k`` on 2 x 16 x 16,
+    their records and roofline rows printed (predictions from data-sheet
+    constants, not timings), each cell cut at DRY_PROD_LIMIT_S from the
+    phase's start and named if cut; (e) the phase's seconds.
 
 The line before the last is a JSON object with each kernel's numbers, one
 row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
@@ -4655,6 +4673,261 @@ def spmd_phase(dev, kernels, flash, decode):
     return serve, train
 
 
+# --------------------------------------------------------------------- #
+# phase 26: the dry run held to the card
+# --------------------------------------------------------------------- #
+# The dry run (repro_torch.launch.dryrun) runs a step on fake tensors over a
+# fake process group and predicts, per device, each kernel op's calls, the
+# matmul FLOPs and the peak memory.  Here it runs on fake CUDA tensors (each
+# kernel wrapper through its op's fake impl) on a (1, 1) mesh at phase 25's
+# shapes, in a subprocess (it needs a fake default process group), while the
+# same steps run for real and mesh-free on the card; then on the production
+# meshes, whose records and roofline rows are predictions from one card's
+# data-sheet constants, not timings.
+DRY_ARCH = "qwen3_1p7b"
+DRY_PEAK_TOL = 0.10  # predicted peak memory against max_memory_allocated
+# the production cells: (shape, mesh), each a subprocess of its own, all
+# started with the phase and cut at DRY_PROD_LIMIT_S from their start
+DRY_PROD = (("train_4k", "single"), ("prefill_32k", "single"), ("decode_32k", "single"),
+            ("train_4k", "multi"))
+DRY_PROD_LIMIT_S = 120
+# each kernel op of the bf16 paths and the kernels its call launches
+DRY_LAUNCHES = {"flash_attention_fwd": ("flash_attention_sm90",),
+                "flash_attention_bwd": ("flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"),
+                "decode_attention_fwd": ("decode_attention_sm90",),
+                "decode_attention_fwd_lse": ("decode_attention_sm90",),
+                "mamba_scan_fwd": ("mamba_scan_sm90",)}
+DRY_ONE_CARD = """
+import json
+from repro_torch.launch.dryrun import run_mesh
+from repro_torch.models.registry import ShapeCell
+cells = {{"prefill": (ShapeCell("prefill", {prompt}, {batch}), None),
+          "decode": (ShapeCell("decode", {budget}, {batch}), None),
+          "train": (ShapeCell("train", {seq}, {tbatch}), {{"n_layers": {layers}}})}}
+out = {{name: run_mesh({arch!r}, cell, (1, 1), ("data", "model"), device="cuda",
+                        train_overrides=over) for name, (cell, over) in cells.items()}}
+print("RESULT" + json.dumps(out))
+"""
+
+
+def _dry_env():
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
+                + os.environ.get("PYTHONPATH", ""))
+
+
+def dry_start(out_dir):
+    """Starts the one-card dry runs and the production cells; returns
+    (the one-card process, {cell: process})."""
+    one = subprocess.Popen(
+        [sys.executable, "-c", DRY_ONE_CARD.format(
+            arch=DRY_ARCH, prompt=SPMD_PROMPT, batch=SPMD_BATCH,
+            budget=SPMD_PROMPT + SPMD_STEPS, seq=TRAIN_SEQ, tbatch=TRAIN_BATCH,
+            layers=TRAIN_LAYERS)],
+        env=_dry_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    prod = {(shape, mesh): subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRY_ARCH, "--shape",
+         shape, "--mesh", mesh, "--out-dir", str(out_dir), "--force"],
+        env=_dry_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for shape, mesh in DRY_PROD}
+    return one, prod
+
+
+def real_step(label, fn, resident_before, kernels):
+    """``fn()`` once on the card under FlopCounterMode, its kernels' launch
+    counters zeroed just before: (launches, FLOPs, peak bytes above what
+    was allocated before the step's arguments existed)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.utils.op_stats import EXTRA_FLOPS
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    # addmm_ counted as addmm, as the dry run counts it
+    with FlopCounterMode(display=False, custom_mapping=EXTRA_FLOPS) as fc:
+        out = fn()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS if k.launches}
+    peak = torch.cuda.max_memory_allocated() - resident_before
+    say(f"  (a) {label} on the card: launches {launches}; FlopCounterMode "
+        f"{fc.get_total_flops():.6g} FLOPs; peak {peak / 1e9:.3f} GB above the "
+        f"{resident_before / 1e9:.3f} GB allocated before its arguments")
+    del out
+    return launches, fc.get_total_flops(), peak
+
+
+def hold_dry(label, rec, launches, flops, peak):
+    """(a), (b), (c) for one step: the dry run's kernel ops against the
+    launches, its non-kernel FLOPs against FlopCounterMode's, its peak
+    against the card's."""
+    want = {}
+    for op, n in rec["kernel_ops"].items():
+        for name in DRY_LAUNCHES[op]:
+            want[name] = want.get(name, 0) + n
+    nonkernel = rec["dot_flops_per_device"] - rec["kernel_flops_per_device"]
+    ratio = rec["memory"]["peak_bytes_per_device"] / peak
+    say(f"  {label}: (a) dry-run kernel ops {rec['kernel_ops']} -> launches {want}, the "
+        f"card's {launches}; (b) dry-run non-kernel FLOPs {nonkernel:.6g} (kernel ops "
+        f"{rec['kernel_flops_per_device']:.6g}), FlopCounterMode's {flops:.6g}; (c) "
+        f"predicted peak {rec['memory']['peak_bytes_per_device'] / 1e9:.3f} GB, "
+        f"max_memory_allocated {peak / 1e9:.3f} GB, ratio {ratio:.4f} (limit "
+        f"1 +- {DRY_PEAK_TOL:g}); trace {rec['trace_s']:.1f} s")
+    if want != launches:
+        raise AssertionError(f"(a) {label}: the dry run's kernel ops do not match the launches")
+    if nonkernel != flops:
+        raise AssertionError(f"(b) {label}: non-kernel FLOPs {nonkernel} != {flops}")
+    if abs(ratio - 1) > DRY_PEAK_TOL:
+        raise AssertionError(f"(c) {label}: predicted peak off by more than "
+                             f"{DRY_PEAK_TOL:.0%}")
+
+
+def dry_mamba(dev, kernels):
+    """(b) falcon-mamba-7b's prefill at phase 11's shape: under OpStatsMode on
+    fake CUDA tensors with no mesh, against the same prefill on the card:
+    scan op calls against scan launches, non-kernel FLOPs against
+    FlopCounterMode's."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    import repro_torch.configs as cfgs
+    from repro_torch.models import build
+    from repro_torch.models.layers import ShapeInit
+    from repro_torch.utils.op_stats import OpStatsMode
+
+    api = build(cfgs.get(MAMBA_ARCH))
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 26).integers(
+        0, api.cfg.vocab_size, (PER_TASK, PROMPT))).to(dev)
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        model = api.init(ShapeInit(dev))
+        batch = {"tokens": torch.zeros((PER_TASK, PROMPT), dtype=torch.int64, device=dev)}
+        with OpStatsMode([*model.parameters(), batch["tokens"]]) as mode:
+            api.prefill(model, batch)
+    rec = mode.result
+    trace_s = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    model = api.init(torch.Generator(device=dev).manual_seed(SEED))
+    launches, flops, _ = real_step(f"{api.cfg.name} prefill {PER_TASK} x {PROMPT}",
+                                   lambda: api.prefill(model, {"tokens": tokens}), before,
+                                   kernels)
+    nonkernel = rec.dot_flops - rec.kernel_flops
+    say(f"  (b) {api.cfg.name} prefill on fake CUDA tensors, no mesh ({trace_s:.1f} s): "
+        f"scan op calls {dict(rec.kernel_ops)}, the card's launches {launches}; non-kernel "
+        f"FLOPs {nonkernel:.6g}, FlopCounterMode's {flops:.6g}")
+    if rec.kernel_ops != {"mamba_scan_fwd": launches.get("mamba_scan_sm90", -1)} or len(
+            launches) != 1:
+        raise AssertionError("(b) the scan's fake route does not count the card's launches")
+    if nonkernel != flops:
+        raise AssertionError(f"(b) falcon-mamba non-kernel FLOPs {nonkernel} != {flops}")
+    del model
+
+
+def dry_production(prod, out_dir, started):
+    """(d): the production cells' records and roofline rows, each cell cut at
+    DRY_PROD_LIMIT_S from the phase's start."""
+    from repro_torch.launch import roofline
+
+    done, cut = [], []
+    for (shape, mesh), proc in prod.items():
+        try:
+            log = proc.communicate(timeout=max(started + DRY_PROD_LIMIT_S
+                                               - time.perf_counter(), 1))[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            cut.append(f"{shape} on the {mesh} mesh")
+            continue
+        if proc.returncode != 0:
+            raise AssertionError(f"(d) the dry run of {shape} ({mesh}) failed:\n{log[-3000:]}")
+        done.append((shape, mesh))
+    recs = [json.load(open(Path(out_dir) / f"{DRY_ARCH}__{shape}__{mesh}.json"))
+            for shape, mesh in done]
+    for rec in recs:
+        row = roofline.analyze_cell(rec)
+        say(f"  (d) {rec['arch']} {rec['shape']} on the {rec['mesh']} mesh "
+            f"{rec['mesh_shape']}: trace {rec['trace_s']:.1f} s, peak "
+            f"{rec['memory']['peak_bytes_per_device'] / 2**30:.2f} GiB a card, "
+            f"{rec['dot_flops_per_device']:.4g} FLOPs a card (kernel ops "
+            f"{rec['kernel_ops']}), collectives {rec['collectives']['count']}, wire "
+            f"{rec['collectives']['total_wire_bytes']:.4g} B; roofline: compute "
+            f"{row['compute_s']:.4f} s, memory {row['memory_s']:.4f} s, collective "
+            f"{row['collective_s']:.4f} s, dominant {row['dominant']}")
+    say("  (d) predictions from one H100's data-sheet constants "
+        f"(repro_torch.launch.mesh.HW), not timings:\n"
+        + roofline.to_markdown([roofline.analyze_cell(r) for r in recs], "single")
+        + roofline.to_markdown([roofline.analyze_cell(r) for r in recs], "multi"))
+    if cut:
+        say(f"  (e) not run within {DRY_PROD_LIMIT_S} s, cut: {', '.join(cut)}")
+    return recs
+
+
+def dry_run_phase(dev, kernels):
+    """Phase 26: (a) the kernel ops of one-card dry runs against the real
+    steps' launches, (b) their non-kernel FLOPs against FlopCounterMode's
+    (and falcon-mamba's prefill), (c) their peak memory against the card's,
+    (d) the production meshes' records and roofline rows, (e) the phase's
+    seconds."""
+    import repro_torch.configs as cfgs
+    from repro_torch.models import build
+    from repro_torch.runtime.train_loop import TrainConfig, make_train_state, make_train_step
+
+    started = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    one, prod = dry_start(out_dir)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        cfg = cfgs.get(DRY_ARCH)
+        api = build(cfg)
+        model = api.init(torch.Generator(device=dev).manual_seed(SEED))
+        tokens = torch.as_tensor(np.random.default_rng(SEED + 26).integers(
+            0, cfg.vocab_size, (SPMD_BATCH, SPMD_PROMPT + 1))).to(dev)
+        real = {"prefill": real_step(
+            f"{cfg.name} prefill {SPMD_BATCH} x {SPMD_PROMPT}",
+            lambda: model.prefill({"tokens": tokens[:, :SPMD_PROMPT]}), before, kernels)}
+        budget = SPMD_PROMPT + SPMD_STEPS
+        caches = model.make_caches(SPMD_BATCH, budget)
+        real["decode"] = real_step(
+            f"{cfg.name} decode step at cache_index {budget - 1} of {budget} slots",
+            lambda: model.decode({"tokens": tokens[:, -1:]}, caches, cache_index=budget - 1),
+            before, kernels)
+        del model, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+        tapi = build(cfg.replace(n_layers=TRAIN_LAYERS))
+        state = make_train_state(tapi, TrainConfig(), device=dev)
+        batch = markov_batch(tapi.cfg, dev)
+        step = make_train_step(tapi, TrainConfig())
+        real["train"] = real_step(
+            f"{cfg.name} at {TRAIN_LAYERS} layers, one AdamW step on {TRAIN_BATCH} x {TRAIN_SEQ}",
+            lambda: step(state, batch), before, kernels)
+        del state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        dry_mamba(dev, kernels)
+        out, err = one.communicate(timeout=600)
+        if one.returncode != 0:
+            raise AssertionError(f"the one-card dry runs failed:\n{err[-3000:]}")
+        recs = json.loads(next(s for s in out.splitlines()
+                               if s.startswith("RESULT"))[len("RESULT"):])
+        for name in ("prefill", "decode", "train"):
+            hold_dry(f"{cfg.name} {name} on a fake (1, 1) cuda mesh", recs[name], *real[name])
+        dry_production(prod, out_dir, started)
+    finally:
+        for proc in (one, *prod.values()):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(f"  (e) phase 26 took {time.perf_counter() - started:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4929,6 +5202,10 @@ def main() -> int:
     phase("phase 25: the SPMD layer on one card (a one-rank mesh, local_map, the head "
           "plans and the decode merge serialized, the chunked flash's manual backward)")
     spmd_phase(dev, kernels, flash, decode)
+
+    phase("phase 26: the dry run held to the card (kernel ops, FLOPs and peak memory "
+          "against one card's steps; the production meshes' records and roofline)")
+    dry_run_phase(dev, kernels)
 
     say(f"all phases in {time.perf_counter() - START:.1f} s")
     # the kernels line: (name, kernel, its times, its largest |error|, the

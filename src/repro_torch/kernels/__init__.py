@@ -35,6 +35,26 @@ included, on each rank's head shard under ``local_map``, and
 and merges the chunks by their log-sum-exp over "model"; otherwise both
 are the unsharded dispatch, the same launches and bits as with no mesh.
 
+Fake CUDA tensors (``FakeTensorMode``: the dry run, ``launch/dryrun.py``)
+take each kernel's ``torch.library`` op, checked as the kernel checks
+them (dtype, head dims, grid; a shape the kernel refuses raises there, as
+on the card): the flash forward (``repro_torch::flash_attention_fwd``, bf16
+and fp32), the backward pair (``repro_torch::flash_attention_bwd``, beside
+the Dvec scratch the launches allocate), decode
+(``repro_torch::decode_attention_fwd``, with ``return_lse``
+``..._fwd_lse``) and the scan (``repro_torch::mamba_scan_fwd``, beside the
+fp32 copies of its inputs).  Their fake impls run; nothing is built or
+launched.  Each op carries a FLOP formula (``torch.utils.flop_counter``'s
+registry) equal to ``FlopCounterMode``'s count of the kernel's plain
+version at the same shapes, the reference's convention (its XLA path
+computes the full masked grid): the flash forward 2 B H Sq Skv (D + Dv)
+over the full grid, masked positions included; the backward the plain
+backward's five products, 2 B H Sq Skv (3 D + 2 Dv); decode the whole
+cache, 2 B H S (D + Dv), slots past ``cache_index`` included; the scan the
+plain chunked scan's ``C h`` products, 2 b s d n.  So a dry run on fake
+``cpu`` tensors through the plain versions counts what one on fake
+``cuda`` tensors through the kernels counts.
+
 A model's layers call one :class:`AttentionOps`, passed down from the
 model's entry points: its attention members, and ``scan`` for Mamba
 layers.  ``DISPATCH`` (the default, and the only one the serving and

@@ -49,6 +49,7 @@ vmap of the plain ops.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 RULE_CALLS = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
               "decode_attention_fwd": 0, "mamba_scan": 0}
@@ -80,6 +81,14 @@ def under_transform(*tensors) -> bool:
         return False
     wrapped = torch._C._functorch.is_functorch_wrapped_tensor
     return any(t is not None and wrapped(t) for t in tensors)
+
+
+def is_fake(*tensors) -> bool:
+    """Whether any of ``tensors`` is a ``FakeTensor`` (the dry run,
+    ``launch/dryrun.py``; None entries are skipped): a CUDA wrapper given
+    one enters its kernel's op, whose fake impl runs, and builds and
+    launches nothing (no pointer of a fake tensor is real)."""
+    return any(isinstance(t, FakeTensor) for t in tensors)
 
 
 def unwrapped(t):

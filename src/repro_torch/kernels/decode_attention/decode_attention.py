@@ -33,11 +33,12 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ...tune.cache import ConfigProbe, get_cache
 from ...tune.space import DECODE_TILE, MAX_SPLITS, KernelConfigError, default_config
 from .. import head_dims
-from ..batched import fold, under_vmap, unfold
+from ..batched import fold, is_fake, under_vmap, unfold
 from ..build import CudaKernel
 
 NEG_INF = -2.0e38
@@ -134,7 +135,11 @@ def decode_attention_fwd(q, k_cache, v_cache, *, cache_index: int,
     which raises on what it does not take, at the KV splits
     ``decode_splits`` resolves (None reads the tuning cache).  Under vmap
     the call goes through the custom op, whose rule launches once for all
-    the tasks."""
+    the tasks; fake CUDA tensors (the dry run) go through it too (with
+    ``return_lse`` through ``repro_torch::decode_attention_fwd_lse``),
+    checked as the kernel checks them.  The kernel merges its KV splits in
+    distributed shared memory: a launch allocates nothing but its
+    outputs."""
     if under_vmap(q, k_cache, v_cache):
         if return_lse:
             raise NotImplementedError("decode_attention_fwd under vmap returns no lse")
@@ -166,6 +171,10 @@ def decode_attention_fwd(q, k_cache, v_cache, *, cache_index: int,
     if not (q.is_contiguous() and k_cache.is_contiguous()
             and v_cache.is_contiguous()):
         raise ValueError("decode_attention_fwd: inputs must be contiguous")
+    if is_fake(q, k_cache, v_cache):
+        if return_lse:
+            return _decode_lse_op(q, k_cache, v_cache, cache_index, splits)
+        return _decode_op(q, k_cache, v_cache, cache_index, splits)
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("decode_attention_fwd: the caches must start on a "
                          "16-byte boundary (the kernel copies 16 bytes at a time)")
@@ -204,3 +213,27 @@ def _(info, in_dims, q, k_cache, v_cache, cache_index, splits=None):
                                (q, k_cache, v_cache), in_dims[:3])
     out = decode_attention_fwd(q, k_cache, v_cache, cache_index=cache_index, splits=splits)
     return unfold(out, n), 0
+
+
+@torch.library.custom_op(
+    "repro_torch::decode_attention_fwd_lse", mutates_args=(),
+    schema="(Tensor q, Tensor k_cache, Tensor v_cache, int cache_index, "
+           "int? splits=None) -> (Tensor, Tensor)")
+def _decode_lse_op(q, k_cache, v_cache, cache_index, splits=None):
+    return decode_attention_fwd(q, k_cache, v_cache, cache_index=cache_index, splits=splits,
+                                return_lse=True)
+
+
+@_decode_lse_op.register_fake
+def _(q, k_cache, v_cache, cache_index, splits=None):
+    return (q.new_empty((*q.shape[:3], v_cache.shape[3]), dtype=v_cache.dtype),
+            q.new_empty(q.shape[:1] + q.shape[2:3], dtype=torch.float32))
+
+
+@register_flop_formula([torch.ops.repro_torch.decode_attention_fwd,
+                        torch.ops.repro_torch.decode_attention_fwd_lse], get_raw=True)
+def _(q, k_cache, v_cache, *args, out_val=None, **kwargs):
+    """The plain decode's two products over the whole cache, the slots
+    past ``cache_index`` included: 2 B H S (D + Dv)."""
+    B, _, H, D = q.shape
+    return 2 * B * H * k_cache.shape[1] * (D + v_cache.shape[3])

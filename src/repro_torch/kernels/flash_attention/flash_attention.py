@@ -47,12 +47,13 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ...tune.cache import ConfigProbe, get_cache
 from ...tune.space import (KernelConfigError, default_config, flash_heads_a_block,
                            resolve_config, validate_config)
 from .. import head_dims
-from ..batched import fold, under_transform, under_vmap, unfold, unwrapped
+from ..batched import fold, is_fake, under_transform, under_vmap, unfold, unwrapped
 from ..build import CudaKernel
 
 NEG_INF = -2.0e38
@@ -169,6 +170,12 @@ def backward_kernels(dtype) -> tuple[CudaKernel, CudaKernel]:
     return DQ_SM90_FP32_KERNEL, DKV_SM90_FP32_KERNEL
 
 
+def _check_grid(name, q) -> None:
+    if q.shape[0] > 65535:
+        raise ValueError(f"{name}: batch {q.shape[0]} (q {tuple(q.shape)}) "
+                         "exceeds the grid's 65535")
+
+
 def _check_tma(name, *ts):
     """The Hopper kernels read their inputs by TMA, from 16-byte
     boundaries."""
@@ -242,19 +249,21 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     their dtype (``forward_kernel``), which raises on what it does not
     take, at the tiles ``forward_tiles`` resolves (``block_q``,
     ``block_k``: None reads the tuning cache).  Under vmap the call goes
-    through the custom op, whose rule launches once for all the tasks."""
+    through the custom op, whose rule launches once for all the tasks;
+    fake CUDA tensors (the dry run) go through it too, checked as the
+    kernel checks them, and its fake impl runs."""
     if under_vmap(q, k, v):
         return _fwd_op(q, k, v, causal, block_q, block_k)
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     _check_cuda("flash_attention_fwd", "flash_fwd", q, k, v)
+    if is_fake(q, k, v):
+        return _fwd_op(q, k, v, causal, block_q, block_k)
     _check_tma("flash_attention_fwd", q, k, v)
     B, Sq, H, D = q.shape
     _, Skv, K, Dv = v.shape
-    if B > 65535:
-        raise ValueError(f"flash_attention_fwd: batch {B} (q {tuple(q.shape)}) "
-                         "exceeds the grid's 65535")
+    _check_grid("flash_attention_fwd", q)
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     tuned = block_q is not None or block_k is not None or get_cache() is not None
@@ -283,9 +292,23 @@ def _fwd_op(q, k, v, causal, block_q=None, block_k=None):
 
 @_fwd_op.register_fake
 def _(q, k, v, causal, block_q=None, block_k=None):
+    _check_grid("flash_attention_fwd", q)
     B, Sq, H, _ = q.shape
     return (q.new_empty((B, Sq, H, v.shape[3])),
             q.new_empty((B, H, Sq), dtype=torch.float32))
+
+
+def _grid_flops(q, k, v) -> int:
+    """2 B H Sq Skv: a product's FLOPs a head-dim column over the full grid."""
+    B, Sq, H, _ = q.shape
+    return 2 * B * H * Sq * k.shape[1]
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd, get_raw=True)
+def _(q, k, v, *args, out_val=None, **kwargs):
+    """The plain forward's two products over the full grid, masked keys
+    included: 2 B H Sq Skv (D + Dv)."""
+    return _grid_flops(q, k, v) * (q.shape[3] + v.shape[3])
 
 
 @_fwd_op.register_vmap
@@ -356,7 +379,9 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
     take.  Under a function transform (a backward under ``torch.func.grad``
     or ``vmap(grad(...))`` meets its saved tensors wrapped) the call goes
     through the custom op, which unwraps them; under vmap its rule
-    launches one dq and one dk/dv kernel for all the tasks."""
+    launches one dq and one dk/dv kernel for all the tasks.  Fake CUDA
+    tensors (the dry run) go through the op as well, checked as the kernels
+    check them, beside the Dvec scratch the launches allocate."""
     if under_transform(q, k, v, out, lse, g):
         # the kernels' gradients are not differentiated again: the saved
         # tensors still track the grad transform, and the op enters no
@@ -380,6 +405,12 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
             or not lse.is_contiguous():
         raise TypeError("flash_attention_bwd: lse must be contiguous float32 "
                         "on q's device")
+    if is_fake(q, k, v, out, lse, g):
+        dvec = torch.empty(lse.shape, dtype=torch.float32, device=q.device)  # as dq's launch
+        grads = _bwd_op(q, k, v, out, lse, g, causal, dq_block_q, dq_block_k, dkv_block_k,
+                        dkv_block_q)
+        del dvec
+        return grads
     _check_tma("flash_attention_bwd", q, k, v, out, g)
     asked = (dq_block_q, dq_block_k, dkv_block_k, dkv_block_q)
     if asked == (None,) * 4 and get_cache() is None:
@@ -408,6 +439,13 @@ def _bwd_op(q, k, v, out, lse, g, causal, dq_block_q=None, dq_block_k=None,
 @_bwd_op.register_fake
 def _(q, k, v, out, lse, g, causal, *tiles):
     return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd, get_raw=True)
+def _(q, k, v, *args, out_val=None, **kwargs):
+    """The plain backward's five products over the full grid: s and dq, dk
+    over D, dp and dv over Dv, 2 B H Sq Skv (3 D + 2 Dv)."""
+    return _grid_flops(q, k, v) * (3 * q.shape[3] + 2 * v.shape[3])
 
 
 _BWD_INPUTS = ("q", "k", "v", "out", "lse", "g")

@@ -139,4 +139,7 @@ def flash_attention_tp(q, k, v, *, causal=True, window=None, q_chunk=None,
     out = _run(body, mesh, place, place, q, k, v)
     if plan is not None:
         out = _run(partial(_take_heads, src=plan.inv), mesh, gathered, gathered, out)
+        if H % tp == 0:  # each rank's heads again (a local slice): the output
+            # projection and its weight's gradient stay tensor-parallel
+            out = out.redistribute(mesh, place)
     return out

@@ -38,9 +38,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ...tune.cache import ConfigProbe, get_cache
 from ...tune.space import KernelConfigError, default_config
+from ..batched import is_fake
 from ..build import CudaKernel
 
 MAX_STATE = 32  # the kernel's limit on n: 2 lanes of 16 states a channel
@@ -213,7 +215,9 @@ def mamba_scan_fwd(x, dt, A, B, C, h0=None, *, lanes: int | None = None):
     ``scan_lanes`` resolves (None reads the tuning cache).  x, dt, B and C
     may be strided views (slices of wider projections): the kernel reads
     them through their batch and time strides; A (d,n) is shared by the
-    batch, A (b,d,n) read a row at a time."""
+    batch, A (b,d,n) read a row at a time.  Fake CUDA tensors (the dry run)
+    go through the op ``repro_torch::mamba_scan_fwd``, checked as the
+    kernel checks them, beside the fp32 copies the launch makes."""
     _check(x, dt, A, B, C, h0)
     if x.device.type == "cpu":
         return mamba_scan_plain(x, dt, A, B, C, h0)
@@ -233,6 +237,10 @@ def mamba_scan_fwd(x, dt, A, B, C, h0=None, *, lanes: int | None = None):
         lanes = scan_lanes(x.dtype, b, s, d, n, lanes)
     else:
         lanes = 0  # no cache, no count asked for: the kernel's own (geometry)
+    if is_fake(*tensors):  # no storage to align: the copies of unit stride only
+        x, dt, B, C = (_rows(t) for t in (x, dt, B, C))
+        h0 = None if h0 is None else h0.float().contiguous()
+        return _scan_op(x, dt, A.float().contiguous(), B, C, h0, lanes)
     x, dt = (_rows(t, align=True) for t in (x, dt))
     B, C = _rows(B), _rows(C)
     A = A.float().contiguous()
@@ -254,3 +262,26 @@ def mamba_scan_fwd(x, dt, A, B, C, h0=None, *, lanes: int | None = None):
                 raise KernelConfigError(f"mamba_scan_fwd: lanes={lanes} at ({b}, {s}, "
                                         f"{d}, {n}): {e}") from e
     return y, hf
+
+
+@torch.library.custom_op(
+    "repro_torch::mamba_scan_fwd", mutates_args=(),
+    schema="(Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C, Tensor? h0, "
+           "int? lanes=None) -> (Tensor, Tensor)")
+def _scan_op(x, dt, A, B, C, h0, lanes=None):
+    return mamba_scan_fwd(x, dt, A, B, C, h0, lanes=lanes)
+
+
+@_scan_op.register_fake
+def _(x, dt, A, B, C, h0, lanes=None):
+    b, s, d = x.shape
+    return (x.new_empty((b, s, d), dtype=torch.float32),
+            x.new_empty((b, d, A.shape[-1]), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan_fwd, get_raw=True)
+def _(x, dt, A, *args, out_val=None, **kwargs):
+    """The plain chunked scan's products, ``y = C h`` at every step:
+    2 b s d n."""
+    b, s, d = x.shape
+    return 2 * b * s * d * A.shape[-1]

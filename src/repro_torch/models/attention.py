@@ -21,7 +21,7 @@ from torch import nn
 
 from ..kernels import AttentionOps
 from ..kernels.flash_attention.chunked import chunked_forward
-from ..sharding.hints import split_heads, write_slot
+from ..sharding.hints import merge_heads, split_heads, write_slot
 from .common import ModelConfig
 from .layers import apply_rope, dense_init, ones, rms_norm
 
@@ -114,8 +114,7 @@ class Attention(nn.Module):
         return torch.arange(x.shape[1], device=x.device) if use_rope else None
 
     def _out(self, o):
-        B, S = o.shape[:2]
-        return o.reshape(B, S, -1) @ self.wo.to(self.cfg.dtype)
+        return merge_heads(o) @ self.wo.to(self.cfg.dtype)
 
     def forward_train(self, x, *, window, ops: AttentionOps, causal=True,
                       use_rope=True, kv=None):

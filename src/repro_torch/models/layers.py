@@ -13,7 +13,7 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from ..sharding.hints import data_parallel
+from ..sharding.hints import data_parallel, reduce_partial
 
 from .common import ModelConfig
 
@@ -38,23 +38,28 @@ def dense_init(g: torch.Generator, shape, dtype: torch.dtype,
 
 
 def rng(g) -> torch.Generator | None:
-    """``g`` itself, or None for ``META_INIT``: a meta tensor draws
-    nothing."""
-    return None if g.device.type == "meta" else g
+    """``g`` itself, or None for a :class:`ShapeInit`: it draws nothing."""
+    return g if isinstance(g, torch.Generator) else None
 
 
-class _MetaInit:
-    """Stands in for the generator of ``init``: the model's parameters
-    are made on the meta device, shapes and dtypes only."""
+class ShapeInit:
+    """Stands in for the generator of ``init``: the model's tensors are
+    made on ``device`` with no values drawn, shapes and dtypes only.  On
+    the meta device (``META_INIT``) nothing is allocated; under a
+    ``FakeTensorMode`` (the dry run, ``launch/dryrun.py``) the tensors are
+    fake tensors on ``device``, those ``refresh()`` derives included."""
 
-    device = torch.device("meta")
+    def __init__(self, device):
+        self.device = torch.device(device)
 
 
-META_INIT = _MetaInit()
+META_INIT = ShapeInit("meta")
 
 
 def _trunc_normal(g: torch.Generator, shape, std: float) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=g.device)
+    if rng(g) is None:  # a ShapeInit: no values (the rejection loop reads them)
+        return t
     return nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std, generator=rng(g))
 
 
@@ -75,19 +80,21 @@ def ones(dim: int, dtype: torch.dtype, device) -> nn.Parameter:
 # norms
 # --------------------------------------------------------------------- #
 class RMSNorm(nn.Module):
-    """RMSNorm computed in fp32, returned in the input's dtype."""
+    """RMSNorm computed in fp32, returned in the input's dtype; on a mesh,
+    of the residual stream's reduced sum (``reduce_partial``)."""
 
     def __init__(self, dim: int, dtype: torch.dtype, device):
         super().__init__()
         self.scale = ones(dim, dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm(self.scale, x)
+        return rms_norm(self.scale, reduce_partial(x))
 
 
 class LayerNorm(nn.Module):
     """LayerNorm with scale and bias at eps 1e-6 (the reference's, not
-    torch's 1e-5), computed in fp32, returned in the input's dtype."""
+    torch's 1e-5), computed in fp32, returned in the input's dtype; on a
+    mesh, of the residual stream's reduced sum (``reduce_partial``)."""
 
     def __init__(self, dim: int, dtype: torch.dtype, device):
         super().__init__()
@@ -95,7 +102,7 @@ class LayerNorm(nn.Module):
         self.bias = _param(torch.zeros(dim, dtype=dtype, device=device))
 
     def forward(self, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-        xf = x.float()
+        xf = reduce_partial(x).float()
         mean = xf.mean(-1, keepdim=True)
         var = (xf - mean).square().mean(-1, keepdim=True)
         y = (xf - mean) * torch.rsqrt(var + eps)
@@ -221,7 +228,7 @@ class Embedding(nn.Module):
         super().__init__()
         self.table = embed_init(g, (cfg.vocab_size, cfg.d_model), cfg.pdtype)
         self.dtype = cfg.dtype
-        self._table_f32: tuple | None = None  # (data_ptr, version, tensor)
+        self._table_f32: tuple | None = None  # (storage, offset, version, tensor)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         table = self.table.to(self.dtype)
@@ -231,13 +238,14 @@ class Embedding(nn.Module):
 
     def table_f32(self) -> torch.Tensor:
         t = self.table
-        local = t.to_local() if isinstance(t, DTensor) else t  # keyed on its storage
-        key = (local.data_ptr(), local._version)
+        local = t.to_local() if isinstance(t, DTensor) else t
+        # keyed on its storage (a fake tensor's has no address to key on)
+        key = (local.untyped_storage()._cdata, local.storage_offset(), local._version)
         cached = self._table_f32
-        if cached is None or cached[:2] != key:
+        if cached is None or cached[:3] != key:
             cached = (*key, t.detach().float())
             self._table_f32 = cached
-        return cached[2]
+        return cached[3]
 
     def drop_f32(self) -> None:
         """Free the fp32 copy (training changes the table every step)."""

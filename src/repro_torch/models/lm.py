@@ -26,11 +26,15 @@ parameters and runs the repeat's forward again in the backward, as the
 reference checkpoints its scan body, one repeat of the pattern; the
 attention kernels' forward launches again there, and their backward uses
 the recomputed (out, lse).  The route is ``_Remat``, an
-``autograd.Function`` whose backward is ``torch.func.vjp`` of the repeat
-through ``torch.func.functional_call``: unlike ``torch.utils.checkpoint``
-(saved-tensor hooks, which ``torch.func.grad`` refuses), it runs the same
-under ``.backward()``, under ``torch.func.grad`` and under
-``vmap(grad(...))``, a training program in ``Service.execute_batch``.
+``autograd.Function`` whose backward runs the repeat again through
+``torch.func.functional_call`` and differentiates it: by
+``torch.func.vjp`` under a function transform (``torch.func.grad``, and
+``vmap(grad(...))``, a training program in ``Service.execute_batch``),
+by ``torch.autograd.grad`` under ``.backward()``, where the recompute
+then meets DTensor weights as DTensors and runs sharded, under the mesh
+and axes its forward ran under.  Unlike
+``torch.utils.checkpoint`` (saved-tensor hooks, which ``torch.func.grad``
+refuses), it runs the same in every mode.
 Serving ignores ``remat``.
 
 ``forward`` is ``train_loss``, so ``torch.func.functional_call(model,
@@ -40,11 +44,14 @@ weights (``runtime/train_loop.functional_loss_and_grads``).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
 from ..kernels import DISPATCH, AttentionOps
-from ..sharding.hints import place_caches, shard_hint
+from ..sharding.hints import (current_axes, current_mesh, mesh_axes, place_caches, shard_hint,
+                              use_mesh)
 from .blocks import make_blocks
 from .common import ModelConfig
 from .layers import Embedding, dense_init, make_norm
@@ -74,10 +81,11 @@ class _Repeat(nn.Module):
 
 class _Remat(torch.autograd.Function):
     """``rep``'s forward on (x, aux) with its parameters ``params`` as
-    explicit inputs, keeping no graph; the backward runs the forward again
-    under ``torch.func.vjp`` and returns the gradients of x, aux and every
-    parameter.  ``generate_vmap_rule``: under vmap both passes run at the
-    vmap level, their kernels folded by their own rules."""
+    explicit inputs, keeping no graph; the backward runs the forward again,
+    under the forward's mesh, differentiates it and returns the gradients
+    of x, aux and every parameter.  ``generate_vmap_rule``: under vmap both
+    passes run at the vmap level, their kernels folded by their own
+    rules."""
 
     generate_vmap_rule = True
 
@@ -89,16 +97,31 @@ class _Remat(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.rep, ctx.names, ctx.ops, ctx.long_context = inputs[:4]
+        # the recompute runs where autograd runs the backward, on a device
+        # thread of its own for CUDA tensors: it takes the forward's mesh
+        ctx.mesh, ctx.axes = current_mesh(), current_axes()
         ctx.save_for_backward(*inputs[4:])
 
     @staticmethod
     def backward(ctx, gx, gaux):
         def run(x, aux, *params):
-            return torch.func.functional_call(ctx.rep, dict(zip(ctx.names, params)),
-                                              (x, aux, ctx.ops, ctx.long_context))
+            with (use_mesh(ctx.mesh) if ctx.mesh is not None else contextlib.nullcontext()), \
+                    mesh_axes(ctx.axes):
+                return torch.func.functional_call(ctx.rep, dict(zip(ctx.names, params)),
+                                                  (x, aux, ctx.ops, ctx.long_context))
 
-        _, vjp = torch.func.vjp(run, *ctx.saved_tensors)
-        return (None, None, None, None, *vjp((gx, gaux)))
+        if torch._C._functorch.peek_interpreter_stack() is not None:  # under a transform
+            _, vjp = torch.func.vjp(run, *ctx.saved_tensors)
+            return (None, None, None, None, *vjp((gx, gaux)))
+        # plain autograd: the recompute meets the saved tensors themselves, so
+        # a DTensor stays one (torch.func.vjp would hide it in a wrapper, and
+        # the sharded paths would not see it)
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = run(*inputs)
+        grads = torch.autograd.grad(out, inputs, (gx, gaux), allow_unused=True)
+        return (None, None, None, None,
+                *(torch.zeros_like(t) if g is None else g for t, g in zip(inputs, grads)))
 
 
 def _remat_repeat(blocks, x, aux, ops: AttentionOps, long_context: bool):

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from ..kernels import AttentionOps
-from ..sharding.hints import write_slot
+from ..sharding.hints import merge_heads, split_heads, write_slot
 from .common import ModelConfig
 from .layers import apply_rope, dense_init, ones, rms_norm
 
@@ -45,14 +45,13 @@ class MLA(nn.Module):
     def _queries(self, x, positions):
         """(q_nope (B,S,H,nope), q_rope (B,S,H,rope) with rope applied)."""
         cfg = self.cfg
-        B, S, _ = x.shape
         dt, nope = cfg.dtype, cfg.qk_nope_head_dim
         if cfg.q_lora_rank:
             ql = rms_norm(self.q_a_norm, x @ self.wq_a.to(dt))
             q = ql @ self.wq_b.to(dt)
         else:
             q = x @ self.wq.to(dt)
-        q = q.reshape(B, S, cfg.n_heads, nope + cfg.qk_rope_head_dim)
+        q = split_heads(q, cfg.n_heads, nope + cfg.qk_rope_head_dim)
         q_nope, q_rope = q[..., :nope], q[..., nope:]
         return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -74,13 +73,13 @@ class MLA(nn.Module):
         positions = torch.arange(S, device=x.device)
         q_nope, q_rope = self._queries(x, positions)
         c_kv, k_rope = self._latent(x, positions)
-        kv = (c_kv @ self.wkv_b.to(cfg.dtype)).reshape(B, S, H, nope + cfg.v_head_dim)
+        kv = split_heads(c_kv @ self.wkv_b.to(cfg.dtype), H, nope + cfg.v_head_dim)
         # K == H (no GQA in MLA); the kernels read contiguous tensors, and
         # v is a strided view of kv
         q = torch.cat([q_nope, q_rope], -1)
         k = torch.cat([kv[..., :nope], k_rope[:, :, None, :].expand(B, S, H, rope)], -1)
         v = kv[..., nope:].contiguous()
-        out = attend(q, k, v).reshape(B, S, H * cfg.v_head_dim)
+        out = merge_heads(attend(q, k, v))
         return out @ self.wo.to(cfg.dtype), c_kv, k_rope
 
     def forward_train(self, x, *, window=None, ops: AttentionOps):
@@ -99,7 +98,6 @@ class MLA(nn.Module):
         """Absorbed one-token decode against the latent cache, written IN
         PLACE at ``cache_index``; the same cache dict is returned."""
         cfg = self.cfg
-        B = x.shape[0]
         H, R = cfg.n_heads, cfg.kv_lora_rank
         nope, rope, vdim = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
         positions = torch.full((1,), cache_index, dtype=torch.int64, device=x.device)
@@ -109,7 +107,7 @@ class MLA(nn.Module):
         write_slot(cache["k_rope"], cache_index, kr_new[:, 0])
         c_kv, k_rope = cache["c_kv"].float(), cache["k_rope"].float()
 
-        wkv_b = self.wkv_b.to(cfg.dtype).float().reshape(R, H, nope + vdim)
+        wkv_b = split_heads(self.wkv_b.to(cfg.dtype).float(), H, nope + vdim)
         w_k, w_v = wkv_b[..., :nope], wkv_b[..., nope:]
         q_abs = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), w_k)
         s = torch.einsum("bhr,bsr->bhs", q_abs, c_kv)
@@ -119,7 +117,7 @@ class MLA(nn.Module):
         w = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
         o_lat = torch.einsum("bhs,bsr->bhr", w, c_kv)
         out = torch.einsum("bhr,rhv->bhv", o_lat, w_v)
-        out = out.reshape(B, 1, H * vdim).to(cfg.dtype)
+        out = merge_heads(out[:, None]).to(cfg.dtype)
         return out @ self.wo.to(cfg.dtype), cache
 
     def make_cache(self, batch: int, seq_len: int):

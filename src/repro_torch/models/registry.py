@@ -58,6 +58,10 @@ def cell_applicable(cfg: ModelConfig, shape_name: str) -> tuple[bool, str]:
     return True, ""
 
 
+def _cell(shape: str | ShapeCell) -> ShapeCell:
+    return SHAPES[shape] if isinstance(shape, str) else shape
+
+
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
@@ -72,11 +76,12 @@ class ModelAPI:
     make_caches: Callable[..., Any]
 
     # the reference's shape stand-ins, as meta tensors: nothing allocates
-    def input_specs(self, shape_name: str, *, batch_override: int | None = None
-                    ) -> dict[str, torch.Tensor]:
-        """The batch of a cell (``SHAPES``), tokens int32 and frames or
-        patch embeddings in the compute dtype, on the meta device."""
-        cell = SHAPES[shape_name]
+    def input_specs(self, shape_name: str | ShapeCell, *,
+                    batch_override: int | None = None) -> dict[str, torch.Tensor]:
+        """The batch of a cell (``SHAPES``, or a ``ShapeCell`` of its own),
+        tokens int32 and frames or patch embeddings in the compute dtype, on
+        the meta device."""
+        cell = _cell(shape_name)
         B = batch_override or cell.global_batch
         S = cell.seq_len
         cfg = self.cfg
@@ -104,10 +109,10 @@ class ModelAPI:
         # decode: one new token against a seq_len cache
         return {"tokens": _meta((B, 1), i32), "cache_index": _meta((), i32)}
 
-    def cache_specs(self, shape_name: str, *, batch_override: int | None = None):
+    def cache_specs(self, shape_name: str | ShapeCell, *, batch_override: int | None = None):
         """A decode cell's caches (``make_caches`` of the model on the meta
         device): one dict a layer."""
-        cell = SHAPES[shape_name]
+        cell = _cell(shape_name)
         if cell.kind != "decode":
             raise ValueError(f"{shape_name} is a {cell.kind} cell; caches are decode's")
         B = batch_override or cell.global_batch

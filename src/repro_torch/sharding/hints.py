@@ -26,6 +26,7 @@ import contextlib
 import math
 import threading
 
+import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication, local_map
 
@@ -112,6 +113,45 @@ def shard_hint(x, kind: str):
     return x.redistribute(mesh, placements(spec, mesh))
 
 
+def _reduced(x):
+    """``x`` with each ``Partial`` placement over more than one rank made
+    ``Replicate`` (a sum over one rank is already whole)."""
+    mesh = x.device_mesh
+    place = [Replicate() if p.is_partial() and mesh.size(i) > 1 else p
+             for i, p in enumerate(x.placements)]
+    return x if place == list(x.placements) else x.redistribute(mesh, place)
+
+
+class _ReducePartial(torch.autograd.Function):
+    """The identity, with partial sums reduced both ways: in the forward
+    on ``x``, in the backward on its gradient (which a column-parallel
+    product's input gradient leaves partial)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _reduced(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduced(g) if isinstance(g, DTensor) else g
+
+
+def reduce_partial(x):
+    """``x`` with its partial sums reduced (each ``Partial`` placement made
+    ``Replicate``: an all-reduce), and its gradient's too; ``x`` itself
+    when it is not a DTensor.  For a norm's input, the residual stream
+    after a row-parallel product: DTensor would carry the partial sum
+    through the norm's last factor and into the next product, which then
+    gathers its weight whole on every rank, and the backward would carry
+    the column-parallel products' partial input gradients down the stream
+    into the row-parallel products' gradients alike.  GSPMD reduces
+    first, Megatron-style, and keeps the products tensor-parallel.  On a
+    one-rank mesh it is ``x`` itself: nothing there is partial."""
+    if not isinstance(x, DTensor) or x.device_mesh.size() == 1:
+        return x
+    return _ReducePartial.apply(x)
+
+
 def _zip_tree(fn, tree, specs):
     if isinstance(tree, dict):
         return {k: _zip_tree(fn, tree[k], specs[k]) for k in tree}
@@ -160,18 +200,54 @@ def write_slot(cache, index: int, new) -> None:
         local[:, index - chunk * size] = new.to(local.dtype)
 
 
-def split_heads(x, n: int, hd: int):
-    """``x`` (..., n * hd) -> (..., n, hd).  Where ``x`` is a DTensor whose
-    last dim is sharded into pieces that cut through a head, those mesh
-    dims are gathered first: DTensor's view rule mis-sizes such a split
-    (GSPMD reshards it by itself)."""
+def _whole_heads(x, n: int):
+    """``x`` (..., n * hd); where it is a DTensor whose last dim is sharded
+    into pieces that cut through a head, those mesh dims gathered."""
     if isinstance(x, DTensor):
         mesh, last = x.device_mesh, x.ndim - 1
         cut = [i for i, p in enumerate(x.placements) if p.is_shard(last)]
         if n % math.prod(mesh.size(i) for i in cut):
             x = x.redistribute(mesh, [Replicate() if i in cut else p
                                       for i, p in enumerate(x.placements)])
-    return x.reshape(*x.shape[:-1], n, hd)
+    return x
+
+
+def split_heads(x, n: int, hd: int):
+    """``x`` (..., n * hd) -> (..., n, hd).  Where ``x`` is a DTensor whose
+    last dim is sharded into pieces that cut through a head, those mesh
+    dims are gathered first: DTensor's view rule mis-sizes such a split
+    (GSPMD reshards it by itself), and torch 2.11's refuses it."""
+    return _whole_heads(x, n).reshape(*x.shape[:-1], n, hd)
+
+
+class _WholeHeadsGrad(torch.autograd.Function):
+    """The identity on merged heads (..., n * hd) whose backward gives the
+    gradient to the merge's backward, a split into (n, hd), with whole
+    heads (``_whole_heads``)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, n):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole_heads(g, ctx.n), None
+
+
+def merge_heads(x):
+    """``x`` (..., n, hd) -> (..., n * hd), the inverse of ``split_heads``.
+    A DTensor's gradient comes back through ``split_heads``' gather, so
+    that its backward's split never cuts a head."""
+    merged = x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    if isinstance(x, DTensor) and torch.is_grad_enabled():
+        return _WholeHeadsGrad.apply(merged, x.shape[-2])
+    return merged
 
 
 def data_parallel(fn, rows: tuple, whole: tuple = ()):
