@@ -357,6 +357,27 @@ failure raises and exits non-zero:
     their records and roofline rows printed (predictions from data-sheet
     constants, not timings), each cell cut at DRY_PROD_LIMIT_S from the
     phase's start and named if cut; (e) the phase's seconds.
+27. the Mamba, MoE and hybrid families sharded: (a) a one-rank NCCL
+    ("data", "model") = (1, 1) mesh, as phase 25's; (b) falcon-mamba-7b at
+    full size and llama4-maverick at 2 layers (128 experts) served under
+    it (serve specs) against the same weights without it, SPMD_BATCH x
+    SPMD_PROMPT prompt tokens and SPMD_STEPS greedy steps: logits
+    bit-identical, one scan launch a Mamba layer's prefill through
+    ``local_map`` on the rank's d_inner shard, one flash an attention
+    layer's prefill and one decode an attention layer and step; (c)
+    falcon-mamba at MAMBA_TRAIN_LAYERS layers and llama4 at 2 layers with 8
+    experts trained one ``make_train_step(axes=...)`` step on DTensor
+    parameters against the mesh-free step: loss, gradients, the step's
+    loss and grad_norm and the updated weights bit-identical (the
+    mesh-free ones kept on the host), the step's launches exact; (d) in
+    subprocesses started with the phase, the eight dry-run cells of the
+    Mamba, MoE and hybrid families (falcon-mamba, jamba, llama4 and arctic,
+    ``train_4k`` and ``prefill_32k``, on a fake 16 x 16 CUDA mesh; the
+    training cells cut to DRY_CELLS' depths), each ``ok`` with its FLOPs and
+    peak a card and its cut printed; (e) qwen3's ``train_4k`` there at full
+    depth with the loss vocabulary-parallel and, patched, with the
+    whole table a rank: FLOPs a card and MODEL/HLO beside the card's name
+    and power limit; (f) the phase's seconds.
 
 The line before the last is a JSON object with each kernel's numbers, one
 row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
@@ -4928,6 +4949,264 @@ def dry_run_phase(dev, kernels):
     say(f"  (e) phase 26 took {time.perf_counter() - started:.1f} s")
 
 
+# --------------------------------------------------------------------- #
+# phase 27: the Mamba, MoE and hybrid families sharded
+# --------------------------------------------------------------------- #
+# On a one-rank NCCL mesh (as phase 25) the Mamba mixer runs channel-parallel
+# with the scan kernel under local_map on its d_inner shard, the MoE runs
+# expert-parallel under one local_map, and the loss goes vocabulary-parallel
+# where "model" divides the vocabulary (on one rank it takes the whole table,
+# as with no mesh): every logit, loss, gradient and updated weight must be
+# the mesh-free path's bit for bit.  The dry-run cells of these families
+# (train_4k and prefill_32k) run on fake CUDA tensors over a 16 x 16 fake
+# process group, depth cut to stay within the phase's time, each in a subprocess
+# started with the phase; and qwen3's train_4k cell at full depth with the
+# loss vocabulary-parallel and, patched, with the whole table on every rank.
+MESH_SERVE = {MAMBA_ARCH: {}, "llama4_maverick_400b_a17b": {"n_layers": 2}}
+# training: falcon-mamba at MAMBA_TRAIN_LAYERS and batch MAMBA_TRAIN_BATCH as
+# phase 12; llama4 at 2 layers and 8 experts, so that the mesh-free path's
+# gradients and updated weights (kept on the host) and the mesh path's
+# training state fit one card together
+MESH_TRAIN = {MAMBA_ARCH: ({"n_layers": MAMBA_TRAIN_LAYERS}, None, MAMBA_TRAIN_BATCH),
+              "llama4_maverick_400b_a17b": ({"n_layers": 2}, 8, TRAIN_BATCH)}
+# the eight cells and their depth cuts (n_layers; None: as published): the
+# training cells, whose plain scan backward and remat recompute take the
+# longest to dry-run, cut to stay within the phase's time (a period for
+# jamba); the prefill cells at full depth
+DRY_CELLS = {("falcon_mamba_7b", "train_4k"): 4, ("falcon_mamba_7b", "prefill_32k"): None,
+             ("jamba_1p5_large_398b", "train_4k"): 8,
+             ("jamba_1p5_large_398b", "prefill_32k"): None,
+             ("llama4_maverick_400b_a17b", "train_4k"): 4,
+             ("llama4_maverick_400b_a17b", "prefill_32k"): None,
+             ("arctic_480b", "train_4k"): 4, ("arctic_480b", "prefill_32k"): None}
+DRY_CELLS_LIMIT_S = 240
+DRY_CELL = """
+import json
+{patch}
+from repro_torch.launch.dryrun import run_cell
+print("RESULT" + json.dumps(run_cell({arch!r}, {shape!r}, False, {over!r}, device="cuda")))
+"""
+# the loss with the whole table on each rank (data_parallel), for comparison
+WHOLE_TABLE_LOSS = """
+import repro_torch.models.loss as loss
+from repro_torch.sharding.hints import data_parallel
+loss.vocab_parallel = lambda fn, whole_fn, rows, table: data_parallel(whole_fn, rows, (table,))
+"""
+
+
+def dry_cells_start():
+    """The dry-run subprocesses: {label: (process, depth cut)}."""
+    runs = {}
+    for (arch, shape), layers in DRY_CELLS.items():
+        code = DRY_CELL.format(patch="", arch=arch, shape=shape,
+                               over={"n_layers": layers} if layers else None)
+        runs[f"{arch} {shape}"] = (code, layers)
+    for label, patch in (("vocabulary-parallel loss", ""),
+                         ("whole table a rank (data_parallel)", WHOLE_TABLE_LOSS)):
+        runs[f"{DRY_ARCH} train_4k, {label}"] = (DRY_CELL.format(
+            patch=patch, arch=DRY_ARCH, shape="train_4k", over=None), None)
+    return {label: (subprocess.Popen([sys.executable, "-c", code], env=_dry_env(),
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True), layers)
+            for label, (code, layers) in runs.items()}
+
+
+def dry_cells_read(procs, started, smi):
+    """(d), (e): each cell's status, FLOPs and peak a card, its cut; qwen3's
+    FLOPs and MODEL/HLO with the loss vocabulary-parallel and with the
+    whole table a rank."""
+    import repro_torch.configs as cfgs
+    from repro_torch.launch import roofline
+
+    recs, failed = {}, []
+    for label, (proc, layers) in procs.items():
+        try:
+            out, err = proc.communicate(timeout=max(started + DRY_CELLS_LIMIT_S
+                                                    - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            failed.append(f"{label}: not done within {DRY_CELLS_LIMIT_S} s")
+            continue
+        if proc.returncode != 0:
+            failed.append(f"{label}: {err.strip().splitlines()[-1] if err.strip() else '?'}")
+            say(f"  {label}: failed\n{err[-3000:]}")
+            continue
+        rec = json.loads(next(s for s in out.splitlines()
+                              if s.startswith("RESULT"))[len("RESULT"):])
+        recs[label] = rec
+        cut = (f"depth cut {cfgs.get(rec['arch']).n_layers} -> {layers} layers"
+               if layers else "full depth")
+        say(f"  (d) {label} on the 16 x 16 mesh ({cut}): status {rec['status']}, "
+            f"{rec['dot_flops_per_device']:.6g} FLOPs a card, peak "
+            f"{rec['memory']['peak_bytes_per_device'] / 2**30:.2f} GiB a card, kernel ops "
+            f"{rec['kernel_ops']}, collectives {rec['collectives']['count']}, trace "
+            f"{rec['trace_s']:.1f} s")
+    for label, rec in recs.items():
+        if label.startswith(DRY_ARCH):
+            row = roofline.analyze_cell(rec)
+            say(f"  (e) {label}: {rec['dot_flops_per_device']:.6g} FLOPs a card, MODEL/HLO "
+                f"{row['useful_ratio']:.4f}, compute {row['compute_s']:.4f} s, collective "
+                f"{row['collective_s']:.4f} s, dominant {row['dominant']} ({smi})")
+    if failed or any(r["status"] != "ok" for r in recs.values()):
+        raise AssertionError("(d) dry-run cells did not reach ok: " + "; ".join(failed))
+
+
+def mesh_serve_case(arch, over, mesh, dev, kernels):
+    """(b): ``arch`` (cut by ``over``) served on the mesh (serve specs)
+    against the same weights without it: SPMD_BATCH x SPMD_PROMPT prompt
+    tokens, SPMD_STEPS greedy decode steps (the mesh-free path's tokens fed
+    to both); logits bit-identical; the launches under the mesh, one flash
+    an attention layer's prefill, one decode an attention layer and step,
+    one scan a Mamba layer's prefill."""
+    import repro_torch.configs as cfgs
+    from repro_torch.models import build
+    from repro_torch.sharding.hints import mesh_axes, use_mesh
+    from repro_torch.sharding.specs import distribute_batch, distribute_model
+
+    cfg = cfgs.get(arch).replace(**over)
+    api = build(cfg)
+    model = api.init(torch.Generator(device=dev).manual_seed(SEED))
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 27).integers(
+        0, cfg.vocab_size, (SPMD_BATCH, SPMD_PROMPT))).to(dev)
+    fed = []
+
+    def run(batch_of):
+        logits, caches = model.prefill(batch_of({"tokens": tokens}),
+                                       seq_budget=SPMD_PROMPT + SPMD_STEPS)
+        out = [_full(logits)]
+        for j in range(SPMD_STEPS):
+            if len(fed) == j:
+                fed.append(torch.argmax(out[-1], -1).to(torch.int32)[:, None])
+            logits, caches = model.decode(batch_of({"tokens": fed[j]}), caches,
+                                          cache_index=SPMD_PROMPT + j)
+            out.append(_full(logits))
+        return out
+
+    ref = run(lambda b: b)
+    distribute_model(model, mesh, mode="serve")
+    zero_counts(kernels)
+    with use_mesh(mesh), mesh_axes(SPMD_AXES):
+        got = run(lambda b: distribute_batch(b, mesh))
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in launch_counts(kernels).items() if n}
+    layers = [s.mixer for s in cfg.pattern] * cfg.n_repeats
+    want = {name: n for name, n in (
+        ("flash_attention_sm90", layers.count("attn")),
+        ("decode_attention_sm90", layers.count("attn") * SPMD_STEPS),
+        ("mamba_scan_sm90", layers.count("mamba"))) if n}
+    same = [torch.equal(a, b) for a, b in zip(got, ref)]
+    say(f"  (b) {cfg.name} served ({cfg.n_layers} of {cfgs.get(arch).n_layers} layers"
+        f"{', ' + str(cfg.moe.n_experts) + ' experts' if cfg.moe else ''}) on the mesh: "
+        f"launches {counts} (want {want}); prefill and {SPMD_STEPS} decode steps' logits "
+        f"bit-identical to the mesh-free path's: {same}; largest |diff| "
+        f"{max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)):.3e}")
+    if counts != want:
+        raise AssertionError(f"(b) {cfg.name}: launches under the mesh {counts}, not {want}")
+    if not all(same) or not all(torch.isfinite(a).all() for a in got):
+        raise AssertionError(f"(b) {cfg.name}: logits under the mesh differ from without it")
+
+
+def mesh_train_case(arch, over, experts, batch_size, mesh, dev, kernels):
+    """(c): ``arch`` (cut) trained one make_train_step(axes=...) step on
+    DTensor parameters against the mesh-free step on the same weights and
+    batch: the loss and gradients of loss_and_grads, the step's loss,
+    grad_norm and updated weights, all bit-identical (the mesh-free ones
+    kept on the host); the step's launches: the scan once a Mamba layer (its
+    backward is the plain scan's), the flash pair once an attention layer,
+    the forward again under remat."""
+    import repro_torch.configs as cfgs
+    from repro_torch.data import MarkovDataset
+    from repro_torch.models import build
+    from repro_torch.runtime.train_loop import (TrainConfig, loss_and_grads,
+                                                make_train_state, make_train_step)
+    from repro_torch.sharding.hints import mesh_axes, use_mesh
+    from repro_torch.sharding.specs import distribute_batch, distribute_model
+
+    cfg = cfgs.get(arch).replace(**over)
+    if experts:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, n_experts=experts))
+    api = build(cfg)
+    tc = TrainConfig(warmup_steps=1, total_steps=10)
+    ds = MarkovDataset(cfg.vocab_size, TRAIN_SEQ, batch_size, seed=SEED + 27)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(0).items()}
+    host = lambda d: {k: v.detach().cpu() for k, v in d.items()}  # noqa: E731
+
+    state = make_train_state(api, tc, device=dev)
+    loss0, _, g0 = loss_and_grads(api, state["params"], batch)
+    g0 = host(g0)
+    state, m0 = make_train_step(api, tc)(state, batch)
+    p0 = host(dict(state["params"].named_parameters()))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = api.init(torch.Generator(device=dev).manual_seed(tc.seed))
+    state = make_train_state(api, tc, params=distribute_model(params, mesh))
+    with use_mesh(mesh), mesh_axes(SPMD_AXES):
+        loss1, _, g1 = loss_and_grads(api, state["params"], distribute_batch(batch, mesh))
+    same_g = all(torch.equal(_full(g).cpu(), g0[k]) for k, g in g1.items())
+    del g1
+    zero_counts(kernels)
+    state, m1 = make_train_step(api, tc, axes=SPMD_AXES)(state, batch)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in launch_counts(kernels).items() if n}
+    same_p = all(torch.equal(_full(p.detach()).cpu(), p0[k])
+                 for k, p in state["params"].named_parameters())
+    same_m = all(torch.equal(_full(m1[k]), m0[k]) for k in ("loss", "grad_norm"))
+    layers = [s.mixer for s in cfg.pattern] * cfg.n_repeats
+    attn = layers.count("attn")
+    want = {name: n for name, n in (
+        ("flash_attention_sm90", attn * (2 if cfg.remat else 1)),
+        ("flash_bwd_dq_sm90", attn), ("flash_bwd_dkv_sm90", attn),
+        ("mamba_scan_sm90", layers.count("mamba") * (2 if cfg.remat else 1))) if n}
+    say(f"  (c) {cfg.name} trained ({cfg.n_layers} layers"
+        f"{', ' + str(cfg.moe.n_experts) + ' experts' if cfg.moe else ''}, batch "
+        f"{batch_size} x {TRAIN_SEQ}, {cfg.opt_state_dtype} moments) on the mesh: loss "
+        f"{_full(loss1).item():.6f} (without {loss0.item():.6f}); loss, gradients, the "
+        f"step's loss and grad_norm ({_full(m1['grad_norm']).item():.6f}) and updated "
+        f"weights bit-identical: {torch.equal(_full(loss1), loss0)}, {same_g}, {same_m}, "
+        f"{same_p}; the step's launches {counts} (want {want})")
+    if counts != want:
+        raise AssertionError(f"(c) {cfg.name}: the step launched {counts}, not {want}")
+    if not (torch.equal(_full(loss1), loss0) and same_g and same_m and same_p):
+        raise AssertionError(f"(c) {cfg.name}: the step on the mesh differs from without it")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_families_phase(dev, kernels, smi):
+    """Phase 27: (a) the mesh, (b) falcon-mamba at full size and llama4 at 2
+    layers served on it, (c) trained on it, (d) the dry-run cells of these
+    families, (e) qwen3's train_4k cell with the loss
+    vocabulary-parallel and with the whole table a rank, (f) the phase's
+    seconds."""
+    import torch.distributed as dist
+
+    started = time.perf_counter()
+    procs = dry_cells_start()
+    try:
+        mesh = spmd_mesh()
+        try:
+            for arch, over in MESH_SERVE.items():
+                mesh_serve_case(arch, over, mesh, dev, kernels)
+                gc.collect()
+                torch.cuda.empty_cache()
+            for arch, (over, experts, batch) in MESH_TRAIN.items():
+                mesh_train_case(arch, over, experts, batch, mesh, dev, kernels)
+        finally:
+            dist.destroy_process_group()
+        dry_cells_read(procs, started, smi)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(f"  (f) phase 27 took {time.perf_counter() - started:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5206,6 +5485,10 @@ def main() -> int:
     phase("phase 26: the dry run held to the card (kernel ops, FLOPs and peak memory "
           "against one card's steps; the production meshes' records and roofline)")
     dry_run_phase(dev, kernels)
+
+    phase("phase 27: the Mamba, MoE and hybrid families sharded (the scan under local_map "
+          "on d_inner, expert-parallel MoE, vocabulary-parallel loss; the dry run's cells)")
+    mesh_families_phase(dev, kernels, smi)
 
     say(f"all phases in {time.perf_counter() - START:.1f} s")
     # the kernels line: (name, kernel, its times, its largest |error|, the

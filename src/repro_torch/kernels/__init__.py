@@ -34,6 +34,8 @@ included, on each rank's head shard under ``local_map``, and
 ``decode_attention_tp`` runs the decode kernel on each rank's cache chunk
 and merges the chunks by their log-sum-exp over "model"; otherwise both
 are the unsharded dispatch, the same launches and bits as with no mesh.
+The scan member likewise runs the scan kernel on each rank's d_inner
+shard under ``local_map`` (``mamba_scan_tp``).
 
 Fake CUDA tensors (``FakeTensorMode``: the dry run, ``launch/dryrun.py``)
 take each kernel's ``torch.library`` op, checked as the kernel checks
@@ -182,14 +184,16 @@ def _plain_train(q, k, v, *, causal=True, window=None):
 
 def mamba_scan_dispatch(x, dt, A, B, C, h0=None):
     """x, dt (b,s,d); A (d,n); B, C (b,s,n) -> (y (b,s,d), h_final
-    (b,d,n)), fp32, differentiable."""
-    return _scan.mamba_scan(x, dt, A, B, C, h0)
+    (b,d,n)), fp32, differentiable; under a mesh on each rank's d_inner
+    shard (``mamba_scan_tp``)."""
+    return mamba_scan_tp(x, dt, A, B, C, h0)
 
 
 # the tensor-parallel attention's local bodies are local_attention and
 # local_decode above
 from .decode_attention.sharded import decode_attention_tp  # noqa: E402
 from .flash_attention.sharded import flash_attention_tp  # noqa: E402
+from .mamba_scan.sharded import mamba_scan_tp  # noqa: E402
 
 DISPATCH = AttentionOps(flash_attention_dispatch, decode_attention_dispatch,
                         flash_attention_train_dispatch, mamba_scan_dispatch)

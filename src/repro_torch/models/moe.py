@@ -30,6 +30,16 @@ llama4-maverick's expert stacks is 10.7 GB in bf16), where folding the
 tasks' slots into T reads each expert once.  The rule has gradients (dx
 = g wᵀ, dw = xᵀ g), so tasks that share the weights train through it
 too; a training task's own weights (batched) take the native ``x @ w``.
+
+Under a mesh (DTensor weights, announced axes) dispatch, the expert
+products and the combine run expert-parallel as one ``local_map``: each
+rank takes its routing groups (over the data axes), its experts' slices
+of ``dispatch`` and ``combine`` ((groups, G, E/ep, C), the experts over
+"model", the ``moe_dispatch`` layout) and its experts' weights (gathered
+over the data axis that shards ``d_ff``), and returns its experts' part of
+the combined output in fp32, a partial sum over "model" that is reduced
+once before the cast to the compute dtype.  No sharded dim is flattened:
+the products see local tensors.  The routing runs before it, unchanged.
 """
 
 from __future__ import annotations
@@ -38,9 +48,12 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.batched import under_vmap
-from ..sharding.hints import shard_hint
+from ..sharding.hints import current_axes, reduce_partial, shard_hint
+from ..sharding.specs import P, _dp, mesh_sizes, placements, sanitize_spec
 from .common import ModelConfig
 from .layers import dense_init, make_mlp, silu
 
@@ -125,15 +138,22 @@ class Experts(nn.Module):
             self.wg = dense_init(g, (E, d, ff), pd, in_axis_size=d)
         self.act, self.dtype = cfg.mlp_act, cfg.dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (E, T, d): T slots an expert -> (E, T, d)."""
+    def weights(self) -> tuple:
+        """(wi, wo[, wg])."""
+        return (self.wi, self.wo) + ((self.wg,) if self.act == "swiglu" else ())
+
+    def forward(self, x: torch.Tensor, weights: tuple | None = None) -> torch.Tensor:
+        """x (E, T, d): T slots an expert -> (E, T, d); with ``weights``
+        (``weights()``' tensors, or a rank's local shards of them) those in
+        place of the module's."""
         dt = self.dtype
+        wi, wo, *wg = weights or self.weights()
         if self.act == "swiglu":
-            h = (silu(expert_matmul(x, self.wg.to(dt)))
-                 * expert_matmul(x, self.wi.to(dt)))
+            h = (silu(expert_matmul(x, wg[0].to(dt)))
+                 * expert_matmul(x, wi.to(dt)))
         else:
-            h = nn.functional.gelu(expert_matmul(x, self.wi.to(dt)), approximate="tanh")
-        return expert_matmul(h, self.wo.to(dt))
+            h = nn.functional.gelu(expert_matmul(x, wi.to(dt)), approximate="tanh")
+        return expert_matmul(h, wo.to(dt))
 
 
 class MoE(nn.Module):
@@ -194,14 +214,13 @@ class MoE(nn.Module):
         m, dt = self.cfg.moe, self.cfg.dtype
         B, S, d = x.shape
         logits, probs, onehot, _, dispatch, combine = self.route(x)
-        ng, G, E, C = dispatch.shape
-
-        xin = torch.einsum("gsec,gsd->egcd", dispatch.to(dt), x.reshape(ng, G, d))
-        xin = shard_hint(xin, "moe_expert_batch")
-        eout = self.experts(xin.reshape(E, ng * C, d)).reshape(E, ng, C, d)
-        eout = shard_hint(eout, "moe_expert_batch")
-        out = torch.einsum("egcd,gsec->gsd", eout.float(),
-                           combine.to(dt).float()).to(dt).reshape(B, S, d)
+        ng, G, E, _ = dispatch.shape
+        xg = x.reshape(ng, G, d)
+        if current_axes() is not None and isinstance(dispatch, DTensor):
+            out = reduce_partial(self._expert_parallel(xg, dispatch, combine))
+        else:
+            out = self._experts_combined(xg, dispatch, combine)
+        out = out.to(dt).reshape(B, S, d)
 
         # aux losses (fp32)
         me = probs.mean(dim=(0, 1))  # mean router probability an expert
@@ -213,3 +232,40 @@ class MoE(nn.Module):
         if m.dense_residual:
             out = out + self.residual(x)
         return out, aux
+
+    def _experts_combined(self, x, dispatch, combine, weights=None):
+        """x (ng, G, d); dispatch, combine (ng, G, E, C) -> the experts'
+        outputs combined, (ng, G, d) fp32: the experts of ``weights`` (the E
+        of ``dispatch``; None: the module's)."""
+        dt = self.cfg.dtype
+        ng, G, E, C = dispatch.shape
+        d = x.shape[-1]
+        xin = torch.einsum("gsec,gsd->egcd", dispatch.to(dt), x)
+        eout = self.experts(xin.reshape(E, ng * C, d), weights).reshape(E, ng, C, d)
+        return torch.einsum("egcd,gsec->gsd", eout.float(), combine.to(dt).float())
+
+    def _expert_parallel(self, x, dispatch, combine):
+        """``_experts_combined`` on each rank's groups and experts under
+        ``local_map``: (ng, G, d) fp32, a partial sum over "model" where the
+        experts are split over it.  The weights' gradients are the data
+        ranks' sum, x's the "model" ranks'."""
+        mesh = dispatch.device_mesh
+        sizes = mesh_sizes(mesh)
+        ng, _, E, _ = dispatch.shape
+        gspec, espec = sanitize_spec(P(_dp(mesh.mesh_dim_names), "model"), (ng, E), sizes)
+        rows = placements(P(gspec), mesh)  # x, the output's groups
+        routes = placements(P(gspec, None, espec, None), mesh)  # dispatch, combine
+        experts = placements(P(espec), mesh)  # each weight (E, a, b)
+        out = [Partial() if e.is_shard() else r for e, r in zip(experts, rows)]
+        w_grad = [Partial() if r.is_shard() else e for r, e in zip(rows, experts)]
+        weights = self.experts.weights()
+        n = len(weights)
+
+        def local(x_, dispatch_, combine_, *ws):
+            return self._experts_combined(x_, dispatch_, combine_, ws)
+
+        return local_map(local, out_placements=out,
+                         in_placements=(rows, routes, routes) + (experts,) * n,
+                         in_grad_placements=(out, routes, routes) + (w_grad,) * n,
+                         device_mesh=mesh, redistribute_inputs=True)(
+                             x, dispatch, combine, *weights)

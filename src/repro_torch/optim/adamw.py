@@ -87,21 +87,71 @@ def _zeros_like_moment(p: torch.Tensor, dtype: str):
     return p.new_zeros(p.shape, dtype=getattr(torch, dtype))
 
 
-def _moment_of(name: str, p: torch.Tensor, dtype: str):
-    """A zero moment of ``p``; of a DTensor, a DTensor placed alike, made
-    from its local shard (the update runs shard by shard).  int8 blocks
-    run along the last dim, so a shard of it must hold whole blocks."""
+def _cuts_blocks(p: DTensor) -> bool:
+    """Whether a shard of ``p``'s last dim holds a part of a 256-element
+    block (the dim split into pieces that are not whole blocks)."""
+    cut = [p.device_mesh.size(i) for i, pl in enumerate(p.placements) if pl.is_shard(p.ndim - 1)]
+    return bool(cut) and p.shape[-1] % (math.prod(cut) * BLOCK) != 0
+
+
+def _whole_last(p: DTensor) -> list:
+    """``p``'s placements with its last dim whole."""
+    return [Replicate() if pl.is_shard(p.ndim - 1) else pl for pl in p.placements]
+
+
+def _spec_of(p: DTensor):
+    """The partition spec that ``p``'s placements lay it out by."""
+    from ..sharding.specs import P
+
+    names = p.device_mesh.mesh_dim_names
+    dims = [tuple(n for n, pl in zip(names, p.placements) if pl.is_shard(j))
+            for j in range(p.ndim)]
+    return P(*(e[0] if len(e) == 1 else (e or None) for e in dims))
+
+
+def _moment_spec(spec, leaf, axis_sizes):
+    """The spec of a moment (``leaf``, or its shape) of a parameter laid
+    out by ``spec``: ``spec`` sanitized for the moment's shape; of an int8
+    moment's {codes, scale, offset}, for each piece's own shape (the
+    blocked last dim usually cannot divide the mesh), as the reference's
+    moment specs."""
+    from ..sharding.specs import sanitize_spec
+
+    if isinstance(leaf, Mapping):
+        return {k: _moment_spec(spec, leaf[k], axis_sizes) for k in ("codes", "scale", "offset")}
+    return sanitize_spec(spec, getattr(leaf, "shape", leaf), axis_sizes)
+
+
+def _update_placements(p: DTensor, dtype: str) -> list:
+    """The placements a DTensor parameter's update runs on: its own, but
+    with the last dim whole where int8 moments' blocks would be cut by its
+    shards, so that the blocks quantized are the whole dim's, as the
+    reference quantizes them, not a shard's."""
+    return _whole_last(p) if dtype == "int8" and _cuts_blocks(p) else list(p.placements)
+
+
+def _moment_of(p: torch.Tensor, dtype: str):
+    """A zero moment of ``p``; of a DTensor, a DTensor placed like ``p``,
+    made from its local shard.  An int8 moment of a parameter whose shards
+    cut a block has each of codes, scale and offset laid out by the
+    reference's sanitized moment spec (the parameter's, sanitized for
+    that piece's own shape; arctic's 7168-wide table over 16 ranks: codes
+    448 a rank, scale and offset whole)."""
     if not isinstance(p, DTensor):
         return _zeros_like_moment(p, dtype)
-    local = p.to_local()
-    if (dtype == "int8" and any(pl.is_shard(p.ndim - 1) for pl in p.placements)
-            and local.shape[-1] % BLOCK):
-        raise ValueError(f"{name}: int8 moments need whole {BLOCK}-element blocks in "
-                         f"a shard of the last dim, not {local.shape[-1]}")
-    mom = _zeros_like_moment(local, dtype)
-    wrap = lambda t: DTensor.from_local(t, p.device_mesh, p.placements,  # noqa: E731
-                                        run_check=False)
-    return {k: wrap(t) for k, t in mom.items()} if dtype == "int8" else wrap(mom)
+    mesh, local = p.device_mesh, p.to_local()
+    if dtype != "int8" or not _cuts_blocks(p):
+        mom = _zeros_like_moment(local, dtype)
+        wrap = lambda t: DTensor.from_local(t, mesh, p.placements,  # noqa: E731
+                                            run_check=False)
+        return {k: wrap(t) for k, t in mom.items()} if dtype == "int8" else wrap(mom)
+    from ..sharding.specs import mesh_sizes, placements
+
+    whole = _zeros_like_moment(local.new_empty(local.shape[:-1] + (p.shape[-1],)), dtype)
+    specs = _moment_spec(_spec_of(p), {k: p.shape[:-1] + t.shape[-1:] for k, t in whole.items()},
+                         mesh_sizes(mesh))
+    return {k: DTensor.from_local(t, mesh, _whole_last(p), run_check=False).redistribute(
+        mesh, placements(specs[k], mesh)) for k, t in whole.items()}
 
 
 def init_opt_state(params: Mapping[str, torch.Tensor], *,
@@ -115,8 +165,8 @@ def init_opt_state(params: Mapping[str, torch.Tensor], *,
     device = next(iter(params.values())).device
     state = {
         "step": torch.zeros((), dtype=torch.int32, device=device),
-        "m": {k: _moment_of(k, p, moment_dtype) for k, p in params.items()},
-        "v": {k: _moment_of(k, p, moment_dtype) for k, p in params.items()},
+        "m": {k: _moment_of(p, moment_dtype) for k, p in params.items()},
+        "v": {k: _moment_of(p, moment_dtype) for k, p in params.items()},
     }
     if master_fp32:
         state["master"] = {k: p.detach().float().clone()
@@ -159,17 +209,16 @@ def _slices(t: torch.Tensor) -> list:
 def global_norm(tensors, placed=None) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor (a mapping's values or
     an iterable), in fp32, summed SLICE elements at a time.  With
-    ``placed`` (one DTensor a tensor) the tensors are those DTensors' local
-    shards, and each one's sums are added up over the mesh dims that
-    shard it."""
+    ``placed`` (one (mesh, placements) a tensor) the tensors are local
+    shards laid out so, and each one's sums are added up over the mesh
+    dims that shard it."""
     ts = list(tensors.values() if isinstance(tensors, Mapping) else tensors)
     sums = [torch.stack([torch.sum(torch.square(t[i].float())) for i in _slices(t)])
             for t in ts]
     if placed is not None:
-        sums = [DTensor.from_local(s, d.device_mesh,
-                                   [Partial() if p.is_shard() else Replicate()
-                                    for p in d.placements]).full_tensor()
-                for s, d in zip(sums, placed)]
+        sums = [DTensor.from_local(s, mesh, [Partial() if p.is_shard() else Replicate()
+                                             for p in place]).full_tensor()
+                for s, (mesh, place) in zip(sums, placed)]
     return torch.sqrt(torch.cat(sums).sum())
 
 
@@ -232,15 +281,31 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: dict,
 
     DTensor parameters (a model distributed on a mesh, its state from
     ``init_opt_state``) update shard by shard: each gradient is first
-    redistributed to its parameter's placements, the norm is reduced over
-    the mesh, and the elementwise update runs on the local shards of the
-    parameters and of their moments, which are placed alike."""
-    metrics, placed, work, shards = {}, None, state, params
+    redistributed to its update's placements (``_update_placements``: the
+    parameter's own, or with the last dim whole where int8 blocks would be
+    cut), the norm is reduced over the mesh, and the elementwise update
+    runs on the local shards of the parameters and of their moments.
+    Where the last dim is whole, the parameter, its master and its moments
+    are gathered to that layout, updated there, and each rank writes back
+    its own shards of them."""
+    metrics, placed, work, shards, back = {}, None, state, params, []
     if isinstance(next(iter(params.values())), DTensor):
-        placed = list(params.values())
-        grads = {k: g.redistribute(params[k].device_mesh, params[k].placements).to_local()
+        lay = {k: _update_placements(p, moment_dtype) for k, p in params.items()}
+        placed = [(params[k].device_mesh, lay[k]) for k in grads]
+        grads = {k: g.redistribute(params[k].device_mesh, lay[k]).to_local()
                  for k, g in grads.items()}
         work, shards = _local(state), _local(params)
+        for k, p in params.items():
+            if lay[k] == list(p.placements):
+                continue
+            gather = [(params, shards, k)]
+            if "master" in state:
+                gather.append((state["master"], work["master"], k))
+            for n in ("m", "v"):  # codes, scale, offset
+                gather += [(state[n][k], work[n][k], j) for j in state[n][k]]
+            for src, dst, j in gather:
+                dst[j] = src[j].redistribute(p.device_mesh, lay[k]).to_local()
+                back.append((src[j], dst[j], lay[k]))
     if clip_norm is not None:
         grads, metrics["grad_norm"] = clip_by_global_norm(grads, clip_norm, placed)
     step = state["step"] + 1
@@ -271,6 +336,9 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: dict,
             ps.copy_(new)
             _store_moment(m_s, m32, moment_dtype)
             _store_moment(v_s, v32, moment_dtype, log_domain=True)
+    for dst, new, place in back:  # each rank's own shards of a whole-dim update
+        dst.to_local().copy_(DTensor.from_local(new, dst.device_mesh, place, run_check=False)
+                             .redistribute(dst.device_mesh, dst.placements).to_local())
     state["step"] = step
     metrics["lr"] = lr
     return params, state, metrics
@@ -282,18 +350,13 @@ def opt_state_partition_specs(state: dict, param_specs: Mapping, axes,
     parameters' specs (``tree_partition_specs``); an int8 moment's
     {codes, scale, offset} take its parameter's spec, each sanitized for
     its own shape (the blocked last dim usually cannot divide the mesh);
-    ``master`` takes the parameters' specs."""
-    from ..sharding.specs import P, sanitize_spec
-
-    def mom_spec(spec, leaf):
-        if isinstance(leaf, Mapping):  # int8 {codes, scale, offset}
-            return {k: sanitize_spec(spec, leaf[k].shape, axis_sizes)
-                    for k in ("codes", "scale", "offset")}
-        return sanitize_spec(spec, leaf.shape, axis_sizes)
+    ``master`` takes the parameters' specs.  ``init_opt_state`` lays a
+    DTensor parameter's moments out so."""
+    from ..sharding.specs import P
 
     out = {"step": P(),
-           "m": {k: mom_spec(param_specs[k], m) for k, m in state["m"].items()},
-           "v": {k: mom_spec(param_specs[k], v) for k, v in state["v"].items()}}
+           "m": {k: _moment_spec(param_specs[k], m, axis_sizes) for k, m in state["m"].items()},
+           "v": {k: _moment_spec(param_specs[k], v, axis_sizes) for k, v in state["v"].items()}}
     if "master" in state:
         out["master"] = dict(param_specs)
     return out

@@ -94,6 +94,11 @@ def spec_for(kind: str, axes, ndim: int) -> P:
         return P(dp, None, model)
     if kind == "batch_tokens":  # (B, S)
         return P(dp, None)
+    if kind == "batch_rows":  # (B, ...): batch over dp, whole over "model"
+        return P(dp)
+    if kind == "mamba_channels":  # (B, S, d_inner): d_inner over "model" (the
+        # reference's _pin_d / _pin_xs in its chunked scan)
+        return P(dp, None, model)
     if kind == "moe_dispatch":  # (groups, G, E, C): groups over dp, EP over model
         return P(dp, None, model, None)
     if kind == "moe_expert_batch":  # (E, groups, C, d): EP over model
@@ -250,23 +255,57 @@ def merge_heads(x):
     return merged
 
 
+def _by_rows(rows: tuple, others: tuple):
+    """(mesh, rows, others, split): the DTensors' mesh, every argument a
+    DTensor (a plain tensor, the same on every rank, replicated), and the
+    rows' placements with dim 0 split over the data axes where it divides."""
+    mesh = next(t.device_mesh for t in rows + others if isinstance(t, DTensor))
+    rows, others = (tuple(t if isinstance(t, DTensor) else distribute(t, P(), mesh)
+                          for t in ts) for ts in (rows, others))
+    dp = P(_dp(mesh.mesh_dim_names))
+    return mesh, rows, others, placements(sanitize_spec(dp, rows[0].shape, mesh_sizes(mesh)),
+                                          mesh)
+
+
 def data_parallel(fn, rows: tuple, whole: tuple = ()):
     """``fn(*rows, *whole)`` under ``local_map``: each rank takes its batch
     rows of ``rows`` (dim 0 split over the data axes where it divides) and
     the whole of ``whole`` (replicated; an all-gather where sharded), and
     the result is laid out by rows; a ``whole`` tensor's gradient is the
     ranks' sum (Partial over the data axes).  For an op DTensor has no
-    working rule for (the embedding lookup's backward, the loss's gather
-    on vocab-sharded logits).  Plain tensors among the arguments are the
-    same on every rank and enter replicated."""
-    mesh = next(t.device_mesh for t in rows + whole if isinstance(t, DTensor))
-    rows, whole = ([t if isinstance(t, DTensor) else distribute(t, P(), mesh) for t in ts]
-                   for ts in (rows, whole))
-    dp = P(_dp(mesh.mesh_dim_names))
-    split = placements(sanitize_spec(dp, rows[0].shape, mesh_sizes(mesh)), mesh)
+    working rule for (the embedding lookup's backward; the loss, where
+    "model" does not divide the vocabulary).  Plain tensors among the
+    arguments are the same on every rank and enter replicated."""
+    mesh, rows, whole, split = _by_rows(rows, whole)
     summed = [Partial() if p.is_shard() else Replicate() for p in split]
     rep = [Replicate()] * mesh.ndim
     n, m = len(rows), len(whole)
     return local_map(fn, out_placements=split, in_placements=(split,) * n + (rep,) * m,
                      in_grad_placements=(split,) * n + (summed,) * m, device_mesh=mesh,
                      redistribute_inputs=True)(*rows, *whole)
+
+
+def vocab_parallel(fn, whole_fn, rows: tuple, table):
+    """``fn(*rows, table, group)`` under ``local_map``, vocabulary-parallel:
+    each rank takes its batch rows of ``rows`` (as ``data_parallel``) and
+    its own rows of ``table`` (V, d) (dim 0 over "model", gathered over
+    the other axes), and ``group`` is the "model" sub-mesh, over which
+    ``fn`` all-reduces what it needs; the result is laid out by rows,
+    whole over "model".  ``fn``'s gradients: the rows' whole over "model"
+    (``fn`` reduces them), the table's on the rank's own rows, the ranks'
+    sum over the data axes.  Where the mesh has no "model" axis of more
+    than one rank, or it does not divide V (the reference's
+    ``sanitize_spec`` leaves such a table unsharded), ``whole_fn(*rows,
+    table)`` under ``data_parallel``: each rank takes the whole table."""
+    mesh, rows, (table,), split = _by_rows(rows, (table,))
+    tp = mesh_sizes(mesh).get("model", 1)
+    if tp == 1 or table.shape[0] % tp:
+        return data_parallel(whole_fn, rows, (table,))
+    own = placements(P("model"), mesh)
+    summed = [Partial() if p.is_shard() else q for p, q in zip(split, own)]
+    group = mesh["model"]
+    n = len(rows)
+    return local_map(lambda *ts: fn(*ts, group), out_placements=split,
+                     in_placements=(split,) * n + (own,),
+                     in_grad_placements=(split,) * n + (summed,), device_mesh=mesh,
+                     redistribute_inputs=True)(*rows, table)

@@ -333,9 +333,15 @@ def placements(spec: P, mesh) -> list:
 def distribute(t: torch.Tensor, spec: P, mesh):
     """``t`` (the same full tensor on every rank) as a DTensor laid out by
     ``spec`` (sanitized for ``mesh``); each rank keeps its own shard and
-    nothing is sent."""
+    nothing is sent.  Where that shard is the whole of ``t`` (every dim it
+    splits split over one rank) it is ``t`` itself, not a copy: a model
+    distributed on a one-rank mesh holds its weights once."""
     spec = sanitize_spec(spec, t.shape, mesh_sizes(mesh))
-    return distribute_tensor(t, mesh, placements(spec, mesh), src_data_rank=None)
+    place = placements(spec, mesh)
+    if all(p == Replicate() or mesh.size(i) == 1 for i, p in enumerate(place)):
+        return DTensor.from_local(t.detach().contiguous(), mesh, place,
+                                  run_check=False).requires_grad_(t.requires_grad)
+    return distribute_tensor(t, mesh, place, src_data_rank=None)
 
 
 @torch.no_grad()

@@ -1,14 +1,19 @@
 """The port's dry run (``repro_torch.launch.dryrun``) on the reference's three
-small-mesh cells, against the reference's own dry run of the same cells
-(``tests/test_dryrun_small.py``'s: ``build_lowering`` + ``analyze``).
+small-mesh cells and two sharded families cut in depth, against the
+reference's own dry run of the same cells (``tests/test_dryrun_small.py``'s:
+``build_lowering`` + ``analyze``).
 
 Each cell runs on fake ``cpu`` tensors over a fake process group of its
-mesh's size, in a subprocess of its own (the reference's cells in two
+mesh's size, in one of two subprocesses (the reference's cells in two
 more, with 8 and 16 placeholder devices), two at a time:
 - whisper-tiny ``train_4k`` on ("data", "model") = (2, 4), batch 8, remat;
 - llama3.2-1B ``decode_32k`` on (2, 4), batch 8;
 - qwen3-1.7B ``train_4k`` on ("pod", "data", "model") = (2, 2, 4), batch 8,
-  remat.
+  remat;
+- falcon-mamba-7b ``train_4k`` cut to 2 layers on (2, 4), batch 8, remat
+  (the scan on each rank's d_inner shard);
+- arctic ``train_4k`` cut to 1 layer on (2, 4), batch 8, remat (the
+  expert-parallel MoE with its dense residual, int8 moments).
 Each reaches ``status: "ok"`` with peak memory, FLOPs and wire bytes above
 0, the multi-pod cell reduces over "pod", and the per-device FLOPs of each
 cell are held within 2% of the reference's ``hlo_dot_flops_per_device``,
@@ -17,14 +22,18 @@ from the shapes and named (``_terms``):
 - the reference's attention backward (its chunked XLA path) computes the
   scores and dp twice, in its dq pass and in its dk/dv pass: two products
   a call more than the port's plain backward and its kernels' formula;
-- the port's remat recomputes the whole block, the MLP's output product
-  too, whose result the backward never reads: the reference's compiler
-  drops that product as dead;
-- the port's loss runs under ``data_parallel``: each rank holds the whole
-  unembedding table, so its logits cover the whole vocabulary and its
-  table gradient the whole width, where the reference lays the logits out
-  vocabulary over "model" and the table gradient as the table, d over
-  "data".
+- the port's remat recomputes the whole block, its last product too (the
+  MLP's output product, an MoE block's dense residual's, or a Mamba
+  block's out_proj), whose result the backward never reads: the
+  reference's compiler drops that product as dead;
+- where "model" does not divide the vocabulary (whisper's 51865), each
+  rank takes the whole table, as the reference's does, but the reference
+  splits the table gradient's columns between the "model" ranks, d / data
+  a rank (the table's d is over "data"; its dot is f32[V, d / data] from
+  the rank's rows, all-reduced over "data"), where the port's gradient
+  covers all of d.
+Where "model" divides the vocabulary the loss is vocabulary-parallel, as
+the reference lays its logits out, and takes no term (qwen3).
 And a mesh-free training step's ``FlopCounterMode`` count equals a (1, 1)
 dry run's per-device FLOPs.
 """
@@ -46,18 +55,24 @@ from repro_torch.kernels.flash_attention.sharded import plan_heads
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 0.02
 BATCH = 8
-CELLS = {"whisper": ("whisper_tiny", "train_4k", (2, 4)),
-         "llama": ("llama3p2_1b", "decode_32k", (2, 4)),
-         "qwen3": ("qwen3_1p7b", "train_4k", (2, 2, 4))}
+# name: (arch, shape, mesh, config overrides: the depth cut)
+CELLS = {"whisper": ("whisper_tiny", "train_4k", (2, 4), {}),
+         "llama": ("llama3p2_1b", "decode_32k", (2, 4), {}),
+         "qwen3": ("qwen3_1p7b", "train_4k", (2, 2, 4), {}),
+         "falcon_mamba": ("falcon_mamba_7b", "train_4k", (2, 4), {"n_layers": 2}),
+         "arctic": ("arctic_480b", "train_4k", (2, 4), {"n_layers": 1})}
 AXES = ("pod", "data", "model")
 
 PORT = """
-import json, sys
+import json
 from repro_torch.launch.dryrun import run_mesh
-arch, shape, mesh = {arch!r}, {shape!r}, {mesh!r}
-rec = run_mesh(arch, shape, mesh, {axes!r}[-len(mesh):], device="cpu", batch_override={batch},
-               train_overrides={{"remat": True}} if shape.startswith("train") else None)
-print("RESULT" + json.dumps(rec))
+out = {{}}
+for name, (arch, shape, mesh, over) in {cells!r}.items():
+    out[name] = run_mesh(arch, shape, mesh, {axes!r}[-len(mesh):], device="cpu",
+                         batch_override={batch},
+                         train_overrides={{"remat": True, **over}} if shape.startswith("train")
+                         else over)
+print("RESULT" + json.dumps(out))
 """
 
 REFERENCE = """
@@ -67,11 +82,11 @@ import json
 import repro.launch.dryrun as dr
 from repro.launch.mesh import make_mesh
 out = {{}}
-for name, (arch, shape, mesh) in {cells!r}.items():
+for name, (arch, shape, mesh, over) in {cells!r}.items():
     lowered, _ = dr.build_lowering(arch, shape, make_mesh(mesh, {axes!r}[-len(mesh):]),
                                    batch_override={batch},
-                                   train_overrides={{"remat": True}} if shape.startswith("train")
-                                   else None)
+                                   train_overrides={{"remat": True, **over}}
+                                   if shape.startswith("train") else over)
     rec = dr.analyze(lowered, mesh=make_mesh(mesh, {axes!r}[-len(mesh):]))
     out[name] = {{"flops": rec["hlo_dot_flops_per_device"],
                   "collectives": rec["collectives"]["count"]}}
@@ -127,44 +142,42 @@ def _result(proc, limit):
 def runs():
     """Every cell of both packages, and the mesh-free comparison:
     {"port": {cell: record}, "reference": {cell: ...}, "mesh_free": ...}.
-    The multi-pod cell, the longest, runs beside the others, which run one
-    at a time: two processes at once."""
-    def port(name):
-        a, s, m = CELLS[name]
-        return PORT.format(arch=a, shape=s, mesh=m, axes=AXES, batch=BATCH)
+    The multi-pod cell, the longest, and the two families' cells run in one
+    process beside the others, which run one at a time: two processes at
+    once."""
+    def port(names):
+        return PORT.format(cells={k: CELLS[k] for k in names}, axes=AXES, batch=BATCH)
 
     def reference(n, names):
         return REFERENCE.format(devices=n, cells={k: CELLS[k] for k in names}, axes=AXES,
                                 batch=BATCH)
 
     limit = time.monotonic() + 900
-    multi_pod = _start(port("qwen3"))
+    beside = _start(port(("qwen3", "falcon_mamba", "arctic")))
     out = {"port": {}, "reference": {}}
     try:
-        for kind, key, code in (("port", "whisper", port("whisper")),
-                                ("port", "llama", port("llama")),
-                                ("reference", None, reference(8, ("whisper", "llama"))),
-                                ("reference", None, reference(16, ("qwen3",))),
-                                ("mesh_free", None, MESH_FREE)):
+        for kind, code in (("port", port(("whisper", "llama"))),
+                           ("reference", reference(8, ("whisper", "llama", "falcon_mamba",
+                                                       "arctic"))),
+                           ("reference", reference(16, ("qwen3",))),
+                           ("mesh_free", MESH_FREE)):
             res = _result(_start(code), limit)
-            if kind == "port":
-                out["port"][key] = res
-            elif kind == "reference":
-                out["reference"].update(res)
-            else:
+            if kind == "mesh_free":
                 out["mesh_free"] = res
-        out["port"]["qwen3"] = _result(multi_pod, limit)
+            else:
+                out[kind].update(res)
+        out["port"].update(_result(beside, limit))
         return out
     finally:
-        if multi_pod.poll() is None:
-            multi_pod.kill()
+        if beside.poll() is None:
+            beside.kill()
 
 
 def _terms(name):
     """{term: reference's FLOPs minus the port's}, per device, reckoned
     from the cell's shapes."""
-    arch, shape, mesh = CELLS[name]
-    cfg = tcfgs.get(arch)
+    arch, shape, mesh, over = CELLS[name]
+    cfg = tcfgs.get(arch).replace(**over)
     sizes = dict(zip(AXES[-len(mesh):], mesh))
     dp = sizes["data"] * sizes.get("pod", 1)
     tp = sizes["model"]
@@ -173,27 +186,27 @@ def _terms(name):
         return {}
     plan = plan_heads(cfg.n_heads, cfg.n_kv_heads, tp)
     heads = (plan.Hp if plan else cfg.n_heads) // tp
-    calls = cfg.n_layers * (2 if cfg.is_encoder_decoder else 1) + cfg.n_encoder_layers
-    mlps = cfg.n_layers + cfg.n_encoder_layers  # every encoder frame count is S too
+    calls = (0 if cfg.attention == "none" else
+             cfg.n_layers * (2 if cfg.is_encoder_decoder else 1) + cfg.n_encoder_layers)
+    blocks = cfg.n_layers + cfg.n_encoder_layers  # every encoder frame count is S too
+    # a block's last product: its MLP's (an MoE block's dense residual), or
+    # where the block has none, its Mamba mixer's out_proj
+    last = cfg.d_ff if cfg.d_ff else cfg.d_inner
     tokens = b * S
     return {
         "attention backward: scores and dp once more": (
             calls * 2 * b * heads * S * S * (cfg.head_dim + cfg.head_dim)),
-        "remat: the MLP's output product recomputed, dead to the backward": (
-            -mlps * 2 * tokens * (cfg.d_ff // tp) * d),
-        "loss logits: the whole vocabulary on each rank (forward, recompute, dx)": (
-            -3 * 2 * tokens * V * d * (1 - 1 / tp)) if V % tp == 0 else 0,
-        # the reference's table gradient is laid out as its logits where the
-        # vocabulary divides over "model", else as the table, d over "data"
-        "loss table gradient: the whole table on each rank": (
-            -2 * tokens * V * d * (1 - (1 / tp if V % tp == 0 else 1 / sizes["data"]))),
+        "remat: the block's last product recomputed, dead to the backward": (
+            -blocks * 2 * tokens * (last // tp) * d),
+        "loss table gradient, a vocabulary 'model' does not divide: all of d a rank": (
+            -2 * tokens * V * d * (1 - 1 / sizes["data"])) if V % tp else 0,
     }
 
 
 @pytest.mark.parametrize("name", list(CELLS))
 def test_the_cell_runs_sharded(runs, name):
     rec = runs["port"][name]
-    arch, shape, mesh = CELLS[name]
+    arch, shape, mesh, _ = CELLS[name]
     assert rec["n_chips"] == math.prod(mesh)
     assert rec["mesh_shape"] == list(mesh) and rec["device"] == "cpu"
     assert rec["memory"]["peak_bytes_per_device"] > rec["memory"]["argument_bytes"] > 0
