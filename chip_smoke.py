@@ -11,9 +11,10 @@ family, llama4-maverick and arctic; serving jamba-1.5-large-398b, the
 hybrid of Mamba, attention and MoE, and one request of it at long
 context; a training step and serving of minicpm3-4b and phi-3-vision-4.2b
 in fp32; model programs and training programs batched through
-``Service.execute_batch``; the port's two examples — and holds every hand-written kernel of those paths
-against its plain PyTorch version.  Phases, in order; any
-failure raises and exits non-zero:
+``Service.execute_batch``; the port's six examples; sync training of
+jamba at full width on one period with d_ff cut — and holds every
+hand-written kernel of those paths against its plain PyTorch version.
+Phases, in order; any failure raises and exits non-zero:
 
 1. build the CUDA kernels from this checkout's sources (one ``nvcc`` per
    source, all started together; each library's seconds printed), print
@@ -72,6 +73,7 @@ failure raises and exits non-zero:
    1500), causal decoder self-attention (448 x 448); the MoE family's odd
    GQA groups at D=128 (B=4, S=512, K=8: H=40, G=5, llama4; H=56, G=7,
    arctic; one q-head a dq block, an odd number of dk/dv steps at Sq = 13);
+   phase 28's jamba at G = 8 (H=64, K=8; two q-heads a dq block);
    each also at a ragged size (Sq = 13, and Skv = 13 where Skv = Sq); a
    second launch bit-identical.  Each kernel, the whole backward (dq + dk/dv in one
    call), the plain backward and PyTorch's SDPA backward timed at each
@@ -144,9 +146,10 @@ failure raises and exits non-zero:
 15. (everything freed) one family at a time, with weights from the seeded
     generator on the card, served through ``BasicClient`` on the 2
     in-process services with every launch count zeroed just before and
-    read just after: full-width, full-depth minicpm3-4b (MLA; 8 requests,
-    prompt 512, 32 new tokens: exactly 62 bf16 flash launches a task at
-    (96, 64) and no decode launch, its decode being the absorbed form)
+    read just after: full-width minicpm3-4b cut to 16 of its 62 layers
+    (``FAMILY_SERVE_LAYERS``; MLA; 8 requests, prompt 512, 32 new tokens:
+    exactly 16 bf16 flash launches a task at (96, 64) and no decode
+    launch, its decode being the absorbed form)
     and phi-3-vision-4.2b (text only, as ``serve_requests`` builds tasks:
     32 flash launches at (96, 96) and 1,024 decode launches at D=96 a
     task), then whisper-tiny (tasks of 4 prompts of 64 tokens with seeded
@@ -270,8 +273,13 @@ failure raises and exits non-zero:
     AdamW steps on the Markov stream with a checkpoint restart, the loss
     dropping by more than a nat) and ``examples/torch_autotune.py``
     (``sim://`` sweeps with the scripted cost model, their winners cached
-    and dispatched through on the card); their output printed, any one
-    failing fails the script;
+    and dispatched through on the card), and the paper's three:
+    ``examples/torch_fractal_farm.py`` (Mandelbrot tiles, escape-time
+    loop on complex64 tensors, over fast, slow and flaky services),
+    ``examples/torch_pagerank_farm.py`` (block mat-vecs over 3 services,
+    one dying after 5) and ``examples/torch_quickstart.py`` (poly, the
+    pipe-of-farm skeleton, batched, ``FarmExecutor``, two weighted tenants
+    on ``FarmScheduler``); their output printed, each must end in OK;
 23. the autotuner (``repro_torch.tune``) on the card, within
     TUNE_PHASE_LIMIT_S: the tuning space against the kernels (every
     instantiation of the bf16 and fp32 forwards and of both backward
@@ -378,6 +386,28 @@ failure raises and exits non-zero:
     depth with the loss vocabulary-parallel and, patched, with the
     whole table a rank: FLOPs a card and MODEL/HLO beside the card's name
     and power limit; (f) the phase's seconds.
+28. (everything freed) jamba-1.5-large-398b trained on one period (8
+    layers) at the published widths but d_ff, cut from 24,576 to
+    JAMBA_TRAIN_D_FF in the 4 dense MLPs and 64 experts (its ``reduced``
+    list printed with the GB of state each cut saves), 16 experts top-2,
+    remat, bf16 moments: (a) 4 AdamW steps on 4 x 512 (``train_and_check``)
+    with exactly ``repro_torch.kernels.train_step_launches`` a step (2
+    flash forwards, one dq and one dk/dv at G = 8, 14 scan launches), peak
+    memory under 80 GB against the reckoned state, step ms and tok/s; (b)
+    one step's loss and gradients through the kernels and through the
+    plain versions (the plain scan without its autograd graph,
+    ``lean_plain``) held to FAMILY_TRAIN_LIMITS, routing flips printed,
+    each recompute routing as its forward, then with the plain path's
+    top-k choices pinned to the kernels' (``RoutingPin``) held to
+    JAMBA_PINNED_TRAIN_LIMITS, and the step with remat off within
+    REMAT_GRAD_TOL of remat's; (c) is phase 5's "jamba G=8"; (d) one step
+    of JAMBA_LONG_TRAIN tokens with ``long_context=True`` (the attention
+    layer through the chunked flash, no attention kernel, 14 scan
+    launches) against the plain scan, free and pinned as (b), peak
+    printed; the scan backward's ms a layer and share of (a)'s step;
+    (e) the dry run of (a)'s step on a fake (1, 1) CUDA mesh, started in a
+    subprocess with the phase, held to a real step (``hold_dry``: kernel
+    ops, non-kernel FLOPs, peak within DRY_PEAK_TOL); the phase's seconds.
 
 The line before the last is a JSON object with each kernel's numbers, one
 row each: the bf16 flash forward (``flash_attention_fwd``), the fp32 one
@@ -389,7 +419,8 @@ the bf16 pair (``flash_attention_bwd_{dq,dkv}_d96_dv64``, ``..._d96`` at
 S = 768, ``..._whisper`` on the encoder), and phase 17's odd GQA groups of
 the bf16 flash forward and decode (``flash_attention_fwd_g5``, ``..._g7``,
 ``decode_attention_fwd_g5``, ``..._g7``), and phase 18's of the bf16 pair
-(``flash_attention_bwd_{dq,dkv}_{g5,g7}``), and phase 19's G = 8 of the
+(``flash_attention_bwd_{dq,dkv}_{g5,g7}``) and phase 28's at G = 8
+(``..._g8``, with phase 28's launches), and phase 19's G = 8 of the
 flash forward and decode (``flash_attention_fwd_g8``,
 ``decode_attention_fwd_g8``) and d_inner = 16384 of the scan
 (``mamba_scan_d16384``), and phase 20's fp32 forward
@@ -510,6 +541,11 @@ MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_BATCH = 8, 2
 # (1,500 x 384), WHISPER_NEW new tokens.
 FAMILIES = ("minicpm3_4b", "phi3_vision_4p2b", "whisper_tiny")
 FAMILY_REQUESTS, FAMILY_NEW = 8, 32
+# minicpm3 is served at full width with its depth cut from 62 to 16 layers:
+# its absorbed decode is host-bound (172 ms a step at 62 layers), and the
+# cut keeps the whole script within its time as phase 28 joins it.  Phase
+# 16 still trains it at full depth.
+FAMILY_SERVE_LAYERS = {"minicpm3_4b": 16}
 WHISPER_PROMPT, WHISPER_NEW = 64, 64
 PATCHES = 256  # phi-3's patch embeddings in its kernels-vs-plain prefill
 FAMILY_BATCHES = 4
@@ -517,7 +553,8 @@ FAMILY_BATCHES = 4
 # limits on the largest and the mean |difference| of each prefill's and
 # decode step's logits, as phase 4's, from this script's first readings on
 # an H100 over 4 batches (see PERF.md): minicpm3 (62 layers, prefill and
-# one decode step) largest 8.30e-2 to 9.62e-2, mean 1.490e-2 to 1.529e-2;
+# one decode step; now served at 16, FAMILY_SERVE_LAYERS) largest 8.30e-2 to 9.62e-2,
+# mean 1.490e-2 to 1.529e-2;
 # phi-3 (32 layers, prefill of 256 patches + 512 tokens and 4 decode
 # steps) largest 8.52e-2 to 1.000e-1, mean 1.573e-2 to 1.693e-2; whisper
 # (4 + 4 layers, prefill and one decode step) largest 1.022e-2 to
@@ -577,6 +614,13 @@ MOE_LAYERS = {"llama4_maverick_400b_a17b": 2, "arctic_480b": 2}
 # published (top-2, capacity 1.25, routing groups of 256, the window).
 JAMBA = "jamba_1p5_large_398b"
 JAMBA_LAYERS, JAMBA_EXPERTS = 8, 8
+# Phase 28: jamba trained on the same period with every published field
+# kept (16 experts, top-2, capacity 1.25, remat, bf16 moments) but d_ff, cut
+# from 24,576 to JAMBA_TRAIN_D_FF in the 4 dense MLPs and the 64 experts:
+# 5.879 B params, 47.03 GB of weights, gradients and moments (at 16 experts
+# and the published d_ff one period is 45.24 B, 362 GB).  Every kernel shape
+# stays: d_model 8192, 64 q-heads over 8 at D = 128 (G = 8), d_inner 16384.
+JAMBA_TRAIN_D_FF = 1024
 # Long context on the card: one request of JAMBA_LONG_PROMPT tokens (twice
 # the 2,048-token window) through prefill(long_context=True), then
 # JAMBA_LONG_STEPS decode steps with long_context=True: the attention layer
@@ -687,9 +731,21 @@ FAMILY_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 4, 448
 # token routed to another expert moves that expert's gradient and the
 # router's by far more than rounding, so these limits are looser than the
 # dense families'.
+# Phase 28's jamba (8 layers, 16 experts top-2, remat): arctic's limits, its
+# top-2 bf16 sibling's, set before its first run on the card, broke there
+# with each path routing itself: |dloss| 4.349e-3, largest 1.261e-1
+# (moe.experts.wg; the router 1.098e-1, every other group 9.4e-3 to 6.5e-2),
+# 320 of 16,384 (token, choice) decisions flipped (1.95%, against arctic's
+# 0.13%): the Mamba layers carry a flip to every later token and MoE layer,
+# as in phase 19.  So the plain versions' step is also run with its top-k
+# choices pinned to the kernels' (RoutingPin) and held to arctic's limits
+# there (JAMBA_PINNED_TRAIN_LIMITS), and the free step to these, twice its
+# first readings.
 FAMILY_TRAIN_LIMITS = {"minicpm3_4b": (2e-4, 2e-2), "phi3_vision_4p2b": (2e-4, 3e-2),
                        "whisper_tiny": (1e-5, 5e-2),
-                       "llama4_maverick_400b_a17b": (3e-3, 0.25), "arctic_480b": (2e-3, 0.1)}
+                       "llama4_maverick_400b_a17b": (3e-3, 0.25), "arctic_480b": (2e-3, 0.1),
+                       "jamba_1p5_large_398b": (1e-2, 0.25)}
+JAMBA_PINNED_TRAIN_LIMITS = (2e-3, 0.1)
 # Phase 18: the MoE family trained at full width on phase 17's depth with
 # the expert count cut from 128 to MOE_TRAIN_EXPERTS: at 128 one MoE layer's
 # weights, gradients and moments alone take 128.8 GB (llama4, bf16 moments)
@@ -702,7 +758,7 @@ FAMILY_TRAIN_LIMITS = {"minicpm3_4b": (2e-4, 2e-2), "phi3_vision_4p2b": (2e-4, 3
 MOE_TRAIN_EXPERTS = 32
 REMAT_GRAD_TOL = 1e-6
 # Phase 5's shapes: each training path's attention backward as its step
-# makes it (phases 6, 16 and 18): label -> (B, Sq, Skv, H, K, D, Dv, causal,
+# makes it (phases 6, 16, 18 and 28): label -> (B, Sq, Skv, H, K, D, Dv, causal,
 # dtypes), each also at a ragged Sq = 13 (and Skv = 13 where Skv = Sq).
 BWD_SHAPES = {
     "qwen3": (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 8, 128, 128, True,
@@ -726,6 +782,10 @@ BWD_SHAPES = {
                    (torch.bfloat16,)),
     "arctic G=7": (FAMILY_TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 56, 8, 128, 128, True,
                    (torch.bfloat16,)),
+    # phase 28's jamba: G = 8, two q-heads a dq block, an even number of
+    # dk/dv steps
+    "jamba G=8": (FAMILY_TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 64, 8, 128, 128, True,
+                  (torch.bfloat16,)),
 }
 # Farm over worker processes (phase 13): 2 workers; the kill round's
 # victim is worker 0, the shm round serves the first SHM_REQUESTS prompts
@@ -1911,17 +1971,19 @@ def markov_batch(cfg, dev, seed=SEED + 7):
     return {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(0).items()}
 
 
-def train_step_agreement(api, model, batch, plain_ops, limits, tap=None):
+def train_step_agreement(api, model, batch, plain_ops, limits, tap=None, pin=None):
     """One training step's loss and gradients on ``batch``, kernels vs
     plain versions: |dloss| and the largest per-group relative gradient
     difference held to ``limits``.  With a RoutingTap, the routing
     decisions that differ between the two are printed, and each path's
-    recompute (remat) must route as its forward did.  Returns the kernels'
-    (loss, grads)."""
+    recompute (remat) must route as its forward did.  With a RoutingPin,
+    the kernels' top-k choices are recorded for ``pinned_agreement``.
+    Returns the kernels' (loss, grads)."""
     from repro_torch.runtime.train_loop import loss_and_grads
 
     loss_lim, grad_lim = limits
-    loss_k, _, g_k = loss_and_grads(api, model, batch)
+    with contextlib.nullcontext() if pin is None else pin("record"):
+        loss_k, _, g_k = loss_and_grads(api, model, batch)
     routes = [tap.forward_and_recompute()] if tap is not None else []
     loss_p, _, g_p = loss_and_grads(api, model, batch, ops=plain_ops)
     if tap is not None:
@@ -1949,6 +2011,29 @@ def train_step_agreement(api, model, batch, plain_ops, limits, tap=None):
         raise AssertionError("training step through the kernels disagrees "
                              "with the plain versions")
     return loss_k, g_k
+
+
+def pinned_agreement(api, model, batch, plain_ops, limits, tap, pin, loss_k, g_k):
+    """After ``train_step_agreement`` with ``pin``: the plain versions'
+    step again with their top-k choices pinned to the kernels' (each path
+    its own gates and drops), held to ``limits`` against the kernels'
+    (``loss_k``, ``g_k``), so that the two differ by the arithmetic and not
+    by a near-tied choice flipped and carried downstream."""
+    from repro_torch.runtime.train_loop import loss_and_grads
+
+    with pin("replay"):
+        loss_p, _, g_p = loss_and_grads(api, model, batch, ops=plain_ops)
+    if pin.kept:
+        raise AssertionError(f"{len(pin.kept)} recorded routings were not replayed")
+    tap.forward_and_recompute()  # the pinned run's own routing, not compared
+    dloss = abs(loss_k.item() - loss_p.item())
+    say(f"  pinned: loss through the kernels {loss_k.item():.6f}, through the plain versions "
+        f"{loss_p.item():.6f}: |dloss| {dloss:.3e} (limit {limits[0]:g})")
+    worst = compare_grads(g_k, g_p, "g_kernels - g_plain_pinned", "g_plain_pinned")
+    say(f"  pinned: largest relative gradient difference {worst:.3e} (limit {limits[1]:g})")
+    if not (dloss <= limits[0] and worst <= limits[1]):
+        raise AssertionError("with the routing pinned, the training step through the kernels "
+                             "disagrees with the plain versions")
 
 
 def farm_phase(cfg, dev, lookup, services, kernels):
@@ -2575,6 +2660,15 @@ def family_train_phase(arch, dev, kernels):
     return launches
 
 
+def jamba_train_cfg():
+    """Phase 28's config: (the published one, one period with d_ff cut to
+    JAMBA_TRAIN_D_FF)."""
+    import repro_torch.configs as cfgs
+
+    full = cfgs.get(JAMBA)
+    return full, full.replace(n_layers=JAMBA_LAYERS, d_ff=JAMBA_TRAIN_D_FF)
+
+
 def moe_train_cfg(arch):
     """Phase 18's config: phase 17's depth cut, MOE_TRAIN_EXPERTS experts,
     everything else as published (remat and the moment dtype included)."""
@@ -2628,8 +2722,8 @@ def moe_train_phase(arch, dev, kernels):
     the two and between each forward and its recompute; then the same step
     with remat off, whose gradients must equal remat's within
     REMAT_GRAD_TOL.  Returns the launch counts."""
+    from repro_torch.kernels import train_step_launches
     from repro_torch.models import build
-    from repro_torch.runtime.train_loop import loss_and_grads
 
     full, cfg = moe_train_cfg(arch)
     if not cfg.remat:
@@ -2638,9 +2732,8 @@ def moe_train_phase(arch, dev, kernels):
     say(f"  {cfg.name}: {cfg.n_layers} layers ({', '.join(s.mlp for s in cfg.pattern)} "
         f"MLPs), d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv-heads, "
         f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}")
-    want = {kern.name: 0 for kern in kernels.KERNELS}
-    for name in BF16_TRAIN_KERNELS:  # the forward twice: the step's and remat's
-        want[name] = TRAIN_STEPS * cfg.n_layers * (2 if name == "flash_attention_sm90" else 1)
+    # the forward twice: the step's and remat's
+    want = {name: TRAIN_STEPS * n for name, n in train_step_launches(cfg).items()}
     ds = FamilyBatches(cfg, TRAIN_SEQ, FAMILY_TRAIN_BATCH, SEED)
     trainer, launches, peak, med = train_and_check(api, ds, TRAIN_SEQ, dev, kernels, want)
     expected = say_moe_cuts(full, cfg, trainer.state["params"], trainer.state["opt"])
@@ -2662,15 +2755,30 @@ def moe_train_phase(arch, dev, kernels):
     torch.cuda.empty_cache()
     tap.close()
 
+    remat_off_check(api, model, batch, kernels, loss_k, g_k)
+    return launches
+
+
+def remat_off_check(api, model, batch, kernels, loss_k, g_k):
+    """Phases 18 and 28: the step of ``loss_k`` and ``g_k`` (remat on)
+    again with remat off, same weights, same batch: exactly one forward a
+    layer launched (``train_step_launches`` of the config without remat),
+    the loss and gradients equal to remat's, or within REMAT_GRAD_TOL of
+    each parameter's gradient norm."""
+    from repro_torch.kernels import train_step_launches
+    from repro_torch.runtime.train_loop import loss_and_grads
+
+    cfg = model.cfg
     say(f"  {cfg.name}: the same step with remat off (same weights, same batch)")
     model.cfg = cfg.replace(remat=False)
     for kern in kernels.KERNELS:
         kern.launches = 0
-    loss_n, _, g_n = loss_and_grads(api, model, batch)
-    model.cfg = cfg
+    try:
+        loss_n, _, g_n = loss_and_grads(api, model, batch)
+    finally:
+        model.cfg = cfg
     off = {kern.name: kern.launches for kern in kernels.KERNELS}
-    if off != {name: n // TRAIN_STEPS // (2 if name == "flash_attention_sm90" else 1)
-               for name, n in want.items()}:
+    if off != train_step_launches(cfg.replace(remat=False)):
         raise AssertionError(f"remat off launched {off}: the forward ran again")
     same = torch.equal(loss_n, loss_k) and all(torch.equal(g_n[k], g_k[k]) for k in g_k)
     say(f"  remat off: loss {loss_n.item():.6f} (remat {loss_k.item():.6f}); loss and "
@@ -2682,6 +2790,288 @@ def moe_train_phase(arch, dev, kernels):
         if not (rel <= REMAT_GRAD_TOL and abs(loss_n.item() - loss_k.item()) <= REMAT_GRAD_TOL
                 * abs(loss_k.item())):
             raise AssertionError("remat's gradients differ from remat off's")
+
+
+# --------------------------------------------------------------------- #
+# phase 28: jamba trained on the card
+# --------------------------------------------------------------------- #
+# (d)'s length: the reference's train_4k cell, one sequence, past the window
+JAMBA_LONG_TRAIN = (1, 4096)
+# (e): the dry run of (a)'s step on a fake (1, 1) cuda mesh, in a subprocess
+# started with the phase
+DRY_JAMBA = """
+import json
+from repro_torch.launch.dryrun import run_mesh
+from repro_torch.models.registry import ShapeCell
+rec = run_mesh({arch!r}, ShapeCell("train", {seq}, {batch}), (1, 1), ("data", "model"),
+               device="cuda", train_overrides={over!r})
+print("RESULT" + json.dumps(rec))
+"""
+
+
+def say_jamba_cuts(full, cfg, model, opt):
+    """Phase 28's cuts, as a ``reduced`` list with the training state
+    (weights, gradients and moments at this run's bytes a parameter) each
+    saves; returns the state plus the loss's fp32 table and its fp32
+    gradient, in GB."""
+    n = sum(p.numel() for p in model.parameters())
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    mbytes = sum(t.numel() * t.element_size() for mom in ("m", "v")
+                 for x in opt[mom].values()
+                 for t in (x.values() if isinstance(x, dict) else (x,)))
+    per_param = (2 * wbytes + mbytes) / n
+    counted = cfg.param_counts()[0]
+    deep = cfg.replace(n_layers=full.n_layers).param_counts()[0]
+    wide = cfg.replace(d_ff=full.d_ff).param_counts()[0]
+    dense = sum(s.mlp == "dense" for s in cfg.pattern) * cfg.n_repeats
+    experts = sum(s.mlp == "moe" for s in cfg.pattern) * cfg.n_repeats * cfg.moe.n_experts
+    say("  reduced: " + json.dumps([
+        f"n_layers {full.n_layers} -> {cfg.n_layers} ({cfg.n_repeats} of {full.n_repeats} "
+        f"repeats of the pattern): saves {(deep - counted) * per_param / 1e9:.1f} GB of training "
+        f"state at d_ff {cfg.d_ff}",
+        f"d_ff {full.d_ff} -> {cfg.d_ff} in the {dense} dense MLPs and the {experts} experts: "
+        f"saves {(wide - counted) * per_param / 1e9:.1f} GB at {cfg.n_layers} layers",
+        "d_model, heads, d_inner, state size, experts, top_k, capacity_factor, window, remat "
+        "and moment dtype as published"]))
+    table = cfg.vocab_size * cfg.d_model * 4 * 2 / 1e9
+    say(f"  training state: {n / 1e9:.3f} B params (param_counts {counted / 1e9:.3f} B, "
+        f"{cfg.param_counts()[1] / 1e9:.3f} B active), weights {wbytes / 1e9:.2f} GB + "
+        f"gradients {wbytes / 1e9:.2f} GB + {cfg.opt_state_dtype} moments {mbytes / 1e9:.2f} GB = "
+        f"{(2 * wbytes + mbytes) / 1e9:.2f} GB; the loss's fp32 table and its fp32 gradient "
+        f"{table:.2f} GB")
+    return (2 * wbytes + mbytes) / 1e9 + table
+
+
+def lean_plain(kernels):
+    """``PLAIN`` with the scan as ``mamba_scan_plain_train``: the plain
+    chunked scan's outputs and gradients bit for bit, keeping only each
+    layer's inputs for the backward, as the kernel's step does.  Autograd
+    through ``mamba_scan_plain`` keeps every level of the log-depth scan of
+    all 7 Mamba layers of jamba's period (out of memory at 4 x 512 with
+    d_inner 16384 beside the kernels' gradients)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_plain_train
+
+    return kernels.PLAIN._replace(scan=mamba_scan_plain_train)
+
+
+class _OnDevice(dict):
+    """Host tensors, each moved to ``dev`` as it is read."""
+
+    def __init__(self, tensors, dev):
+        super().__init__(tensors)
+        self.dev = dev
+
+    def __getitem__(self, key):
+        return super().__getitem__(key).to(self.dev)
+
+
+def jamba_long_step(api, model, dev, kernels):
+    """(d): one step of JAMBA_LONG_TRAIN tokens with ``long_context=True``
+    through the kernels (the scan kernel; the attention layer windowed,
+    through the chunked flash, no attention kernel), its launches exactly
+    ``train_step_launches(cfg, long_context=True)``, its gradients kept on
+    the host; then through the plain versions (``lean_plain``'s scan, the
+    same chunked flash; no launch), same weights, as (b): each path routing
+    itself, held to FAMILY_TRAIN_LIMITS, and the plain path pinned to the
+    kernels' choices, held to JAMBA_PINNED_TRAIN_LIMITS.  Each recompute
+    must route as its forward; the peak memory of each step is printed.
+    (At 4,096 tokens the scan backward keeps the plain scan's graph of 16
+    chunks of 256 at once: the kernels' gradients beside a second step's do
+    not fit.)"""
+    from repro_torch.data import MarkovDataset
+    from repro_torch.kernels import train_step_launches
+    from repro_torch.runtime.train_loop import loss_and_grads
+
+    cfg = api.cfg
+    B, S = JAMBA_LONG_TRAIN
+    if not S > cfg.long_context_window:
+        raise AssertionError(f"{S} tokens do not pass the window {cfg.long_context_window}")
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in
+             MarkovDataset(cfg.vocab_size, S, B, seed=SEED + 28).batch_at(0).items()}
+    plain = kernels.DISPATCH._replace(scan=lean_plain(kernels).scan)
+    pin = RoutingPin()
+    tap = RoutingTap(model, pin)
+
+    def step(label, ops, mode, want):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for kern in kernels.KERNELS:
+            kern.launches = 0
+        with contextlib.nullcontext() if mode is None else pin(mode):
+            loss, _, grads = loss_and_grads(api, model, batch, ops=ops, long_context=True)
+        launches = {kern.name: kern.launches for kern in kernels.KERNELS}
+        fwd, again = tap.forward_and_recompute()
+        say(f"  (d) {B} x {S} tokens, long_context=True (window {cfg.long_context_window}), "
+            f"through the {label}: loss {loss.item():.6f}, peak "
+            f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB above the "
+            f"{base / 1e9:.2f} GB resident; launches {launches}; the recompute's "
+            f"{again.numel()} routing decisions equal the forward's: {torch.equal(fwd, again)}")
+        if launches != want:
+            raise AssertionError(f"(d) launches {launches}, expected {want}")
+        if not (torch.isfinite(loss) and torch.equal(fwd, again)):
+            raise AssertionError(f"(d) {label}: a non-finite loss, or remat routed otherwise")
+        return loss, grads, fwd
+
+    def hold(label, loss_k, g_k, loss_p, g_p, limits):
+        dloss = abs(loss_k.item() - loss_p.item())
+        worst = compare_grads(g_k, g_p, "g_kernels - g_plain", "g_plain")
+        say(f"  (d) {label}: |dloss| {dloss:.3e} (limit {limits[0]:g}); largest relative "
+            f"gradient difference {worst:.3e} (limit {limits[1]:g})")
+        if not (dloss <= limits[0] and worst <= limits[1]):
+            raise AssertionError(f"(d) {label}: the long-context step through the kernels "
+                                 "disagrees with the plain versions")
+
+    none = {kern.name: 0 for kern in kernels.KERNELS}
+    try:
+        loss_k, grads, fwd_k = step("kernels", kernels.DISPATCH, "record",
+                                    train_step_launches(cfg, long_context=True))
+        g_k = _OnDevice({k: g.cpu() for k, g in grads.items()}, dev)
+        del grads
+        loss_p, g_p, fwd_p = step("plain versions", plain, None, none)
+        flips = (fwd_k != fwd_p).sum().item()
+        say(f"  (d) routing decisions differ between the kernels and the plain versions on "
+            f"{flips} of {fwd_k.numel()} (token, choice) pairs ({flips / fwd_k.numel():.4f})")
+        hold("each path routing itself", loss_k, g_k, loss_p, g_p, FAMILY_TRAIN_LIMITS[JAMBA])
+        del g_p
+        loss_p, g_p, _ = step("plain versions, routing pinned to the kernels'", plain,
+                              "replay", none)
+        if pin.kept:
+            raise AssertionError(f"(d) {len(pin.kept)} recorded routings were not replayed")
+        hold("routing pinned", loss_k, g_k, loss_p, g_p, JAMBA_PINNED_TRAIN_LIMITS)
+    finally:
+        tap.close()
+        pin.close()
+
+
+def scan_backward_ms(cfg, reps=3) -> float:
+    """A Mamba layer's scan backward at phase 28 (a)'s shape: autograd
+    through the plain chunked scan (``_Scan.backward``, as the reference's
+    VJP), CUDA-event timed, the median of ``reps`` calls after one."""
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan
+
+    inputs = [t.requires_grad_() for t in scan_inputs(
+        FAMILY_TRAIN_BATCH, TRAIN_SEQ, cfg.d_inner, cfg.ssm.state_dim, SEED + 28)]
+    y, _ = mamba_scan(*inputs)
+    g = torch.randn_like(y)
+    times = []
+    for _ in range(reps + 1):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        torch.autograd.grad(y, inputs, g, retain_graph=True)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times[1:]))
+
+
+def jamba_train_phase(dev, kernels):
+    """Phase 28: jamba-1.5-large-398b trained on the card at
+    ``jamba_train_cfg``'s cut, its ``reduced`` list printed.  (a) sync
+    training (``train_and_check``: exactly ``train_step_launches`` a step,
+    the flash forward twice under remat, one dq and one dk/dv at G = 8,
+    two scan launches a Mamba layer), peak memory under 80 GB against the
+    reckoned state; (e, first half) one more step under FlopCounterMode
+    for the dry run, started in a subprocess with the phase; (b) the
+    moments freed, one step's loss and gradients through the kernels and
+    through the plain versions (``lean_plain``) held to
+    FAMILY_TRAIN_LIMITS, the routing flips printed, each recompute routing
+    as its forward, then the plain step with its choices pinned to the
+    kernels' held to JAMBA_PINNED_TRAIN_LIMITS (``pinned_agreement``), and
+    the step with remat off equal to remat's (``remat_off_check``); (c) is phase
+    5's "jamba G=8" backward; (d) one JAMBA_LONG_TRAIN step at long
+    context (``jamba_long_step``); the scan backward's share of (a)'s step
+    (``scan_backward_ms``); (e) the dry run's kernel ops, non-kernel FLOPs
+    and peak held to the step's (``hold_dry``).  Returns (a)'s launch
+    counts."""
+    from repro_torch.kernels import train_step_launches
+    from repro_torch.models import build
+
+    started = time.perf_counter()
+    full, cfg = jamba_train_cfg()
+    if not cfg.remat:
+        raise AssertionError(f"{cfg.name}: the config no longer carries remat")
+    dry = subprocess.Popen(
+        [sys.executable, "-c", DRY_JAMBA.format(
+            arch=JAMBA, seq=TRAIN_SEQ, batch=FAMILY_TRAIN_BATCH,
+            over={"n_layers": cfg.n_layers, "d_ff": cfg.d_ff})],
+        env=_dry_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        api = build(cfg)
+        blocks = ", ".join(f"{s.mixer}/{s.mlp}" for s in cfg.pattern)
+        say(f"  {cfg.name}: {cfg.n_layers} layers ({blocks}), d_model {cfg.d_model}, "
+            f"{cfg.n_heads} heads over {cfg.n_kv_heads} kv-heads "
+            f"(G = {cfg.n_heads // cfg.n_kv_heads}), d_inner {cfg.d_inner}, "
+            f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} at capacity "
+            f"{cfg.moe.capacity_factor}, d_ff {cfg.d_ff}")
+        per_step = train_step_launches(cfg)
+        say(f"  (a) launches a step, from the dispatch (train_step_launches): "
+            f"{ {k: n for k, n in per_step.items() if n} }")
+        ds = FamilyBatches(cfg, TRAIN_SEQ, FAMILY_TRAIN_BATCH, SEED)
+        trainer, launches, peak, med = train_and_check(
+            api, ds, TRAIN_SEQ, dev, kernels,
+            {name: TRAIN_STEPS * n for name, n in per_step.items()})
+        expected = say_jamba_cuts(full, cfg, trainer.state["params"], trainer.state["opt"])
+        say(f"  (a) peak memory {peak:.2f} GB: {expected:.2f} GB of state and the loss's table, "
+            f"{peak - expected:.2f} GB of the step's temporaries; step {med * 1e3:.1f} ms, "
+            f"{FAMILY_TRAIN_BATCH * TRAIN_SEQ / med:.0f} tok/s")
+        if not peak < 80:
+            raise AssertionError(f"peak memory {peak:.2f} GB: over the card's 80 GB")
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(99).items()}
+        real = real_step(f"{cfg.name} one AdamW step on {FAMILY_TRAIN_BATCH} x {TRAIN_SEQ}",
+                         lambda: trainer.train_step(trainer.state, batch), before, kernels)
+        if real[0] != {k: n for k, n in per_step.items() if n}:
+            raise AssertionError(f"(e) the step launched {real[0]}, not {per_step}")
+
+        say(f"  (b) {cfg.name}: one training step, kernels vs plain versions (moments freed)")
+        model = trainer.state["params"]
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        pin = RoutingPin()
+        tap = RoutingTap(model, pin)
+        try:
+            loss_k, g_k = train_step_agreement(api, model, batch, lean_plain(kernels),
+                                               FAMILY_TRAIN_LIMITS[JAMBA], tap, pin)
+            gc.collect()
+            torch.cuda.empty_cache()
+            pinned_agreement(api, model, batch, lean_plain(kernels), JAMBA_PINNED_TRAIN_LIMITS,
+                             tap, pin, loss_k, g_k)
+        finally:
+            tap.close()
+            pin.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+        remat_off_check(api, model, batch, kernels, loss_k, g_k)
+        del g_k
+        jamba_long_step(api, model, dev, kernels)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        bwd = scan_backward_ms(cfg)
+        layers = sum(s.mixer == "mamba" for s in cfg.pattern) * cfg.n_repeats
+        say(f"  (a) the scan backward (autograd through the plain chunked scan) at "
+            f"{FAMILY_TRAIN_BATCH} x {TRAIN_SEQ} x {cfg.d_inner} x {cfg.ssm.state_dim}: "
+            f"{bwd:.2f} ms a layer; {layers} layers {layers * bwd:.1f} ms of (a)'s "
+            f"{med * 1e3:.1f} ms step ({layers * bwd / (med * 1e3):.3f})")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        out, err = dry.communicate(timeout=max(600 - (time.perf_counter() - started), 60))
+        if dry.returncode != 0:
+            raise AssertionError(f"(e) the dry run of {cfg.name} failed:\n{err[-3000:]}")
+        rec = json.loads(next(s for s in out.splitlines()
+                              if s.startswith("RESULT"))[len("RESULT"):])
+        hold_dry(f"(e) {cfg.name} training step on a fake (1, 1) cuda mesh", rec, *real)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+    say(f"  phase 28 took {time.perf_counter() - started:.1f} s")
     return launches
 
 
@@ -3731,19 +4121,25 @@ def batched_train_phase(scan, dev, kernels):
     return counts
 
 
+EXAMPLES = ("torch_serve_farm.py", "torch_train_lm.py", "torch_autotune.py",
+            "torch_fractal_farm.py", "torch_pagerank_farm.py", "torch_quickstart.py")
+
+
 def examples_phase():
-    """Phase 22: the port's three examples on the card at their defaults,
+    """Phase 22: the port's six examples on the card at their defaults,
     as a user runs them, side by side (one process each, the kernels this
     checkout built; the serving farm is host-bound, the training run
     device-bound): the serving farm's tenants, the training run's loss
     drop, the autotuner's sim:// sweeps and its dispatch through the
-    cache."""
+    cache, and the paper's three: Mandelbrot tiles over fast, slow and
+    flaky services, PageRank's block mat-vecs with a service dying, and
+    the quickstart's front-ends.  Each must end in OK."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     runs = {name: subprocess.Popen([sys.executable, str(ROOT / "examples" / name)], env=env,
                                    cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                    text=True)
-            for name in ("torch_serve_farm.py", "torch_train_lm.py", "torch_autotune.py")}
+            for name in EXAMPLES}
     failed = []
     for name, proc in runs.items():
         try:
@@ -4753,10 +5149,25 @@ def dry_start(out_dir):
     return one, prod
 
 
+class _NoModuleTracker:
+    """FlopCounterMode's module tracker, tracking nothing: its hooks on the
+    grads of module outputs refuse to run inside the nested
+    ``autograd.grad`` of remat's backward (``models/lm.py``).  Every count
+    goes to "Global", the total that ``get_total_flops`` reads."""
+    parents = {"Global"}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
 def real_step(label, fn, resident_before, kernels):
-    """``fn()`` once on the card under FlopCounterMode, its kernels' launch
-    counters zeroed just before: (launches, FLOPs, peak bytes above what
-    was allocated before the step's arguments existed)."""
+    """``fn()`` once on the card under FlopCounterMode (no module
+    tracking), its kernels' launch counters zeroed just before: (launches,
+    FLOPs, peak bytes above what was allocated before the step's arguments
+    existed)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.utils.op_stats import EXTRA_FLOPS
@@ -4765,7 +5176,9 @@ def real_step(label, fn, resident_before, kernels):
     torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
     # addmm_ counted as addmm, as the dry run counts it
-    with FlopCounterMode(display=False, custom_mapping=EXTRA_FLOPS) as fc:
+    fc = FlopCounterMode(display=False, custom_mapping=EXTRA_FLOPS)
+    fc.mod_tracker = _NoModuleTracker()
+    with fc:
         out = fn()
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels.KERNELS if k.launches}
@@ -5408,7 +5821,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     family_launches = {}
     for arch in FAMILIES:
-        family_launches[arch] = family_phase(arch, dev, lookup, kernels)
+        family_launches[arch] = family_phase(arch, dev, lookup, kernels,
+                                             FAMILY_SERVE_LAYERS.get(arch))
         free(services)
         say(f"  {arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
 
@@ -5464,8 +5878,8 @@ def main() -> int:
         batched_family(arch, layers, dtype, limits, dev, kernels)
     say(f"  phase 21 took {time.perf_counter() - t21:.1f} s")
 
-    phase("phase 22: the port's examples (serving farm, training run, autotuner) on the "
-          "card")
+    phase("phase 22: the port's examples (serving farm, training run, autotuner; the paper's "
+          "fractal, PageRank and quickstart) on the card")
     examples_phase()
 
     phase("phase 23: the autotuner (repro_torch.tune) on the card")
@@ -5489,6 +5903,13 @@ def main() -> int:
     phase("phase 27: the Mamba, MoE and hybrid families sharded (the scan under local_map "
           "on d_inner, expert-parallel MoE, vocabulary-parallel loss; the dry run's cells)")
     mesh_families_phase(dev, kernels, smi)
+
+    phase("phase 28: train jamba-1.5-large-398b (hybrid) on one period, d_ff cut; kernels vs "
+          "plain versions, remat, long context, the dry run")
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"  {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the phase")
+    trained[JAMBA] = jamba_train_phase(dev, kernels)
 
     say(f"all phases in {time.perf_counter() - START:.1f} s")
     # the kernels line: (name, kernel, its times, its largest |error|, the
@@ -5536,6 +5957,7 @@ def main() -> int:
             ("_whisper", "whisper encoder", torch.bfloat16, trained["whisper_tiny"]),
             ("_g5", "llama4 G=5", torch.bfloat16, trained["llama4_maverick_400b_a17b"]),
             ("_g7", "arctic G=7", torch.bfloat16, trained["arctic_480b"]),
+            ("_g8", "jamba G=8", torch.bfloat16, trained[JAMBA]),
             ("_fp32_d96_dv64", "minicpm3 MLA", torch.float32, fp32_launches_d96["minicpm3_4b"]),
             ("_fp32_d96", "phi-3 with patches", torch.float32,
              fp32_launches_d96["phi3_vision_4p2b"])):

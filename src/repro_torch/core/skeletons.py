@@ -75,17 +75,26 @@ class Program:
         return f"Program({self.name})"
 
 
+class _Fused:
+    """The stages' functions applied in order.  A module-level class, not
+    a closure, so that a composed program reaches a ``proc`` or ``tcp``
+    worker by reference, as its stages do, where ``cloudpickle`` is not
+    installed."""
+
+    def __init__(self, fns):
+        self.fns = tuple(fns)
+
+    def __call__(self, task):
+        for fn in self.fns:
+            task = fn(task)
+        return task
+
+
 def compose_programs(programs: Sequence[Program], name=None) -> Program:
     """Sequential composition g_n ∘ ... ∘ g_1 as ONE program (the payoff
     of the normal form: no host round-trips between stages)."""
     progs = list(programs)
-
-    def fused(task):
-        for p in progs:
-            task = p.fn(task)
-        return task
-
-    return Program(fused, name=name or "∘".join(p.name for p in progs),
+    return Program(_Fused(p.fn for p in progs), name=name or "∘".join(p.name for p in progs),
                    host=any(p.host for p in progs))
 
 

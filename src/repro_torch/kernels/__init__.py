@@ -199,3 +199,33 @@ DISPATCH = AttentionOps(flash_attention_dispatch, decode_attention_dispatch,
                         flash_attention_train_dispatch, mamba_scan_dispatch)
 PLAIN = AttentionOps(_plain_prefill, _plain_decode, _plain_train,
                      _scan.mamba_scan_plain)
+
+
+def train_step_launches(cfg, *, long_context: bool = False) -> dict:
+    """{kernel name: launches} of one training step of the decoder LM
+    ``cfg`` through ``DISPATCH`` on CUDA tensors, every kernel of
+    ``KERNELS`` named.  An attention layer (GQA or MLA) with no window
+    launches ``cfg.compute_dtype``'s flash forward, once more under
+    ``cfg.remat`` (each pattern repeat's forward runs again in the
+    backward), and its dq and dk/dv kernels once; a windowed one (its
+    block's window, or ``long_context``'s) launches nothing, as it trains
+    through the chunked flash.  A Mamba layer launches the scan kernel,
+    again under remat; its backward is autograd through the plain scan.
+    The MoE, MLPs, norms and the loss launch no kernel of these."""
+    import torch
+
+    from ..models.blocks import _window_for
+
+    if cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name}: an encoder-decoder has no decoder pattern to count")
+    dtype = getattr(torch, cfg.compute_dtype)
+    forwards = 2 if cfg.remat else 1
+    out = {kern.name: 0 for kern in KERNELS}
+    for spec in cfg.pattern:
+        if spec.mixer == "attn" and _window_for(cfg, spec, long_context) is None:
+            out[_flash.forward_kernel(dtype).name] += forwards * cfg.n_repeats
+            for kern in _flash.backward_kernels(dtype):
+                out[kern.name] += cfg.n_repeats
+        elif spec.mixer == "mamba":
+            out[_scan.KERNEL.name] += forwards * cfg.n_repeats
+    return out

@@ -63,21 +63,48 @@ class _Scan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gh):
-        need = ctx.needs_input_grad
-        if not any(need):
-            return (None,) * 6
-        saved = ctx.saved_tensors
-        wrt = [i for i, r in enumerate(need) if r]
+        return _plain_vjp(ctx, gy, gh)
 
-        def scan(*primals):
-            args = list(saved)
-            for i, t in zip(wrt, primals):
-                args[i] = t
-            return mamba_scan_plain(*args)
 
-        _, vjp = torch.func.vjp(scan, *(saved[i] for i in wrt))
-        grads = dict(zip(wrt, vjp((gy, gh))))
-        return tuple(grads.get(i) for i in range(6))
+def _plain_vjp(ctx, gy, gh):
+    """The scan's backward: ``torch.func.vjp`` of the plain chunked scan,
+    recomputed from the saved inputs."""
+    need = ctx.needs_input_grad
+    if not any(need):
+        return (None,) * 6
+    saved = ctx.saved_tensors
+    wrt = [i for i, r in enumerate(need) if r]
+
+    def scan(*primals):
+        args = list(saved)
+        for i, t in zip(wrt, primals):
+            args[i] = t
+        return mamba_scan_plain(*args)
+
+    _, vjp = torch.func.vjp(scan, *(saved[i] for i in wrt))
+    grads = dict(zip(wrt, vjp((gy, gh))))
+    return tuple(grads.get(i) for i in range(6))
+
+
+class _PlainScan(torch.autograd.Function):
+    """``_Scan`` with the plain chunked scan in the kernel's place: the
+    forward keeps no autograd graph of the plain scan, only its inputs, and
+    the backward is ``_Scan``'s.  A whole model's kernels can then be held
+    against the plain versions on the card in the memory the kernels' step
+    takes, where autograd through ``mamba_scan_plain`` keeps every level of
+    every layer's log-depth scan until the backward."""
+
+    @staticmethod
+    def forward(x, dt, A, B, C, h0):
+        return mamba_scan_plain(x, dt, A, B, C, h0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        return _plain_vjp(ctx, gy, gh)
 
 
 def mamba_scan(x, dt, A, B, C, h0=None):
@@ -85,3 +112,9 @@ def mamba_scan(x, dt, A, B, C, h0=None):
     A (d,n) or (b,d,n); B, C (b,s,n); h0 (b,d,n) or None.  Returns (y (b,s,d),
     h_final (b,d,n)), fp32."""
     return _Scan.apply(x, dt, A, B, C, h0)
+
+
+def mamba_scan_plain_train(x, dt, A, B, C, h0=None):
+    """``mamba_scan`` through the plain versions on any device: the plain
+    chunked scan's outputs and gradients, with ``mamba_scan``'s memory."""
+    return _PlainScan.apply(x, dt, A, B, C, h0)

@@ -78,10 +78,12 @@ def make_train_state(api: ModelAPI, tc: TrainConfig, *, params=None,
 
 
 def loss_and_grads(api: ModelAPI, model, batch, *,
-                   ops: AttentionOps = DISPATCH):
-    """(loss, metrics, {name: grad}) of one batch."""
+                   ops: AttentionOps = DISPATCH, long_context: bool = False):
+    """(loss, metrics, {name: grad}) of one batch; ``long_context`` as the
+    model's ``train_loss`` takes it (a decoder's attention layers then get
+    ``cfg.long_context_window``)."""
     named = dict(model.named_parameters())
-    loss, metrics = api.train_loss(model, batch, ops=ops)
+    loss, metrics = api.train_loss(model, batch, ops=ops, long_context=long_context)
     grads = torch.autograd.grad(loss, list(named.values()))
     return loss.detach(), metrics, dict(zip(named, grads))
 

@@ -64,7 +64,8 @@ def test_autotune_example_runs_on_the_cpu():
 
 
 @pytest.mark.parametrize("example", ["torch_serve_farm.py", "torch_train_lm.py",
-                                     "torch_autotune.py"])
+                                     "torch_autotune.py", "torch_fractal_farm.py",
+                                     "torch_pagerank_farm.py", "torch_quickstart.py"])
 def test_examples_default_to_the_card(example):
     """Without ``--device`` an example asks for the card, and raises where
     there is none, instead of running on the CPU."""

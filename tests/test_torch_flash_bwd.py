@@ -65,6 +65,8 @@ CASES = [
     (1, 48, 80, 10, 2, 32, 32, False, F32),
     (1, 64, 64, 7, 1, 16, 16, True, F32),
     (2, 40, 40, 7, 1, 32, 32, False, BF16),
+    # ... and the hybrid family's G = 8 (jamba's 64 over 8) at D = 128
+    (1, 160, 160, 8, 1, 128, 128, True, BF16),
 ]
 
 
