@@ -385,7 +385,14 @@ Phases, in order; any failure raises and exits non-zero:
     peak a card and its cut printed; (e) qwen3's ``train_4k`` there at full
     depth with the loss vocabulary-parallel and, patched, with the
     whole table a rank: FLOPs a card and MODEL/HLO beside the card's name
-    and power limit; (f) the phase's seconds.
+    and power limit; (g) in subprocesses started at phase 21, whisper-tiny
+    ``train_4k`` at full size and minicpm3 cut to SPLIT_CELLS' 4 layers on
+    the fake 16 x 16 CUDA mesh, with the loss's table gradient on d / data
+    columns a rank and, patched, on all of d: FLOPs a card of each, the
+    excess held to 2 b S V d (1 - 1 / data) exactly; (h) llama4-maverick's
+    ``prefill_32k`` at 2 layers on a fake (2, 4) mesh of ``cpu`` and of
+    ``cuda`` tensors: the two records' collectives equal, kind by kind, in
+    count and in wire bytes; (f) the phase's seconds.
 28. (everything freed) jamba-1.5-large-398b trained on one period (8
     layers) at the published widths but d_ff, cut from 24,576 to
     JAMBA_TRAIN_D_FF in the 4 dense MLPs and 64 experts (its ``reduced``
@@ -439,6 +446,7 @@ kernels' own); for the plain scan, of back-to-back calls.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import ctypes
 import dataclasses
@@ -5403,7 +5411,34 @@ print("RESULT" + json.dumps(run_cell({arch!r}, {shape!r}, False, {over!r}, devic
 WHOLE_TABLE_LOSS = """
 import repro_torch.models.loss as loss
 from repro_torch.sharding.hints import data_parallel
-loss.vocab_parallel = lambda fn, whole_fn, rows, table: data_parallel(whole_fn, rows, (table,))
+loss.vocab_parallel = lambda fn, whole_fn, rows, table: data_parallel(
+    lambda *ts: whole_fn(*ts, None), rows, (table,))
+"""
+# (g): where "model" does not divide the vocabulary, the table gradient's
+# product on d / data columns a rank (the reference's split), and, patched,
+# on all of d (the port before): whisper (51865) at full size and minicpm3
+# (73448) cut to 4 layers, train_4k on the 16 x 16 mesh
+SPLIT_CELLS = {"whisper_tiny": None, "minicpm3_4b": 4}
+SPLIT_CELL = """
+import json
+{patch}
+from repro_torch.launch.dryrun import run_cell
+print("RESULT" + json.dumps({{arch: run_cell(arch, "train_4k", False,
+                                             {{"n_layers": n}} if n else None, device="cuda")
+                             for arch, n in {cells!r}.items()}}))
+"""
+WHOLE_D_TABLE = """
+import repro_torch.sharding.hints as hints
+hints.column_split = lambda *a: None
+"""
+# (h): one cell's collectives on a fake cpu mesh and a fake cuda mesh
+ALLTOALL_CELL = """
+import json
+from repro_torch.launch.dryrun import run_mesh
+print("RESULT" + json.dumps({{dev: run_mesh(
+    "llama4_maverick_400b_a17b", "prefill_32k", (2, 4), ("data", "model"), device=dev,
+    batch_override=8, train_overrides={{"n_layers": 2}})["collectives"]
+    for dev in ("cpu", "cuda")}}))
 """
 
 
@@ -5418,9 +5453,27 @@ def dry_cells_start():
                          ("whole table a rank (data_parallel)", WHOLE_TABLE_LOSS)):
         runs[f"{DRY_ARCH} train_4k, {label}"] = (DRY_CELL.format(
             patch=patch, arch=DRY_ARCH, shape="train_4k", over=None), None)
+    return _dry_popen(runs)
+
+
+def split_cells_start():
+    """(g)'s and (h)'s subprocesses, started at phase 21 and read in phase
+    27: {label: (process, None)}; killed at exit if a phase between fails.
+    They run beside phases 21-26, which leave most of the host's cores
+    idle, rather than beside (d)'s ten, and at a lower priority than
+    this process, whose host times phase 23 holds."""
+    runs = {f"(g) {label}": (SPLIT_CELL.format(patch=patch, cells=SPLIT_CELLS), None)
+            for label, patch in (("split", ""), ("whole", WHOLE_D_TABLE))}
+    runs["(h)"] = (ALLTOALL_CELL.format(), None)
+    procs = _dry_popen(runs, nice=10)
+    atexit.register(lambda: [proc.kill() for proc, _ in procs.values() if proc.poll() is None])
+    return procs
+
+
+def _dry_popen(runs, nice=0):
     return {label: (subprocess.Popen([sys.executable, "-c", code], env=_dry_env(),
                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                     text=True), layers)
+                                     text=True, preexec_fn=lambda: os.nice(nice)), layers)
             for label, (code, layers) in runs.items()}
 
 
@@ -5448,6 +5501,8 @@ def dry_cells_read(procs, started, smi):
         rec = json.loads(next(s for s in out.splitlines()
                               if s.startswith("RESULT"))[len("RESULT"):])
         recs[label] = rec
+        if label.startswith("("):  # (g), (h): read below
+            continue
         cut = (f"depth cut {cfgs.get(rec['arch']).n_layers} -> {layers} layers"
                if layers else "full depth")
         say(f"  (d) {label} on the 16 x 16 mesh ({cut}): status {rec['status']}, "
@@ -5461,8 +5516,50 @@ def dry_cells_read(procs, started, smi):
             say(f"  (e) {label}: {rec['dot_flops_per_device']:.6g} FLOPs a card, MODEL/HLO "
                 f"{row['useful_ratio']:.4f}, compute {row['compute_s']:.4f} s, collective "
                 f"{row['collective_s']:.4f} s, dominant {row['dominant']} ({smi})")
-    if failed or any(r["status"] != "ok" for r in recs.values()):
+    cells = {k: r for k, r in recs.items() if not k.startswith("(")}
+    if failed or any(r["status"] != "ok" for r in cells.values()):
         raise AssertionError("(d) dry-run cells did not reach ok: " + "; ".join(failed))
+    table_split_read(recs, smi)
+    alltoall_read(recs["(h)"], smi)
+
+
+def table_split_read(recs, smi):
+    """(g): each cell's FLOPs a card with the table gradient split and
+    whole; the whole product's excess must be the columns the split takes
+    off, 2 b S V d (1 - 1 / data) a card."""
+    import repro_torch.configs as cfgs
+    from repro_torch.models.registry import SHAPES
+
+    cell = SHAPES["train_4k"]
+    for arch, layers in SPLIT_CELLS.items():
+        split, whole = recs["(g) split"][arch], recs["(g) whole"][arch]
+        if split["status"] != "ok" or whole["status"] != "ok":
+            raise AssertionError(f"(g) {arch}: {split['status']}, {whole['status']}")
+        cfg = cfgs.get(arch)
+        data = split["mesh_shape"][0]
+        rows = cell.global_batch // data
+        want = 2 * rows * cell.seq_len * cfg.vocab_size * cfg.d_model * (1 - 1 / data)
+        got = whole["dot_flops_per_device"] - split["dot_flops_per_device"]
+        cut = f"cut to {layers} layers" if layers else "full size"
+        say(f"  (g) {arch} train_4k ({cut}) on the 16 x 16 mesh: "
+            f"{split['dot_flops_per_device']:.6g} FLOPs a card with the table gradient on "
+            f"d / data columns, {whole['dot_flops_per_device']:.6g} with all of d; the "
+            f"whole product's excess {got:.6g}, 2 b S V d (1 - 1/data) = {want:.6g} ({smi})")
+        if abs(got - want) > 1e-9 * want:
+            raise AssertionError(f"(g) {arch}: the split took {got:.6g} FLOPs off, not "
+                                 f"{want:.6g}")
+
+
+def alltoall_read(rec, smi):
+    """(h): llama4's prefill_32k cell at 2 layers on a fake (2, 4) mesh, on
+    cpu and on cuda: the same collectives, kind by kind, in count and in
+    wire bytes."""
+    cpu, cuda = rec["cpu"], rec["cuda"]
+    for key in ("count", "wire_bytes"):
+        say(f"  (h) llama4 prefill_32k (2 layers) on a fake (2, 4) mesh, {key}: cpu "
+            f"{cpu[key]}, cuda {cuda[key]} ({smi})")
+        if cpu[key] != cuda[key]:
+            raise AssertionError(f"(h) the cpu and cuda records' {key} differ")
 
 
 def mesh_serve_case(arch, over, mesh, dev, kernels):
@@ -5588,16 +5685,18 @@ def mesh_train_case(arch, over, experts, batch_size, mesh, dev, kernels):
     torch.cuda.empty_cache()
 
 
-def mesh_families_phase(dev, kernels, smi):
+def mesh_families_phase(dev, kernels, smi, split_procs):
     """Phase 27: (a) the mesh, (b) falcon-mamba at full size and llama4 at 2
     layers served on it, (c) trained on it, (d) the dry-run cells of these
     families, (e) qwen3's train_4k cell with the loss
-    vocabulary-parallel and with the whole table a rank, (f) the phase's
-    seconds."""
+    vocabulary-parallel and with the whole table a rank, (g) whisper's and
+    minicpm3's with the table gradient split and whole, (h) one cell's
+    collectives on cpu and on cuda (``split_procs``, started at phase 21),
+    (f) the phase's seconds."""
     import torch.distributed as dist
 
     started = time.perf_counter()
-    procs = dry_cells_start()
+    procs = {**split_procs, **dry_cells_start()}
     try:
         mesh = spmd_mesh()
         try:
@@ -5870,6 +5969,7 @@ def main() -> int:
     phase("phase 21: model programs batched through Service.execute_batch (vmap, each "
           "kernel folded)")
     t21 = time.perf_counter()
+    split_procs = split_cells_start()
     fold_checks(flash, decode, scan, sorted({(c.d_inner, c.ssm.state_dim)
                                              for c in (mcfg, jcfg)}))
     batched_serve_phase(dev, kernels, one_task)
@@ -5902,7 +6002,7 @@ def main() -> int:
 
     phase("phase 27: the Mamba, MoE and hybrid families sharded (the scan under local_map "
           "on d_inner, expert-parallel MoE, vocabulary-parallel loss; the dry run's cells)")
-    mesh_families_phase(dev, kernels, smi)
+    mesh_families_phase(dev, kernels, smi, split_procs)
 
     phase("phase 28: train jamba-1.5-large-398b (hybrid) on one period, d_ff cut; kernels vs "
           "plain versions, remat, long context, the dry run")

@@ -67,6 +67,19 @@ def pagerank(blocks, lookup, device):
     return x, it + 1, delta
 
 
+def start_services(lookup, device):
+    """The three services, registered, the first set to die after 5 tasks:
+    a node lost mid-PageRank, whose tasks reschedule.  The two that stay
+    up pay 20 ms a batch (``task_delay_s``, a dispatch round trip), so
+    that the first takes its 5 tasks however busy the host; else they may
+    take all of a round's 8 before its control thread starts."""
+    services = [Service(lookup, device=device, task_delay_s=0.02 * (i > 0)) for i in range(3)]
+    for s in services:
+        s.start()
+    services[0].fail_after(5)
+    return services
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda",
@@ -76,10 +89,7 @@ def main():
     blocks = column_blocks(device)
 
     lookup = LookupService()
-    services = [Service(lookup, device=device) for _ in range(3)]
-    for s in services:
-        s.start()
-    services[0].fail_after(5)  # node dies mid-PageRank; tasks reschedule
+    services = start_services(lookup, device)
 
     t0 = time.perf_counter()
     x, iters, delta = pagerank(blocks, lookup, device)

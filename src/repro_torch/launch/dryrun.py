@@ -113,9 +113,16 @@ def faked(fake_mode: FakeTensorMode):
     - a strided shard's index arithmetic
       (``_StridedShard.local_shard_size_and_offset``) runs on real tensors
       under no mode: it reads offsets by ``.tolist()`` of an index tensor it
-      makes, which the fake mode would make fake and refuse to read."""
+      makes, which the fake mode would make fake and refuse to read;
+    - a Shard -> Shard redistribution over a fake group goes out as the
+      one all-to-all it is on the card (``_dtensor::shard_dim_alltoall``),
+      also on a ``cpu`` mesh: DTensor falls back there to an all-gather and
+      a chunk, for gloo, which has no all-to-all.  A real group keeps the
+      fallback."""
     import importlib
+    import sys
 
+    from torch.distributed.tensor import _collective_utils
     from torch.distributed.tensor.placement_types import _StridedShard
 
     patches = []
@@ -123,6 +130,21 @@ def faked(fake_mode: FakeTensorMode):
         mod = importlib.import_module(name)
         if hasattr(mod, "_are_we_tracing"):
             patches.append((mod, "_are_we_tracing", mod._are_we_tracing, lambda: False))
+    alltoall = getattr(_collective_utils, "shard_dim_alltoall", None)
+    if alltoall is not None:
+        @functools.wraps(alltoall)
+        def as_on_the_card(input, gather_dim, shard_dim, mesh, mesh_dim):
+            group = mesh.get_group(mesh_dim)
+            if dist.get_backend(group) != "fake":
+                return alltoall(input, gather_dim, shard_dim, mesh, mesh_dim)
+            return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim, shard_dim,
+                                                         group.group_name)
+
+        # every module of DTensor that holds the function by its own name
+        patches += [(mod, "shard_dim_alltoall", alltoall, as_on_the_card)
+                    for name, mod in list(sys.modules.items())
+                    if name.startswith("torch.distributed.tensor")
+                    and getattr(mod, "shard_dim_alltoall", None) is alltoall]
     index_math = _StridedShard.__dict__.get("local_shard_size_and_offset")
     if index_math is not None:
         @functools.wraps(index_math)

@@ -21,7 +21,7 @@ from torch import nn
 
 from ..kernels import AttentionOps
 from ..kernels.flash_attention.chunked import chunked_forward
-from ..sharding.hints import merge_heads, split_heads, write_slot
+from ..sharding.hints import contraction_layout, merge_heads, split_heads, write_slot
 from .common import ModelConfig
 from .layers import apply_rope, dense_init, ones, rms_norm
 
@@ -156,7 +156,7 @@ class Attention(nn.Module):
         same cache dict is returned."""
         positions = (torch.full((1,), cache_index, dtype=torch.int64,
                                 device=x.device) if use_rope else None)
-        q, k, v = self._project_qkv(x, positions)
+        q, k, v = self._project_qkv(contraction_layout(x, self.wq), positions)
         write_slot(cache["k"], cache_index, k[:, 0])
         write_slot(cache["v"], cache_index, v[:, 0])
         out = ops.decode(q, cache["k"], cache["v"], cache_index=cache_index,

@@ -9,6 +9,7 @@ import torch
 from torch import nn
 
 from ..kernels import AttentionOps
+from ..sharding.hints import contraction_layout
 from .attention import Attention
 from .common import BlockSpec, ModelConfig
 from .layers import make_mlp, make_norm
@@ -66,20 +67,25 @@ class Block(nn.Module):
         self.spec = spec
         self.cfg = cfg
 
-    def _mlp_aux(self, x):
-        """(x + mlp(norm(x)), the MLP's aux loss: the MoE's, else 0)."""
+    def _mlp_aux(self, x, one_token=False):
+        """(x + mlp(norm(x)), the MLP's aux loss: the MoE's, else 0).  A
+        one-token step's dense MLP takes norm(x) laid out for its products
+        once (``contraction_layout``)."""
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.spec.mlp == "none":
             return x, zero
         if self.spec.mlp == "moe":
             h, aux = self.moe(self.mlp_norm(x))
             return x + h, aux
-        return x + self.mlp(self.mlp_norm(x)), zero
+        h = self.mlp_norm(x)
+        if one_token:
+            h = contraction_layout(h, self.mlp.wi)
+        return x + self.mlp(h), zero
 
-    def _mlp(self, x):
+    def _mlp(self, x, one_token=False):
         """Serving drops the aux loss, as the reference's prefill and
         decode do."""
-        return self._mlp_aux(x)[0]
+        return self._mlp_aux(x, one_token)[0]
 
     def forward_train(self, x, *, ops: AttentionOps, long_context=False):
         """Differentiable; returns (x, aux loss): the MoE's load-balance and
@@ -114,7 +120,7 @@ class Block(nn.Module):
             h, cache = self.attn.decode(self.mixer_norm(x), cache, cache_index=cache_index,
                                         window=_window_for(self.cfg, self.spec, long_context),
                                         ops=ops)
-        return self._mlp(x + h), cache
+        return self._mlp(x + h, one_token=True), cache
 
     def make_cache(self, batch: int, seq_len: int):
         """An empty cache: (B, seq_len) KV or latent slots, or a zero Mamba

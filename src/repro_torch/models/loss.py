@@ -22,8 +22,15 @@ with the gold logit (which only the rank holding the target adds).  The
 backward recomputes each chunk's softmax from the reduced log-sum-exp;
 dx is all-reduced over "model", the table's gradient stays on the rank's
 own rows.  Where the vocabulary does not divide "model" (the reference's
-``sanitize_spec`` leaves that table unsharded) or "model" is one rank,
-each rank takes the whole table (``data_parallel``).
+``sanitize_spec`` leaves that table's rows unsharded) or "model" is one
+rank, each rank takes the whole table (``data_parallel``).  Its gradient
+is then split as the reference's partitioner splits it where the table's
+d is over "data" and "model" is more than one rank (``_SplitNLL``): each
+rank computes d / data columns of it from its own rows (the "model" ranks
+of a data row take the pieces in turn), all-reduces them over the data
+axes and permutes them to the rank whose shard holds them.  Elsewhere
+each rank computes the whole gradient of its rows, summed over the data
+axes.
 """
 
 from __future__ import annotations
@@ -75,26 +82,62 @@ class _TokenNLL(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, table, targets = ctx.saved_tensors
-        B, S, d = x.shape
-        c = _chunks(S, ctx.chunk)
-        w = table.float()
-        g = g.float()
-        dtable = torch.zeros_like(w)
-        dx = []
-        for s0 in range(0, S, c):
-            xc = x[:, s0:s0 + c].float()
-            dl = torch.softmax(xc @ w.T, dim=-1)  # p, then p - onehot in place
-            dl.scatter_add_(-1, targets[:, s0:s0 + c, None].long(),
-                            torch.full((B, c, 1), -1.0, device=x.device))
-            dl.mul_(g[:, s0:s0 + c, None])
-            dx.append(dl @ w)
-            # in place: one fp32 table gradient a task, not two, at a time
-            # (under vmap, where each task has its own table, functorch has
-            # no rule for addmm_: its fallback runs each task's product in
-            # place, as one task's pass does)
-            dtable.addmm_(dl.reshape(-1, dl.shape[-1]).T, xc.reshape(-1, d))
-        del w, dl  # the fp32 table is not needed for the casts below
-        return torch.cat(dx, 1).to(x.dtype), dtable.to(table.dtype), None, None
+        dx, dtable = _grads(x, table, targets, g, ctx.chunk)
+        return dx.to(x.dtype), dtable.to(table.dtype), None, None
+
+
+def _grads(x, table, targets, g, chunk, cols=slice(None)):
+    """(dx, dtable[:, cols]) in fp32 of the whole-table loss, chunk by
+    chunk: each chunk's softmax recomputed, ``dtable`` made from the table
+    (batched with it under vmap) and summed in place."""
+    B, S = x.shape[:2]
+    c = _chunks(S, chunk)
+    w = table.float()
+    g = g.float()
+    dtable = torch.zeros_like(w[:, cols])
+    dx = []
+    for s0 in range(0, S, c):
+        xc = x[:, s0:s0 + c].float()
+        dl = torch.softmax(xc @ w.T, dim=-1)  # p, then p - onehot in place
+        dl.scatter_add_(-1, targets[:, s0:s0 + c, None].long(),
+                        torch.full((B, c, 1), -1.0, device=x.device))
+        dl.mul_(g[:, s0:s0 + c, None])
+        dx.append(dl @ w)
+        # in place: one fp32 table gradient a task, not two, at a time
+        # (under vmap, where each task has its own table, functorch has
+        # no rule for addmm_: its fallback runs each task's product in
+        # place, as one task's pass does)
+        xc = xc[..., cols]
+        dtable.addmm_(dl.reshape(-1, dl.shape[-1]).T, xc.reshape(-1, xc.shape[-1]))
+    del w, dl  # the fp32 table is not needed for the casts that follow
+    return torch.cat(dx, 1), dtable
+
+
+class _SplitNLL(torch.autograd.Function):
+    """The whole-table loss (``_TokenNLL``'s forward) from the rank's shard
+    of a table laid out P(None, "data"), ``split`` a
+    ``sharding.hints.ColumnSplit``: the shard is gathered over "data"; the
+    backward computes the table gradient's product on the rank's share of
+    the columns only (d / data of them, from its own rows), all-reduces it
+    over the data axes and swaps it to the rank whose shard holds those
+    columns, as the reference's partitioner lays out that product."""
+
+    @staticmethod
+    def forward(ctx, x, shard, targets, chunk, split):
+        table = split.whole(shard)
+        ctx.chunk, ctx.split = chunk, split
+        ctx.save_for_backward(x, table, targets)
+        return _TokenNLL.forward(x, table, targets, chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, table, targets = ctx.saved_tensors
+        split = ctx.split
+        dx, dshard = _grads(x, table, targets, g, ctx.chunk, split.cols)
+        for group in split.reduce:
+            dshard = _all_reduce(dshard, "sum", group)
+        dshard = split.permute(dshard)
+        return dx.to(x.dtype), dshard.to(table.dtype), None, None, None
 
 
 def _all_reduce(x, op: str, group):
@@ -165,11 +208,15 @@ def token_nll(x, table, targets, chunk: int = 256) -> torch.Tensor:
     int.  Returns (B,S) fp32 nll.  With a DTensor ``x`` (a model distributed
     on a mesh) each rank takes its batch rows and, where "model" divides the
     vocabulary, its own rows of the table (``vocab_parallel``); else the
-    whole table (``data_parallel``)."""
+    whole table (``data_parallel``), and where the table is laid out
+    P(None, "data"), its share of the table gradient's columns
+    (``_SplitNLL``)."""
     if isinstance(x, DTensor):
         return vocab_parallel(lambda x_, y_, t_, group: _VocabNLL.apply(x_, t_, y_, chunk,
                                                                         group),
-                              lambda x_, y_, t_: _TokenNLL.apply(x_, t_, y_, chunk),
+                              lambda x_, y_, t_, split: (
+                                  _TokenNLL.apply(x_, t_, y_, chunk) if split is None
+                                  else _SplitNLL.apply(x_, t_, y_, chunk, split)),
                               (x, targets), table)
     return _TokenNLL.apply(x, table, targets, chunk)
 

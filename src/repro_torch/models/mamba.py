@@ -34,7 +34,7 @@ from torch.nn.functional import softplus
 
 from ..kernels import AttentionOps
 from ..kernels.mamba_scan.sharded import channel_placements
-from ..sharding.hints import current_axes, reduce_partial, shard_hint
+from ..sharding.hints import current_axes, reduce_partial, split_channels
 from .common import ModelConfig
 from .layers import _param, dense_init, rng, silu
 
@@ -76,10 +76,7 @@ class Mamba(nn.Module):
 
     def _in_proj(self, x):
         """(B,S,d) -> (x, z), each (B,S,di) on its own channels."""
-        di = self.cfg.d_inner
-        xz = shard_hint(x @ self.in_proj.to(self.cfg.dtype), "batch_rows")  # (B,S,2di)
-        return (shard_hint(xz[..., :di], "mamba_channels"),
-                shard_hint(xz[..., di:], "mamba_channels"))
+        return split_channels(x @ self.in_proj.to(self.cfg.dtype), 2)  # (B,S,2di)
 
     def _causal_conv(self, x, conv_state=None):
         """Depthwise causal conv1d over (B,S,di).  Returns (out, tail): the

@@ -18,6 +18,7 @@ import math
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..launch.mesh import flatten_runs
 from ..sharding.specs import AXES
 
 
@@ -54,8 +55,8 @@ def make_elastic_mesh(shape: tuple[int, ...], ranks=None, *,
     if n > len(ranks):
         raise ValueError(f"need {n} devices, have {len(ranks)}")
     axes = AXES[-len(shape):]
-    return DeviceMesh(device_type, torch.tensor(ranks[:n]).reshape(shape),
-                      mesh_dim_names=axes)
+    return flatten_runs(DeviceMesh(device_type, torch.tensor(ranks[:n]).reshape(shape),
+                                   mesh_dim_names=axes))
 
 
 class PodFailureDetector:

@@ -25,14 +25,20 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
+from dataclasses import dataclass
+from typing import Any
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication, local_map
+from torch.utils._python_dispatch import _disable_current_modes
 
 from .specs import (AXES, P, _dp, cache_partition_specs, distribute, mesh_sizes, placements,
                     sanitize_spec)
 
+# all_gather_tensor under its newer name, where torch has it
+_all_gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
 _ctx = threading.local()
 _replication_lock = threading.Lock()
 _replication_users = 0
@@ -155,6 +161,104 @@ def reduce_partial(x):
     if not isinstance(x, DTensor) or x.device_mesh.size() == 1:
         return x
     return _ReducePartial.apply(x)
+
+
+def contraction_layout(x, w):
+    """``x`` (..., d) laid out as ``x @ w`` takes it where ``w``'s rows
+    (``x``'s last dim) and ``x``'s rows are split over the same mesh dim:
+    its last dim moved there, by one all-to-all.  A one-token serving step
+    contracts over "data" so (its weights' rows are over "data"); DTensor
+    makes that move for each product it meets, and made once, the products
+    of one input (q, k and v; an MLP's first two) share it, as the
+    reference's partitioner does.  ``x`` itself where neither is a DTensor
+    or nothing moves."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+        return x
+    last = x.ndim - 1
+    place = [Shard(last) if p.is_shard(0) and q.is_shard(0) else p
+             for p, q in zip(x.placements, w.placements)]
+    return x if place == list(x.placements) else x.redistribute(x.device_mesh, place)
+
+
+def _waited(y):
+    return y.wait() if isinstance(y, funcol.AsyncCollectiveTensor) else y
+
+
+def _all_to_all(t: torch.Tensor, outs: list, ins: list, group) -> torch.Tensor:
+    """``t`` flattened through ``all_to_all_single`` over ``group``: ``ins``
+    elements to each rank, ``outs`` from each."""
+    return _waited(funcol.all_to_all_single(t.contiguous().view(-1), outs, ins, group))
+
+
+def _part_peers(k: int, group) -> tuple[list, list]:
+    """(to, fro) of ``_SplitLast`` on this rank of ``group`` (M ranks):
+    its block's i-th sub-block goes to ``to[i]``, part p's sub-block comes
+    from ``fro[p]``.  Rank m's block is part m // (M / k)'s sub-blocks
+    (m % (M / k)) k ... + k - 1, one for each of those ranks."""
+    M, m = group.size(), group.get_local_rank()
+    per = M // k
+    return [(m % per) * k + i for i in range(k)], [p * per + m // k for p in range(k)]
+
+
+def _exchange(parts: torch.Tensor, to: list, fro: list, group) -> torch.Tensor:
+    """``parts`` (k, ...): part i sent to rank ``to[i]``, and what rank
+    ``fro[i]`` sends this rank in its place, as (k, ...); each list in
+    increasing order (``all_to_all_single`` lays its buffers out by rank)."""
+    n, size = parts[0].numel(), group.size()
+    ins, outs = [0] * size, [0] * size
+    for i in range(len(to)):
+        ins[to[i]], outs[fro[i]] = n, n
+    return _all_to_all(parts, outs, ins, group).view(parts.shape)
+
+
+class _SplitLast(torch.autograd.Function):
+    """A rank's contiguous block (..., k w) of a last dim of k parts, laid
+    out in ``group``'s blocks, -> its own sub-block (..., w) of each part,
+    by one all-to-all over ``group``; the backward sends the gradients
+    back the same way."""
+
+    @staticmethod
+    def forward(ctx, block, k, group):
+        to, fro = _part_peers(k, group)
+        w = block.shape[-1] // k
+        chunks = torch.stack([block[..., i * w:(i + 1) * w] for i in range(k)])
+        ctx.k, ctx.group = k, group
+        return tuple(_exchange(chunks, to, fro, group).unbind(0))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        to, fro = _part_peers(ctx.k, ctx.group)
+        like = next(g for g in grads if g is not None)
+        parts = torch.stack([torch.zeros_like(like) if g is None else g for g in grads])
+        return torch.cat(_exchange(parts, fro, to, ctx.group).unbind(0), -1), None, None
+
+
+def split_channels(x, k: int) -> tuple:
+    """``x`` (..., k n) -> its k parts (..., n), each laid out on its own
+    channels (``mamba_channels``: the last dim over "model").  Where ``x``
+    is a DTensor whose last dim is over "model" alone, M contiguous blocks
+    (a column-parallel product's output), with M a multiple of k and n of
+    M, one all-to-all over "model" hands each rank its channels of every
+    part: the reference's partitioner moves the same blocks (with
+    collective-permutes).  Otherwise ``x`` is gathered whole over "model"
+    and each part sliced."""
+    n = x.shape[-1] // k
+    if current_axes() and isinstance(x, DTensor):
+        mesh, last = x.device_mesh, x.ndim - 1
+        names = tuple(mesh.mesh_dim_names)
+        cut = [i for i, p in enumerate(x.placements) if p.is_shard(last)]
+        M = mesh_sizes(mesh).get("model", 1)
+        model = names.index("model") if "model" in names else None
+        if cut == [model] and M % k == 0 and n % M == 0 and not any(
+                p.is_partial() for p in x.placements):
+            place = list(x.placements)
+            group = mesh["model"]
+            parts = local_map(lambda t: _SplitLast.apply(t, k, group),
+                              out_placements=(place,) * k, in_placements=(place,),
+                              device_mesh=mesh)(x)
+            return tuple(shard_hint(t, "mamba_channels") for t in parts)
+    x = shard_hint(x, "batch_rows")
+    return tuple(shard_hint(x[..., i * n:(i + 1) * n], "mamba_channels") for i in range(k))
 
 
 def _zip_tree(fn, tree, specs):
@@ -285,6 +389,67 @@ def data_parallel(fn, rows: tuple, whole: tuple = ()):
                      redistribute_inputs=True)(*rows, *whole)
 
 
+@dataclass(frozen=True)
+class ColumnSplit:
+    """One rank's part in a loss over the whole of a table (V, d) laid out
+    P(None, "data") (the reference's P("model", "data") where "model" does
+    not divide V), whose gradient it splits as the reference's partitioner
+    does.  The rank gathers the table's columns over "data" (``whole``);
+    it computes the gradient's columns ``cols``, d / data of them, from
+    its own batch rows: the "model" ranks of a data row take the data
+    axis's pieces in turn, M / D ranks each (rank m takes piece
+    m // (M / D)).  The sum over the rows is an all-reduce over ``reduce``
+    (the data axes the rows are split over), after which the rank holds
+    piece m // (M / D) whole; ``permute`` swaps it with the rank whose
+    shard of the table holds it and which holds the rank's own piece,
+    within the rank's (data, model) plane."""
+    cols: slice
+    gather: Any  # the "data" group
+    reduce: tuple  # process groups
+    plane: Any  # the (data, model) plane, flattened: a 1-D DeviceMesh
+    peer: int  # a rank in ``plane``
+
+    def whole(self, shard: torch.Tensor) -> torch.Tensor:
+        """The table (V, d) from the rank's shard (V, d / data)."""
+        return _waited(_all_gather(shard.contiguous(), 1, self.gather))
+
+    def permute(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` swapped with ``peer``'s: one collective-permute (an
+        all-to-all with one peer each way)."""
+        sizes = [0] * self.plane.size()
+        sizes[self.peer] = t.numel()
+        return _all_to_all(t, sizes, sizes, self.plane).view(t.shape)
+
+
+def column_split(mesh, table, rows_split) -> ColumnSplit | None:
+    """This rank's ``ColumnSplit`` of ``table``, where ``table`` (a
+    DTensor) is laid out P(None, "data") on a mesh whose "model" axis (M
+    ranks) is a multiple of "data" (D > 1); else None (the whole gradient
+    on every rank, a sum over the data axes).  ``rows_split``: the
+    placements of the batch rows."""
+    sizes = mesh_sizes(mesh)
+    D, M = sizes.get("data", 1), sizes.get("model", 1)
+    names = tuple(mesh.mesh_dim_names)
+    if not isinstance(table, DTensor) or D == 1 or M % D or list(
+            table.placements) != placements(P(None, "data"), mesh):
+        return None
+    data = names.index("data")
+    i, m = mesh.get_local_rank(data), mesh.get_local_rank(names.index("model"))
+    per = M // D  # "model" ranks a piece
+    width = table.shape[1] // D
+    piece = m // per
+    with _disable_current_modes():  # the mesh's index arithmetic, on real tensors
+        plane = mesh["data", "model"]._flatten()
+    return ColumnSplit(
+        cols=slice(piece * width, (piece + 1) * width), gather=mesh.get_group(data),
+        reduce=tuple(mesh.get_group(k) for k, a in enumerate(names)
+                     if a in AXES[:2] and rows_split[k].is_shard()),
+        plane=plane,
+        # piece m // per goes to data row m // per, "model" rank
+        # i * per + m % per, whose piece is i: the ranks swap
+        peer=piece * M + i * per + m % per)
+
+
 def vocab_parallel(fn, whole_fn, rows: tuple, table):
     """``fn(*rows, table, group)`` under ``local_map``, vocabulary-parallel:
     each rank takes its batch rows of ``rows`` (as ``data_parallel``) and
@@ -295,16 +460,28 @@ def vocab_parallel(fn, whole_fn, rows: tuple, table):
     (``fn`` reduces them), the table's on the rank's own rows, the ranks'
     sum over the data axes.  Where the mesh has no "model" axis of more
     than one rank, or it does not divide V (the reference's
-    ``sanitize_spec`` leaves such a table unsharded), ``whole_fn(*rows,
-    table)`` under ``data_parallel``: each rank takes the whole table."""
+    ``sanitize_spec`` leaves such a table's rows unsharded),
+    ``whole_fn(*rows, table, split)``: each rank takes the whole table.
+    ``split`` is None under ``data_parallel`` (the whole table given, its
+    gradient the ranks' sum), or, where the table is laid out
+    P(None, "data"), the rank's ``ColumnSplit``, with the rank's shard of
+    the table given, which ``whole_fn`` gathers, and whose gradient it
+    computes, reduces and hands back laid out as the shard."""
     mesh, rows, (table,), split = _by_rows(rows, (table,))
     tp = mesh_sizes(mesh).get("model", 1)
+    n = len(rows)
     if tp == 1 or table.shape[0] % tp:
-        return data_parallel(whole_fn, rows, (table,))
+        cols = None if tp == 1 else column_split(mesh, table, split)
+        if cols is None:
+            return data_parallel(lambda *ts: whole_fn(*ts, None), rows, (table,))
+        own = list(table.placements)  # the rank's shard in, its gradient's shard out
+        return local_map(lambda *ts: whole_fn(*ts, cols), out_placements=split,
+                         in_placements=(split,) * n + (own,),
+                         in_grad_placements=(split,) * n + (own,), device_mesh=mesh,
+                         redistribute_inputs=True)(*rows, table)
     own = placements(P("model"), mesh)
     summed = [Partial() if p.is_shard() else q for p, q in zip(split, own)]
     group = mesh["model"]
-    n = len(rows)
     return local_map(lambda *ts: fn(*ts, group), out_placements=split,
                      in_placements=(split,) * n + (own,),
                      in_grad_placements=(split,) * n + (summed,), device_mesh=mesh,

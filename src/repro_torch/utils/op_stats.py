@@ -20,9 +20,12 @@ shard: the mode hands the DTensor-level op back, ``NotImplemented``, as
     ops and the collectives' waits are skipped, as the reference skips
     ``tuple``, ``parameter``, ``constant``, ``bitcast`` and the like;
   * ``collectives``: count, result bytes and ring-model wire bytes per
-    kind, from the ``_c10d_functional`` ops and their group's size, with
-    the reference's formulas: all-reduce 2(g-1)/g, all-gather (g-1)/g,
-    reduce-scatter (g-1)x, all-to-all (g-1)/g, anything else 1x;
+    kind, from the ``_c10d_functional`` ops (and DTensor's Shard -> Shard
+    ``_dtensor::shard_dim_alltoall``, an all-to-all) and their group's
+    size, with the reference's formulas: all-reduce 2(g-1)/g, all-gather
+    (g-1)/g, reduce-scatter (g-1)x, all-to-all (g-1)/g, anything else 1x;
+    an all-to-all that sends to one rank and takes from one is the
+    reference's collective-permute (1x);
   * ``peak_bytes``: the most bytes of local storages alive at once, from
     the resident arguments the caller names and every storage an op
     makes, each freed when its last tensor dies;
@@ -51,6 +54,7 @@ from torch.utils.flop_counter import flop_registry
 
 KERNEL_NAMESPACE = "repro_torch"
 _COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd")
+_DTENSOR_NAMESPACE = "_dtensor"
 # op name -> the reference's collective kind (its HLO opcode)
 _KINDS = {
     "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
@@ -59,6 +63,8 @@ _KINDS = {
     "all_gather_into_tensor_coalesced": "all-gather",
     "reduce_scatter_tensor": "reduce-scatter", "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all",
+    # DTensor's Shard -> Shard redistribution (``_dtensor`` namespace)
+    "shard_dim_alltoall": "all-to-all",
 }
 _NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd"}
 # the ops FlopCounterMode hands back unseen (metadata queries)
@@ -152,6 +158,14 @@ def _local(t):
     return t
 
 
+def _a_permute(name: str, args) -> bool:
+    """Whether an ``all_to_all_single`` sends to one rank and takes from
+    one: the reference's collective-permute (``funcol.permute_tensor``)."""
+    if name != "all_to_all_single" or len(args) < 3:
+        return False
+    return all(sum(1 for n in splits if n) <= 1 for splits in args[1:3])
+
+
 def _inferring_shapes() -> bool:
     """Whether the op being dispatched is DTensor's shape inference."""
     f = sys._getframe(1)
@@ -240,10 +254,11 @@ class OpStatsMode(TorchDispatchMode):
         name = func._opname
         if func.namespace == KERNEL_NAMESPACE:
             res.kernel_ops[name] += 1
-        if func.namespace in _COLLECTIVE_NAMESPACES:
+        if func.namespace in _COLLECTIVE_NAMESPACES or (
+                func.namespace == _DTENSOR_NAMESPACE and name in _KINDS):
             if name in _NOT_COLLECTIVES:
                 return
-            kind = _KINDS.get(name, name)
+            kind = "collective-permute" if _a_permute(name, args) else _KINDS.get(name, name)
             size = sum(_nbytes(t) for t in outs)
             st = res.collectives
             st.count[kind] += 1

@@ -1,39 +1,57 @@
 """The port's dry run (``repro_torch.launch.dryrun``) on the reference's three
-small-mesh cells and two sharded families cut in depth, against the
-reference's own dry run of the same cells (``tests/test_dryrun_small.py``'s:
-``build_lowering`` + ``analyze``).
+small-mesh cells, the sharded families' training cells cut in depth, and
+three prefill cells, against the reference's own dry run of the same cells
+(``tests/test_dryrun_small.py``'s: ``build_lowering`` + ``analyze``).
 
 Each cell runs on fake ``cpu`` tensors over a fake process group of its
-mesh's size, in one of two subprocesses (the reference's cells in two
-more, with 8 and 16 placeholder devices), two at a time:
-- whisper-tiny ``train_4k`` on ("data", "model") = (2, 4), batch 8, remat;
-- llama3.2-1B ``decode_32k`` on (2, 4), batch 8;
-- qwen3-1.7B ``train_4k`` on ("pod", "data", "model") = (2, 2, 4), batch 8,
-  remat;
-- falcon-mamba-7b ``train_4k`` cut to 2 layers on (2, 4), batch 8, remat
-  (the scan on each rank's d_inner shard);
-- arctic ``train_4k`` cut to 1 layer on (2, 4), batch 8, remat (the
-  expert-parallel MoE with its dense residual, int8 moments).
+mesh's size, in one of four subprocesses (the reference's cells in four
+more, with 8 and 16 placeholder devices, each on one core), four at a
+time, batch 8, remat on the training cells:
+- whisper-tiny ``train_4k`` on ("data", "model") = (2, 4);
+- llama3.2-1B ``decode_32k`` and ``prefill_32k`` on (2, 4);
+- qwen3-1.7B ``train_4k`` on ("pod", "data", "model") = (2, 2, 4);
+- falcon-mamba-7b ``train_4k`` cut to 2 layers on (2, 4) (the scan on each
+  rank's d_inner shard);
+- arctic ``train_4k`` cut to 1 layer on (2, 4) (the expert-parallel MoE
+  with its dense residual, int8 moments);
+- llama4-maverick ``train_4k`` and ``prefill_32k`` cut to 2 layers (its
+  pattern: a dense block, then an MoE block with a dense residual) on
+  (2, 4);
+- jamba-1.5-large ``train_4k`` and ``prefill_32k`` cut to 8 layers (its
+  period: attention at layer 0, Mamba at 1-7, dense MLPs and MoE blocks
+  alternating) on (2, 4).
 Each reaches ``status: "ok"`` with peak memory, FLOPs and wire bytes above
 0, the multi-pod cell reduces over "pod", and the per-device FLOPs of each
 cell are held within 2% of the reference's ``hlo_dot_flops_per_device``,
 once the terms where one side does work the other does not are reckoned
-from the shapes and named (``_terms``):
+from the shapes and named (``_terms``; the serving cells take none):
 - the reference's attention backward (its chunked XLA path) computes the
   scores and dp twice, in its dq pass and in its dk/dv pass: two products
-  a call more than the port's plain backward and its kernels' formula;
-- the port's remat recomputes the whole block, its last product too (the
-  MLP's output product, an MoE block's dense residual's, or a Mamba
-  block's out_proj), whose result the backward never reads: the
-  reference's compiler drops that product as dead;
-- where "model" does not divide the vocabulary (whisper's 51865), each
-  rank takes the whole table, as the reference's does, but the reference
-  splits the table gradient's columns between the "model" ranks, d / data
-  a rank (the table's d is over "data"; its dot is f32[V, d / data] from
-  the rank's rows, all-reduced over "data"), where the port's gradient
-  covers all of d.
-Where "model" divides the vocabulary the loss is vocabulary-parallel, as
-the reference lays its logits out, and takes no term (qwen3).
+  a call more than the port's plain backward and its kernels' formula,
+  2 b h S^2 (2 hd) a call, for each attention layer of the pattern's
+  repeats (a decoder layer's self and cross attention, an encoder layer's);
+- both remat one repeat of the pattern at a time (the reference
+  checkpoints its scan body), and the port recomputes the whole repeat,
+  its last block's last products too, whose results only the repeat's
+  output sums and the backward never reads: the reference's compiler
+  drops them as dead.  A repeat's last block's MLP output product
+  (2 tokens d_ff / tp d), or an MoE block's dense residual's and the
+  combine of its experts' outputs (2 tokens d (E / tp) C), or, where the
+  block has no MLP, its Mamba mixer's out_proj (2 tokens d_inner / tp d),
+  once for each repeat.
+Where "model" does not divide the vocabulary (whisper's 51865) the table
+gradient's product covers d / data columns a rank, as the reference's does;
+where it divides, the loss is vocabulary-parallel (qwen3).  Neither takes a
+term.
+
+And each cell's collectives are held to the reference's: the wire bytes a
+device (the ring model of ``utils.op_stats``, which is the reference's) are
+at most 1.05x the reference's in all, and kind by kind, all-reduce and
+reduce-scatter together as reductions (a reduce-scatter and an all-gather
+make one all-reduce), all-gather, all-to-all and collective-permute each
+on its own.  A Shard -> Shard redistribution counts as the one all-to-all
+it is on the card, not as DTensor's all-gather for gloo.
+
 And a mesh-free training step's ``FlopCounterMode`` count equals a (1, 1)
 dry run's per-device FLOPs.
 """
@@ -45,12 +63,14 @@ import subprocess
 import sys
 import textwrap
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import pytest
 
 import repro_torch.configs as tcfgs
 from repro_torch.kernels.flash_attention.sharded import plan_heads
+from repro_torch.models.moe import expert_capacity, routing_group_size
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 0.02
@@ -60,7 +80,28 @@ CELLS = {"whisper": ("whisper_tiny", "train_4k", (2, 4), {}),
          "llama": ("llama3p2_1b", "decode_32k", (2, 4), {}),
          "qwen3": ("qwen3_1p7b", "train_4k", (2, 2, 4), {}),
          "falcon_mamba": ("falcon_mamba_7b", "train_4k", (2, 4), {"n_layers": 2}),
-         "arctic": ("arctic_480b", "train_4k", (2, 4), {"n_layers": 1})}
+         "arctic": ("arctic_480b", "train_4k", (2, 4), {"n_layers": 1}),
+         "llama4": ("llama4_maverick_400b_a17b", "train_4k", (2, 4), {"n_layers": 2}),
+         "jamba": ("jamba_1p5_large_398b", "train_4k", (2, 4), {"n_layers": 8}),
+         "llama_prefill": ("llama3p2_1b", "prefill_32k", (2, 4), {}),
+         "llama4_prefill": ("llama4_maverick_400b_a17b", "prefill_32k", (2, 4), {"n_layers": 2}),
+         "jamba_prefill": ("jamba_1p5_large_398b", "prefill_32k", (2, 4), {"n_layers": 8})}
+# the cells of each subprocess, longest first (alone, the reference's on one
+# core each: its jamba train cell 75-110 s; the port's jamba cells 85-110 s
+# each on the plain scan; the other groups 20-70 s; the multi-pod cell on 16
+# placeholder devices)
+RUNS = (("reference", ("jamba",)),
+        ("port", ("jamba_prefill",)),
+        ("port", ("jamba",)),
+        ("reference", ("whisper", "llama", "falcon_mamba", "arctic")),
+        ("reference", ("llama4", "llama_prefill", "llama4_prefill", "jamba_prefill")),
+        ("port", ("qwen3", "falcon_mamba", "arctic", "whisper")),
+        ("port", ("llama", "llama4", "llama_prefill", "llama4_prefill")),
+        ("reference", ("qwen3",)))
+WIRE = 1.05
+# wire-byte kinds: the reference's opcodes each compares
+KINDS = {"reductions": ("all-reduce", "reduce-scatter"), "all-gather": ("all-gather",),
+         "all-to-all": ("all-to-all",), "collective-permute": ("collective-permute",)}
 AXES = ("pod", "data", "model")
 
 PORT = """
@@ -77,7 +118,11 @@ print("RESULT" + json.dumps(out))
 
 REFERENCE = """
 import os
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={devices}"
+# one core, each of the reference's runs its own: XLA's and LLVM's compile
+# pools size themselves to it
+cpus = sorted(os.sched_getaffinity(0))
+os.sched_setaffinity(0, [cpus[-1 - {core} % len(cpus)]])
+os.environ["DRYRUN_DEVICES"] = "{devices}"  # the placeholders repro.launch.dryrun makes
 import json
 import repro.launch.dryrun as dr
 from repro.launch.mesh import make_mesh
@@ -89,7 +134,7 @@ for name, (arch, shape, mesh, over) in {cells!r}.items():
                                    if shape.startswith("train") else over)
     rec = dr.analyze(lowered, mesh=make_mesh(mesh, {axes!r}[-len(mesh):]))
     out[name] = {{"flops": rec["hlo_dot_flops_per_device"],
-                  "collectives": rec["collectives"]["count"]}}
+                  "collectives": rec["collectives"], "memory": rec["memory"]}}
 print("RESULT" + json.dumps(out))
 """
 
@@ -122,7 +167,11 @@ print("RESULT" + json.dumps({"mesh_free": fc.get_total_flops(),
 
 
 def _start(code: str):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    """``code`` in a subprocess on one thread of torch's (the reference's
+    script pins itself to one core): the dry runs trace and compile, and
+    run nothing that a pool as wide as the machine would speed up."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     return subprocess.Popen([sys.executable, "-c", textwrap.dedent(code)], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
@@ -140,66 +189,90 @@ def _result(proc, limit):
 
 @pytest.fixture(scope="module")
 def runs():
+    return run_all()
+
+
+def run_all():
     """Every cell of both packages, and the mesh-free comparison:
     {"port": {cell: record}, "reference": {cell: ...}, "mesh_free": ...}.
-    The multi-pod cell, the longest, and the two families' cells run in one
-    process beside the others, which run one at a time: two processes at
-    once."""
-    def port(names):
-        return PORT.format(cells={k: CELLS[k] for k in names}, axes=AXES, batch=BATCH)
+    ``RUNS``' subprocesses and the mesh-free comparison, four at a time in
+    that order."""
+    def code(kind, names, core):
+        cells = {k: CELLS[k] for k in names}
+        if kind == "port":
+            return PORT.format(cells=cells, axes=AXES, batch=BATCH)
+        devices = math.prod(CELLS[names[0]][2])
+        assert all(math.prod(c[2]) == devices for c in cells.values())
+        return REFERENCE.format(devices=devices, cells=cells, axes=AXES, batch=BATCH, core=core)
 
-    def reference(n, names):
-        return REFERENCE.format(devices=n, cells={k: CELLS[k] for k in names}, axes=AXES,
-                                batch=BATCH)
-
+    for side in ("port", "reference"):  # each cell once a side
+        assert sorted(k for kind, names in RUNS if kind == side for k in names) == sorted(CELLS)
+    jobs = [(kind, code(kind, names, i)) for i, (kind, names) in enumerate(RUNS)] + [
+        ("mesh_free", MESH_FREE)]
     limit = time.monotonic() + 900
-    beside = _start(port(("qwen3", "falcon_mamba", "arctic")))
+    started = []
+
+    def run(src):
+        if time.monotonic() > limit:
+            raise AssertionError("the dry runs did not finish in 900 s")
+        proc = _start(src)
+        started.append(proc)
+        return _result(proc, limit)
+
     out = {"port": {}, "reference": {}}
-    try:
-        for kind, code in (("port", port(("whisper", "llama"))),
-                           ("reference", reference(8, ("whisper", "llama", "falcon_mamba",
-                                                       "arctic"))),
-                           ("reference", reference(16, ("qwen3",))),
-                           ("mesh_free", MESH_FREE)):
-            res = _result(_start(code), limit)
-            if kind == "mesh_free":
-                out["mesh_free"] = res
-            else:
-                out[kind].update(res)
-        out["port"].update(_result(beside, limit))
-        return out
-    finally:
-        if beside.poll() is None:
-            beside.kill()
+    with ThreadPoolExecutor(4) as pool:
+        futures = [(kind, pool.submit(run, src)) for kind, src in jobs]
+        try:
+            for kind, future in futures:
+                if kind == "mesh_free":
+                    out["mesh_free"] = future.result()
+                else:
+                    out[kind].update(future.result())
+        finally:  # on a failure: nothing more starts, and nothing is left running
+            for _, future in futures:
+                future.cancel()
+            for proc in started:
+                if proc.poll() is None:
+                    proc.kill()
+    return out
 
 
 def _terms(name):
     """{term: reference's FLOPs minus the port's}, per device, reckoned
-    from the cell's shapes."""
+    from the cell's shapes and its layer pattern."""
     arch, shape, mesh, over = CELLS[name]
+    if not shape.startswith("train"):
+        return {}
     cfg = tcfgs.get(arch).replace(**over)
     sizes = dict(zip(AXES[-len(mesh):], mesh))
     dp = sizes["data"] * sizes.get("pod", 1)
     tp = sizes["model"]
-    b, S, V, d = BATCH // dp, 4096, cfg.vocab_size, cfg.d_model
-    if not shape.startswith("train"):
-        return {}
+    b, S, d = BATCH // dp, 4096, cfg.d_model
+    tokens = b * S
     plan = plan_heads(cfg.n_heads, cfg.n_kv_heads, tp)
     heads = (plan.Hp if plan else cfg.n_heads) // tp
-    calls = (0 if cfg.attention == "none" else
-             cfg.n_layers * (2 if cfg.is_encoder_decoder else 1) + cfg.n_encoder_layers)
-    blocks = cfg.n_layers + cfg.n_encoder_layers  # every encoder frame count is S too
-    # a block's last product: its MLP's (an MoE block's dense residual), or
-    # where the block has none, its Mamba mixer's out_proj
-    last = cfg.d_ff if cfg.d_ff else cfg.d_inner
-    tokens = b * S
+    # the pattern's repeats (an encoder's layers repeat it too: every
+    # encoder frame count is S), and the attention calls in them
+    repeats = (cfg.n_layers + cfg.n_encoder_layers) // len(cfg.pattern)
+    attention = sum(spec.mixer == "attn" for spec in cfg.pattern) * cfg.n_layers // len(
+        cfg.pattern)
+    calls = (attention * 2 + cfg.n_encoder_layers if cfg.is_encoder_decoder else attention)
+    # the last products of a repeat's last block
+    last = cfg.pattern[-1]
+    if last.mlp == "dense":
+        widths, combine = [cfg.d_ff], 0
+    elif last.mlp == "moe":
+        moe = cfg.moe
+        widths = [moe.dense_residual_ff or cfg.d_ff] if moe.dense_residual else []
+        C = expert_capacity(cfg, routing_group_size(cfg, S))
+        combine = 2 * tokens * d * (moe.n_experts // tp) * C
+    else:  # no MLP: the Mamba mixer's out_proj
+        widths, combine = [cfg.d_inner], 0
     return {
         "attention backward: scores and dp once more": (
             calls * 2 * b * heads * S * S * (cfg.head_dim + cfg.head_dim)),
-        "remat: the block's last product recomputed, dead to the backward": (
-            -blocks * 2 * tokens * (last // tp) * d),
-        "loss table gradient, a vocabulary 'model' does not divide: all of d a rank": (
-            -2 * tokens * V * d * (1 - 1 / sizes["data"])) if V % tp else 0,
+        "remat: a repeat's last products recomputed, dead to the backward": -repeats * (
+            sum(2 * tokens * (w // tp) * d for w in widths) + combine),
     }
 
 
@@ -237,6 +310,56 @@ def _reckoned(runs, name):
 def test_per_device_flops_are_the_references_within_2pct(runs, name):
     reckoned, want, detail = _reckoned(runs, name)
     assert abs(reckoned - want) <= TOL * want, f"{detail}, reference {want:.6g}"
+
+
+def _wire_terms(name):
+    """{kind: {term: the port's wire bytes a device the reference has no
+    counterpart for}}, reckoned from the cell's shapes.  Only the serving
+    step of one token takes a term: its products contract over "data" (the
+    weights' rows, d, are over "data"), so each product's output, partial
+    over "data", goes back to the rank's rows by a reduce-scatter, where
+    the reference gathers the weights whole over "data" first (its
+    all-gathers of f32[2048, 2048] and the like).  The normed input goes
+    to d / data once for the attention and once for the MLP
+    (``hints.contraction_layout``), one all-to-all each, as many as the
+    reference's: no term."""
+    arch, shape, mesh, over = CELLS[name]
+    if not shape.startswith("decode"):
+        return {}
+    cfg = tcfgs.get(arch).replace(**over)
+    sizes = dict(zip(AXES[-len(mesh):], mesh))
+    D, tp = sizes["data"], sizes["model"]
+    b, hd = BATCH // D, cfg.head_dim
+    nbytes = {"bfloat16": 2, "float32": 4}[cfg.compute_dtype]
+    n = cfg.n_layers // len(cfg.pattern)
+    attention = n * sum(spec.mixer == "attn" for spec in cfg.pattern)
+    dense = n * sum(spec.mlp == "dense" for spec in cfg.pattern)
+    return {
+        "reductions": {
+            "the outputs reduce-scattered to the rows": (D - 1) * (
+                attention * b * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd * nbytes
+                + dense * 2 * b * (cfg.d_ff // tp) * nbytes
+                + b * (cfg.vocab_size // tp) * 4)},  # the fp32 logits
+    }
+
+
+def _wire(collectives, ops):
+    return sum(collectives["wire_bytes"].get(op, 0.0) for op in ops)
+
+
+@pytest.mark.parametrize("name", list(CELLS))
+def test_wire_bytes_are_at_most_the_references(runs, name):
+    """A device's wire bytes at most 1.05x the reference's, in all and kind
+    by kind, once the kind's named terms (``_wire_terms``) are taken off."""
+    got, want = runs["port"][name]["collectives"], runs["reference"][name]["collectives"]
+    assert got["total_wire_bytes"] <= WIRE * want["total_wire_bytes"], (
+        f"{name}: port {got['wire_bytes']}, reference {want['wire_bytes']}")
+    terms = _wire_terms(name)
+    for kind, ops in KINDS.items():
+        named = terms.get(kind, {})
+        mine, theirs = _wire(got, ops) - sum(named.values()), _wire(want, ops)
+        assert mine <= WIRE * theirs, (f"{name} {kind}: port {mine:.6g} less {named}, "
+                                       f"reference {theirs:.6g}")
 
 
 def test_a_mesh_free_steps_flop_count_is_a_one_rank_dry_runs(runs):

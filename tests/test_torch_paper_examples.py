@@ -148,13 +148,10 @@ def test_pagerank_matches_the_reference():
 
     port = _load(EXAMPLES / "torch_pagerank_farm.py", "port_pagerank_farm")
     assert (port.N, port.BLOCKS, port.DAMP) == (ref.N, ref.BLOCKS, ref.DAMP)
-    from repro_torch.core import LookupService, Service
+    from repro_torch.core import LookupService
 
     lookup = LookupService()
-    services = [Service(lookup, device="cpu") for _ in range(3)]
-    for s in services:
-        s.start()
-    services[0].fail_after(5)
+    services = port.start_services(lookup, torch.device("cpu"))
     x, iters, _ = port.pagerank(port.column_blocks("cpu"), lookup, torch.device("cpu"))
     assert not services[0].alive
     assert f"converged in {iters} iterations" in out_r
